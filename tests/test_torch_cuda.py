@@ -1,0 +1,155 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
+`nvcc`; they carry the `cuda` marker and skip where there is no card.
+Run them on the GPU machine with:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+
+(`--noconftest` because tests/conftest.py imports JAX, which the GPU
+machine need not have; this file imports none of it.)  The tolerances are those of chip_smoke.py: the tracer's words may differ
+on at most 1e-5 of the rays (coplanar ties), every shade output within
+max |diff| 1e-3 and RMS 1e-5, frames under the golden gate.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from wavefront_tpu_torch.core.config import RenderingPreferences, RenderSettings
+from wavefront_tpu_torch.core.vec3 import V3
+from wavefront_tpu_torch.headline import config1_grid, config1_pose
+from wavefront_tpu_torch.kernels.shade import (
+    prep_shade_tables,
+    shade_pass,
+    shade_plain,
+)
+from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
+from wavefront_tpu_torch.render.intersect import trace_plain
+from wavefront_tpu_torch.render.renderer import Renderer, render_frame
+from wavefront_tpu_torch.render.scene import VoxelScene
+from wavefront_tpu_torch.render.wavefront import raygen_soa
+from wavefront_tpu_torch.world.blocks import BlockRegistry
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    reg = BlockRegistry.load("assets")
+    return VoxelScene(reg, config1_grid(reg), (0, 0, 0),
+                      max_light_prims=256, device="cuda")
+
+
+def _rays(n_side=96, seed=0):
+    b = config1_pose()
+    o, d, rid = raygen_soa(b.eye, b.front, b.right, b.up, n_side, n_side,
+                           device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = n_side * n_side
+    # a fan of random directions from above the terrain, as a bounce makes
+    o2 = torch.rand((n, 3), generator=g) * torch.tensor([16.0, 7.0, 16.0])
+    o2 += torch.tensor([0.0, 5.01, 0.0])
+    d2 = torch.randn((n, 3), generator=g)
+    d2 /= d2.norm(dim=1, keepdim=True)
+    o = V3(*(torch.cat([c, o2[:, i].cuda()]) for i, c in enumerate(o)))
+    d = V3(*(torch.cat([c, d2[:, i].cuda()]) for i, c in enumerate(d)))
+    return o, d, torch.cat([rid, rid + n]).contiguous()
+
+
+def test_trace_kernel_matches_plain(scene):
+    arrays = scene.get_arrays()
+    o, d, _ = _rays()
+    events = auto_events(*arrays.grid.shape)
+    before = window_trace.launches
+    got = window_trace(arrays, o, d, events)
+    want = trace_plain(arrays, o, d, events)
+    torch.cuda.synchronize()
+    assert window_trace.launches == before + 1
+    n = o.x.shape[0]
+    for g, w in zip(got, want):
+        assert int((g != w).sum()) <= 1e-5 * n
+    assert int((got[0] & 1).sum()) > n // 4
+
+
+def test_trace_kernel_exact_ties(scene):
+    """Lattice-diagonal rays from voxel centers tie exactly at every
+    crossing; the kernel must break the ties as the plain version does."""
+    arrays = scene.get_arrays()
+    g = np.random.default_rng(17)
+    grid = (g.random((12, 12, 12)) < 0.2).astype(np.uint8)
+    dirs = np.array([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                     for k in (-1, 0, 1) if (i, j, k) != (0, 0, 0)],
+                    np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    cells = g.integers(0, 12, (64, 3)).astype(np.float32) + 0.5
+    o = np.repeat(cells, len(dirs), axis=0)
+    d = np.tile(dirs, (len(cells), 1))
+    tied = arrays._replace(grid=torch.as_tensor(grid, device="cuda"))
+
+    def v3(a):
+        return V3(*(torch.as_tensor(np.ascontiguousarray(a[:, i]),
+                                    device="cuda") for i in range(3)))
+
+    got = window_trace(tied, v3(o), v3(d), 256)
+    want = trace_plain(tied, v3(o), v3(d), 256)
+    for gw, ww in zip(got, want):
+        assert torch.equal(gw, ww)
+
+
+@pytest.mark.parametrize("nee_type", [0, 1, 2])
+def test_shade_kernel_matches_plain(scene, nee_type):
+    arrays = scene.get_arrays()
+    tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
+    o, d, rid = _rays()
+    n = o.x.shape[0]
+    pa, pb, t = trace_plain(arrays, o, d, auto_events(*arrays.grid.shape))
+    g = torch.Generator(device="cpu").manual_seed(1)
+    tp = V3(*(torch.rand(n, generator=g).cuda() for _ in range(3)))
+    rad = V3(*(torch.rand(n, generator=g).cuda() for _ in range(3)))
+    args = (tables, arrays.grid_origin, o, d, pa, pb, t, tp, rad, rid, 5, 1,
+            arrays.lights.num_prims)
+    got = shade_pass(*args, nee_type=nee_type)
+    want = shade_plain(*args, nee_type=nee_type)
+    torch.cuda.synchronize()
+    for gv, wv in zip(got, want):
+        for gc, wc in zip(gv, wv):
+            assert bool(torch.isfinite(gc).all())
+            diff = (gc - wc).abs()
+            assert float(diff.max()) < 1e-3
+            assert float(diff.pow(2).mean().sqrt()) < 1e-5
+
+
+def test_frame_kernels_match_plain(scene):
+    settings = RenderSettings(width=64, height=64, num_bounces=3,
+                              compaction=True, trace_audit=True)
+    prefs = RenderingPreferences(nee_type=1)
+    basis = config1_pose()
+    before = (window_trace.launches, shade_pass.launches)
+    got, aux = Renderer(settings).render(scene, basis, prefs, frame_count=2,
+                                         with_aux=True)
+    assert (window_trace.launches, shade_pass.launches) == (
+        before[0] + 3, before[1] + 3)
+    assert aux["truncated"] == 0
+    want, _ = render_frame(
+        scene.get_arrays(), basis.eye, basis.front, basis.right, basis.up, 2,
+        settings=settings, nee_type=1, sort_type=0, trace=trace_plain,
+        shade=shade_plain)
+    want = want.cpu().numpy()
+    diff = np.abs(got - want).max(axis=-1)
+    agree = diff < 1e-3
+    assert 1.0 - agree.mean() < 0.005
+    assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3
+
+
+def test_wrappers_check_their_inputs(scene):
+    arrays = scene.get_arrays()
+    o, d, _ = _rays(8)
+    bad = V3(o.x.double(), o.y, o.z)
+    with pytest.raises(ValueError):
+        window_trace(arrays, bad, d, 64)
+    strided = V3(o.x[::2], o.y[::2], o.z[::2])
+    with pytest.raises(ValueError):
+        window_trace(arrays, strided, V3(d.x[::2], d.y[::2], d.z[::2]), 64)

@@ -1,0 +1,137 @@
+"""Engine configuration: constants, static render settings, runtime
+preferences and world-generation settings.
+
+Field for field the same objects as `wavefront_tpu.core.config`, so a
+settings object reads the same in both packages.  The reference's tracer
+schedule knobs (`trace_tile`, `trace_unroll`, `trace_phases*`,
+`trace_skip_stride`, `trace_windows*`, `trace_presort`, ...) are accepted
+and ignored here: they choose how the TPU kernel walks its tiles and never
+change the image, and the CUDA tracer walks one ray per thread.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+# Ray-march epsilon of the trace (reference raytrace.rs:16); the NEE pdf
+# uses the smaller one (nee_pdf.rs:15).
+EPSILON_BLOCK = 1e-3
+EPSILON_NEE = 1e-4
+
+# Maximum ray parameter (raytrace.rs:368).
+T_MAX = 1000.0
+
+# Distance that missed rays are propelled to (raytrace.rs:529).
+MISS_DISTANCE = 5000.0
+
+# Sky: emissivity 50 iff direction . (0,1,0) > 0.9 (raytrace.rs:532).
+SKY_EMISSION = 50.0
+SKY_COS_CUTOFF = 0.9
+
+# Emission texture scale (raytrace.rs:585).
+EMISSION_SCALE = 1000.0
+
+# One-sample MIS probability of sampling the light (raytrace.rs:622).
+NEE_MIS_WEIGHT = 0.3
+
+
+@dataclass(frozen=True)
+class RenderSettings:
+    """Static renderer geometry and path options."""
+
+    width: int = 1024
+    height: int = 1024
+    num_bounces: int = 6
+    # supersampling factor: rays are traced at (width*scale, height*scale)
+    # and box-filtered down (postprocess)
+    scale: int = 1
+    # step budget of the reference's XLA DDA; the port's tracer budget is
+    # per ray and defaults to window_trace.auto_events (see trace_events)
+    max_trace_steps: int = 256
+    # sparse-light-path slot cap (not on this port's dense path)
+    max_nee_hits: int = 8
+    max_bvh_depth: int = 32
+    max_entity_tris: int = 64
+    # sub-pixel jitter amplitude in pixels (0 = reference behaviour)
+    jitter: float = 0.0
+    # terminal-ray compaction: sort alive rays first and shade the smallest
+    # of n, n/2, n/4 that holds them
+    compaction: bool = False
+    cache_primary: bool = False
+    # accepted for settings parity; the port has one tracer
+    use_column_trace: "bool | None" = None
+    trace_presort: bool = True
+    # per-ray event budget of the tracer; 0 = auto_events(gx, gy, gz)
+    trace_events: int = 0
+    trace_windows: int = 1
+    trace_phases: int = 1
+    trace_phase_events: int = 64
+    trace_phases_at: tuple = ()
+    trace_windows_hot: int = 0
+    trace_tile: int = 1024
+    trace_skips: bool = True
+    trace_wskip: bool = True
+    trace_unroll: int = 1
+    trace_skip_stride: int = 1
+    # count rays that exhausted the tracer's budget (aux["truncated"])
+    trace_audit: bool = False
+    # the port always runs the fused shade; False raises (the non-fused
+    # shade path is not ported yet)
+    shade_fused: "bool | None" = None
+    sort_bounces: "tuple | None" = None
+    shade_texel_kernel: bool = True
+    shade_bf16: bool = False
+    debug_stage: str = ""
+
+    @property
+    def render_width(self) -> int:
+        return self.width * self.scale
+
+    @property
+    def render_height(self) -> int:
+        return self.height * self.scale
+
+    @property
+    def n_rays(self) -> int:
+        return self.render_width * self.render_height
+
+    def replace(self, **kw) -> "RenderSettings":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class RenderingPreferences:
+    """Runtime preferences (reference camera.rs:37-58).
+
+    nee_type: 0 = BSDF sampling only, 1 = NEE on every bounce,
+              2 = NEE on the first bounce only (raytrace.rs:614).
+    sort_type: 0 = no inter-bounce sort, 1 = coherence sort.
+    """
+
+    nee_type: int = 0
+    debug_view: int = 0
+    sort_type: int = 0
+    should_screenshot: bool = False
+
+    def replace(self, **kw) -> "RenderingPreferences":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class WorldSettings:
+    """Voxel world geometry (reference chunk.rs:13-15, chunk_manager.rs:29-37)."""
+
+    chunk_size: int = 32
+    load_radius: int = 6
+    evict_radius: int = 8
+    # worldgen parameters (reference chunk.rs:70-104)
+    noise_scale: float = 20.0
+    noise_threshold: float = 0.2
+    depth_gradient: float = 50000.0
+    worldgen_seed: int = 0
+    # every voxel with |wx|,|wy|,|wz| < 3 becomes a lamp (chunk.rs:102-104)
+    central_lamp: bool = True
+
+    def replace(self, **kw) -> "WorldSettings":
+        return dataclasses.replace(self, **kw)

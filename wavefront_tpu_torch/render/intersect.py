@@ -1,0 +1,244 @@
+"""Voxel intersection: the hit record, its packed form, and the plain
+PyTorch tracer that the CUDA tracer (`kernels/window_trace.py`) is held
+against.
+
+The reference intersects rays with meshed voxel faces through hardware ray
+queries (raytrace.rs:366-400).  Here, as in the JAX package, the
+intersector is a 3-D DDA (Amanatides & Woo) over the dense uint8 grid, and
+the mesher's face rule (chunk.rs:222-287) is evaluated at every voxel
+boundary the ray crosses:
+
+  * entering:  the face of `nxt` toward `cur` exists iff `nxt` is not
+    completely transparent and `cur` is translucent; owner = nxt;
+  * exiting:   the face of `cur` toward `nxt` exists iff `cur` is not
+    completely transparent and `nxt` is translucent; owner = cur;
+  * when both coplanar faces exist the entering face wins; on equal
+    crossing times x is taken before y before z;
+  * voxels outside the grid read as air (id 255).
+
+Hit words (`pack_hits`, the layout of the reference's tracer kernel):
+  pa: hit(0) | entered(1) | face(2..4) | vy+2(5..13) | owner(14..21)
+      | truncated(22)
+  pb: vx+2(0..9) | vz+2(10..19)
+  t:  ray parameter of the hit (3e38 on a miss)
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from wavefront_tpu_torch.core.config import EPSILON_BLOCK, T_MAX
+from wavefront_tpu_torch.core.vec3 import V3
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+INF_T = 3.0e38           # t of a miss, larger than any real hit
+NUDGE = 1e-4             # start nudge along the ray, as the reference
+AIR_ID = 255             # id read outside the grid
+CLASS_TRANSPARENT = 1    # class bit 0: completely transparent
+CLASS_TRANSLUCENT = 2    # class bit 1: translucent
+TRUNCATED_BIT = 22       # pa bit: the ray exhausted its step budget
+# largest grid the hit words hold (vx+2 in 10 bits, vy+2 in 9 bits), the
+# JAX package's window-pack limits
+MAX_GRID = (1020, 507, 1020)
+
+
+class VoxelHit(NamedTuple):
+    """SoA trace result, one entry per ray."""
+
+    hit: torch.Tensor       # bool
+    t: torch.Tensor         # f32 ray parameter of the hit
+    owner: torch.Tensor     # int32 block id owning the hit face
+    face: torch.Tensor      # int32 in [0,6): LEFT RIGHT DOWN UP BACK FRONT
+    vx: torch.Tensor        # int32 owner voxel, grid-local
+    vy: torch.Tensor
+    vz: torch.Tensor
+    entered: torch.Tensor   # bool: True = front face (ray enters owner)
+
+
+def class_table(transparent, translucent) -> torch.Tensor:
+    """(256,) uint8 class bits from the two 256-entry block tables."""
+    return (transparent.to(torch.uint8) * CLASS_TRANSPARENT
+            + translucent.to(torch.uint8) * CLASS_TRANSLUCENT)
+
+
+def pack_hits(vox: VoxelHit):
+    """VoxelHit -> (pa, pb, t) int32/int32/f32 words (layout above)."""
+    pa = (
+        vox.hit.to(_I32)
+        | (vox.entered.to(_I32) << 1)
+        | (vox.face.to(_I32) << 2)
+        | ((vox.vy + 2).clamp(0, 511).to(_I32) << 5)
+        | ((vox.owner.to(_I32) & 255) << 14)
+    )
+    pb = (vox.vx + 2).clamp(0, 1023).to(_I32) | (
+        (vox.vz + 2).clamp(0, 2 ** 20 - 1).to(_I32) << 10)
+    return pa, pb, vox.t
+
+
+def unpack_hits(pa, pb, t) -> VoxelHit:
+    """(pa, pb, t) -> VoxelHit.  Both words are non-negative, so the
+    arithmetic right shift of int32 is the logical one."""
+    return VoxelHit(
+        hit=(pa & 1) != 0,
+        t=t,
+        owner=(pa >> 14) & 255,
+        face=(pa >> 2) & 7,
+        vx=(pb & 1023) - 2,
+        vy=((pa >> 5) & 511) - 2,
+        vz=(pb >> 10) - 2,
+        entered=((pa >> 1) & 1) != 0,
+    )
+
+
+def truncated(pa) -> torch.Tensor:
+    """Rays that exhausted the tracer's budget (reported as misses)."""
+    return ((pa >> TRUNCATED_BIT) & 1) != 0
+
+
+def _safe_inv(d):
+    # 1/d with the sign kept; |d| < 1e-30 gives a huge inverse so that
+    # axis never wins the crossing selection
+    tiny = torch.where(d >= 0, torch.full_like(d, 1e-30),
+                       torch.full_like(d, -1e-30))
+    return 1.0 / torch.where(d.abs() < 1e-30, tiny, d)
+
+
+def _sign(d):
+    return (d > 0).to(_I32) - (d < 0).to(_I32)
+
+
+def trace_plain(scene, origin: V3, direction: V3, max_events: int):
+    """Plain PyTorch version of the tracer kernel, with the arguments of
+    `kernels.window_trace.window_trace`: every ray's first face crossing,
+    at most `max_events` voxel boundaries per ray.
+
+    scene: anything with the SceneArrays fields `grid` ((gx, gy, gz) uint8
+    block ids), `grid_origin` (3 ints, world coords of grid[0,0,0]) and the
+    256-entry `transparent` / `translucent` tables.  Rays with a zero
+    direction are inactive.  Hits count between t = EPSILON_BLOCK and
+    T_MAX.  A ray still marching after `max_events` crossings reports a
+    miss with the truncated bit set.
+
+    Step for step the reference's `dda_trace` without its empty-space
+    skip (which never changes a hit): the slab entry and 1e-4 nudge, the
+    pre-entry voxel of rays that start outside, crossing times recomputed
+    from the voxel index at every step (no drift), the x/y/z tie order and
+    the enter-beats-exit face rule.  Returns (pa, pb, t)."""
+    t_min, t_max = EPSILON_BLOCK, T_MAX
+    grid, grid_origin = scene.grid, scene.grid_origin
+    cls = class_table(scene.transparent, scene.translucent)
+    gx, gy, gz = (int(s) for s in grid.shape)
+    cls_flat = cls.to(_I32)[grid.reshape(-1).to(torch.int64)]
+    air = CLASS_TRANSPARENT | CLASS_TRANSLUCENT
+    go = [float(g) for g in grid_origin]
+    px, py, pz = origin.x - go[0], origin.y - go[1], origin.z - go[2]
+    dx, dy, dz = direction.x, direction.y, direction.z
+    valid = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
+    ivx, ivy, ivz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    mx, my, mz = dx.abs() > 1e-30, dy.abs() > 1e-30, dz.abs() > 1e-30
+    inf = torch.full_like(px, INF_T)
+
+    def slab(p, inv, dim, moving):
+        lo = (0.0 - p) * inv
+        hi = (dim - p) * inv
+        near = torch.where(moving, torch.minimum(lo, hi), -inf)
+        far = torch.where(moving, torch.maximum(lo, hi), inf)
+        return near, far
+
+    nx_, fx_ = slab(px, ivx, float(gx), mx)
+    ny_, fy_ = slab(py, ivy, float(gy), my)
+    nz_, fz_ = slab(pz, ivz, float(gz), mz)
+    t_near = torch.maximum(nx_, torch.maximum(ny_, nz_))
+    t_far = torch.minimum(fx_, torch.minimum(fy_, fz_))
+    t_entry = torch.clamp_min(t_near, t_min)
+    limit = torch.clamp_max(t_far, t_max)
+    active = valid & (t_entry <= limit)
+    sx, sy, sz = _sign(dx), _sign(dy), _sign(dz)
+
+    # starting voxel, nudged inside along the ray; rays entering from
+    # outside start in the pre-entry voxel so the loop evaluates the entry
+    tn = t_entry + NUDGE
+    vx = torch.floor(px + dx * tn).to(_I32)
+    vy = torch.floor(py + dy * tn).to(_I32)
+    vz = torch.floor(pz + dz * tn).to(_I32)
+    outside = t_near > t_min
+    ex = outside & (nx_ >= ny_) & (nx_ >= nz_)
+    ey = outside & ~ex & (ny_ >= nz_)
+    ez = outside & ~ex & ~ey
+    zero = torch.zeros_like(vx)
+    vx = vx - torch.where(ex, sx, zero)
+    vy = vy - torch.where(ey, sy, zero)
+    vz = vz - torch.where(ez, sz, zero)
+
+    def lookup(vx, vy, vz):
+        inside = ((vx >= 0) & (vx < gx) & (vy >= 0) & (vy < gy)
+                  & (vz >= 0) & (vz < gz))
+        idx = (vx.clamp(0, gx - 1).to(torch.int64) * (gy * gz)
+               + vy.clamp(0, gy - 1).to(torch.int64) * gz
+               + vz.clamp(0, gz - 1).to(torch.int64))
+        return torch.where(inside, cls_flat[idx], air), inside, idx
+
+    def cross_time(v, p, inv, s, moving):
+        bound = v.to(_F32) + (s > 0).to(_F32)
+        return torch.where(moving, (bound - p) * inv, inf)
+
+    cur, _, _ = lookup(vx, vy, vz)
+    tx = cross_time(vx, px, ivx, sx, mx)
+    ty = cross_time(vy, py, ivy, sy, my)
+    tz = cross_time(vz, pz, ivz, sz, mz)
+
+    out_hit = torch.zeros_like(active)
+    out_t = inf.clone()
+    out_face = zero.clone()
+    out_vx, out_vy, out_vz = zero.clone(), zero.clone(), zero.clone()
+    out_ent = torch.zeros_like(active)
+
+    for step in range(max_events):
+        if step % 8 == 0 and not bool(active.any()):
+            break
+        use_x = (tx <= ty) & (tx <= tz)
+        use_y = ~use_x & (ty <= tz)
+        use_z = ~use_x & ~use_y
+        t_cross = torch.where(use_x, tx, torch.where(use_y, ty, tz))
+        nvx = vx + torch.where(use_x, sx, zero)
+        nvy = vy + torch.where(use_y, sy, zero)
+        nvz = vz + torch.where(use_z, sz, zero)
+        nxt, inside, _ = lookup(nvx, nvy, nvz)
+        enter = ((nxt & CLASS_TRANSPARENT) == 0) & (
+            (cur & CLASS_TRANSLUCENT) != 0)
+        leave = ((cur & CLASS_TRANSPARENT) == 0) & (
+            (nxt & CLASS_TRANSLUCENT) != 0)
+        within = active & (t_cross <= limit) & (t_cross >= t_min)
+        is_hit = within & (enter | leave)
+        ax_step = torch.where(use_x, sx, torch.where(use_y, sy, sz))
+        axis = torch.where(use_x, 0, torch.where(use_y, 1, 2)).to(_I32)
+        nsign = torch.where(enter, -ax_step, ax_step)
+        face = axis * 2 + (nsign > 0).to(_I32)
+        out_hit = out_hit | is_hit
+        out_t = torch.where(is_hit, t_cross, out_t)
+        out_face = torch.where(is_hit, face, out_face)
+        out_vx = torch.where(is_hit, torch.where(enter, nvx, vx), out_vx)
+        out_vy = torch.where(is_hit, torch.where(enter, nvy, vy), out_vy)
+        out_vz = torch.where(is_hit, torch.where(enter, nvz, vz), out_vz)
+        out_ent = torch.where(is_hit, enter, out_ent)
+        active = active & ~is_hit & inside & ~(t_cross > limit)
+        vx, vy, vz = nvx, nvy, nvz
+        tx = cross_time(vx, px, ivx, sx, mx)
+        ty = cross_time(vy, py, ivy, sy, my)
+        tz = cross_time(vz, pz, ivz, sz, mz)
+        cur = nxt
+
+    _, _, idx = lookup(out_vx, out_vy, out_vz)
+    flat = grid.reshape(-1)
+    owner = torch.where(out_hit, flat[idx].to(_I32),
+                        torch.full_like(out_vx, AIR_ID))
+    pa, pb, t = pack_hits(VoxelHit(
+        hit=out_hit, t=out_t, owner=owner, face=out_face,
+        vx=out_vx, vy=out_vy, vz=out_vz, entered=out_ent,
+    ))
+    pa = pa | (active.to(_I32) << TRUNCATED_BIT)
+    return pa, pb, t

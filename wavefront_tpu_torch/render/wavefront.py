@@ -1,0 +1,329 @@
+"""Wavefront stages as plain functions on SoA ray tensors.
+
+Counterparts of `wavefront_tpu.render.wavefront`: raygen, the dense
+light-BVH math (node/prim importances, descent probabilities, the light
+pick), the dense NEE pdf sweep, the sampling helpers and postprocess.
+Radiometric semantics follow the reference shaders (raygen.rs,
+raytrace.rs, nee_pdf.rs, postprocess.rs); the dense light path replaces the
+stochastic descent and the reverse walk with the same distribution drawn
+from one uniform (see the JAX package's module notes).
+
+The fused shade kernel (`kernels/shade.py`) computes the same functions
+per ray; its plain version reuses the importance functions below.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from wavefront_tpu_torch.core import rng, vec3
+from wavefront_tpu_torch.core.config import EPSILON_BLOCK, EPSILON_NEE, T_MAX
+from wavefront_tpu_torch.core.vec3 import V3
+
+_F32 = torch.float32
+_PI = math.pi
+
+
+class LightArrays(NamedTuple):
+    """Tensor mirror of lights.LightSet (padded to its buckets).  uint32
+    fields are int64 tensors holding the unsigned value (the sentinel
+    0xFFFFFFFF included)."""
+
+    p0: torch.Tensor          # (P, 3) f32
+    e1: torch.Tensor          # (P, 3)
+    e2: torch.Tensor          # (P, 3)
+    is_tri: torch.Tensor      # (P,) bool
+    area: torch.Tensor        # (P,)
+    power: torch.Tensor       # (P,)
+    leaf_node: torch.Tensor   # (P,) int64
+    num_prims: int
+    node_left: torch.Tensor   # (M,) int64
+    node_right: torch.Tensor  # (M,) int64
+    node_min: torch.Tensor    # (M, 3)
+    node_max: torch.Tensor    # (M, 3)
+    node_power: torch.Tensor  # (M,)
+    node_parent: torch.Tensor  # (M,) int64
+    ancestors: torch.Tensor   # (M, P) f32 path indicator, or (1, 1)
+    leaf_prim: torch.Tensor   # (M,) int64 prim per leaf, -1 elsewhere
+    prim_min: torch.Tensor    # (P, 3)
+    prim_max: torch.Tensor    # (P, 3)
+
+    @property
+    def dense(self) -> bool:
+        """Whether the light set rides the dense path."""
+        return self.ancestors.shape[0] > 1
+
+
+class BvhSample(NamedTuple):
+    success: torch.Tensor      # (N,) bool
+    prim: torch.Tensor         # (N,) int64
+    probability: torch.Tensor  # (N,)
+    importance: torch.Tensor   # (N,)
+
+
+# ---------------------------------------------------------------------------
+# raygen (reference raygen.rs:88-116)
+# ---------------------------------------------------------------------------
+
+
+def raygen_soa(eye, front, right, up, width: int, height: int,
+               jitter: float = 0.0, seed=None, device="cuda"):
+    """Pinhole rays for every pixel: (origin V3, direction V3, ray ids),
+    N = width*height, id = y*width + x (int32)."""
+    y = torch.arange(height, device=device, dtype=torch.int32)[:, None]
+    x = torch.arange(width, device=device, dtype=torch.int32)[None, :]
+    y, x = torch.broadcast_tensors(y, x)
+    # uv = 2*screen/size - 1 (reference raygen.rs:84-86,103)
+    u = 2.0 * x.to(_F32) / float(width) - 1.0
+    v = 2.0 * y.to(_F32) / float(height) - 1.0
+    pid = (y * width + x).reshape(-1)
+    if jitter != 0.0 and seed is not None:
+        s = rng.combine(seed, pid)
+        ju = rng.finalizef(rng.combine(s, 0)).reshape(height, width) - 0.5
+        jv = rng.finalizef(rng.combine(s, 1)).reshape(height, width) - 0.5
+        u = u + jitter * (2.0 / width) * ju
+        v = v + jitter * (2.0 / height) * jv
+    aspect = float(torch.tensor(width / height, dtype=_F32))
+    u = u.reshape(-1)
+    v = v.reshape(-1)
+    f = [float(c) for c in front]
+    r = [float(c) for c in right]
+    w = [float(c) for c in up]
+    # association matches the reference: ((u*right)*aspect + v*up) + front
+    d = V3(
+        u * r[0] * aspect + v * w[0] + f[0],
+        u * r[1] * aspect + v * w[1] + f[1],
+        u * r[2] * aspect + v * w[2] + f[2],
+    )
+    d = d / vec3.norm(d)
+    n = width * height
+    e = [float(c) for c in eye]
+    origin = V3(
+        torch.full((n,), e[0], dtype=_F32, device=device),
+        torch.full((n,), e[1], dtype=_F32, device=device),
+        torch.full((n,), e[2], dtype=_F32, device=device),
+    )
+    return origin, d, pid
+
+
+# ---------------------------------------------------------------------------
+# dense light-BVH math (reference raytrace.rs:193-293 as one distribution)
+# ---------------------------------------------------------------------------
+
+
+def aabb_importance(mnx, mny, mnz, mxx, mxy, mxz, power, x, y, z,
+                    nx, ny, nz, eps, guard: bool):
+    """nodeImportance (reference raytrace.rs:193-220): power / distance^2
+    times the visible fraction of the 8 box corners.  All arguments
+    broadcast (the dense functions pass (1, M) bounds against an (N, 1)
+    point and normal; the shade passes one box per ray); guard protects
+    the 0/0 of padded prim columns."""
+    visible = None
+    for cx in (mnx, mxx):
+        dx = (cx - x) * nx
+        for cy in (mny, mxy):
+            dy = (cy - y) * ny
+            sxy = dx + dy
+            for cz in (mnz, mxz):
+                dz = (cz - z) * nz
+                v = (sxy + dz >= eps).to(_F32)
+                visible = v if visible is None else visible + v
+    ex, ey, ez = mxx - mnx, mxy - mny, mxz - mnz
+    diag_sq = (ex * ex + ey * ey) + ez * ez
+    cx_ = 0.5 * (mnx + mxx) - x
+    cy_ = 0.5 * (mny + mxy) - y
+    cz_ = 0.5 * (mnz + mxz) - z
+    dist_sq = torch.maximum(diag_sq, (cx_ * cx_ + cy_ * cy_) + cz_ * cz_)
+    if guard:
+        dist_sq = torch.clamp_min(dist_sq, 1e-30)
+    return power / dist_sq * (visible * 0.125)
+
+
+def _box_importance(mn, mx, power, point: V3, normal: V3, eps, guard):
+    # (N, B) importance of B boxes ((B, 3) bounds) from N points
+    return aabb_importance(
+        mn[None, :, 0], mn[None, :, 1], mn[None, :, 2],
+        mx[None, :, 0], mx[None, :, 1], mx[None, :, 2], power[None, :],
+        point.x[:, None], point.y[:, None], point.z[:, None],
+        normal.x[:, None], normal.y[:, None], normal.z[:, None],
+        eps, guard,
+    )
+
+
+def dense_node_importance(lights: LightArrays, point: V3, normal: V3,
+                          eps=EPSILON_BLOCK):
+    """(N, M) importance of every node from every shading point."""
+    return _box_importance(lights.node_min, lights.node_max,
+                           lights.node_power, point, normal, eps, False)
+
+
+def dense_prim_importance(lights: LightArrays, point: V3, normal: V3,
+                          eps=EPSILON_BLOCK):
+    """(N, P) leaf importance of every prim (its exact leaf AABB)."""
+    return _box_importance(lights.prim_min, lights.prim_max, lights.power,
+                           point, normal, eps, True)
+
+
+def normalized_node_importance(imp: torch.Tensor) -> torch.Tensor:
+    """(N, M) branch probability imp(a) / (imp(a) + imp(sibling(a))).
+
+    Siblings are (1,2), (3,4), ... by builder construction; the root is 1;
+    a padded last row without a partner is 0."""
+    m = imp.shape[1]
+    j = torch.arange(m, device=imp.device)
+    sib = torch.where(j % 2 == 1, (j + 1) % m, j - 1)
+    tot = imp + imp[:, sib]
+    nimp = torch.where(tot > 0, imp / torch.clamp_min(tot, 1e-30),
+                       torch.zeros_like(imp))
+    nimp[:, 0] = 1.0
+    m2 = ((m - 1) // 2) * 2
+    if m2 + 1 < m:
+        nimp[:, m2 + 1:] = 0.0
+    return nimp
+
+
+def dense_prim_probs(lights: LightArrays, point: V3, normal: V3,
+                     eps=EPSILON_BLOCK):
+    """(N, P) descent probability of every prim: exp of the sum over its
+    non-root path nodes of log(max(nimp, 1e-35)); padded prims are 0."""
+    nimp = normalized_node_importance(
+        dense_node_importance(lights, point, normal, eps))
+    log_nimp = torch.log(torch.clamp_min(nimp, 1e-35))
+    logp = log_nimp @ lights.ancestors
+    p = lights.ancestors.shape[1]
+    valid = torch.arange(p, device=logp.device)[None, :] < lights.num_prims
+    return torch.where(valid, torch.exp(logp), torch.zeros_like(logp))
+
+
+def dense_sample_light(lights: LightArrays, point: V3, normal: V3, seed,
+                       active):
+    """Importance-proportional prim pick from the dense probabilities
+    (replaces the stochastic descent).  Returns (BvhSample, probs)."""
+    probs = dense_prim_probs(lights, point, normal)
+    imp = dense_prim_importance(lights, point, normal, EPSILON_BLOCK)
+    total = probs.sum(dim=1)
+    u = rng.finalizef(seed) * total
+    cum = torch.cumsum(probs, dim=1)
+    # first prim column whose cumulative reaches u
+    reached = cum >= u[:, None]
+    before = torch.cat(
+        [torch.zeros_like(reached[:, :1]), reached[:, :-1]], dim=1)
+    pick = reached & ~before & (probs > 0)
+    cols = torch.arange(probs.shape[1], device=probs.device, dtype=_F32)
+    pickf = pick.to(_F32)
+    prim_f = (pickf * cols[None, :]).sum(1)
+    prob = (pickf * probs).sum(1)
+    importance = (pickf * imp).sum(1)
+    ok = active & (total > 0) & pick.any(dim=1)
+    return (
+        BvhSample(
+            success=ok,
+            prim=torch.where(ok, prim_f.to(torch.int64),
+                             torch.zeros_like(prim_f, dtype=torch.int64)),
+            probability=prob,
+            importance=importance,
+        ),
+        probs,
+    )
+
+
+# ---------------------------------------------------------------------------
+# NEE pdf sweep, dense path (reference nee_pdf.rs:281-337)
+# ---------------------------------------------------------------------------
+
+
+def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
+                  direction: V3, mis_weight, dense_probs, prim_tile: int = 64):
+    """Sum over EVERY light prim crossed by the outgoing ray of
+    walk_prob * t^2 / (cos_theta * area) (nee_pdf.rs:264-334), walk
+    probabilities read from the dense (N, P) matrix."""
+    if dense_probs is None:
+        raise NotImplementedError(
+            "the sparse NEE pdf sweep (light sets past the dense threshold)"
+            " is not ported yet")
+    active = (mis_weight > 0) & vec3.any_nonzero(direction)
+    cos_theta = vec3.dot(normal, direction)
+    n = point.x.shape[0]
+    pdf = torch.zeros(n, dtype=_F32, device=point.x.device)
+    cap = lights.p0.shape[0]
+    prim_tile = min(prim_tile, cap)
+    for base in range(0, lights.num_prims, prim_tile):
+        pid = torch.arange(base, base + prim_tile, device=pdf.device)
+        pc = pid.clamp(0, cap - 1)
+        p0, e1, e2 = lights.p0[pc], lights.e1[pc], lights.e2[pc]
+        nv = torch.linalg.cross(e1, e2)
+        d11 = (e1[:, 0] * e1[:, 0] + e1[:, 1] * e1[:, 1]) + e1[:, 2] * e1[:, 2]
+        d22 = (e2[:, 0] * e2[:, 0] + e2[:, 1] * e2[:, 1]) + e2[:, 2] * e2[:, 2]
+        d12 = (e1[:, 0] * e2[:, 0] + e1[:, 1] * e2[:, 1]) + e1[:, 2] * e2[:, 2]
+        det = d11 * d22 - d12 * d12
+        dx, dy, dz = (direction.x[:, None], direction.y[:, None],
+                      direction.z[:, None])
+        px, py, pz = point.x[:, None], point.y[:, None], point.z[:, None]
+        denom = (dx * nv[None, :, 0] + dy * nv[None, :, 1]) + dz * nv[None, :, 2]
+        safe = denom.abs() > 1e-12
+        t = ((p0[None, :, 0] - px) * nv[None, :, 0]
+             + (p0[None, :, 1] - py) * nv[None, :, 1]) \
+            + (p0[None, :, 2] - pz) * nv[None, :, 2]
+        t = t / torch.where(safe, denom, torch.ones_like(denom))
+        hx = px + dx * t - p0[None, :, 0]
+        hy = py + dy * t - p0[None, :, 1]
+        hz = pz + dz * t - p0[None, :, 2]
+        r1 = (hx * e1[None, :, 0] + hy * e1[None, :, 1]) + hz * e1[None, :, 2]
+        r2 = (hx * e2[None, :, 0] + hy * e2[None, :, 1]) + hz * e2[None, :, 2]
+        inv_det = torch.where(det.abs() > 1e-20, 1.0 / det,
+                              torch.zeros_like(det))
+        u = (r1 * d22[None, :] - r2 * d12[None, :]) * inv_det[None, :]
+        v = (r2 * d11[None, :] - r1 * d12[None, :]) * inv_det[None, :]
+        in_quad = (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+        in_tri = (u >= 0) & (v >= 0) & (u + v <= 1)
+        inside = torch.where(lights.is_tri[pc][None, :], in_tri, in_quad)
+        hit = (active[:, None] & (pid < lights.num_prims)[None, :] & safe
+               & inside & (t >= EPSILON_NEE) & (t <= T_MAX))
+        walk = dense_probs[:, pc]
+        contrib = walk * t * t / (cos_theta[:, None] * lights.area[pc][None, :])
+        pdf = pdf + torch.where(hit, contrib, torch.zeros_like(contrib)).sum(1)
+    return pdf
+
+
+# ---------------------------------------------------------------------------
+# postprocess (reference postprocess.rs:33-76)
+# ---------------------------------------------------------------------------
+
+
+def postprocess(radiance, width: int, height: int, scale: int):
+    """Box-downsample the supersampled (N, 3) radiance by `scale`; returns
+    (height, width, 3) float32, no tone mapping (postprocess.rs:66)."""
+    img = radiance.reshape(height * scale, width * scale, 3)
+    if scale > 1:
+        img = img.reshape(height, scale, width, scale, 3).mean(dim=(1, 3))
+    return img
+
+
+# ---------------------------------------------------------------------------
+# sampling helpers (reference raytrace.rs:295-357)
+# ---------------------------------------------------------------------------
+
+
+def cosine_hemisphere(u1, u2, normal: V3, tangent: V3, bitangent: V3) -> V3:
+    """Cosine-weighted hemisphere sample in the (tangent, normal,
+    bitangent) frame (reference raytrace.rs:308-313, 354-357)."""
+    theta = float(torch.tensor(2.0 * _PI, dtype=_F32)) * u1
+    r = torch.sqrt(torch.clamp_min(1.0 - u2, 0.0))
+    hx = r * torch.cos(theta)
+    hy = torch.sqrt(u2)
+    hz = r * torch.sin(theta)
+    d = V3(
+        (hx * tangent.x + hy * normal.x) + hz * bitangent.x,
+        (hx * tangent.y + hy * normal.y) + hz * bitangent.y,
+        (hx * tangent.z + hy * normal.z) + hz * bitangent.z,
+    )
+    return d / vec3.norm(d)
+
+
+def reflect(d: V3, n: V3) -> V3:
+    """GLSL reflect (reference raytrace.rs:594-597)."""
+    k = 2.0 * vec3.dot(d, n)
+    return V3(d.x - k * n.x, d.y - k * n.y, d.z - k * n.z)
