@@ -5,24 +5,33 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the two CUDA kernels from `wavefront_tpu_torch/csrc/`, holds each
-against its plain PyTorch version on the card at the headline frame's
-shapes, renders the golden config-1 scene against the stored image
-(tests/golden/config1_256.npz), renders a reduced headline frame through
-the kernels and through the plain versions, and then renders the headline
-frame itself (1920x1080, 4 bounces, NEE, compaction; bench.py's
-headline_setup) through `Renderer.render`, checking that both kernels ran
-on every bounce.  Each phase prints one JSON line; the line before the
-last lists every kernel with its launches, error, times and bound; the
-last line is {"ok": true, "device": {...}}.  Any failed check raises, and
-the script exits nonzero without printing that last line; it also exits
-nonzero when no CUDA device is present.
+It builds the three CUDA kernels from `wavefront_tpu_torch/csrc/`, holds
+each against its plain PyTorch version on the card at the shapes its frame
+gives it, renders the golden config-1 scene against the stored image
+(tests/golden/config1_256.npz), renders reduced frames through the
+kernels and through the plain versions, and then renders two full frames
+through `Renderer.render`, checking which kernels ran on every bounce:
+
+  * the headline frame (1920x1080, 4 bounces, NEE, compaction; bench.py's
+    headline_setup): the tracer and the fused shade;
+  * the general frame (`headline.general_setup`: the same frame with a
+    sparse light set of lamp voxels and a cube entity, shade_fused=False):
+    the tracer and the texel fetch, and never the fused shade.
+
+Each phase prints one JSON line; the line before the last lists every
+kernel with its launches, error, times and bound; the last line is
+{"ok": true, "device": {...}}.  Any failed check raises, and the script
+exits nonzero without printing that last line; it also exits nonzero when
+no CUDA device is present.
 
 Tolerances:
   tracer:  at most 1e-5 of the rays may differ from the plain version in
            pa, pb or t (the coplanar-tie class of docs/PARITY.md);
   shade:   every output within max |diff| 1e-3 and RMS 1e-5 of the plain
-           version (the bounds of tests/test_shade_fused.py);
+           version (the bounds of tests/test_shade_fused.py), with and
+           without the entity attribute stream;
+  texel:   max |diff| 0 against the plain version (a fetch copies float32
+           values), non-finite and out-of-range inputs included;
   images:  divergent pixels (max-channel |diff| > 1e-3) under 0.5% and
            RMSE over the agreeing pixels under 1e-3 (tests/test_golden.py).
 """
@@ -41,8 +50,10 @@ import torch
 from wavefront_tpu_torch.core.config import RenderingPreferences, RenderSettings
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.headline import (
+    add_ego_cube,
     config1_grid,
     config1_pose,
+    general_setup,
     headline_setup,
 )
 from wavefront_tpu_torch.kernels import _build
@@ -51,11 +62,17 @@ from wavefront_tpu_torch.kernels.shade import (
     shade_pass,
     shade_plain,
 )
+from wavefront_tpu_torch.kernels.texel import (
+    texel_fetch,
+    texel_index,
+    texel_plain,
+)
 from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
 from wavefront_tpu_torch.render.intersect import trace_plain
 from wavefront_tpu_torch.render.renderer import (
     Renderer,
     coherence_sort,
+    entity_attrs,
     render_frame,
 )
 from wavefront_tpu_torch.render.scene import VoxelScene
@@ -82,6 +99,9 @@ SHADE_OPS_PER_RAY = 160
 # a log) per path node, and a plane/quad test per prim in the pdf sweep
 SHADE_OPS_PER_PATH_NODE = 95
 SHADE_OPS_PER_PDF_PRIM = 40
+# the texel fetch of one ray: two multiplies and the float side of two
+# saturating conversions and clamps
+TEXEL_OPS_PER_RAY = 8
 
 TRACE_MISMATCH_FRACTION = 1e-5
 SHADE_MAX_ABS = 1e-3
@@ -170,17 +190,25 @@ def trace_bound_ms(scene, n: int, steps: int) -> tuple:
 
 
 def shade_bound_ms(tables, n: int, n_alive: int, n_hit: int,
-                   nee: bool) -> tuple:
-    """(bound_ms, bound_by) of the shade: 16 words in and 12 out per ray,
-    the atlas and light tables read once; or its float32 operations."""
-    nbytes = (n * 112 + tables.atlas.numel() * 4 + tables.nodes.numel() * 4
-              + tables.prims.numel() * 4)
+                   nee: bool, tri: bool = False) -> tuple:
+    """(bound_ms, bound_by) of the shade: 16 words in and 12 out per ray
+    (12 more in with the entity stream), the atlas and light tables read
+    once; or its float32 operations."""
+    nbytes = (n * (160 if tri else 112) + tables.atlas.numel() * 4
+              + tables.nodes.numel() * 4 + tables.prims.numel() * 4)
     ops = n_alive * SHADE_OPS_PER_RAY
     if nee:
         nodes = sum(len(p) for p in tables.paths)
         ops += n_hit * (nodes * SHADE_OPS_PER_PATH_NODE
                         + len(tables.paths) * SHADE_OPS_PER_PDF_PRIM)
     return max_bound(nbytes, ops)
+
+
+def texel_bound_ms(atlas, n: int, nch: int) -> tuple:
+    """(bound_ms, bound_by) of the texel fetch: tex, u and v in and nch
+    floats out per ray, the atlas read once; or its float32 operations."""
+    return max_bound(n * (12 + 4 * nch) + atlas.numel() * 4,
+                     n * TEXEL_OPS_PER_RAY)
 
 
 def max_bound(nbytes: int, ops: int) -> tuple:
@@ -254,6 +282,150 @@ def kernel_check(scene, settings, basis) -> dict:
     return out
 
 
+def texel_check(scene, settings, basis, prefs) -> dict:
+    """K3 against its plain version on the card: on the (tex, u, v) the
+    general frame's first bounce hands it (miss lanes carry huge u, v), and
+    on a seeded set of the same size with out-of-range slots, coordinates
+    past both edges and non-finite lanes.  Times are of the first."""
+    seen = []
+
+    def spy(atlas, tex, u, v, channels=None):
+        seen.append((atlas, tex, u, v, tuple(channels)))
+        return texel_fetch(atlas, tex, u, v, channels=channels)
+
+    render_frame(scene.get_arrays(), basis.eye, basis.front, basis.right,
+                 basis.up, 0, settings=settings.replace(num_bounces=1),
+                 nee_type=prefs.nee_type, sort_type=prefs.sort_type,
+                 texel=spy)
+    check(len(seen) == 1, f"texel fetches in a 1-bounce frame: {len(seen)}")
+    atlas, tex, u, v, chans = seen[0]
+    n = tex.shape[0]
+    check(n == settings.n_rays, f"texel rays {n} != {settings.n_rays}")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n_tex = atlas.shape[0]
+    tex2 = torch.randint(-50, n_tex + 50, (n,), generator=g,
+                         dtype=torch.int32)
+    uv2 = torch.rand((2, n), generator=g) * 1.2 - 0.1
+    odd = torch.tensor([float("nan"), float("inf"), float("-inf"), 3e38,
+                        -3e38, 1e10, -1e10])
+    lanes = torch.randint(0, n, (2, 70000), generator=g)
+    uv2[0, lanes[0]] = odd.repeat(10000)
+    uv2[1, lanes[1]] = odd.repeat(10000).flip(0)
+    sets = {"frame": (tex, u, v),
+            "seeded": (tex2.cuda(), uv2[0].cuda().contiguous(),
+                       uv2[1].cuda().contiguous())}
+    out = {"rays": n, "channels": list(chans)}
+    for name, (a, b, c) in sets.items():
+        got = texel_fetch(atlas, a, b, c, channels=chans)
+        want = texel_plain(atlas, a, b, c, channels=chans)
+        sync()
+        check(got.shape == (len(chans), n), f"texel {name}: shape {got.shape}")
+        check(bool(torch.isfinite(got).all()), f"texel {name}: NaN/Inf")
+        err = float((got - want).abs().max())
+        check(err == 0.0, f"texel {name}: max |diff| {err} against plain")
+        out[f"max_abs_err_{name}"] = err
+    out["max_abs_err"] = max(out["max_abs_err_frame"],
+                             out["max_abs_err_seeded"])
+    out["non_finite_uv_frame"] = int((~torch.isfinite(u) | ~torch.isfinite(v)
+                                      ).sum())
+    t, tj, ti = texel_index(atlas, tex, u, v)
+    ch = list(chans)
+    out["ms"] = time_ms(lambda: texel_fetch(atlas, tex, u, v, channels=chans),
+                        20)
+    out["plain_ms"] = time_ms(
+        lambda: texel_plain(atlas, tex, u, v, channels=chans), 5)
+    # the one PyTorch call that computes the fetch: the indexed read, with
+    # the channel select and the transpose to channel-major
+    out["library_ms"] = time_ms(
+        lambda: atlas[t, tj, ti][:, ch].t().contiguous(), 5)
+    out["bound_ms"], out["bound_by"] = texel_bound_ms(atlas, n, len(chans))
+    return out
+
+
+def shade_tri_check() -> dict:
+    """K2 with the entity attribute stream against its plain version, on
+    the bounce-0 rays of the headline frame with the ego cube in view."""
+    scene, settings, basis, _ = headline_setup(1920, 1080, 4, device="cuda")
+    add_ego_cube(scene, basis)
+    arrays = scene.get_arrays()
+    tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
+    w, h = settings.render_width, settings.render_height
+    n = w * h
+    o, d, rid = raygen_soa(basis.eye, basis.front, basis.right, basis.up,
+                           w, h, device="cuda")
+    tp = V3(*(torch.ones(n, device="cuda") for _ in range(3)))
+    rad = V3(*(torch.zeros(n, device="cuda") for _ in range(3)))
+    o, d, tp, rad, rid = coherence_sort(arrays, o, d, tp, rad, rid)
+    pa, pb, t = window_trace(arrays, o, d, auto_events(*arrays.grid.shape))
+    t, tri_attrs = entity_attrs(arrays, o, d, pa, t)
+    use_tri = int(((tri_attrs[11] >> 16) & 1).sum())
+    check(use_tri > n // 200, f"the cube wins only {use_tri} of {n} rays")
+    args = (tables, arrays.grid_origin, o, d, pa, pb, t, tp, rad, rid, 0, 0,
+            arrays.lights.num_prims)
+    got = shade_pass(*args, nee_type=1, tri_attrs=tri_attrs)
+    want = shade_plain(*args, nee_type=1, tri_attrs=tri_attrs)
+    bare = shade_pass(*args, nee_type=1)
+    sync()
+    s_max, s_rms = 0.0, 0.0
+    for kv, pv in zip(got, want):
+        for kc, pc in zip(kv, pv):
+            df = (kc - pc).abs()
+            check(bool(torch.isfinite(kc).all()), "shade with entities: NaN/Inf")
+            s_max = max(s_max, float(df.max()))
+            s_rms = max(s_rms, float(df.pow(2).mean().sqrt()))
+    check(s_max < SHADE_MAX_ABS and s_rms < SHADE_RMS,
+          f"shade with entities: max {s_max} rms {s_rms}")
+    check(not torch.equal(got[1].x, bare[1].x),
+          "the entity stream changed nothing")
+    hits = int((((pa & 1) != 0) | (((tri_attrs[11] >> 16) & 1) != 0)).sum())
+    out = {"rays": n, "entity_hits": use_tri, "max_abs_err": s_max,
+           "rms": s_rms,
+           "ms": time_ms(lambda: shade_pass(*args, nee_type=1,
+                                            tri_attrs=tri_attrs), 10),
+           "ms_without_stream": time_ms(
+               lambda: shade_pass(*args, nee_type=1), 10)}
+    out["bound_ms"], out["bound_by"] = shade_bound_ms(tables, n, n, hits,
+                                                      True, tri=True)
+    return out
+
+
+def general_check() -> dict:
+    """Reduced frames (480x270, 4 bounces) under the golden gate: the
+    general frame through the kernels against the plain versions, and the
+    headline scene with the ego cube on the fused path (K2 with the entity
+    stream) against the general path (K3)."""
+    def plain_frame(scene, settings, basis, prefs):
+        img, aux = render_frame(
+            scene.get_arrays(), basis.eye, basis.front, basis.right,
+            basis.up, 1, settings=settings, nee_type=prefs.nee_type,
+            sort_type=prefs.sort_type, trace=trace_plain, shade=shade_plain,
+            texel=texel_plain)
+        return img.cpu().numpy(), aux
+
+    scene, settings, basis, prefs = general_setup(480, 270, 4, device="cuda")
+    got, aux = Renderer(settings).render(scene, basis, prefs, frame_count=1,
+                                         with_aux=True)
+    want, aux_plain = plain_frame(scene, settings, basis, prefs)
+    check(aux == aux_plain == {"truncated": 0, "nee_overflow": 0},
+          f"general 480x270 audit {aux} / {aux_plain}")
+    out = {"width": 480, "height": 270, "bounces": 4,
+           "general_kernels_vs_plain": golden_gate(
+               got, want, "general frame kernels vs plain")}
+
+    scene, settings, basis, prefs = headline_setup(480, 270, 4, device="cuda")
+    add_ego_cube(scene, basis)
+    fused = Renderer(settings).render(scene, basis, prefs, frame_count=1)
+    general = Renderer(settings.replace(shade_fused=False)).render(
+        scene, basis, prefs, frame_count=1)
+    out["entity_fused_vs_general"] = golden_gate(
+        fused, general, "entity frame fused vs general")
+    bare = Renderer(settings).render(
+        headline_setup(480, 270, 4, device="cuda")[0], basis, prefs,
+        frame_count=1)
+    check(not np.array_equal(fused, bare), "the cube changed no pixel")
+    return out
+
+
 def golden(registry) -> dict:
     blob = np.load(GOLDEN)
     w, h, bounces, nee_type, frame = (int(x) for x in blob["meta"])
@@ -280,8 +452,10 @@ def frame_check() -> dict:
 
 
 def timed_frame(scene, settings, basis, prefs, frame: int) -> dict:
-    """One headline frame with CUDA events around every kernel launch."""
-    events = {"window_trace": [], "shade": []}
+    """One frame with CUDA events around every kernel launch."""
+    events = {"window_trace": [], "shade": [], "texel": []}
+    # position of an (N,) ray tensor or V3 among each wrapper's arguments
+    ray_arg = {"window_trace": 1, "shade": 2, "texel": 1}
 
     def timed(fn, name):
         def call(*a, **kw):
@@ -290,8 +464,10 @@ def timed_frame(scene, settings, basis, prefs, frame: int) -> dict:
             e0.record()
             r = fn(*a, **kw)
             e1.record()
-            events[name].append((e0, e1, int(a[2].x.shape[0]) if name == "shade"
-                                 else int(a[1].x.shape[0])))
+            rays = a[ray_arg[name]]
+            events[name].append(
+                (e0, e1, int((rays.x if isinstance(rays, V3) else rays
+                              ).shape[0])))
             return r
         return call
 
@@ -299,15 +475,64 @@ def timed_frame(scene, settings, basis, prefs, frame: int) -> dict:
                  basis.up, frame, settings=settings, nee_type=prefs.nee_type,
                  sort_type=prefs.sort_type,
                  trace=timed(window_trace, "window_trace"),
-                 shade=timed(shade_pass, "shade"))
+                 shade=timed(shade_pass, "shade"),
+                 texel=timed(texel_fetch, "texel"))
     sync()
     return {k: [{"rays": m, "ms": a.elapsed_time(b)} for a, b, m in v]
-            for k, v in events.items()}
+            for k, v in events.items() if v}
+
+
+def stage_times(scene, settings, basis, prefs, frame: int) -> dict:
+    """Device ms of one frame by renderer stage: CUDA events around the
+    stage functions `render.renderer` calls by name (the kernels' wrappers
+    included), swapped in for this one frame.  Host gaps inside a stage
+    count toward it; what the stages do not cover (raygen, the shade's own
+    elementwise work, restore, postprocess) is `other`."""
+    from wavefront_tpu_torch.render import renderer as rr
+
+    names = ("coherence_sort", "window_trace", "shade_pass", "texel_fetch",
+             "triangle_sweep", "traverse_light_bvh", "dense_sample_light",
+             "nee_pdf_sweep")
+    events = {k: [] for k in names}
+    saved = {k: getattr(rr, k) for k in names}
+
+    def timed(fn, name):
+        def call(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = fn(*a, **kw)
+            e1.record()
+            events[name].append((e0, e1))
+            return r
+        return call
+
+    whole = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+    try:
+        for k in names:
+            setattr(rr, k, timed(saved[k], k))
+        whole[0].record()
+        rr.render_frame(
+            scene.get_arrays(), basis.eye, basis.front, basis.right, basis.up,
+            frame, settings=settings, nee_type=prefs.nee_type,
+            sort_type=prefs.sort_type, trace=rr.window_trace,
+            shade=rr.shade_pass, texel=rr.texel_fetch)
+        whole[1].record()
+        sync()
+    finally:
+        for k in names:
+            setattr(rr, k, saved[k])
+    out = {k: sum(a.elapsed_time(b) for a, b in v)
+           for k, v in events.items() if v}
+    total = whole[0].elapsed_time(whole[1])
+    return {"frame_ms": total, "ms_by_stage": out,
+            "other_ms": total - sum(out.values())}
 
 
 def profile_frames(scene, settings, basis, prefs, frame_ms: float,
                    frames: int = 3) -> dict:
-    """Where a headline frame's device time goes: `frames` frames under
+    """Where a frame's device time goes: `frames` frames under
     torch.profiler; device time per frame by PyTorch op (the two kernels'
     launches appear under their own names) and the device's idle share
     of the unprofiled frame time."""
@@ -323,7 +548,8 @@ def profile_frames(scene, settings, basis, prefs, frame_ms: float,
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in dev) / 1e3 / frames
     check(busy_ms > 0.0, "the profiler saw no device time")
-    ours = {"window_trace": "trace_kernel", "shade": "shade_kernel"}
+    ours = {"window_trace": "trace_kernel", "shade": "shade_kernel",
+            "texel": "texel_kernel"}
     by_op = {k: sum(e.device_time for e in dev if v in e.name) / 1e3 / frames
              for k, v in ours.items()}
     for row in prof.key_averages():
@@ -337,25 +563,33 @@ def profile_frames(scene, settings, basis, prefs, frame_ms: float,
             "device_ms_by_op": dict(top)}
 
 
-def headline(scene, settings, basis, prefs, name: str, limit: str) -> dict:
+def full_frame(what: str, scene, settings, basis, prefs, name: str,
+               limit: str, kernels: tuple, frames: int) -> dict:
+    """A main path at full size through `Renderer.render`: one frame with
+    every launch counter at 0 just before it, which must launch each of
+    `kernels` once per bounce and no other; then `frames` timed frames and
+    one with CUDA events around each launch."""
     r = Renderer(settings)
-    # the main path, with every launch counter at 0 just before it
-    window_trace.launches = 0
-    shade_pass.launches = 0
+    wrappers = {"window_trace": window_trace, "shade": shade_pass,
+                "texel": texel_fetch}
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     img, aux = r.render(scene, basis, prefs, frame_count=0, as_numpy=False,
                         with_aux=True)
     sync()
-    launches = {"window_trace": window_trace.launches,
-                "shade": shade_pass.launches}
-    check(bool(torch.isfinite(img).all()), "headline image has NaN/Inf")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    check(tuple(img.shape) == (settings.height, settings.width, 3),
+          f"{what} image shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), f"{what} image has NaN/Inf")
     mean = float(img.mean())
-    check(mean > 0.0, f"headline image mean {mean}")
-    check(aux["truncated"] == 0, f"headline truncated {aux['truncated']}")
+    check(mean > 0.0, f"{what} image mean {mean}")
+    audit = {"truncated": 0, "nee_overflow": 0}
+    check(aux == audit, f"{what} audit {aux}")
     nb = settings.num_bounces
-    check(launches == {"window_trace": nb, "shade": nb},
-          f"headline launches {launches}, want {nb} each")
+    want = {k: nb if k in kernels else 0 for k in wrappers}
+    check(launches == want, f"{what} launches {launches}, want {want}")
 
-    frames = 5
     sync()
     t0 = time.perf_counter()
     for f in range(1, frames + 1):
@@ -363,15 +597,16 @@ def headline(scene, settings, basis, prefs, name: str, limit: str) -> dict:
                             as_numpy=False, with_aux=True)
     sync()
     frame_ms = (time.perf_counter() - t0) * 1e3 / frames
-    check(aux["truncated"] == 0, f"headline truncated {aux['truncated']}")
+    check(aux == audit, f"{what} audit {aux}")
     rays = settings.n_rays * nb
     per_launch = timed_frame(scene, settings, basis, prefs, frames + 1)
     return {
         "card": name, "power_limit": limit,
         "width": settings.width, "height": settings.height, "bounces": nb,
-        "image_mean": mean, "truncated": aux["truncated"],
+        "image_mean": mean, **aux,
         "launches": launches, "frames_timed": frames,
         "frame_ms": frame_ms, "Mrays_per_sec": rays / frame_ms / 1e3,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "per_launch": per_launch,
     }
 
@@ -397,29 +632,47 @@ def main() -> int:
     emit("kernel_check", **kc)
     emit("golden", **golden(BlockRegistry.load(os.path.join(HERE, "assets"))))
     emit("frame_check", **frame_check())
-    hl = headline(scene, settings, basis, prefs, name, limit)
+    gen = general_setup(1920, 1080, 4, device="cuda")
+    tc = texel_check(*gen)
+    emit("texel_check", **tc)
+    emit("shade_tri_check", **shade_tri_check())
+    emit("general_check", **general_check())
+    hl = full_frame("headline", scene, settings, basis, prefs, name, limit,
+                    ("window_trace", "shade"), frames=5)
     b0 = kc["bounces"][0]
     emit("headline", **hl, plain_ms_bounce0={
         "window_trace": b0["trace"]["plain_ms"],
         "shade": b0["shade"]["plain_ms"]})
     emit("profile", **profile_frames(scene, settings, basis, prefs,
                                      hl["frame_ms"]))
+    lights = gen[0].get_arrays().lights
+    gf = full_frame("general", *gen, name, limit, ("window_trace", "texel"),
+                    frames=3)
+    emit("general", **gf, max_nee_hits=gen[1].max_nee_hits, light_set={
+        "num_prims": lights.num_prims, "prim_bucket": lights.p0.shape[0],
+        "node_bucket": lights.node_min.shape[0], "dense": lights.dense})
+    emit("general_profile", **profile_frames(*gen, gf["frame_ms"], frames=2),
+         stages=stage_times(*gen, 10))
 
     kernels = []
-    for kname, key, src, replaces in (
-        ("window_trace", "trace", "wavefront_tpu_torch/csrc/window_trace.cu",
-         "wavefront_tpu/kernels/window_trace.py:765"),
-        ("shade", "shade", "wavefront_tpu_torch/csrc/shade.cu",
-         "wavefront_tpu/kernels/shade.py:261"),
+    for kname, k, src, replaces, path in (
+        ("window_trace", b0["trace"],
+         "wavefront_tpu_torch/csrc/window_trace.cu",
+         "wavefront_tpu/kernels/window_trace.py:765", hl),
+        ("shade", b0["shade"], "wavefront_tpu_torch/csrc/shade.cu",
+         "wavefront_tpu/kernels/shade.py:261", hl),
+        ("texel", tc, "wavefront_tpu_torch/csrc/texel.cu",
+         "wavefront_tpu/kernels/texel.py:47", gf),
     ):
-        k = b0[key]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": hl["launches"][kname],
+            "replaces": replaces, "launches": path["launches"][kname],
+            "launches_by_path": {"headline": hl["launches"][kname],
+                                 "general": gf["launches"][kname]},
             "max_abs_err": k.get("max_abs_err_t", k.get("max_abs_err")),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None,
+            "library_ms": k.get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,9 +7,11 @@ Run them on the GPU machine with:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 (`--noconftest` because tests/conftest.py imports JAX, which the GPU
-machine need not have; this file imports none of it.)  The tolerances are those of chip_smoke.py: the tracer's words may differ
-on at most 1e-5 of the rays (coplanar ties), every shade output within
-max |diff| 1e-3 and RMS 1e-5, frames under the golden gate.
+machine need not have; this file imports none of it.)  The tolerances are
+those of chip_smoke.py: the tracer's words may differ on at most 1e-5 of
+the rays (coplanar ties), every shade output within max |diff| 1e-3 and
+RMS 1e-5 (with and without the entity stream), the texel fetch bit-exact,
+frames under the golden gate.
 """
 
 import numpy as np
@@ -24,11 +26,18 @@ from wavefront_tpu_torch.kernels.shade import (
     shade_pass,
     shade_plain,
 )
+from wavefront_tpu_torch.kernels.texel import texel_fetch, texel_plain
 from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
+from wavefront_tpu_torch.render import lights as lights_mod
 from wavefront_tpu_torch.render.intersect import trace_plain
-from wavefront_tpu_torch.render.renderer import Renderer, render_frame
-from wavefront_tpu_torch.render.scene import VoxelScene
+from wavefront_tpu_torch.render.renderer import (
+    Renderer,
+    entity_attrs,
+    render_frame,
+)
+from wavefront_tpu_torch.render.scene import VoxelScene, light_arrays
 from wavefront_tpu_torch.render.wavefront import raygen_soa
+from wavefront_tpu_torch.world import meshes
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 
 pytestmark = pytest.mark.cuda
@@ -120,6 +129,124 @@ def test_shade_kernel_matches_plain(scene, nee_type):
             diff = (gc - wc).abs()
             assert float(diff.max()) < 1e-3
             assert float(diff.pow(2).mean().sqrt()) < 1e-5
+
+
+@pytest.fixture(scope="module")
+def cube_scene():
+    """Config 1 with a 4x3x4 cuboid entity over the lamp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    reg = BlockRegistry.load("assets")
+    s = VoxelScene(reg, config1_grid(reg), (0, 0, 0), max_light_prims=256,
+                   device="cuda")
+    s.add_object("box", *meshes.cuboid((8.0, 9.5, 8.0), (4.0, 3.0, 4.0)))
+    return s
+
+
+@pytest.mark.parametrize("nee_type", [0, 1])
+def test_shade_kernel_with_tri_attrs_matches_plain(cube_scene, nee_type):
+    arrays = cube_scene.get_arrays()
+    tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
+    o, d, rid = _rays()
+    n = o.x.shape[0]
+    pa, pb, t = trace_plain(arrays, o, d, auto_events(*arrays.grid.shape))
+    t, tri_attrs = entity_attrs(arrays, o, d, pa, t)
+    assert int(((tri_attrs[11] >> 16) & 1).sum()) > n // 100
+    g = torch.Generator(device="cpu").manual_seed(1)
+    tp = V3(*(torch.rand(n, generator=g).cuda() for _ in range(3)))
+    rad = V3(*(torch.rand(n, generator=g).cuda() for _ in range(3)))
+    args = (tables, arrays.grid_origin, o, d, pa, pb, t, tp, rad, rid, 5, 0,
+            arrays.lights.num_prims)
+    before = shade_pass.launches
+    got = shade_pass(*args, nee_type=nee_type, tri_attrs=tri_attrs)
+    assert shade_pass.launches == before + 1
+    want = shade_plain(*args, nee_type=nee_type, tri_attrs=tri_attrs)
+    torch.cuda.synchronize()
+    for gv, wv in zip(got, want):
+        for gc, wc in zip(gv, wv):
+            assert bool(torch.isfinite(gc).all())
+            diff = (gc - wc).abs()
+            assert float(diff.max()) < 1e-3
+            assert float(diff.pow(2).mean().sqrt()) < 1e-5
+    with pytest.raises(ValueError):
+        shade_pass(*args, nee_type=nee_type, tri_attrs=tri_attrs[:11])
+    with pytest.raises(ValueError):
+        shade_pass(*args, nee_type=nee_type,
+                   tri_attrs=tri_attrs[:11] + (tri_attrs[11].float(),))
+
+
+@pytest.mark.parametrize("channels", [None, (0, 1, 2, 3, 4, 5, 6, 8), (11,)])
+def test_texel_kernel_matches_plain(scene, channels):
+    """Bit-exact on in-range lanes, lanes past both edges, out-of-range
+    slots and non-finite coordinates; an unaligned ray count."""
+    atlas = scene.get_arrays().atlas_packed
+    n = 100_003
+    g = torch.Generator(device="cpu").manual_seed(2)
+    tex = torch.randint(-40, atlas.shape[0] + 40, (n,), generator=g,
+                        dtype=torch.int32).cuda()
+    uv = torch.rand((2, n), generator=g) * 1.2 - 0.1
+    odd = torch.tensor([float("nan"), float("inf"), float("-inf"), 3e38,
+                        -3e38, 1e10, -1e10])
+    uv[0, ::13] = odd.repeat(n // (13 * 7) + 1)[:uv[0, ::13].shape[0]]
+    uv[1, ::17] = odd.repeat(n // (17 * 7) + 1)[:uv[1, ::17].shape[0]]
+    u, v = uv[0].cuda().contiguous(), uv[1].cuda().contiguous()
+    before = texel_fetch.launches
+    got = texel_fetch(atlas, tex, u, v, channels=channels)
+    torch.cuda.synchronize()
+    assert texel_fetch.launches == before + 1
+    want = texel_plain(atlas, tex, u, v, channels=channels)
+    assert got.shape == (12 if channels is None else len(channels), n)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), texel_plain(atlas.cpu(), tex.cpu(),
+                                               u.cpu(), v.cpu(),
+                                               channels=channels))
+
+
+def test_texel_wrapper_checks_its_inputs(scene):
+    atlas = scene.get_arrays().atlas_packed
+    z = torch.zeros(8, device="cuda")
+    zi = z.to(torch.int32)
+    for bad in ((atlas, z, z, z), (atlas, zi, z.double(), z),
+                (atlas, zi, z[::2], z[::2]), (atlas.cpu(), zi, z, z),
+                (atlas[:, :, :8], zi, z, z)):
+        with pytest.raises(ValueError):
+            texel_fetch(*bad)
+    with pytest.raises(ValueError):
+        texel_fetch(atlas, zi, z, z, channels=(12,))
+
+
+def test_general_frame_kernels_match_plain(cube_scene):
+    """The general path on a sparse light set with an entity: the tracer
+    and the texel fetch launch once per bounce and the fused shade never;
+    the frame equals the plain versions' under the golden gate."""
+    arrays = cube_scene.get_arrays()
+    reg = cube_scene.registry
+    p0, e1, e2, power = lights_mod.extract_voxel_lights(
+        cube_scene.grid, np.zeros(3), reg)
+    sparse = lights_mod.build_light_set(
+        p0, e1, e2, power, np.zeros(len(p0), bool), 256, dense_threshold=8)
+    arrays = arrays._replace(lights=light_arrays(sparse, "cuda"))
+    assert not arrays.lights.dense
+    settings = RenderSettings(width=64, height=64, num_bounces=3,
+                              compaction=True, trace_audit=True)
+    prefs = RenderingPreferences(nee_type=1)
+    basis = config1_pose()
+    wrappers = (window_trace, shade_pass, texel_fetch)
+    before = [f.launches for f in wrappers]
+    with pytest.warns(UserWarning, match="falling back"):
+        got, aux = Renderer(settings).render(arrays, basis, prefs,
+                                             frame_count=2, with_aux=True)
+    assert [f.launches - b for f, b in zip(wrappers, before)] == [3, 0, 3]
+    assert aux == {"truncated": 0, "nee_overflow": 0}
+    want, _ = render_frame(
+        arrays, basis.eye, basis.front, basis.right, basis.up, 2,
+        settings=settings.replace(shade_fused=False), nee_type=1,
+        sort_type=0, trace=trace_plain, shade=shade_plain, texel=texel_plain)
+    want = want.cpu().numpy()
+    diff = np.abs(got - want).max(axis=-1)
+    agree = diff < 1e-3
+    assert 1.0 - agree.mean() < 0.005
+    assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3
 
 
 def test_frame_kernels_match_plain(scene):

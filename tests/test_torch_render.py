@@ -13,12 +13,20 @@ the kernels' plain versions.  It is held to:
     the agreeing pixels < 1e-3);
   * the JAX `Renderer` on a one-chunk worldgen scene with compaction and
     sort_type 0 and 1, which takes the bucket and sort paths;
-  * the JAX package's worldgen chunks and bench.py's headline workload.
+  * the JAX package's worldgen chunks and bench.py's headline workload;
+  * on the general (non-fused) shade path, the JAX `Renderer` with
+    shade_fused=False: with and without NEE, with a cube entity, with a
+    sparse light set, with debug_view=1 and under each debug_stage; and
+    the port's own fused frame with an entity.
 
 Images compare in pixel order: radiance does not depend on ray order.
+Where a frame's decisions can flip on an ulp (a stochastic BVH descent, a
+scatter threshold), the comparison falls back from `close` to the golden
+gate, as stated at the test.
 """
 
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -30,6 +38,7 @@ from wavefront_tpu.render import lights as jax_lights
 from wavefront_tpu.render.oracle import OracleRenderer
 from wavefront_tpu.render.renderer import Renderer as JaxRenderer
 from wavefront_tpu.render.scene import VoxelScene as JaxVoxelScene
+from wavefront_tpu.render.scene import _light_arrays as jax_light_arrays
 from wavefront_tpu.world.blocks import BlockRegistry as JaxBlockRegistry
 from wavefront_tpu_torch.core.config import (
     RenderingPreferences,
@@ -40,10 +49,13 @@ from wavefront_tpu_torch.headline import (
     build_scene,
     config1_grid,
     config1_pose,
+    general_setup,
     headline_setup,
 )
+from wavefront_tpu_torch.kernels.texel import texel_fetch
 from wavefront_tpu_torch.render.renderer import Renderer
 from wavefront_tpu_torch.render.scene import VoxelScene, scene_arrays_from_numpy
+from wavefront_tpu_torch.world import meshes
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 
 ASSETS = "assets"
@@ -226,10 +238,7 @@ def test_scene_arrays_from_numpy_round_trip(config1):
 
 @pytest.mark.parametrize("settings_kw,prefs_kw", [
     (dict(cache_primary=True), {}),
-    (dict(shade_fused=False), {}),
-    (dict(debug_stage="notex"), {}),
     (dict(shade_bf16=True), {}),
-    ({}, dict(debug_view=1)),
 ])
 def test_unported_paths_raise(config1, settings_kw, prefs_kw):
     port_scene, _, _ = config1
@@ -240,10 +249,266 @@ def test_unported_paths_raise(config1, settings_kw, prefs_kw):
 
 
 def test_render_batch_and_entities_raise(config1):
+    """render_batch is not ported; entities are, within the pool."""
     with pytest.raises(NotImplementedError):
         Renderer(RenderSettings(), device="cpu").render_batch()
-    with pytest.raises(NotImplementedError):
-        config1[0].add_object("cube", None, None, None)
+    with pytest.raises(ValueError):
+        Renderer(RenderSettings(width=8, height=8, num_bounces=1,
+                                debug_stage="nosuchstage"),
+                 device="cpu").render(config1[0], config1_pose())
+
+
+# ---- the general (non-fused) shade path ----
+
+
+def _numpy_fields(arrays):
+    d = {f: np.asarray(getattr(arrays, f)) for f in arrays._fields
+         if f not in ("lights", "winpack")}
+    d["lights"] = {f: np.asarray(getattr(arrays.lights, f))
+                   for f in arrays.lights._fields}
+    return d
+
+
+def _jax_general(scene, basis, nee, frame=3, debug_view=0, **kw):
+    s = JaxSettings(shade_fused=False, use_column_trace=False,
+                    max_trace_steps=512, **kw)
+    return np.asarray(JaxRenderer(s).render(
+        scene, basis, JaxPrefs(nee_type=nee, debug_view=debug_view),
+        frame_count=frame))
+
+
+def _port_general(scene, basis, nee, frame=3, debug_view=0, **kw):
+    s = RenderSettings(shade_fused=False, **kw)
+    return Renderer(s, device="cpu").render(
+        scene, basis, RenderingPreferences(nee_type=nee,
+                                           debug_view=debug_view),
+        frame_count=frame)
+
+
+@pytest.mark.parametrize("nee", [0, 1, 2])
+def test_general_frame_matches_jax(config1, nee):
+    port_scene, jax_scene, _ = config1
+    basis = config1_pose()
+    got = _port_general(port_scene, basis, nee, **FRAME)
+    assert got.mean() > 1e-3
+    close(got, _jax_general(jax_scene, basis, nee, **FRAME))
+
+
+def test_general_frame_indexed_texels(config1):
+    """shade_texel_kernel=False asks for the indexed read in both
+    packages; it fetches the texels the kernel path fetches."""
+    port_scene, jax_scene, _ = config1
+    basis = config1_pose()
+    kw = dict(FRAME, shade_texel_kernel=False)
+    got = _port_general(port_scene, basis, 1, **kw)
+    np.testing.assert_array_equal(
+        got, _port_general(port_scene, basis, 1, **FRAME))
+    close(got, _jax_general(jax_scene, basis, 1, **kw))
+
+
+@pytest.fixture(scope="module")
+def config1_cube(registries):
+    """Config 1 plus the ego cube of tests/test_shade_fused.py."""
+    reg, jreg = registries
+    grid = config1_grid(reg)
+    port = VoxelScene(reg, grid, (0, 0, 0), max_light_prims=256, device="cpu")
+    jax_scene = JaxVoxelScene(jreg, grid, (0, 0, 0), max_light_prims=256)
+    verts, uv, tex = meshes.unitcube()
+    verts = verts + np.float32([7.0, 6.5, 4.0])
+    port.add_object("ego", verts, uv, tex)
+    jax_scene.add_object("ego", verts, uv, tex)
+    return port, jax_scene
+
+
+@pytest.mark.parametrize("nee", [0, 1])
+def test_general_frame_with_entity_matches_jax(config1, config1_cube, nee):
+    port_scene, jax_scene = config1_cube
+    basis = config1_pose()
+    got = _port_general(port_scene, basis, nee, **FRAME)
+    close(got, _jax_general(jax_scene, basis, nee, **FRAME))
+    # the cube shades: the frame differs from the cube-free one
+    assert not np.array_equal(got, _port_general(config1[0], basis, nee,
+                                                 **FRAME))
+
+
+@pytest.mark.parametrize("nee", [0, 1])
+def test_fused_frame_with_entity(config1_cube, nee):
+    """The fused kernel with the entity stream against the port's own
+    general path (tests/test_shade_fused.py: bit-exact without NEE,
+    max 1e-3 / RMS 1e-5 with it) and against the JAX fused frame."""
+    port_scene, jax_scene = config1_cube
+    basis = config1_pose()
+    fused = _port(port_scene, basis, nee, **FRAME)
+    general = _port_general(port_scene, basis, nee, **FRAME)
+    if nee == 0:
+        np.testing.assert_array_equal(fused, general)
+    else:
+        close(fused, general)
+    close(fused, _jax(jax_scene, basis, nee, **FRAME))
+
+
+@pytest.fixture(scope="module")
+def sparse_scene(config1):
+    """Config 1 with its light set rebuilt as a sparse one
+    (dense_threshold forced low), as arrays for both packages."""
+    _, jax_scene, grid = config1
+    ja = jax_scene.get_arrays()
+    p0, e1, e2, power = jax_lights.extract_voxel_lights(
+        grid, np.zeros(3), jax_scene.registry)[:4]
+    ls = jax_lights.build_light_set(p0, e1, e2, power,
+                                    np.zeros(len(p0), bool), 256,
+                                    dense_threshold=8)
+    ja = ja._replace(lights=jax_light_arrays(ls))
+    assert not ja.lights.dense
+    return scene_arrays_from_numpy(_numpy_fields(ja), device="cpu"), ja
+
+
+def test_general_frame_sparse_lights_matches_jax(config1, sparse_scene):
+    """The stochastic descent steps the other way where a uniform lands
+    within rounding of a branch probability, so the frame is held to the
+    golden gate; max_nee_hits=2 makes both packages drop the same
+    crossings."""
+    port_arrays, jax_arrays = sparse_scene
+    basis = config1_pose()
+    for kw in (FRAME, dict(FRAME, max_nee_hits=2, trace_audit=True)):
+        got = _port_general(port_arrays, basis, 1, **kw)
+        assert got.mean() > 1e-3
+        golden_gate(got, _jax_general(jax_arrays, basis, 1, **kw))
+    # the dense path is another estimator of the same image
+    dense = _port_general(config1[0], basis, 1, **FRAME)
+    assert not np.array_equal(got, dense)
+    assert abs(got.mean() - dense.mean()) < 0.05 * dense.mean()
+
+
+def test_sparse_lights_fall_back_with_a_warning(sparse_scene):
+    """shade_fused=True on a sparse light set runs the general path and
+    says so; without NEE the fused kernel runs and nothing is said."""
+    port_arrays, _ = sparse_scene
+    basis = config1_pose()
+    kw = dict(width=16, height=16, num_bounces=2)
+    r = Renderer(RenderSettings(shade_fused=True, **kw), device="cpu")
+    with pytest.warns(UserWarning, match="falling back"):
+        got = r.render(port_arrays, basis, RenderingPreferences(nee_type=1),
+                       frame_count=3)
+    np.testing.assert_array_equal(
+        got, _port_general(port_arrays, basis, 1, **kw))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        r.render(port_arrays, basis, RenderingPreferences(nee_type=0))
+
+
+def test_general_frame_overflow_audit(sparse_scene):
+    """aux["nee_overflow"] counts rays whose light crossings overflowed
+    the sparse sweep's slots; rays through the 3x3x3 lamp cross two
+    prims, so one slot overflows and eight do not."""
+    port_arrays, _ = sparse_scene
+    basis = config1_pose()
+    kw = dict(width=32, height=32, num_bounces=2, shade_fused=False,
+              trace_audit=True)
+    prefs = RenderingPreferences(nee_type=1)
+    _, aux = Renderer(RenderSettings(**kw), device="cpu").render(
+        port_arrays, basis, prefs, with_aux=True)
+    assert aux == {"truncated": 0, "nee_overflow": 0}
+    _, aux = Renderer(RenderSettings(max_nee_hits=1, **kw),
+                      device="cpu").render(port_arrays, basis, prefs,
+                                           with_aux=True)
+    assert aux["nee_overflow"] > 0
+
+
+def test_debug_view_matches_jax(config1):
+    """debug_view=1 shows the bounce-1 ray layout; without a sort the ray
+    slots are the pixels, so both packages paint the same image."""
+    port_scene, jax_scene, _ = config1
+    basis = config1_pose()
+    kw = dict(width=48, height=40, num_bounces=2)
+    got = _port_general(port_scene, basis, 1, debug_view=1, **kw)
+    # one ulp: XLA divides by 1023 as a multiplication by its reciprocal
+    np.testing.assert_allclose(
+        got, _jax_general(jax_scene, basis, 1, debug_view=1, **kw),
+        rtol=3e-7, atol=0)
+    assert got[..., :2].max() > 0 and not got[..., 2].any()
+    # the fused path carries the same buffer, and a sort permutes it back
+    np.testing.assert_array_equal(
+        got, Renderer(RenderSettings(**kw), device="cpu").render(
+            port_scene, basis, RenderingPreferences(nee_type=1,
+                                                    debug_view=1)))
+    sorted_view = Renderer(RenderSettings(compaction=True, **kw),
+                           device="cpu").render(
+        port_scene, basis, RenderingPreferences(nee_type=1, debug_view=1))
+    assert sorted_view.shape == got.shape and sorted_view[..., :2].max() > 0
+
+
+@pytest.mark.parametrize("stage", ["freetrace", "notex", "nonee_pdf"])
+def test_debug_stage_matches_jax(config1, stage):
+    port_scene, jax_scene, _ = config1
+    basis = config1_pose()
+    kw = dict(FRAME, debug_stage=stage)
+    got = _port_general(port_scene, basis, 1, **kw)
+    assert np.all(np.isfinite(got))
+    want = _jax_general(jax_scene, basis, 1, **kw)
+    if stage == "notex":
+        # every surface emits 1000 * 0.5 * cos here, so pixels reach the
+        # hundreds, where one float32 ulp is 3e-5: compare relative to the
+        # pixel, as tests/test_torch_shade.py does for lamp radiance
+        scale = np.maximum(1.0, np.abs(want))
+        close(got / scale, want / scale)
+    else:
+        close(got, want)
+    assert not np.array_equal(got, _port_general(port_scene, basis, 1,
+                                                 **FRAME))
+    if stage == "freetrace":
+        # the fused path takes the same synthetic hits
+        close(_port(port_scene, basis, 1, **kw), got)
+
+
+def test_general_frame_uses_the_texel_wrapper(config1, monkeypatch):
+    """The general path fetches its texels through `texel_fetch`, once per
+    bounce, with the shade's 8 channels; the fused path never does."""
+    from wavefront_tpu_torch.render import renderer as port_renderer
+
+    calls = []
+
+    def spy(atlas, tex, u, v, channels=None):
+        calls.append((tex.dtype, tuple(channels), tex.shape[0]))
+        return texel_fetch(atlas, tex, u, v, channels=channels)
+
+    port_scene, _, _ = config1
+    basis = config1_pose()
+    r = Renderer(RenderSettings(width=16, height=16, num_bounces=3,
+                                shade_fused=False), device="cpu")
+    monkeypatch.setattr(port_renderer, "texel_fetch", spy)
+    img, _ = port_renderer.render_frame(
+        port_scene.get_arrays(), basis.eye, basis.front, basis.right,
+        basis.up, 0, settings=r.settings, nee_type=1, sort_type=0, texel=spy)
+    assert calls == [(torch.int32, (0, 1, 2, 3, 4, 5, 6, 8), 256)] * 3
+    calls.clear()
+    port_renderer.render_frame(
+        port_scene.get_arrays(), basis.eye, basis.front, basis.right,
+        basis.up, 0, settings=r.settings.replace(shade_fused=None),
+        nee_type=1, sort_type=0, texel=spy)
+    assert calls == []
+
+
+def test_general_setup_small():
+    """general_setup at 96x54: a sparse light set, the ego cube in the
+    pool, the general path, no truncated ray and no overflowed sweep."""
+    scene, settings, basis, prefs = general_setup(96, 54, 4, device="cpu")
+    arrays = scene.get_arrays()
+    assert not arrays.lights.dense and arrays.lights.num_prims > 256
+    assert tuple(arrays.lights.node_min.shape) == (1024, 3)
+    assert int(arrays.tri_active.sum()) == 12
+    assert settings.shade_fused is False and settings.shade_texel_kernel
+    assert settings.compaction and settings.trace_audit
+    assert prefs.nee_type == 1
+    img, aux = Renderer(settings, device="cpu").render(
+        scene, basis, prefs, with_aux=True)
+    assert img.shape == (54, 96, 3) and np.all(np.isfinite(img))
+    assert img.mean() > 1e-3
+    assert aux == {"truncated": 0, "nee_overflow": 0}
+    # the cube fills the middle of the view: the frame differs without it
+    scene.remove_object("ego")
+    assert not np.array_equal(
+        img, Renderer(settings, device="cpu").render(scene, basis, prefs))
 
 
 def test_audit_reports_truncation(config1):

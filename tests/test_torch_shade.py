@@ -17,6 +17,10 @@ the radiance of lamp hits reaches ~1000 (emission x1000), where one
 float32 ulp is 4.9e-4 and 6.1e-5, and XLA on the CPU may contract a
 multiply-add that the port rounds twice.
 
+The same comparison runs with the entity attribute stream (`tri_attrs`):
+a cube's closest-hit merge, made once by the port's `entity_attrs`, goes
+into both kernels as the same arrays.
+
 The dense light pick and the dense NEE pdf sweep are also compared on
 their own against their JAX twins.
 """
@@ -46,7 +50,9 @@ from wavefront_tpu_torch.kernels.shade import (
     shade_pass,
 )
 from wavefront_tpu_torch.render import wavefront as twf
+from wavefront_tpu_torch.render.renderer import entity_attrs
 from wavefront_tpu_torch.render.scene import scene_arrays_from_numpy
+from wavefront_tpu_torch.world import meshes
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 
 N = 2048
@@ -112,24 +118,70 @@ def _tv3(a):
                 for i in range(3)))
 
 
-@pytest.mark.parametrize("nee_type,bounce", [(0, 0), (1, 0), (1, 1), (2, 1)])
-def test_shade_matches_jax(scenes, rays, nee_type, bounce):
+def _both_shades(scenes, r, nee_type, bounce, t=None, tri_attrs=None):
+    """(port outputs, JAX outputs) of one shade step on the rays `r`."""
     ja, ta = scenes
-    r = rays
     inv_seed = 7 + bounce
+    t = r["t"] if t is None else t
     want = jax_shade_pass(
         jax_prep(ja.atlas_packed, ja.lights), ja.grid_origin,
         _jv3(r["o"]), _jv3(r["d"]), jnp.asarray(r["pa"]),
-        jnp.asarray(r["pb"]), jnp.asarray(r["t"]), _jv3(r["tp"]),
+        jnp.asarray(r["pb"]), jnp.asarray(t), _jv3(r["tp"]),
         _jv3(r["rad"]), jnp.asarray(r["rid"]), jnp.uint32(inv_seed),
         jnp.int32(bounce), ja.lights.num_prims, nee_type=nee_type,
-        tile=2048, interpret=True)
+        tile=2048, interpret=True,
+        tri_attrs=None if tri_attrs is None else tuple(
+            jnp.asarray(a) for a in tri_attrs))
     got = shade_pass(
         prep_shade_tables(ta.atlas_packed, ta.lights), ta.grid_origin,
         _tv3(r["o"]), _tv3(r["d"]), torch.as_tensor(r["pa"]),
-        torch.as_tensor(r["pb"]), torch.as_tensor(r["t"]), _tv3(r["tp"]),
+        torch.as_tensor(r["pb"]), torch.as_tensor(t), _tv3(r["tp"]),
         _tv3(r["rad"]), torch.as_tensor(r["rid"].astype(np.int32)),
-        inv_seed, bounce, ta.lights.num_prims, nee_type=nee_type)
+        inv_seed, bounce, ta.lights.num_prims, nee_type=nee_type,
+        tri_attrs=None if tri_attrs is None else tuple(
+            torch.as_tensor(a) for a in tri_attrs))
+    return got, want
+
+
+@pytest.mark.parametrize("nee_type,bounce", [(0, 0), (1, 0), (1, 1), (2, 1)])
+def test_shade_matches_jax(scenes, rays, nee_type, bounce):
+    got, want = _both_shades(scenes, rays, nee_type, bounce)
+    _assert_shades_agree(got, want, nee_type)
+
+
+@pytest.mark.parametrize("nee_type", [0, 1])
+def test_shade_with_tri_attrs_matches_jax(scenes, rays, nee_type):
+    """A 4x3x4 cuboid over the lamp, in front of the camera: its hits
+    reach both kernels as the same merged t and attribute stream."""
+    _, ta = scenes
+    r = rays
+    verts = np.zeros((64, 3, 3), np.float32)
+    uv = np.zeros((64, 3, 2), np.float32)
+    tex = np.zeros(64, np.int32)
+    active = np.zeros(64, bool)
+    cv, cu, ct = meshes.cuboid((8.0, 9.5, 8.0), (4.0, 3.0, 4.0))
+    verts[:12], uv[:12], tex[:12], active[:12] = cv, cu, ct, True
+    scene = ta._replace(
+        tri_verts=torch.as_tensor(verts), tri_uv=torch.as_tensor(uv),
+        tri_tex=torch.as_tensor(tex), tri_active=torch.as_tensor(active))
+    t, tri_attrs = entity_attrs(
+        scene, _tv3(r["o"]), _tv3(r["d"]), torch.as_tensor(r["pa"]),
+        torch.as_tensor(r["t"]))
+    tri_attrs = tuple(a.numpy() for a in tri_attrs)
+    use_tri = (tri_attrs[11] >> 16) & 1
+    assert 50 < use_tri.sum() < N // 2
+    assert not use_tri[(r["d"] == 0).all(-1)].any()
+    # entity hits also cover rays the voxel tracer missed
+    assert (use_tri & ((r["pa"] & 1) == 0)).sum() > 10
+    got, want = _both_shades(scenes, r, nee_type, 0, t=t.numpy(),
+                             tri_attrs=tri_attrs)
+    _assert_shades_agree(got, want, nee_type)
+    plain, _ = _both_shades(scenes, r, nee_type, 0)
+    assert not torch.equal(got[3].x, plain[3].x) or not torch.equal(
+        got[0].x, plain[0].x)
+
+
+def _assert_shades_agree(got, want, nee_type):
     for name, gv, wv in zip(("origin", "direction", "throughput", "radiance"),
                             got, want):
         for c in range(3):
@@ -214,8 +266,9 @@ def test_dense_nee_pdf_sweep_matches_jax(scenes):
 
 
 def test_shade_caps_raise(scenes):
-    """Past the kernel's light-table caps the shade raises (no fallback);
-    entities and the bf16 color pipeline are not ported yet."""
+    """Past the kernel's light-table caps the shade raises (no fallback),
+    as it does for a malformed entity stream; the bf16 color pipeline is
+    not ported yet."""
     _, ta = scenes
     tables = prep_shade_tables(ta.atlas_packed, ta.lights)
     big = tables._replace(nodes=torch.zeros((2 * MAX_NODES, 8)))
@@ -226,7 +279,7 @@ def test_shade_caps_raise(scenes):
         shade_pass(big, *args, nee_type=1)
     with pytest.raises(ValueError):
         shade_pass(tables._replace(dense=False), *args, nee_type=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         shade_pass(tables, *args, nee_type=0, tri_attrs=())
     with pytest.raises(NotImplementedError):
         shade_pass(tables, *args, nee_type=0, color_bf16=True)

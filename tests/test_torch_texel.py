@@ -1,0 +1,114 @@
+"""The port's texel fetch against the JAX package's.
+
+`wavefront_tpu_torch.kernels.texel.texel_fetch` takes its plain version
+(`texel_plain`, the function the CUDA kernel is held to on the card by
+chip_smoke.py) for CPU tensors.  Here it runs against the JAX
+`kernels/texel.py::texel_fetch` in interpret mode, as tests/test_texel.py
+runs it, and against the numpy gather, on that file's five input classes.
+A fetch copies float32 values, so every comparison is bit-exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wavefront_tpu.kernels.texel import texel_fetch as jax_texel_fetch
+from wavefront_tpu_torch.kernels.texel import (
+    texel_fetch,
+    texel_index,
+    texel_plain,
+)
+
+CHANS = (0, 1, 2, 3, 4, 5, 6, 8)
+
+
+def _gather_ref(atlas, tex, u, v):
+    size = atlas.shape[1]
+    ti = np.clip((u * size).astype(np.int32), 0, size - 1)
+    tj = np.clip((v * size).astype(np.int32), 0, size - 1)
+    return atlas[np.clip(tex, 0, atlas.shape[0] - 1), tj, ti]  # (N, nch)
+
+
+def _inputs(name):
+    """The five input classes of tests/test_texel.py:
+    (atlas, tex, u, v, channels, jax tile)."""
+    if name == "mixed":
+        rng, n, n_tex = np.random.default_rng(0), 5000, 7
+        wide, tile, chans = True, 1024, None
+    elif name == "one_texture":
+        rng, n, n_tex = np.random.default_rng(1), 1500, 4
+        wide, tile, chans = False, 2048, None
+    elif name == "unaligned":
+        rng, n, n_tex = np.random.default_rng(3), 2048 + 37, 7
+        wide, tile, chans = True, 256, None
+    elif name == "tex_out_of_range":
+        rng, n, n_tex = np.random.default_rng(2), 600, 3
+        wide, tile, chans = False, 2048, None
+    else:
+        assert name == "channels"
+        rng, n, n_tex = np.random.default_rng(4), 3000, 7
+        wide, tile, chans = False, 2048, CHANS
+    atlas = rng.random((n_tex, 16, 16, 12), np.float32)
+    if name == "one_texture":
+        tex = np.full(n, 2, np.int32)
+    elif name == "tex_out_of_range":
+        tex = rng.integers(-2, 9, n, dtype=np.int32)
+    else:
+        tex = rng.integers(0, n_tex, n, dtype=np.int32)
+    u = rng.random(n, dtype=np.float32)
+    v = rng.random(n, dtype=np.float32)
+    if wide:
+        # [-0.1, 1.1]: coordinates past both edges clamp
+        u, v = u * 1.2 - 0.1, v * 1.2 - 0.1
+    return atlas, tex, u, v, chans, tile
+
+
+@pytest.mark.parametrize("name", ["mixed", "one_texture", "unaligned",
+                                  "tex_out_of_range", "channels"])
+def test_texel_matches_jax_and_gather(name):
+    atlas, tex, u, v, chans, tile = _inputs(name)
+    args = tuple(torch.as_tensor(a) for a in (atlas, tex, u, v))
+    got = texel_fetch(*args, channels=chans)
+    assert torch.equal(got, texel_plain(*args, channels=chans))
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    want = _gather_ref(atlas, tex, u, v)
+    if chans is not None:
+        want = want[:, list(chans)]
+    np.testing.assert_array_equal(got.numpy(), want.T)
+    jax_out = jax_texel_fetch(jnp.asarray(atlas), jnp.asarray(tex),
+                              jnp.asarray(u), jnp.asarray(v), tile=tile,
+                              channels=chans, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_out))
+
+
+def test_texel_non_finite_lanes_saturate():
+    """Miss and dead lanes reach the fetch with huge, infinite or NaN
+    coordinates: NaN and negatives read texel 0, +huge reads size-1, and
+    no lane indexes out of bounds."""
+    rng = np.random.default_rng(5)
+    atlas = torch.as_tensor(rng.random((3, 16, 16, 12), np.float32))
+    bad = np.float32([np.nan, np.inf, -np.inf, 3e38, -3e38, 1e10, -1e10,
+                      0.5])
+    u = torch.as_tensor(np.repeat(bad, len(bad)))
+    v = torch.as_tensor(np.tile(bad, len(bad)))
+    tex = torch.as_tensor(
+        rng.integers(-300, 2000, len(u)).astype(np.int32))
+    t, tj, ti = texel_index(atlas, tex, u, v)
+    want_cell = np.array([0, 15, 0, 15, 0, 15, 0, 8])
+    np.testing.assert_array_equal(ti.numpy(), np.repeat(want_cell, len(bad)))
+    np.testing.assert_array_equal(tj.numpy(), np.tile(want_cell, len(bad)))
+    assert int(t.min()) >= 0 and int(t.max()) <= 2
+    got = texel_fetch(atlas, tex, u, v, channels=CHANS)
+    assert got.shape == (8, len(u)) and bool(torch.isfinite(got).all())
+    np.testing.assert_array_equal(
+        got.numpy(), atlas.numpy()[t.numpy(), tj.numpy(), ti.numpy()]
+        [:, list(CHANS)].T)
+
+
+def test_texel_rejects_bad_channels():
+    atlas = torch.zeros((2, 16, 16, 12))
+    z = torch.zeros(4)
+    for chans in ((), (12,), (-1,), tuple(range(12)) + (0,)):
+        with pytest.raises(ValueError):
+            texel_fetch(atlas, z.to(torch.int32), z, z, channels=chans)

@@ -49,9 +49,15 @@ class RenderSettings:
     # step budget of the reference's XLA DDA; the port's tracer budget is
     # per ray and defaults to window_trace.auto_events (see trace_events)
     max_trace_steps: int = 256
-    # sparse-light-path slot cap (not on this port's dense path)
+    # sparse light sets (past 512 nodes): slots per ray of the NEE pdf
+    # sweep; a ray that crosses more light prims under-counts its pdf and
+    # is counted in aux["nee_overflow"] when trace_audit is on.  The dense
+    # path has no cap.
     max_nee_hits: int = 8
+    # level cap of the light-BVH descent and of its reverse walk
     max_bvh_depth: int = 32
+    # the reference's pool size; the port's pool belongs to the scene
+    # (VoxelScene(max_entity_tris=...))
     max_entity_tris: int = 64
     # sub-pixel jitter amplitude in pixels (0 = reference behaviour)
     jitter: float = 0.0
@@ -74,14 +80,24 @@ class RenderSettings:
     trace_wskip: bool = True
     trace_unroll: int = 1
     trace_skip_stride: int = 1
-    # count rays that exhausted the tracer's budget (aux["truncated"])
+    # count rays that exhausted the tracer's budget (aux["truncated"]) and
+    # rays that overflowed the sparse NEE sweep (aux["nee_overflow"])
     trace_audit: bool = False
-    # the port always runs the fused shade; False raises (the non-fused
-    # shade path is not ported yet)
+    # None or True: the fused shade kernel, falling back (with a warning)
+    # to the general path for a light set that is sparse or past the
+    # kernel's caps of 512 nodes / 256 prims; False: the general path
+    # (plain stages around the texel kernel)
     shade_fused: "bool | None" = None
     sort_bounces: "tuple | None" = None
+    # general path only: True fetches texels with the texel kernel, False
+    # with PyTorch's indexed read of the atlas (same texels)
     shade_texel_kernel: bool = True
+    # not ported yet (raises)
     shade_bf16: bool = False
+    # stage-isolation timing variants: "freetrace" (a synthetic constant
+    # hit replaces the tracer), "notex" (a constant texel replaces the
+    # fetch), "nonee_pdf" (the NEE pdf sweep is elided); the last two run
+    # on the general path
     debug_stage: str = ""
 
     @property
@@ -107,6 +123,8 @@ class RenderingPreferences:
     nee_type: 0 = BSDF sampling only, 1 = NEE on every bounce,
               2 = NEE on the first bounce only (raytrace.rs:614).
     sort_type: 0 = no inter-bounce sort, 1 = coherence sort.
+    debug_view: 0 = the radiance image; otherwise the ray-layout view
+              (bounce-1 ray slots painted with their 2-D morton position).
     """
 
     nee_type: int = 0

@@ -21,6 +21,14 @@
 // parameter, so each ray's probability array has a compile-time size and
 // the prim loops unroll up to 16 prims.
 //
+// Dynamic entities: the closest-hit merge against the entity triangles is
+// plain PyTorch in the renderer (as it is XLA in the TPU version); the
+// kernel receives the merged t and an optional 12-array attribute stream
+// (48 more bytes per ray) and, on lanes whose flag word has bit 16 set,
+// shades with the triangle's frame, uv and texture instead of the voxel
+// face's.  Whether the stream is present is a template parameter, so the
+// entity-free kernel is the one it was.
+//
 // Arithmetic mirrors kernels/shade.py::shade_plain operation for operation
 // (build with -fmad=false), so the two differ only where CUDA's and
 // PyTorch's cos/sin/log/exp round differently.
@@ -50,6 +58,13 @@ struct ShadeIn {
     const float *t;
     const float *tpx, *tpy, *tpz, *rax, *ray, *raz;
     const int *rid;
+};
+
+// winning entity triangle per ray: normal, tangent, bitangent, uv, and
+// tf = texture | use_tri << 16
+struct TriIn {
+    const float *nx, *ny, *nz, *tx, *ty, *tz, *bx, *by, *bz, *u, *v;
+    const int* tf;
 };
 
 struct ShadeOut {
@@ -126,9 +141,9 @@ __device__ __forceinline__ float node_nimp(
     return tot > 0.0f ? ij / fmaxf(tot, 1e-30f) : 0.0f;
 }
 
-template <int P>
+template <int P, bool TRI>
 __global__ void __launch_bounds__(128) shade_kernel(
-    ShadeIn in, ShadeOut out, Tables tb, int n, uint32_t inv_seed,
+    ShadeIn in, TriIn tri, ShadeOut out, Tables tb, int n, uint32_t inv_seed,
     int bounce, int nee_type)
 {
     extern __shared__ float smem[];
@@ -172,7 +187,7 @@ __global__ void __launch_bounds__(128) shade_kernel(
     // ---- hit record (intersect.py pack_hits layout) ----
     const int pa = in.pa[i], pb = in.pb[i];
     const float t_hit = in.t[i];
-    const bool hit = (pa & 1) != 0;
+    bool hit = (pa & 1) != 0;
     const int face = (pa >> 2) & 7;
     const int owner = (pa >> 14) & 255;
     const int vx = (pb & 1023) - 2;
@@ -184,27 +199,41 @@ __global__ void __launch_bounds__(128) shade_kernel(
     // ---- face frame and uv (renderer._shade) ----
     const int axis = face >> 1;
     const float signf = (float)((face & 1) * 2 - 1);
-    const float n_x = axis == 0 ? signf : 0.0f;
-    const float n_y = axis == 1 ? signf : 0.0f;
-    const float n_z = axis == 2 ? signf : 0.0f;
-    const float tg_x = axis == 2 ? 1.0f : 0.0f;
-    const float tg_y = axis == 0 ? 1.0f : 0.0f;
-    const float tg_z = axis == 1 ? 1.0f : 0.0f;
-    const float bt_x = n_y * tg_z - n_z * tg_y;
-    const float bt_y = n_z * tg_x - n_x * tg_z;
-    const float bt_z = n_x * tg_y - n_y * tg_x;
+    float n_x = axis == 0 ? signf : 0.0f;
+    float n_y = axis == 1 ? signf : 0.0f;
+    float n_z = axis == 2 ? signf : 0.0f;
+    float tg_x = axis == 2 ? 1.0f : 0.0f;
+    float tg_y = axis == 0 ? 1.0f : 0.0f;
+    float tg_z = axis == 1 ? 1.0f : 0.0f;
+    float bt_x = n_y * tg_z - n_z * tg_y;
+    float bt_y = n_z * tg_x - n_x * tg_z;
+    float bt_z = n_x * tg_y - n_y * tg_x;
     const float lx = hpx - ((float)vx + tb.g0);
     const float ly = hpy - ((float)vy + tb.g1);
     const float lz = hpz - ((float)vz + tb.g2);
-    const float u = face == 0 ? 1.0f - lz : face == 1 ? lz : face == 2 ? lx
-                  : face == 3 ? 1.0f - lx : face == 4 ? lx : 1.0f - lx;
-    const float v = (face == 2 || face == 3) ? lz : 1.0f - ly;
+    float u = face == 0 ? 1.0f - lz : face == 1 ? lz : face == 2 ? lx
+            : face == 3 ? 1.0f - lx : face == 4 ? lx : 1.0f - lx;
+    float v = (face == 2 || face == 3) ? lz : 1.0f - ly;
+    int tex = owner * 6 + face;
+    if (TRI) {
+        // entity hit wins (merge done by the renderer): its frame, uv and
+        // texture replace the voxel face's
+        const int tf = tri.tf[i];
+        if ((tf >> 16) & 1) {
+            hit = true;
+            n_x = tri.nx[i]; n_y = tri.ny[i]; n_z = tri.nz[i];
+            tg_x = tri.tx[i]; tg_y = tri.ty[i]; tg_z = tri.tz[i];
+            bt_x = tri.bx[i]; bt_y = tri.by[i]; bt_z = tri.bz[i];
+            u = tri.u[i]; v = tri.v[i];
+            tex = tf & 0xFFFF;
+        }
+    }
 
     // ---- texels: refl rgb, alpha, emis rgb, metal (CHANNELS) ----
     float ch[NCH];
     if (hit) {
         const int size = tb.size;
-        const int tex = min(max(owner * 6 + face, 0), tb.n_tex - 1);
+        tex = min(max(tex, 0), tb.n_tex - 1);
         const int ti = min(max((int)(u * (float)size), 0), size - 1);
         const int tj = min(max((int)(v * (float)size), 0), size - 1);
         const float* texel = tb.atlas + ((size_t)(tex * size + tj) * size + ti) * 12;
@@ -376,9 +405,10 @@ __global__ void __launch_bounds__(128) shade_kernel(
     out.tpz[i] = tpz * (orz * wv);
 }
 
-template <int P>
-int launch(const ShadeIn& in, const ShadeOut& out, const Tables& tb, int n,
-           uint32_t inv_seed, int bounce, int nee_type, cudaStream_t stream)
+template <int P, bool TRI>
+int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
+           const Tables& tb, int n, uint32_t inv_seed, int bounce,
+           int nee_type, cudaStream_t stream)
 {
     const size_t smem = nee_type != 0
         ? (size_t)(8 * tb.m_nodes + 32 * P) * sizeof(float)
@@ -386,23 +416,36 @@ int launch(const ShadeIn& in, const ShadeOut& out, const Tables& tb, int n,
         : 0;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            shade_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            shade_kernel<P, TRI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
     const int block = 128;
-    shade_kernel<P><<<(n + block - 1) / block, block, smem, stream>>>(
-        in, out, tb, n, inv_seed, bounce, nee_type);
+    shade_kernel<P, TRI><<<(n + block - 1) / block, block, smem, stream>>>(
+        in, tri, out, tb, n, inv_seed, bounce, nee_type);
     return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_p(const ShadeIn& in, const TriIn* tri, const ShadeOut& out,
+             const Tables& tb, int n, uint32_t inv_seed, int bounce,
+             int nee_type, cudaStream_t stream)
+{
+    if (tri)
+        return launch<P, true>(in, *tri, out, tb, n, inv_seed, bounce,
+                               nee_type, stream);
+    return launch<P, false>(in, TriIn{}, out, tb, n, inv_seed, bounce,
+                            nee_type, stream);
 }
 
 }  // namespace
 
 // ins: 16 device pointers (ox oy oz dx dy dz pa pb t tpx tpy tpz rax ray raz
-// rid); outs: 12 (ox oy oz dx dy dz tpx tpy tpz rax ray raz).  p_prims must
-// be one of 8..256 (powers of two).  Returns cudaGetLastError().
+// rid); outs: 12 (ox oy oz dx dy dz tpx tpy tpz rax ray raz); tris: null, or
+// 12 (normal xyz, tangent xyz, bitangent xyz, u, v, tf).  p_prims must be
+// one of 8..256 (powers of two).  Returns cudaGetLastError().
 extern "C" int shade_launch(
-    void* const* ins, void* const* outs, int n,
+    void* const* ins, void* const* outs, void* const* tris, int n,
     const float* atlas, int size, int n_tex,
     const float* nodes, const int* parent, int m_nodes,
     const float* prims, const int* leaf, int p_prims, int num_prims,
@@ -422,14 +465,22 @@ extern "C" int shade_launch(
                  (float*)outs[9], (float*)outs[10], (float*)outs[11]};
     Tables tb{atlas, size, n_tex, nodes, parent, prims, leaf, m_nodes,
               num_prims, g0, g1, g2};
+    TriIn tri_in{};
+    if (tris)
+        tri_in = TriIn{
+            (const float*)tris[0], (const float*)tris[1], (const float*)tris[2],
+            (const float*)tris[3], (const float*)tris[4], (const float*)tris[5],
+            (const float*)tris[6], (const float*)tris[7], (const float*)tris[8],
+            (const float*)tris[9], (const float*)tris[10], (const int*)tris[11]};
+    const TriIn* tri = tris ? &tri_in : nullptr;
     cudaStream_t s = (cudaStream_t)stream;
     switch (p_prims) {
-        case 8: return launch<8>(in, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 16: return launch<16>(in, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 32: return launch<32>(in, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 64: return launch<64>(in, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 128: return launch<128>(in, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 256: return launch<256>(in, out, tb, n, inv_seed, bounce, nee_type, s);
+        case 8: return launch_p<8>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
+        case 16: return launch_p<16>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
+        case 32: return launch_p<32>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
+        case 64: return launch_p<64>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
+        case 128: return launch_p<128>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
+        case 256: return launch_p<256>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

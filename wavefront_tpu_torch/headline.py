@@ -1,11 +1,14 @@
-"""The port's workloads: the headline frame and the golden config-1 scene.
+"""The port's workloads: the headline frame, the general frame and the
+golden config-1 scene.
 
 `build_scene` and `headline_setup` build the same scene, camera pose,
 preferences and settings as the JAX package's `bench.py` (the 5x1x5-chunk
 worldgen scene, 1920x1080, 4 bounces, NEE on, compaction and the trace
-audit on), from the port's own modules.  `config1_grid` and
-`config1_pose` are the golden-image scene and camera of the reference's
-tests (tests/test_golden.py).
+audit on), from the port's own modules.  `general_setup` is that frame
+with a sparse light set (a lattice of lamp voxels) and a cube entity, on
+the general (non-fused) shade path.  `config1_grid` and `config1_pose`
+are the golden-image scene and camera of the reference's tests
+(tests/test_golden.py).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from wavefront_tpu_torch.core.config import (
     WorldSettings,
 )
 from wavefront_tpu_torch.render.scene import VoxelScene
+from wavefront_tpu_torch.world import meshes
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 from wavefront_tpu_torch.world.worldgen import WorldGenerator
 
@@ -43,14 +47,41 @@ def build_scene(registry: BlockRegistry, world: WorldSettings, span: int = 2):
     return grid, (-span * cs, 0, -span * cs)
 
 
+def lamp_lattice(grid: np.ndarray, registry: BlockRegistry) -> list:
+    """Grid cells of the general frame's lamp lattice: for i, j = 0..9 the
+    point x = 8 + 16 i + (5 j + i^2) mod 7 - 3,
+          y = 4 + (i^3 + 7 j^2 + 5 i j + 3 j) mod 23,
+          z = 8 + 16 j + (3 i + j^2) mod 7 - 3,
+    kept when its cell and six neighbours are air, so that every lamp
+    exposes six faces.  The polynomial offsets keep lamps from lining up:
+    no line through two lamps of the headline grid passes within 0.9 of
+    more than three lamp centres, so a ray crosses few light prims."""
+    air = grid == registry.air
+    cells = []
+    for i in range(10):
+        for j in range(10):
+            x = 8 + 16 * i + (5 * j + i * i) % 7 - 3
+            y = 4 + (i ** 3 + 7 * j * j + 5 * i * j + 3 * j) % 23
+            z = 8 + 16 * j + (3 * i + j * j) % 7 - 3
+            around = [(x, y, z), (x - 1, y, z), (x + 1, y, z), (x, y - 1, z),
+                      (x, y + 1, z), (x, y, z - 1), (x, y, z + 1)]
+            if all(air[c] for c in around):
+                cells.append((x, y, z))
+    return cells
+
+
 def headline_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
-                   device="cuda", **settings_kw):
+                   device="cuda", lamps: bool = False, **settings_kw):
     """The headline workload: (scene, settings, camera basis, prefs).
 
     Compaction and the trace audit default on, as in the reference; its
-    TPU schedule settings are not set here because the port ignores them."""
+    TPU schedule settings are not set here because the port ignores them.
+    lamps: also write the lamp lattice (`lamp_lattice`) into the grid."""
     registry = BlockRegistry.load(ASSETS)
     grid, origin = build_scene(registry, WorldSettings())
+    if lamps:
+        for cell in lamp_lattice(grid, registry):
+            grid[cell] = registry.block_idx("lamp")
     scene = VoxelScene(registry, grid, origin, max_light_prims=1024,
                        device=device)
     settings_kw.setdefault("trace_audit", True)
@@ -65,6 +96,44 @@ def headline_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
     cam.pitch = -0.55
     return scene, settings, cam.eye_front_right_up(), \
         RenderingPreferences(nee_type=1)
+
+
+# slots per ray of the sparse NEE pdf sweep on the general frame: no ray of
+# the 1920x1080x4 frame crosses more light prims (aux["nee_overflow"] == 0)
+GENERAL_MAX_NEE_HITS = 8
+
+
+def add_ego_cube(scene: VoxelScene, basis) -> None:
+    """Add the "ego" cube entity (12 triangles, grass textures), 2 units
+    wide, 8 units along the camera's view axis, as the app adds its ego
+    cube (an entity with a mesh and an isometry)."""
+    center = np.asarray(basis.eye, np.float32) \
+        + 8.0 * np.asarray(basis.front, np.float32)
+    transform = np.concatenate(
+        [2.0 * np.eye(3, dtype=np.float32), center[:, None]], axis=1)
+    scene.add_object("ego", *meshes.unitcube(), transform=transform)
+
+
+def general_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
+                  device="cuda", **settings_kw):
+    """The general-path workload: (scene, settings, camera basis, prefs).
+
+    The headline scene, pose and settings, plus the lamp lattice (a sparse
+    light set: more than 256 prims), plus the ego cube in view of the
+    camera, rendered by the general shade (shade_fused=False) with the
+    texel kernel."""
+    settings_kw.setdefault("shade_fused", False)
+    settings_kw.setdefault("shade_texel_kernel", True)
+    settings_kw.setdefault("max_nee_hits", GENERAL_MAX_NEE_HITS)
+    scene, settings, basis, prefs = headline_setup(
+        width, height, bounces, device=device, lamps=True, **settings_kw)
+    add_ego_cube(scene, basis)
+    lights = scene.get_arrays().lights
+    if lights.dense:
+        raise AssertionError(
+            f"general_setup: {lights.num_prims} light prims make a dense "
+            "light set; the lattice must yield more than 256")
+    return scene, settings, basis, prefs
 
 
 def config1_grid(registry: BlockRegistry, size: int = 16) -> np.ndarray:

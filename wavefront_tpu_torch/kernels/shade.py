@@ -8,8 +8,8 @@ dense light-BVH pick, the dense NEE pdf sweep and the throughput/radiance
 fold, in one pass that reads each ray's state once and writes it once.
 
 Bound on the card: 112 bytes per ray cross device memory (16 input and 12
-output words); the atlas stays in L2 and the light tables in shared
-memory.  At the headline's 8 light prims that byte bound is the floor;
+output words; 48 more with the entity stream `tri_attrs`); the atlas stays
+in L2 and the light tables in shared memory.  At the headline's 8 light prims that byte bound is the floor;
 the per-ray light walk and pdf sweep grow with the prim count (see the
 source note in the .cu file and PERF.md).
 
@@ -144,7 +144,7 @@ def prep_shade_tables(atlas_packed, lights) -> ShadeTables:
 
 def shade_plain(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
                 pa, pb, t, tp: V3, rad: V3, rid, inv_seed: int, bounce: int,
-                num_prims: int, *, nee_type: int):
+                num_prims: int, *, nee_type: int, tri_attrs=None):
     """Plain PyTorch version of the shade kernel (same arguments as
     shade_pass); returns (origin', direction', tp', rad') as V3s."""
     f32 = dict(dtype=_F32, device=origin.x.device)
@@ -183,10 +183,27 @@ def shade_plain(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
         face == 1, lz, torch.where(face == 2, lx, torch.where(
             face == 3, 1.0 - lx, torch.where(face == 4, lx, 1.0 - lx)))))
     v = torch.where((face == 2) | (face == 3), lz, 1.0 - ly)
+    tex = owner * 6 + face
+
+    if tri_attrs is not None:
+        # entity hits (bit 16 of the flag word) take the winning triangle's
+        # frame, uv and texture over the voxel face's
+        (tnx, tny, tnz, ttx, tty, ttz, tbx, tby, tbz, tu, tv, tf) = tri_attrs
+        ut = ((tf >> 16) & 1) != 0
+        hit = hit | ut
+        n_x, n_y, n_z = (torch.where(ut, a, b) for a, b in
+                         ((tnx, n_x), (tny, n_y), (tnz, n_z)))
+        tg_x, tg_y, tg_z = (torch.where(ut, a, b) for a, b in
+                            ((ttx, tg_x), (tty, tg_y), (ttz, tg_z)))
+        bt_x, bt_y, bt_z = (torch.where(ut, a, b) for a, b in
+                            ((tbx, bt_x), (tby, bt_y), (tbz, bt_z)))
+        u = torch.where(ut, tu, u)
+        v = torch.where(ut, tv, v)
+        tex = torch.where(ut, tf & 0xFFFF, tex)
 
     # ---- texels ----
     n_tex, size = tables.atlas.shape[0], tables.atlas.shape[1]
-    tex = (owner * 6 + face).clamp(0, n_tex - 1).to(torch.int64)
+    tex = tex.clamp(0, n_tex - 1).to(torch.int64)
     ti = (u * float(size)).to(torch.int32).clamp(0, size - 1).to(torch.int64)
     tj = (v * float(size)).to(torch.int32).clamp(0, size - 1).to(torch.int64)
     texel = tables.atlas[tex, tj, ti][:, list(CHANNELS)]
@@ -350,7 +367,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.shade_launch.argtypes = [
-            p, p, i, p, i, i, p, p, i, p, p, i, i, f, f, f,
+            p, p, p, i, p, i, i, p, p, i, p, p, i, i, f, f, f,
             ctypes.c_uint, i, i, p]
         lib.shade_launch.restype = ctypes.c_int
         lib._typed = True
@@ -365,11 +382,17 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
 
     origin/direction/tp/rad: V3 of (N,) float32; pa/pb: packed int32 hit
     words, t: float32 hit parameter (window_trace); rid: (N,) int32 pixel
-    ids; inv_seed: frame * bounces + bounce.  CPU tensors take
-    `shade_plain`; CUDA tensors launch the kernel or raise."""
-    if tri_attrs is not None:
-        raise NotImplementedError(
-            "dynamic entities on the fused shade are not ported yet")
+    ids; inv_seed: frame * bounces + bounce.
+
+    tri_attrs: when the scene holds dynamic entities, the winning entity
+    triangle's attributes per ray as 12 (N,) tensors: normal xyz, tangent
+    xyz, bitangent xyz, u, v (float32) and the int32 flag word texture |
+    use_tri << 16; `t` must already be the merged closest-hit parameter
+    (`render.renderer.entity_attrs` makes both).  Lanes with bit 16 set
+    shade as entity hits (reference raytrace.rs:541-566).
+
+    CPU tensors take `shade_plain`; CUDA tensors launch the kernel or
+    raise."""
     if color_bf16:
         raise NotImplementedError("the bf16 color pipeline is not ported yet")
     if nee_type not in (0, 1, 2):
@@ -383,15 +406,21 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
                 f"prims exceeds the shade caps {MAX_NODES}/{MAX_PRIMS}")
     inv_seed = int(inv_seed) & 0xFFFFFFFF
     ins = (*origin, *direction, pa, pb, t, *tp, *rad, rid)
+    if tri_attrs is not None and len(tri_attrs) != 12:
+        raise ValueError("shade_pass: tri_attrs must hold 12 tensors")
     if origin.x.device.type == "cpu":
         return shade_plain(tables, grid_origin, origin, direction, pa, pb, t,
                            tp, rad, rid, inv_seed, int(bounce),
-                           int(num_prims), nee_type=nee_type)
+                           int(num_prims), nee_type=nee_type,
+                           tri_attrs=tri_attrs)
     dev = origin.x.device
     n = origin.x.shape[0]
     want = [torch.float32] * 6 + [torch.int32, torch.int32] + \
         [torch.float32] * 7 + [torch.int32]
-    for x, dt in zip(ins, want):
+    tri = tuple(tri_attrs) if tri_attrs is not None else ()
+    if tri:
+        want = want + [torch.float32] * 11 + [torch.int32]
+    for x, dt in zip(ins + tri, want):
         if (x.device != dev or x.dtype != dt or x.dim() != 1
                 or x.shape[0] != n or not x.is_contiguous()):
             raise ValueError("shade_pass: inputs must be contiguous (N,) "
@@ -410,10 +439,12 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
     outs = [torch.empty(n, dtype=_F32, device=dev) for _ in range(12)]
     in_ptrs = (ctypes.c_void_p * 16)(*(x.data_ptr() for x in ins))
     out_ptrs = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in outs))
+    tri_ptrs = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in tri)) \
+        if tri else None
     g = [float(v) for v in grid_origin]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().shade_launch(
-        in_ptrs, out_ptrs, n, tables.atlas.data_ptr(),
+        in_ptrs, out_ptrs, tri_ptrs, n, tables.atlas.data_ptr(),
         tables.atlas.shape[1], tables.atlas.shape[0],
         tables.nodes.data_ptr(), tables.parent.data_ptr(), tables.m_nodes,
         tables.prims.data_ptr(), tables.leaf.data_ptr(), tables.p_prims,

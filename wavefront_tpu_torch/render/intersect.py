@@ -1,6 +1,6 @@
-"""Voxel intersection: the hit record, its packed form, and the plain
-PyTorch tracer that the CUDA tracer (`kernels/window_trace.py`) is held
-against.
+"""Intersection: the voxel hit record, its packed form, the plain PyTorch
+tracer that the CUDA tracer (`kernels/window_trace.py`) is held against,
+and the closest-hit sweep over the dynamic entities' triangles.
 
 The reference intersects rays with meshed voxel faces through hardware ray
 queries (raytrace.rs:366-400).  Here, as in the JAX package, the
@@ -242,3 +242,76 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int):
     ))
     pa = pa | (active.to(_I32) << TRUNCATED_BIT)
     return pa, pb, t
+
+
+class TriHit(NamedTuple):
+    """Closest entity-triangle hit, one entry per ray."""
+
+    hit: torch.Tensor       # bool
+    t: torch.Tensor         # f32 ray parameter (INF_T on a miss)
+    tri: torch.Tensor       # int64 index of the winning triangle
+    bary_u: torch.Tensor    # f32 barycentric of vertex 1
+    bary_v: torch.Tensor    # f32 barycentric of vertex 2
+
+
+# rays per pass of the sweep: bounds its (rays, triangles) float32
+# temporaries to 64 MB each at 64 active triangles; per-ray results do not
+# depend on it
+TRI_RAY_CHUNK = 1 << 18
+
+
+def triangle_sweep(tri_verts, tri_active, origin: V3, direction: V3, *,
+                   t_min: float = EPSILON_BLOCK,
+                   t_max: float = T_MAX) -> TriHit:
+    """Closest-hit Moller-Trumbore of every ray over the fixed triangle
+    pool (tri_verts (T, 3, 3), tri_active (T,)).  Replaces the per-entity
+    hardware BLAS of the reference (scene.rs:150-202): O(N*T), T small."""
+    # only the pool's active triangles are swept
+    pool = torch.nonzero(tri_active)[:, 0]
+    n = origin.x.shape[0]
+    if pool.shape[0] == 0:
+        zero = torch.zeros_like(origin.x)
+        return TriHit(hit=torch.zeros(n, dtype=torch.bool, device=zero.device),
+                      t=torch.full_like(zero, INF_T),
+                      tri=torch.zeros(n, dtype=torch.int64, device=zero.device),
+                      bary_u=zero, bary_v=zero)
+    verts = tri_verts[pool]
+    v0 = verts[:, 0]
+    e1 = verts[:, 1] - v0
+    e2 = verts[:, 2] - v0
+    v0x, v0y, v0z = (v0[None, :, c] for c in range(3))
+    e1x, e1y, e1z = (e1[None, :, c] for c in range(3))
+    e2x, e2y, e2z = (e2[None, :, c] for c in range(3))
+    parts = []
+    for lo in range(0, max(n, 1), TRI_RAY_CHUNK):
+        rows = slice(lo, lo + TRI_RAY_CHUNK)
+        ox, oy, oz = (c[rows, None] for c in origin)
+        dx, dy, dz = (c[rows, None] for c in direction)
+        # pvec = d x e2
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = (px * e1x + py * e1y) + pz * e1z
+        ok = det.abs() > 1e-12
+        inv_det = torch.where(ok, 1.0 / det, torch.zeros_like(det))
+        tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+        u = ((tx * px + ty * py) + tz * pz) * inv_det
+        # qvec = tvec x e1
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        v = ((dx * qx + dy * qy) + dz * qz) * inv_det
+        t = ((e2x * qx + e2y * qy) + e2z * qz) * inv_det
+        ok = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min)
+              & (t <= t_max) & ((dx != 0.0) | (dy != 0.0) | (dz != 0.0)))
+        t = torch.where(ok, t, torch.full_like(t, INF_T))
+        best = torch.argmin(t, dim=1, keepdim=True)
+        parts.append((best[:, 0], t.gather(1, best)[:, 0],
+                      u.gather(1, best)[:, 0], v.gather(1, best)[:, 0]))
+    best, best_t, best_u, best_v = (torch.cat(c) for c in zip(*parts))
+    hit = best_t < INF_T
+    # a ray that hits nothing names triangle 0, as an argmin over the
+    # whole pool would
+    return TriHit(hit=hit, t=best_t,
+                  tri=torch.where(hit, pool[best], torch.zeros_like(best)),
+                  bary_u=best_u, bary_v=best_v)

@@ -408,10 +408,21 @@ def build_from_grid(
     grid_origin,
     registry: BlockRegistry,
     max_prims: int,
+    extra_tris: tuple = None,
 ) -> LightSet:
-    """LightSet for a voxel grid (entity triangles are not ported yet)."""
+    """LightSet for a voxel grid (+ optional emissive entity triangles).
+
+    extra_tris: (verts (T,3,3), power (T,)) triangles in world space.
+    """
     p0, e1, e2, power = extract_voxel_lights(
         grid, np.asarray(grid_origin), registry
     )
     is_tri = np.zeros(len(p0), bool)
+    if extra_tris is not None and len(extra_tris[0]) > 0:
+        tv, tp = extra_tris
+        p0 = np.concatenate([p0, tv[:, 0].astype(np.float32)])
+        e1 = np.concatenate([e1, (tv[:, 1] - tv[:, 0]).astype(np.float32)])
+        e2 = np.concatenate([e2, (tv[:, 2] - tv[:, 0]).astype(np.float32)])
+        power = np.concatenate([power, tp.astype(np.float32)])
+        is_tri = np.concatenate([is_tri, np.ones(len(tv), bool)])
     return build_light_set(p0, e1, e2, power, is_tri, max_prims)

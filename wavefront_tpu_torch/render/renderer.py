@@ -1,64 +1,136 @@
 """The wavefront renderer: one frame = raygen, then per bounce a coherence
-sort, the compaction bucket, the tracer kernel and the fused shade kernel,
-then the pixel-order restore and postprocess.
+sort, the compaction bucket, the tracer kernel and a shade, then the
+pixel-order restore and postprocess.
 
-Counterpart of `wavefront_tpu.render.renderer.render_frame` and `Renderer`
-on the main path of the headline frame (fused shade, dense light set,
-static scene).  Radiance accumulates per ray with the throughput folded
-forward (outgoing_radiance.rs:77-87), and every per-ray output is
-independent of ray order, so the sort only groups rays for the kernels
-and the image compares with the reference in pixel order.
+Counterpart of `wavefront_tpu.render.renderer.render_frame` and `Renderer`.
+A bounce shades on one of two paths, chosen by `use_fused`:
+
+  * fused: the shade kernel (`kernels/shade.py`) does the whole shade, the
+    dense light pick, the dense NEE pdf sweep and the throughput/radiance
+    fold in one pass; entity hits are merged into its inputs by
+    `entity_attrs`.  It needs a dense light set within the kernel's caps.
+  * general (`shade_general` + `shade_m`): the same shade as plain tensor
+    stages around the texel kernel (`kernels/texel.py`), with the light
+    pick by `dense_sample_light` or, for sparse light sets, the stochastic
+    BVH descent, and the NEE pdf by the dense or the sparse sweep.  It is
+    what runs for `shade_fused=False`, the stage-isolation variants
+    `debug_stage` "notex" / "nonee_pdf", and every light set that is
+    sparse or past the fused kernel's caps (with a warning).
+
+Radiance accumulates per ray with the throughput folded forward
+(outgoing_radiance.rs:77-87), and every per-ray output is independent of
+ray order, so the sort only groups rays for the kernels and the image
+compares with the reference in pixel order.  (The `debug_view` image
+paints ray slots, so it does depend on the sort.)
 
 Not ported yet (each raises NotImplementedError): cache_primary,
-render_batch, entities, sparse light sets, the non-fused shade path,
-shade_bf16, debug_stage, debug_view != 0.  The reference's TPU tracer
-schedule settings (trace_tile, trace_phases*, trace_windows*, ...) are
+render_batch, shade_bf16.  The reference's TPU tracer schedule settings
+(trace_tile, trace_phases*, trace_windows*, sort_bounces, ...) are
 accepted and change nothing.
 """
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 
-from wavefront_tpu_torch.core import vec3
+from wavefront_tpu_torch.core import morton, rng, vec3
 from wavefront_tpu_torch.core.camera import CameraBasis
-from wavefront_tpu_torch.core.config import RenderingPreferences, RenderSettings
+from wavefront_tpu_torch.core.config import (
+    EMISSION_SCALE,
+    EPSILON_BLOCK,
+    MISS_DISTANCE,
+    NEE_MIS_WEIGHT,
+    SKY_COS_CUTOFF,
+    SKY_EMISSION,
+    RenderingPreferences,
+    RenderSettings,
+)
 from wavefront_tpu_torch.core.vec3 import V3
-from wavefront_tpu_torch.kernels.shade import prep_shade_tables, shade_pass
+from wavefront_tpu_torch.kernels.shade import (
+    CHANNELS,
+    MAX_NODES,
+    MAX_PRIMS,
+    prep_shade_tables,
+    shade_pass,
+)
+from wavefront_tpu_torch.kernels.texel import texel_fetch, texel_index
 from wavefront_tpu_torch.kernels.window_trace import (
     auto_events,
     coherence_key,
     window_trace,
 )
-from wavefront_tpu_torch.render.intersect import TRUNCATED_BIT
+from wavefront_tpu_torch.render.intersect import (
+    TRUNCATED_BIT,
+    TriHit,
+    VoxelHit,
+    pack_hits,
+    triangle_sweep,
+    unpack_hits,
+)
 from wavefront_tpu_torch.render.scene import SceneArrays, VoxelScene
-from wavefront_tpu_torch.render.wavefront import postprocess, raygen_soa
+from wavefront_tpu_torch.render.wavefront import (
+    BvhSample,
+    cosine_hemisphere,
+    dense_sample_light,
+    nee_pdf_sweep,
+    postprocess,
+    raygen_soa,
+    reflect,
+    traverse_light_bvh,
+)
 
 _F32 = torch.float32
+_I32 = torch.int32
+_INV_PI = float(np.float32(1.0 / math.pi))
+_EPS15 = float(np.float32(EPSILON_BLOCK * 1.5))
 
 
 def _check_supported(settings: RenderSettings, nee_type: int,
-                     sort_type: int, debug_view: int) -> None:
+                     sort_type: int) -> None:
     if settings.cache_primary:
         raise NotImplementedError("cache_primary is not ported yet")
-    if settings.shade_fused is False:
-        raise NotImplementedError("the non-fused shade path is not ported yet")
-    if settings.debug_stage:
-        raise NotImplementedError("debug_stage is not ported yet")
-    if debug_view != 0:
-        raise NotImplementedError("debug_view != 0 is not ported yet")
     if settings.shade_bf16:
         raise NotImplementedError("shade_bf16 is not ported yet")
+    if settings.debug_stage not in ("", "freetrace", "notex", "nonee_pdf"):
+        raise ValueError(f"debug_stage {settings.debug_stage!r}")
     if nee_type not in (0, 1, 2) or sort_type not in (0, 1):
         raise ValueError(f"nee_type {nee_type} / sort_type {sort_type}")
 
 
-def coherence_sort(scene: SceneArrays, o: V3, d: V3, tp: V3, rad: V3, rid):
+def use_fused(scene: SceneArrays, settings: RenderSettings,
+              nee_type: int) -> bool:
+    """Whether the fused shade kernel drives this frame.  `shade_fused`
+    None means fused.  The stage-isolation variants the kernel cannot
+    express take the general path, and so does, with a warning, a light
+    set that is sparse or past the kernel's table caps."""
+    if settings.shade_fused is False:
+        return False
+    if settings.debug_stage in ("notex", "nonee_pdf"):
+        return False
+    if nee_type != 0:
+        la = scene.lights
+        m, p = la.node_min.shape[0], la.p0.shape[0]
+        if not la.dense or m > MAX_NODES or p > MAX_PRIMS:
+            warnings.warn(
+                "light set exceeds the fused-shade caps "
+                f"(nodes {m}/{MAX_NODES}, prims {p}/{MAX_PRIMS}, "
+                f"dense={la.dense}) — falling back to the general shade path",
+                stacklevel=2,
+            )
+            return False
+    return True
+
+
+def coherence_sort(scene: SceneArrays, o: V3, d: V3, tp: V3, rad: V3, rid,
+                   *riders: V3):
     """One stable sort of the whole ray state by the coherence key (dead
     rays last, bit 31), replacing the reference's multi-operand sort
-    network.  Returns the permuted (o, d, tp, rad, rid)."""
+    network.  Returns the permuted (o, d, tp, rad, rid, *riders)."""
     gx, gy, gz = scene.grid.shape
     go = scene.grid_origin
     key = coherence_key(o.x - float(go[0]), o.y - float(go[1]),
@@ -68,30 +140,307 @@ def coherence_sort(scene: SceneArrays, o: V3, d: V3, tp: V3, rad: V3, rid):
     def take(v):
         return v.map(lambda c: c[perm])
 
-    return take(o), take(d), take(tp), take(rad), rid[perm]
+    return (take(o), take(d), take(tp), take(rad), rid[perm],
+            *(take(v) for v in riders))
+
+
+def _freetrace_hit(scene: SceneArrays, origin: V3, direction: V3,
+                   alive) -> VoxelHit:
+    """Stage-isolation synthetic constant hit (debug_stage="freetrace"):
+    every ray stays alive through every bounce, so the frame time is that
+    of the pipeline without the tracer."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    t5 = torch.full((n,), 5.0, dtype=_F32, device=dev)
+    go = scene.grid_origin
+    hp = origin + direction * t5
+
+    def cell(c, g, off):
+        return ((c - float(g)).to(_I32) - off).clamp(0, 10 ** 6)
+
+    return VoxelHit(
+        hit=alive, t=t5,
+        owner=torch.ones(n, dtype=_I32, device=dev),
+        face=torch.full((n,), 3, dtype=_I32, device=dev),
+        vx=cell(hp.x, go[0], 0), vy=cell(hp.y, go[1], 1),
+        vz=cell(hp.z, go[2], 0), entered=alive,
+    )
+
+
+def _entity_frame(scene: SceneArrays, tri: TriHit):
+    """Shading attributes of each ray's winning entity triangle (reference
+    raytrace.rs:541-566): (normal, tangent, bitangent, u, v, texture) with
+    the frame from the triangle's edges and barycentric uv."""
+    tv = scene.tri_verts[tri.tri]                      # (N, 3, 3)
+    e1 = V3.from_array(tv[:, 1] - tv[:, 0])
+    e2 = V3.from_array(tv[:, 2] - tv[:, 0])
+    normal = vec3.cross(e1, e2)
+    normal = normal / vec3.norm(normal).clamp_min(1e-20)
+    tangent = e1 / vec3.norm(e1).clamp_min(1e-20)
+    bitangent = vec3.cross(normal, tangent)
+    bitangent = bitangent / vec3.norm(bitangent).clamp_min(1e-20)
+    uv = scene.tri_uv[tri.tri]                         # (N, 3, 2)
+    b0 = 1.0 - tri.bary_u - tri.bary_v
+    u = (uv[:, 0, 0] * b0 + uv[:, 1, 0] * tri.bary_u) + uv[:, 2, 0] * tri.bary_v
+    v = (uv[:, 0, 1] * b0 + uv[:, 1, 1] * tri.bary_u) + uv[:, 2, 1] * tri.bary_v
+    return normal, tangent, bitangent, u, v, scene.tri_tex[tri.tri]
+
+
+def entity_attrs(scene: SceneArrays, origin: V3, direction: V3, pa, t):
+    """Closest-hit merge of the entity triangles into the tracer's hits,
+    for the fused shade: returns (merged t, tri_attrs), the 12-tensor
+    stream of `kernels.shade.shade_pass`."""
+    tri = triangle_sweep(scene.tri_verts, scene.tri_active, origin, direction)
+    use_tri = tri.hit & vec3.any_nonzero(direction) & (
+        ((pa & 1) == 0) | (tri.t < t))
+    normal, tangent, bitangent, u, v, tex = _entity_frame(scene, tri)
+    tex = tex.clamp(0, scene.atlas_packed.shape[0] - 1)
+    tflag = tex | (use_tri.to(_I32) << 16)
+    return torch.where(use_tri, tri.t, t), (
+        *normal, *tangent, *bitangent, u, v, tflag)
+
+
+def shade_general(scene: SceneArrays, settings: RenderSettings,
+                  nee_type: int, bounce: int, origin: V3, direction: V3,
+                  seed, vox: VoxelHit, use_entities: bool,
+                  texel=texel_fetch):
+    """The shade and sample step of one bounce for every ray (reference
+    raytrace.rs:467-694), on the hits `vox` of the tracer.
+
+    seed: per-ray murmur3 state (invocation seed combined with the pixel
+    id).  Returns (new origin V3, new direction V3, normal V3, emissivity
+    V3, reflectivity V3, MIS weight, bsdf pdf, dense prim probabilities or
+    None)."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    alive = vec3.any_nonzero(direction)
+    zero = torch.zeros(n, dtype=_F32, device=dev)
+    one = torch.ones(n, dtype=_F32, device=dev)
+
+    if use_entities:
+        tri = triangle_sweep(scene.tri_verts, scene.tri_active, origin,
+                             direction)
+        use_tri = tri.hit & (~vox.hit | (tri.t < vox.t))
+        hit_any = (vox.hit | tri.hit) & alive
+        t_hit = torch.where(use_tri, tri.t, vox.t)
+    else:
+        hit_any = vox.hit & alive
+        t_hit = vox.t
+    hit_point = origin + direction * t_hit
+
+    # ---- voxel face attributes ----
+    face = vox.face
+    axis = face >> 1                        # 0:x 1:y 2:z
+    signf = ((face & 1) * 2 - 1).to(_F32)   # outward
+    normal = V3(torch.where(axis == 0, signf, zero),
+                torch.where(axis == 1, signf, zero),
+                torch.where(axis == 2, signf, zero))
+    # canonical tangent = next axis in the xyz cycle
+    tangent = V3(torch.where(axis == 2, one, zero),
+                 torch.where(axis == 0, one, zero),
+                 torch.where(axis == 1, one, zero))
+    bitangent = vec3.cross(normal, tangent)
+    go = scene.grid_origin
+    lx = hit_point.x - (vox.vx + go[0]).to(_F32)
+    ly = hit_point.y - (vox.vy + go[1]).to(_F32)
+    lz = hit_point.z - (vox.vz + go[2]).to(_F32)
+    # face-local uv from the mesher's per-vertex assignment
+    # (chunk.rs:222-287): 0: (1-lz, 1-ly)  1: (lz, 1-ly)  2: (lx, lz)
+    #                     3: (1-lx, lz)    4: (lx, 1-ly)  5: (1-lx, 1-ly)
+    u = torch.where(face == 0, 1.0 - lz, torch.where(
+        face == 1, lz, torch.where(face == 2, lx, torch.where(
+            face == 3, 1.0 - lx, torch.where(face == 4, lx, 1.0 - lx)))))
+    v = torch.where((face == 2) | (face == 3), lz, 1.0 - ly)
+    # texture slot = block*6 + face (block.rs:116-119), clamped for miss
+    # lanes whose owner is the out-of-table air id
+    tex = (vox.owner * 6 + face).clamp(0, scene.atlas_packed.shape[0] - 1)
+
+    if use_entities:
+        tn, tt, tb, tu, tv, ttex = _entity_frame(scene, tri)
+        normal = vec3.where(use_tri, tn, normal)
+        tangent = vec3.where(use_tri, tt, tangent)
+        bitangent = vec3.where(use_tri, tb, bitangent)
+        u = torch.where(use_tri, tu, u)
+        v = torch.where(use_tri, tv, v)
+        tex = torch.where(use_tri, ttex, tex)
+
+    # ---- texels: the 8 consumed channels of the packed atlas ----
+    if settings.debug_stage == "notex":
+        # stage-isolation variant: a constant texel, no atlas read
+        const = torch.full((n,), 0.5, dtype=_F32, device=dev) * (u * 0 + 1)
+        ch = [const] * len(CHANNELS)
+    elif settings.shade_texel_kernel:
+        ch = texel(scene.atlas_packed, tex.to(_I32).contiguous(), u, v,
+                   channels=CHANNELS)
+    else:
+        # the caller asked for PyTorch's indexed read instead of the kernel
+        tx = scene.atlas_packed[texel_index(scene.atlas_packed, tex, u, v)]
+        ch = [tx[:, c] for c in CHANNELS]
+    reflectivity = V3(ch[0], ch[1], ch[2])
+    alpha, metallicity = ch[3], ch[7]
+    cos_in = -vec3.dot(direction, normal)
+    emissivity = V3(EMISSION_SCALE * ch[4] * cos_in,
+                    EMISSION_SCALE * ch[5] * cos_in,
+                    EMISSION_SCALE * ch[6] * cos_in)
+
+    # ---- scatter decision (reference raytrace.rs:588-603) ----
+    scatter_rand = rng.finalizef(rng.combine(seed, 0))
+    is_mirror = scatter_rand < metallicity
+    is_transmissive = ~is_mirror & (scatter_rand < metallicity + (1.0 - alpha))
+    is_lambertian = hit_any & ~is_mirror & ~is_transmissive
+
+    # ---- lambertian branch (reference raytrace.rs:603-675) ----
+    lam_origin = hit_point + normal * _EPS15
+    if nee_type == 1:
+        do_nee = is_lambertian
+    elif nee_type == 2:
+        do_nee = is_lambertian & (bounce == 0)
+    else:
+        do_nee = torch.zeros_like(is_lambertian)
+
+    lights = scene.lights
+    dense_probs = None
+    if nee_type == 0:
+        # no light sampling; the draws below keep their indices, so images
+        # match across modes
+        bvh = BvhSample(success=do_nee,
+                        prim=torch.zeros(n, dtype=torch.int64, device=dev),
+                        probability=one, importance=zero)
+    elif lights.dense:
+        bvh, dense_probs = dense_sample_light(
+            lights, lam_origin, normal, rng.combine(seed, 2), do_nee)
+    else:
+        bvh = traverse_light_bvh(lights, lam_origin, normal,
+                                 rng.combine(seed, 2), do_nee,
+                                 settings.max_bvh_depth)
+    mis_weight = torch.where(bvh.success & (bvh.importance > 0.0),
+                             NEE_MIS_WEIGHT, 0.0).to(_F32)
+    pick_light = rng.finalizef(rng.combine(seed, 3)) < mis_weight
+    u4 = rng.finalizef(rng.combine(seed, 4))
+    u5 = rng.finalizef(rng.combine(seed, 5))
+
+    lam_dir = cosine_hemisphere(u4, u5, normal, tangent, bitangent)
+    if nee_type != 0:
+        # light point p0 + u*e1 + v*e2, with the triangle fold
+        # (raytrace.rs:317-323)
+        lp0, le1, le2 = (a[bvh.prim] for a in (lights.p0, lights.e1,
+                                               lights.e2))
+        fold = lights.is_tri[bvh.prim] & (u4 + u5 > 1.0)
+        lu = torch.where(fold, 1.0 - u4, u4)
+        lv = torch.where(fold, 1.0 - u5, u5)
+        to_light = V3(*(lp0[:, c] + lu * le1[:, c] + lv * le2[:, c] - lo
+                        for c, lo in enumerate(lam_origin)))
+        light_dir = to_light / vec3.norm(to_light).clamp_min(1e-20)
+        lam_dir = vec3.where(pick_light, light_dir, lam_dir)
+    lam_bsdf_pdf = vec3.dot(lam_dir, normal) * _INV_PI
+
+    # ---- merge branches ----
+    new_origin = vec3.where(is_lambertian, lam_origin, hit_point)
+    new_direction = vec3.where(
+        is_mirror, reflect(direction, normal),
+        vec3.where(is_transmissive, direction, lam_dir))
+    out_reflect = vec3.where(
+        is_mirror, reflectivity,
+        vec3.where(is_transmissive, V3(one, one, one),
+                   reflectivity * _INV_PI))
+    out_bsdf_pdf = torch.where(is_lambertian, lam_bsdf_pdf, one)
+    out_mis = torch.where(is_lambertian, mis_weight, zero)
+    out_emis = emissivity
+
+    # ---- miss: directional sky (reference raytrace.rs:528-538) ----
+    miss = alive & ~hit_any
+    sky = torch.where(direction.y > SKY_COS_CUTOFF, SKY_EMISSION, 0.0).to(_F32)
+    zero3 = V3(zero, zero, zero)
+    new_origin = vec3.where(miss, origin + direction * MISS_DISTANCE,
+                            new_origin)
+    new_direction = vec3.where(miss, zero3, new_direction)
+    normal = vec3.where(miss, zero3, normal)
+    out_emis = vec3.where(miss, V3(sky, sky, sky), out_emis)
+    out_reflect = vec3.where(miss, zero3, out_reflect)
+    out_mis = torch.where(miss, zero, out_mis)
+    out_bsdf_pdf = torch.where(miss, one, out_bsdf_pdf)
+
+    # ---- terminal passthrough (reference raytrace.rs:484-494) ----
+    dead = ~alive
+    new_origin = vec3.where(dead, origin, new_origin)
+    new_direction = vec3.where(dead, zero3, new_direction)
+    normal = vec3.where(dead, zero3, normal)
+    out_emis = vec3.where(dead, zero3, out_emis)
+    out_reflect = vec3.where(dead, zero3, out_reflect)
+    out_mis = torch.where(dead, zero, out_mis)
+    out_bsdf_pdf = torch.where(dead, one, out_bsdf_pdf)
+    return (new_origin, new_direction, normal, out_emis, out_reflect,
+            out_mis, out_bsdf_pdf, dense_probs)
+
+
+def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
+            bounce: int, origin: V3, direction: V3, rid, inv_seed: int,
+            vox: VoxelHit, use_entities: bool, texel=texel_fetch):
+    """General shade plus NEE pdf of one (possibly compacted) ray block.
+
+    Returns the next ray, the block's emission, its throughput factor
+    refl * (p/q) * valid — the one-sample-MIS reweighting of the
+    reference's backward recurrence (outgoing_radiance.rs:77-87), folded
+    forward — and the count of rays whose light crossings overflowed the
+    sparse sweep's slots (0 unless settings.trace_audit)."""
+    seed = rng.combine(inv_seed, rid)
+    (new_o, new_d, normal, emis, refl, mis, bsdf_pdf,
+     dense_probs) = shade_general(scene, settings, nee_type, bounce, origin,
+                                  direction, seed, vox, use_entities, texel)
+    overflow = 0
+    if nee_type == 0:
+        nee_pdf = torch.zeros_like(mis)
+    elif settings.debug_stage == "nonee_pdf":
+        # stage-isolation variant: sampling runs, the sweep is elided
+        nee_pdf = mis * 0.0
+    else:
+        nee_pdf = nee_pdf_sweep(
+            scene.lights, new_o, normal, new_d, mis, dense_probs,
+            max_depth=settings.max_bvh_depth, max_hits=settings.max_nee_hits,
+            with_overflow=settings.trace_audit)
+        if settings.trace_audit:
+            nee_pdf, overflow = nee_pdf
+    valid = vec3.any_nonzero(new_d)
+    q = nee_pdf * mis + (1.0 - mis) * bsdf_pdf
+    # a zero-probability sample contributes nothing beyond its emission
+    w = torch.where(q > 0.0, bsdf_pdf / q.clamp_min(1e-35),
+                    torch.zeros_like(q))
+    return new_o, new_d, emis, refl * (w * valid.to(_F32)), overflow
+
+
+def _bounce_dbg(m: int, on: bool, device) -> V3:
+    """Ray-layout visualization (reference raytrace.rs:496-523): on bounce
+    1 every ray slot is painted with its deinterleaved 2-D position."""
+    zero = torch.zeros(m, dtype=_F32, device=device)
+    if not on:
+        return V3(zero, zero, zero)
+    di, dj = morton.deinterleave_bits_2(torch.arange(m, device=device))
+    return V3(di.to(_F32) / 1023.0, dj.to(_F32) / 1023.0, zero)
 
 
 def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
                  *, settings: RenderSettings, nee_type: int, sort_type: int,
-                 debug_view: int = 0, tables=None, trace=window_trace,
-                 shade=shade_pass):
+                 debug_view: int = 0, tables=None, use_entities=None,
+                 trace=window_trace, shade=shade_pass, texel=texel_fetch):
     """Render one frame on the scene's device; returns ((H, W, 3) image
-    tensor, aux) with aux = {"truncated", "nee_overflow"} as ints.
+    tensor, aux) with aux = {"truncated", "nee_overflow"} as ints (both 0
+    unless settings.trace_audit).
 
     tables: the scene's shade tables (prep_shade_tables), built here when
-    not given.  trace / shade: the two per-bounce stages; the defaults are
-    the kernels' wrappers, and `intersect.trace_plain` /
-    `shade.shade_plain` (same arguments) render the frame with the plain
-    versions on any device, which is how chip_smoke.py holds a whole
-    frame on the card against them."""
-    _check_supported(settings, nee_type, sort_type, debug_view)
-    if scene.tri_active.numel() and bool(scene.tri_active.any()):
-        raise NotImplementedError("dynamic entities are not ported yet")
-    if nee_type != 0 and not scene.lights.dense:
-        raise NotImplementedError("sparse light sets are not ported yet")
+    the fused path needs them and they are not given.  use_entities:
+    whether the entity pool holds a triangle (read from the pool when
+    None).  trace / shade / texel: the per-bounce kernels' wrappers;
+    `intersect.trace_plain`, `shade.shade_plain` and `texel.texel_plain`
+    (same arguments) render the frame with the plain versions on any
+    device, which is how chip_smoke.py holds a whole frame on the card
+    against them."""
+    _check_supported(settings, nee_type, sort_type)
     dev = scene.grid.device
-    if tables is None:
+    fused = use_fused(scene, settings, nee_type)
+    if fused and tables is None:
         tables = prep_shade_tables(scene.atlas_packed, scene.lights)
+    if use_entities is None:
+        use_entities = bool(scene.tri_active.any())
     w, h = settings.render_width, settings.render_height
     n = w * h
     b_total = settings.num_bounces
@@ -99,18 +448,26 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     max_events = settings.trace_events or auto_events(gx, gy, gz)
     go = scene.grid_origin
     frame_count = int(frame_count) & 0xFFFFFFFF
+    freetrace = settings.debug_stage == "freetrace"
 
     o, d, rid = raygen_soa(eye, front, right, up, w, h,
                            jitter=settings.jitter, seed=frame_count,
                            device=dev)
     tp = V3(*(torch.ones(n, dtype=_F32, device=dev) for _ in range(3)))
     rad = V3(*(torch.zeros(n, dtype=_F32, device=dev) for _ in range(3)))
+    # the debug buffer rides the sort only when it is shown
+    dbg = V3(*(torch.zeros(n, dtype=_F32, device=dev) for _ in range(3))) \
+        if debug_view else None
     sort = settings.compaction or sort_type == 1
     trunc = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow = 0
 
     for b in range(b_total):
-        if sort:
+        if sort and dbg is None:
             o, d, tp, rad, rid = coherence_sort(scene, o, d, tp, rad, rid)
+        elif sort:
+            o, d, tp, rad, rid, dbg = coherence_sort(scene, o, d, tp, rad,
+                                                     rid, dbg)
         m = n
         if settings.compaction:
             # smallest bucket (n, n/2, n/4) that holds every alive ray
@@ -121,31 +478,57 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
         def head(v):
             return v.map(lambda c: c[:m].contiguous())
 
-        bo, bd = head(o), head(d)
-        pa, pb, t = trace(scene, bo, bd, max_events)
-        if settings.trace_audit:
-            trunc = trunc + ((pa >> TRUNCATED_BIT) & 1).sum()
+        bo, bd, btp, brad = head(o), head(d), head(tp), head(rad)
+        brid = rid[:m].contiguous()
         inv_seed = (frame_count * b_total + b) & 0xFFFFFFFF
-        no, nd, ntp, nrad = shade(
-            tables, go, bo, bd, pa, pb, t, head(tp), head(rad),
-            rid[:m].contiguous(), inv_seed, b, scene.lights.num_prims,
-            nee_type=nee_type)
+        if freetrace:
+            vox = _freetrace_hit(scene, bo, bd, vec3.any_nonzero(bd))
+        else:
+            pa, pb, t = trace(scene, bo, bd, max_events)
+            if settings.trace_audit:
+                trunc = trunc + ((pa >> TRUNCATED_BIT) & 1).sum()
+        if fused:
+            if freetrace:
+                pa, pb, t = pack_hits(vox)
+            tri_attrs = None
+            if use_entities:
+                t, tri_attrs = entity_attrs(scene, bo, bd, pa, t)
+            no, nd, ntp, nrad = shade(
+                tables, go, bo, bd, pa, pb, t, btp, brad, brid, inv_seed, b,
+                scene.lights.num_prims, nee_type=nee_type,
+                tri_attrs=tri_attrs)
+        else:
+            if not freetrace:
+                vox = unpack_hits(pa, pb, t)
+            no, nd, emis, tpf, ovf = shade_m(
+                scene, settings, nee_type, b, bo, bd, brid, inv_seed, vox,
+                use_entities, texel)
+            overflow += ovf
+            nrad = brad + btp * emis
+            ntp = btp * tpf
+        ndbg = None if dbg is None else head(dbg) + _bounce_dbg(m, b == 1, dev)
         if m < n:
             def cat(a, full):
                 return V3(*(torch.cat([x, y[m:]]) for x, y in zip(a, full)))
 
             no, nd, ntp, nrad = cat(no, o), cat(nd, d), cat(ntp, tp), cat(nrad, rad)
-        o, d, tp, rad = no, nd, ntp, nrad
+            if dbg is not None:
+                ndbg = cat(ndbg, dbg)
+        o, d, tp, rad, dbg = no, nd, ntp, nrad, ndbg
 
-    radiance = rad.stack()
-    if sort:
-        # restore pixel order
-        out = torch.empty_like(radiance)
-        out[rid.to(torch.int64)] = radiance
-        radiance = out
-    img = postprocess(radiance, settings.width, settings.height,
-                      settings.scale)
-    return img, {"truncated": int(trunc), "nee_overflow": 0}
+    def pixel_order(v: V3):
+        a = v.stack()
+        if not sort:
+            return a
+        out = torch.empty_like(a)
+        out[rid.to(torch.int64)] = a
+        return out
+
+    img = postprocess(pixel_order(rad), settings.width, settings.height,
+                      settings.scale,
+                      debug=None if dbg is None else pixel_order(dbg),
+                      debug_view=debug_view)
+    return img, {"truncated": int(trunc), "nee_overflow": int(overflow)}
 
 
 class Renderer:
@@ -167,7 +550,7 @@ class Renderer:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.settings = settings
-        self._tables = None     # (scene arrays, shade tables)
+        self._tables = None     # (scene arrays, shade tables, use_entities)
 
     def _arrays(self, scene) -> SceneArrays:
         arrays = scene.get_arrays() if isinstance(scene, VoxelScene) else scene
@@ -184,13 +567,16 @@ class Renderer:
         prefs = prefs or RenderingPreferences()
         arrays = self._arrays(scene)
         if self._tables is None or self._tables[0] is not arrays:
-            self._tables = (arrays, prep_shade_tables(arrays.atlas_packed,
-                                                      arrays.lights))
+            self._tables = (
+                arrays,
+                prep_shade_tables(arrays.atlas_packed, arrays.lights),
+                bool(arrays.tri_active.any()))
         img, aux = render_frame(
             arrays, camera.eye, camera.front, camera.right, camera.up,
             frame_count, settings=self.settings,
             nee_type=int(prefs.nee_type), sort_type=int(prefs.sort_type),
             debug_view=int(prefs.debug_view), tables=self._tables[1],
+            use_entities=self._tables[2],
         )
         if as_numpy:
             img = img.cpu().numpy()

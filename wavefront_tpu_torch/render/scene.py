@@ -1,10 +1,11 @@
-"""Scene state as tensors on one device (static scenes).
+"""Scene state as tensors on one device.
 
-Counterpart of `wavefront_tpu.render.scene` for a scene that does not
-change between frames: the dense uint8 voxel grid, its world origin, the
-256-entry block tables, the packed texture atlas, the dense light set and
-an empty entity pool.  Block edits, the streamed window and entities come
-in later slices of the port.
+Counterpart of `wavefront_tpu.render.scene`: the dense uint8 voxel grid,
+its world origin, the 256-entry block tables, the packed texture atlas,
+the light set (dense or sparse) and the fixed-capacity triangle pool of
+the dynamic entities (reference scene.rs:150-232).  The grid does not
+change between frames: block edits and the streamed window come in later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -29,10 +30,10 @@ class SceneArrays(NamedTuple):
     translucent: torch.Tensor   # (256,) bool
     luminescent: torch.Tensor   # (256,) bool
     atlas_packed: torch.Tensor  # (T, 16, 16, 12) f32: reflect|emit|metal RGBA
-    tri_verts: torch.Tensor     # (0, 3, 3) f32: the entity pool (empty)
-    tri_uv: torch.Tensor        # (0, 3, 2) f32
-    tri_tex: torch.Tensor       # (0,) int32
-    tri_active: torch.Tensor    # (0,) bool
+    tri_verts: torch.Tensor     # (E, 3, 3) f32: the entity triangle pool
+    tri_uv: torch.Tensor        # (E, 3, 2) f32
+    tri_tex: torch.Tensor       # (E,) int32 texture slots
+    tri_active: torch.Tensor    # (E,) bool
     lights: LightArrays
 
 
@@ -94,25 +95,30 @@ def scene_arrays_from_numpy(d, device="cuda") -> SceneArrays:
         translucent=t("translucent", bool),
         luminescent=t("luminescent", bool),
         atlas_packed=t("atlas_packed", np.float32),
-        tri_verts=torch.zeros((0, 3, 3), dtype=torch.float32, device=device),
-        tri_uv=torch.zeros((0, 3, 2), dtype=torch.float32, device=device),
-        tri_tex=torch.zeros((0,), dtype=torch.int32, device=device),
-        tri_active=torch.zeros((0,), dtype=torch.bool, device=device),
+        tri_verts=t("tri_verts", np.float32),
+        tri_uv=t("tri_uv", np.float32),
+        tri_tex=t("tri_tex", np.int32),
+        tri_active=t("tri_active", bool),
         lights=light_arrays(get("lights"), device),
     )
 
 
 class VoxelScene:
-    """Host-side static scene: a voxel window and its lights.
+    """Host-side scene: a voxel window, its lights and the dynamic
+    entities (triangle meshes, at most `max_entity_tris` triangles).
 
-    `get_arrays()` builds the light set (lights.build_from_grid) and moves
-    everything to `device` once; later calls return the same arrays."""
+    `get_arrays()` builds the light set (lights.build_from_grid, with the
+    emissive entity triangles) and moves everything to `device`; later
+    calls return the same arrays until an entity is added or removed.
+    Moving an entity replaces only the triangle pool (and the light set
+    when that entity emits)."""
 
     def __init__(self, registry: BlockRegistry, grid: np.ndarray,
                  grid_origin=(0, 0, 0), max_light_prims: int = 1024,
-                 device="cuda"):
+                 max_entity_tris: int = 64, device="cuda"):
         self.registry = registry
         self.max_light_prims = max_light_prims
+        self.max_entity_tris = max_entity_tris
         self.device = torch.device(device)
         self._grid = np.asarray(grid, np.uint8)
         self._grid_origin = tuple(int(v) for v in grid_origin)
@@ -124,6 +130,8 @@ class VoxelScene:
         self._transparent[: nb + 1] = registry.transparent
         self._translucent[: nb + 1] = registry.translucent
         self._luminescent[: nb + 1] = registry.luminescent
+        # key -> (verts (T,3,3), uv (T,3,2), tex (T,), transform (3,3|4))
+        self._entities: dict = {}
         self._arrays = None
 
     @property
@@ -134,18 +142,102 @@ class VoxelScene:
     def grid_origin(self) -> tuple:
         return self._grid_origin
 
-    def add_object(self, *args, **kwargs):
-        """Dynamic entities (the reference's add_object) are not ported
-        yet; the entity pool stays empty."""
-        raise NotImplementedError("dynamic entities are not ported yet")
+    # ------ entities (reference scene.rs:150-232) ------
+
+    def add_object(self, key, verts, uv, tex, transform=None) -> None:
+        """Add a triangle mesh entity.
+
+        verts: (T,3,3) object-space vertices; uv: (T,3,2); tex: (T,)
+        texture slots; transform: optional (3,3) rotation or (3,4) [R|t]
+        affine, applied when the pool is built."""
+        self._entities[key] = (
+            np.asarray(verts, np.float32),
+            np.asarray(uv, np.float32),
+            np.asarray(tex, np.int32),
+            np.eye(4, dtype=np.float32)[:3] if transform is None
+            else np.asarray(transform, np.float32),
+        )
+        self._arrays = None
+
+    def update_object(self, key, transform) -> None:
+        """Move an entity: only the triangle pool is uploaded again, and
+        the light set is rebuilt when the moved entity emits."""
+        v, u, t, _ = self._entities[key]
+        self._entities[key] = (v, u, t, np.asarray(transform, np.float32))
+        if self._arrays is None:
+            return
+        verts, uv, tex, active = self._entity_pool()
+        self._arrays = self._arrays._replace(
+            **self._pool_tensors(verts, uv, tex, active))
+        lum = self.registry.luminance
+        if (lum[np.clip(t, 0, len(lum) - 1)] > 0).any():
+            self._arrays = self._arrays._replace(
+                lights=self._light_arrays(verts, tex, active))
+
+    def remove_object(self, key) -> None:
+        if key in self._entities:
+            del self._entities[key]
+            self._arrays = None
+
+    def _entity_pool(self):
+        """World-space triangles of every entity, in key order, padded to
+        the pool capacity: (verts, uv, tex, active)."""
+        cap = self.max_entity_tris
+        verts = np.zeros((cap, 3, 3), np.float32)
+        uv = np.zeros((cap, 3, 2), np.float32)
+        tex = np.zeros(cap, np.int32)
+        active = np.zeros(cap, bool)
+        k = 0
+        for key in sorted(self._entities.keys(), key=str):
+            v, u, t, m = self._entities[key]
+            if m.shape[1] == 4:
+                r, tr = m[:, :3], m[:, 3]
+            else:
+                r, tr = m, np.zeros(3, np.float32)
+            n = len(v)
+            if k + n > cap:
+                raise ValueError(
+                    f"entity triangle budget exceeded ({k + n} > {cap})")
+            verts[k:k + n] = v @ r.T + tr
+            uv[k:k + n] = u
+            tex[k:k + n] = t
+            active[k:k + n] = True
+            k += n
+        return verts, uv, tex, active
+
+    def _emissive_entity_tris(self, verts, tex, active):
+        """(triangles (T,3,3), power (T,)) of the pool's emissive
+        triangles: texture luminance times area (scene.rs:563-571)."""
+        lum = self.registry.luminance
+        t = tex[active]
+        v = verts[active]
+        mask = lum[np.clip(t, 0, len(lum) - 1)] > 0
+        if not mask.any():
+            return np.zeros((0, 3, 3), np.float32), np.zeros(0, np.float32)
+        tv = v[mask]
+        area = 0.5 * np.linalg.norm(
+            np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]), axis=-1)
+        return tv, (lum[t[mask]] * area).astype(np.float32)
+
+    def _pool_tensors(self, verts, uv, tex, active) -> dict:
+        dev = self.device
+        return dict(tri_verts=torch.as_tensor(verts, device=dev),
+                    tri_uv=torch.as_tensor(uv, device=dev),
+                    tri_tex=torch.as_tensor(tex, device=dev),
+                    tri_active=torch.as_tensor(active, device=dev))
+
+    def _light_arrays(self, verts, tex, active) -> LightArrays:
+        light_set = lights_mod.build_from_grid(
+            self._grid, np.asarray(self._grid_origin), self.registry,
+            self.max_light_prims,
+            extra_tris=self._emissive_entity_tris(verts, tex, active),
+        )
+        return light_arrays(light_set, self.device)
 
     def get_arrays(self) -> SceneArrays:
         if self._arrays is not None:
             return self._arrays
-        light_set = lights_mod.build_from_grid(
-            self._grid, np.asarray(self._grid_origin), self.registry,
-            self.max_light_prims,
-        )
+        verts, uv, tex, active = self._entity_pool()
         dev = self.device
         self._arrays = SceneArrays(
             grid=torch.as_tensor(self._grid, device=dev),
@@ -155,10 +247,7 @@ class VoxelScene:
             luminescent=torch.as_tensor(self._luminescent, device=dev),
             atlas_packed=torch.as_tensor(
                 packed_atlas(self.registry.atlas), device=dev),
-            tri_verts=torch.zeros((0, 3, 3), dtype=torch.float32, device=dev),
-            tri_uv=torch.zeros((0, 3, 2), dtype=torch.float32, device=dev),
-            tri_tex=torch.zeros((0,), dtype=torch.int32, device=dev),
-            tri_active=torch.zeros((0,), dtype=torch.bool, device=dev),
-            lights=light_arrays(light_set, dev),
+            **self._pool_tensors(verts, uv, tex, active),
+            lights=self._light_arrays(verts, tex, active),
         )
         return self._arrays

@@ -1,12 +1,13 @@
 """Wavefront stages as plain functions on SoA ray tensors.
 
-Counterparts of `wavefront_tpu.render.wavefront`: raygen, the dense
+Counterparts of `wavefront_tpu.render.wavefront`: raygen, the light-BVH
+walks of sparse light sets (stochastic descent, reverse walk), the dense
 light-BVH math (node/prim importances, descent probabilities, the light
-pick), the dense NEE pdf sweep, the sampling helpers and postprocess.
-Radiometric semantics follow the reference shaders (raygen.rs,
-raytrace.rs, nee_pdf.rs, postprocess.rs); the dense light path replaces the
-stochastic descent and the reverse walk with the same distribution drawn
-from one uniform (see the JAX package's module notes).
+pick), the NEE pdf sweep on both paths, the sampling helpers and
+postprocess.  Radiometric semantics follow the reference shaders
+(raygen.rs, raytrace.rs, nee_pdf.rs, postprocess.rs); the dense light path
+replaces the stochastic descent and the reverse walk with the same
+distribution drawn from one uniform (see the JAX package's module notes).
 
 The fused shade kernel (`kernels/shade.py`) computes the same functions
 per ray; its plain version reuses the importance functions below.
@@ -107,6 +108,121 @@ def raygen_soa(eye, front, right, up, width: int, height: int,
         torch.full((n,), e[2], dtype=_F32, device=device),
     )
     return origin, d, pid
+
+
+# ---------------------------------------------------------------------------
+# light BVH walks (reference raytrace.rs:186-293, nee_pdf.rs:119-228)
+# ---------------------------------------------------------------------------
+
+_SENTINEL = 0xFFFFFFFF
+
+
+class _Nodes(NamedTuple):
+    """The node SoA ready for per-ray row gathers."""
+
+    left: torch.Tensor     # (M,) int64, -1 at a leaf
+    right: torch.Tensor    # (M,) int64: right child, or the prim of a leaf
+    parent: torch.Tensor   # (M,) int64, -1 at the root
+    box: torch.Tensor      # (M, 7) f32: min xyz, max xyz, power
+
+
+def _nodes(lights: LightArrays) -> _Nodes:
+    def idx(a):
+        return torch.where(a == _SENTINEL, torch.full_like(a, -1), a)
+
+    return _Nodes(
+        idx(lights.node_left), idx(lights.node_right),
+        idx(lights.node_parent),
+        torch.cat([lights.node_min, lights.node_max,
+                   lights.node_power[:, None]], dim=1))
+
+
+def _row_importance(point: V3, normal: V3, box, eps):
+    """nodeImportance of one gathered (N, 7) box row per ray."""
+    return aabb_importance(
+        box[:, 0], box[:, 1], box[:, 2], box[:, 3], box[:, 4], box[:, 5],
+        box[:, 6], point.x, point.y, point.z, normal.x, normal.y, normal.z,
+        eps, False)
+
+
+def _child_importances(nodes: _Nodes, node, point: V3, normal: V3, eps):
+    """(left child, right child, importance of each) of `node`'s children;
+    a leaf's children read as node 0 and are masked by the callers."""
+    li = nodes.left[node].clamp_min(0)
+    ri = nodes.right[node].clamp_min(0)
+    return (li, ri, _row_importance(point, normal, nodes.box[li], eps),
+            _row_importance(point, normal, nodes.box[ri], eps))
+
+
+def traverse_light_bvh(lights: LightArrays, point: V3, normal: V3, seed,
+                       active, max_depth: int) -> BvhSample:
+    """Stochastic top-down descent, importance-proportional at every split
+    (reference raytrace.rs:230-293), over the one-level global BVH; one
+    fresh murmur3 uniform per level.  seed: int64 tensor of u32 values."""
+    n = point.x.shape[0]
+    nodes = _nodes(lights)
+    # dummy-root check (reference raytrace.rs:235-243)
+    root_leaf = nodes.left[0] < 0
+    have_lights = ~(root_leaf & (nodes.right[0] < 0))
+    root_imp = _row_importance(point, normal, nodes.box[:1].expand(n, 7),
+                               EPSILON_BLOCK)
+    node = torch.zeros(n, dtype=torch.int64, device=point.x.device)
+    prob = torch.ones_like(point.x)
+    imp = torch.where(root_leaf, root_imp, torch.zeros_like(root_imp))
+    running = active & have_lights
+    s = rng.as_u32(seed)
+    for _ in range(max_depth):
+        if not bool(running.any()):
+            break
+        stepping = running & (nodes.left[node] >= 0)
+        li, ri, imp_l, imp_r = _child_importances(
+            nodes, node, point, normal, EPSILON_BLOCK)
+        total = imp_l + imp_r
+        # the reference divides blindly (raytrace.rs:279-280); its 0/0 NaN
+        # sends the walk right with importance 0, which the caller rejects
+        norm_l = torch.where(total > 0, imp_l / total.clamp_min(1e-30),
+                             torch.zeros_like(total))
+        go_left = rng.finalizef(s) < norm_l
+        node = torch.where(stepping, torch.where(go_left, li, ri), node)
+        prob = torch.where(
+            stepping, prob * torch.where(go_left, norm_l, 1.0 - norm_l), prob)
+        imp = torch.where(stepping, torch.where(go_left, imp_l, imp_r), imp)
+        s = rng.combine(s, 0)
+        running = stepping
+    success = active & have_lights & (nodes.left[node] < 0)
+    prim = nodes.right[node].clamp_min(0)
+    return BvhSample(success=success,
+                     prim=torch.where(success, prim, torch.zeros_like(prim)),
+                     probability=prob, importance=imp)
+
+
+def reverse_walk_prob(lights: LightArrays, point: V3, normal: V3, leaf_node,
+                      active, max_depth: int):
+    """Probability that the forward descent would have picked `leaf_node`,
+    rebuilt bottom-up through the parent pointers (reference
+    nee_pdf.rs:154-228), with the NEE epsilon (nee_pdf.rs:15)."""
+    nodes = _nodes(lights)
+    node = torch.where(active, leaf_node.to(torch.int64),
+                       torch.zeros_like(leaf_node, dtype=torch.int64))
+    prob = torch.ones_like(point.x)
+    running = active
+    for _ in range(max_depth):
+        if not bool(running.any()):
+            break
+        parent = nodes.parent[node]
+        stepping = running & (parent >= 0)
+        pi = parent.clamp_min(0)
+        li, _, imp_l, imp_r = _child_importances(
+            nodes, pi, point, normal, EPSILON_NEE)
+        total = imp_l + imp_r
+        branch = torch.where(
+            total > 0,
+            torch.where(node == li, imp_l, imp_r) / total.clamp_min(1e-30),
+            torch.zeros_like(total))
+        prob = torch.where(stepping, prob * branch, prob)
+        node = torch.where(stepping, pi, node)
+        running = stepping
+    return torch.where(active, prob, torch.zeros_like(prob))
 
 
 # ---------------------------------------------------------------------------
@@ -231,60 +347,139 @@ def dense_sample_light(lights: LightArrays, point: V3, normal: V3, seed,
 
 
 # ---------------------------------------------------------------------------
-# NEE pdf sweep, dense path (reference nee_pdf.rs:281-337)
+# NEE pdf sweep (reference nee_pdf.rs:281-337)
 # ---------------------------------------------------------------------------
+
+# rays per pass of the sparse sweep: bounds its (rays, prim_tile) float32
+# temporaries to 128 MB each; per-ray results do not depend on it
+RAY_CHUNK = 1 << 19
+
+
+def _prim_tile_hits(lights: LightArrays, point: V3, direction: V3, active,
+                    pid):
+    """Crossing test of every ray against one tile of light prims.
+
+    pid: (T,) prim indices (may run past num_prims; masked).  Returns
+    (hit (N, T) bool, t (N, T) ray parameter)."""
+    cap = lights.p0.shape[0]
+    pc = pid.clamp(0, cap - 1)
+    p0, e1, e2 = lights.p0[pc], lights.e1[pc], lights.e2[pc]
+    nv = torch.linalg.cross(e1, e2)
+    d11 = (e1[:, 0] * e1[:, 0] + e1[:, 1] * e1[:, 1]) + e1[:, 2] * e1[:, 2]
+    d22 = (e2[:, 0] * e2[:, 0] + e2[:, 1] * e2[:, 1]) + e2[:, 2] * e2[:, 2]
+    d12 = (e1[:, 0] * e2[:, 0] + e1[:, 1] * e2[:, 1]) + e1[:, 2] * e2[:, 2]
+    det = d11 * d22 - d12 * d12
+    dx, dy, dz = (direction.x[:, None], direction.y[:, None],
+                  direction.z[:, None])
+    px, py, pz = point.x[:, None], point.y[:, None], point.z[:, None]
+    denom = (dx * nv[None, :, 0] + dy * nv[None, :, 1]) + dz * nv[None, :, 2]
+    safe = denom.abs() > 1e-12
+    t = ((p0[None, :, 0] - px) * nv[None, :, 0]
+         + (p0[None, :, 1] - py) * nv[None, :, 1]) \
+        + (p0[None, :, 2] - pz) * nv[None, :, 2]
+    t = t / torch.where(safe, denom, torch.ones_like(denom))
+    hx = px + dx * t - p0[None, :, 0]
+    hy = py + dy * t - p0[None, :, 1]
+    hz = pz + dz * t - p0[None, :, 2]
+    r1 = (hx * e1[None, :, 0] + hy * e1[None, :, 1]) + hz * e1[None, :, 2]
+    r2 = (hx * e2[None, :, 0] + hy * e2[None, :, 1]) + hz * e2[None, :, 2]
+    inv_det = torch.where(det.abs() > 1e-20, 1.0 / det, torch.zeros_like(det))
+    u = (r1 * d22[None, :] - r2 * d12[None, :]) * inv_det[None, :]
+    v = (r2 * d11[None, :] - r1 * d12[None, :]) * inv_det[None, :]
+    in_quad = (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+    in_tri = (u >= 0) & (v >= 0) & (u + v <= 1)
+    inside = torch.where(lights.is_tri[pc][None, :], in_tri, in_quad)
+    hit = (active[:, None] & (pid < lights.num_prims)[None, :] & safe
+           & inside & (t >= EPSILON_NEE) & (t <= T_MAX))
+    return hit, t
 
 
 def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
-                  direction: V3, mis_weight, dense_probs, prim_tile: int = 64):
-    """Sum over EVERY light prim crossed by the outgoing ray of
-    walk_prob * t^2 / (cos_theta * area) (nee_pdf.rs:264-334), walk
-    probabilities read from the dense (N, P) matrix."""
-    if dense_probs is None:
-        raise NotImplementedError(
-            "the sparse NEE pdf sweep (light sets past the dense threshold)"
-            " is not ported yet")
+                  direction: V3, mis_weight, dense_probs,
+                  max_depth: int = 32, max_hits: int = 8,
+                  prim_tile: int = 64, with_overflow: bool = False):
+    """Sum over the light prims crossed by the outgoing ray of
+    walk_prob * t^2 / (cos_theta * area) (nee_pdf.rs:264-334), `prim_tile`
+    prims at a time against all rays.
+
+    Dense path (dense_probs given): walk probabilities are columns of the
+    dense (N, P) matrix and EVERY crossing counts, as in the reference.
+
+    Sparse path (dense_probs None): the rays that can contribute (MIS
+    weight above 0, a live direction) are gathered; each one's first
+    `max_hits` crossings, in prim order, go into slots, and one reverse BVH
+    walk runs over the used (slot, ray) pairs.  A ray that crosses more under-counts its pdf;
+    with_overflow also returns how many rays did (always 0 on the dense
+    path), which the renderer reports as aux["nee_overflow"]."""
     active = (mis_weight > 0) & vec3.any_nonzero(direction)
     cos_theta = vec3.dot(normal, direction)
     n = point.x.shape[0]
-    pdf = torch.zeros(n, dtype=_F32, device=point.x.device)
+    dev = point.x.device
     cap = lights.p0.shape[0]
     prim_tile = min(prim_tile, cap)
-    for base in range(0, lights.num_prims, prim_tile):
-        pid = torch.arange(base, base + prim_tile, device=pdf.device)
-        pc = pid.clamp(0, cap - 1)
-        p0, e1, e2 = lights.p0[pc], lights.e1[pc], lights.e2[pc]
-        nv = torch.linalg.cross(e1, e2)
-        d11 = (e1[:, 0] * e1[:, 0] + e1[:, 1] * e1[:, 1]) + e1[:, 2] * e1[:, 2]
-        d22 = (e2[:, 0] * e2[:, 0] + e2[:, 1] * e2[:, 1]) + e2[:, 2] * e2[:, 2]
-        d12 = (e1[:, 0] * e2[:, 0] + e1[:, 1] * e2[:, 1]) + e1[:, 2] * e2[:, 2]
-        det = d11 * d22 - d12 * d12
-        dx, dy, dz = (direction.x[:, None], direction.y[:, None],
-                      direction.z[:, None])
-        px, py, pz = point.x[:, None], point.y[:, None], point.z[:, None]
-        denom = (dx * nv[None, :, 0] + dy * nv[None, :, 1]) + dz * nv[None, :, 2]
-        safe = denom.abs() > 1e-12
-        t = ((p0[None, :, 0] - px) * nv[None, :, 0]
-             + (p0[None, :, 1] - py) * nv[None, :, 1]) \
-            + (p0[None, :, 2] - pz) * nv[None, :, 2]
-        t = t / torch.where(safe, denom, torch.ones_like(denom))
-        hx = px + dx * t - p0[None, :, 0]
-        hy = py + dy * t - p0[None, :, 1]
-        hz = pz + dz * t - p0[None, :, 2]
-        r1 = (hx * e1[None, :, 0] + hy * e1[None, :, 1]) + hz * e1[None, :, 2]
-        r2 = (hx * e2[None, :, 0] + hy * e2[None, :, 1]) + hz * e2[None, :, 2]
-        inv_det = torch.where(det.abs() > 1e-20, 1.0 / det,
-                              torch.zeros_like(det))
-        u = (r1 * d22[None, :] - r2 * d12[None, :]) * inv_det[None, :]
-        v = (r2 * d11[None, :] - r1 * d12[None, :]) * inv_det[None, :]
-        in_quad = (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
-        in_tri = (u >= 0) & (v >= 0) & (u + v <= 1)
-        inside = torch.where(lights.is_tri[pc][None, :], in_tri, in_quad)
-        hit = (active[:, None] & (pid < lights.num_prims)[None, :] & safe
-               & inside & (t >= EPSILON_NEE) & (t <= T_MAX))
-        walk = dense_probs[:, pc]
-        contrib = walk * t * t / (cos_theta[:, None] * lights.area[pc][None, :])
-        pdf = pdf + torch.where(hit, contrib, torch.zeros_like(contrib)).sum(1)
+    bases = range(0, lights.num_prims, prim_tile)
+
+    if dense_probs is not None:
+        pdf = torch.zeros(n, dtype=_F32, device=dev)
+        for base in bases:
+            pid = torch.arange(base, base + prim_tile, device=dev)
+            pc = pid.clamp(0, cap - 1)
+            hit, t = _prim_tile_hits(lights, point, direction, active, pid)
+            contrib = dense_probs[:, pc] * t * t / (
+                cos_theta[:, None] * lights.area[pc][None, :])
+            pdf = pdf + torch.where(hit, contrib,
+                                    torch.zeros_like(contrib)).sum(1)
+        if with_overflow:
+            return pdf, 0
+        return pdf
+
+    # sparse path, on the rays that can contribute only: slot collection,
+    # then the reverse walk of the used slots
+    act = torch.nonzero(active)[:, 0]
+    na = act.shape[0]
+    pt, nm, dr = (v.map(lambda c: c[act]) for v in (point, normal, direction))
+    cos_theta = cos_theta[act]
+    every = torch.ones(na, dtype=torch.bool, device=dev)
+    slot_leaf = torch.zeros((max_hits, na), dtype=torch.int64, device=dev)
+    slot_area = torch.zeros((max_hits, na), dtype=_F32, device=dev)
+    slot_t = torch.zeros((max_hits, na), dtype=_F32, device=dev)
+    slot_used = torch.zeros((max_hits, na), dtype=torch.bool, device=dev)
+    count = torch.zeros(na, dtype=torch.int64, device=dev)
+    for lo in range(0, na, RAY_CHUNK):
+        rows = slice(lo, lo + RAY_CHUNK)
+        cpt = pt.map(lambda c: c[rows])
+        cdr = dr.map(lambda c: c[rows])
+        for base in bases:
+            pid = torch.arange(base, base + prim_tile, device=dev)
+            hit, t = _prim_tile_hits(lights, cpt, cdr, every[rows], pid)
+            # the crossings, by ray and then by prim; the slot of each is
+            # the number of crossings before it on its ray
+            ray, col = torch.nonzero(hit, as_tuple=True)
+            rank = torch.arange(ray.shape[0], device=dev) \
+                - torch.searchsorted(ray, ray)
+            tt = t[ray, col]
+            ray = ray + lo
+            k = count[ray] + rank
+            # unclamped: a final count above max_hits is the overflow
+            count.index_add_(0, ray, torch.ones_like(ray))
+            keep = k < max_hits
+            k, ray, pc = k[keep], ray[keep], pid[col[keep]]
+            slot_leaf[k, ray] = lights.leaf_node[pc]
+            slot_area[k, ray] = lights.area[pc]
+            slot_t[k, ray] = tt[keep]
+            slot_used[k, ray] = True
+
+    k, ray = torch.nonzero(slot_used, as_tuple=True)
+    walk = torch.zeros((max_hits, na), dtype=_F32, device=dev)
+    walk[k, ray] = reverse_walk_prob(
+        lights, pt.map(lambda c: c[ray]), nm.map(lambda c: c[ray]),
+        slot_leaf[k, ray], torch.ones_like(ray, dtype=torch.bool), max_depth)
+    point_pick = slot_t * slot_t / (cos_theta[None, :] * slot_area)
+    pdf = torch.zeros(n, dtype=_F32, device=dev)
+    pdf[act] = torch.where(slot_used, walk * point_pick,
+                           torch.zeros_like(walk)).sum(0)
+    if with_overflow:
+        return pdf, int((count > max_hits).sum())
     return pdf
 
 
@@ -293,10 +488,13 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
 # ---------------------------------------------------------------------------
 
 
-def postprocess(radiance, width: int, height: int, scale: int):
-    """Box-downsample the supersampled (N, 3) radiance by `scale`; returns
-    (height, width, 3) float32, no tone mapping (postprocess.rs:66)."""
-    img = radiance.reshape(height * scale, width * scale, 3)
+def postprocess(radiance, width: int, height: int, scale: int,
+                debug=None, debug_view: int = 0):
+    """Box-downsample the supersampled (N, 3) radiance (the `debug` buffer
+    when debug_view != 0) by `scale`; returns (height, width, 3) float32,
+    no tone mapping (postprocess.rs:66)."""
+    img = (debug if debug_view != 0 else radiance).reshape(
+        height * scale, width * scale, 3)
     if scale > 1:
         img = img.reshape(height, scale, width, scale, 3).mean(dim=(1, 3))
     return img
