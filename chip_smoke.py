@@ -190,11 +190,13 @@ def trace_bound_ms(scene, n: int, steps: int) -> tuple:
 
 
 def shade_bound_ms(tables, n: int, n_alive: int, n_hit: int,
-                   nee: bool, tri: bool = False) -> tuple:
-    """(bound_ms, bound_by) of the shade: 16 words in and 12 out per ray
-    (12 more in with the entity stream), the atlas and light tables read
-    once; or its float32 operations."""
-    nbytes = (n * (160 if tri else 112) + tables.atlas.numel() * 4
+                   nee: bool, n_entity=None) -> tuple:
+    """(bound_ms, bound_by) of the shade: 16 words in and 12 out per ray,
+    the atlas and light tables read once; or its float32 operations.
+    With the entity stream (n_entity: the lanes an entity wins) the flag
+    word is read on every ray and the other 11 words on those lanes."""
+    stream = 0 if n_entity is None else n * 4 + n_entity * 44
+    nbytes = (n * 112 + stream + tables.atlas.numel() * 4
               + tables.nodes.numel() * 4 + tables.prims.numel() * 4)
     ops = n_alive * SHADE_OPS_PER_RAY
     if nee:
@@ -217,6 +219,28 @@ def max_bound(nbytes: int, ops: int) -> tuple:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def trace_check(arrays, o: V3, d: V3, events: int, what: str) -> dict:
+    """K1 against its plain version on one set of rays: the mismatch
+    counts (held under TRACE_MISMATCH_FRACTION), the largest |t| error on
+    common hits, the plain version's words and the boundary steps."""
+    n = o.x.shape[0]
+    pa, pb, t = window_trace(arrays, o, d, events)
+    qa, qb, qt = trace_plain(arrays, o, d, events)
+    sync()
+    both = ((pa & 1) != 0) & ((qa & 1) != 0)
+    mism = {k: int((x != y).sum()) for k, x, y in
+            (("pa", pa, qa), ("pb", pb, qb), ("t", t, qt))}
+    limit = TRACE_MISMATCH_FRACTION * n
+    check(all(v <= limit for v in mism.values()),
+          f"tracer {what}: mismatches {mism} over {limit:.1f}")
+    t_err = float((t - qt)[both].abs().max()) if bool(both.any()) else 0.0
+    trunc = int(((pa >> 22) & 1).sum())
+    check(trunc == 0, f"tracer {what}: {trunc} rays truncated")
+    return {"mismatch": mism, "max_abs_err_t": t_err,
+            "plain": (qa, qb, qt),
+            "steps": dda_steps(arrays, o, d, qa, qt)}
+
+
 def kernel_check(scene, settings, basis) -> dict:
     """K1 and K2 against their plain versions on the card, on the
     headline's bounce-0 rays and on the bounce-1 rays the plain shade makes
@@ -233,19 +257,9 @@ def kernel_check(scene, settings, basis) -> dict:
     out = {"rays": n, "bounces": []}
     for b in range(2):
         o, d, tp, rad, rid = coherence_sort(arrays, o, d, tp, rad, rid)
-        pa, pb, t = window_trace(arrays, o, d, events)
-        qa, qb, qt = trace_plain(arrays, o, d, events)
-        sync()
-        both = ((pa & 1) != 0) & ((qa & 1) != 0)
-        mism = {k: int((x != y).sum()) for k, x, y in
-                (("pa", pa, qa), ("pb", pb, qb), ("t", t, qt))}
-        limit = TRACE_MISMATCH_FRACTION * n
-        check(all(v <= limit for v in mism.values()),
-              f"tracer bounce {b}: mismatches {mism} over {limit:.1f}")
-        t_err = float((t - qt)[both].abs().max()) if bool(both.any()) else 0.0
-        trunc = int(((pa >> 22) & 1).sum())
-        check(trunc == 0, f"tracer bounce {b}: {trunc} rays truncated")
-        steps = dda_steps(arrays, o, d, qa, qt)
+        tr = trace_check(arrays, o, d, events, f"bounce {b}")
+        qa, qb, qt = tr.pop("plain")
+        steps = tr.pop("steps")
 
         args = (tables, arrays.grid_origin, o, d, qa, qb, qt, tp, rad, rid,
                 b, b, arrays.lights.num_prims)
@@ -266,7 +280,7 @@ def kernel_check(scene, settings, basis) -> dict:
         hits = int(((qa & 1) != 0).sum())
         rec = {
             "bounce": b, "alive": alive, "hits": hits, "steps": steps,
-            "trace": {"mismatch": mism, "max_abs_err_t": t_err,
+            "trace": {**tr,
                       "ms": time_ms(lambda: window_trace(arrays, o, d, events), 10),
                       "plain_ms": time_ms(lambda: trace_plain(arrays, o, d, events), 1)},
             "shade": {"max_abs_err": s_max, "rms": s_rms,
@@ -286,18 +300,26 @@ def texel_check(scene, settings, basis, prefs) -> dict:
     """K3 against its plain version on the card: on the (tex, u, v) the
     general frame's first bounce hands it (miss lanes carry huge u, v), and
     on a seeded set of the same size with out-of-range slots, coordinates
-    past both edges and non-finite lanes.  Times are of the first."""
-    seen = []
+    past both edges and non-finite lanes.  Times are of the first.  Also
+    K1 against its plain version on the rays the general frame's first two
+    bounces hand it (the grid with the lamp lattice; bounce 1 leaves voxel
+    faces, lamps and the cube)."""
+    seen, traced = [], []
 
     def spy(atlas, tex, u, v, channels=None):
         seen.append((atlas, tex, u, v, tuple(channels)))
         return texel_fetch(atlas, tex, u, v, channels=channels)
 
+    def trace_spy(arrays, o, d, events):
+        traced.append((arrays, o, d, events))
+        return window_trace(arrays, o, d, events)
+
     render_frame(scene.get_arrays(), basis.eye, basis.front, basis.right,
-                 basis.up, 0, settings=settings.replace(num_bounces=1),
+                 basis.up, 0, settings=settings.replace(num_bounces=2),
                  nee_type=prefs.nee_type, sort_type=prefs.sort_type,
-                 texel=spy)
-    check(len(seen) == 1, f"texel fetches in a 1-bounce frame: {len(seen)}")
+                 trace=trace_spy, texel=spy)
+    check(len(seen) == 2 and len(traced) == 2,
+          f"a 2-bounce frame fetched {len(seen)} and traced {len(traced)} times")
     atlas, tex, u, v, chans = seen[0]
     n = tex.shape[0]
     check(n == settings.n_rays, f"texel rays {n} != {settings.n_rays}")
@@ -314,7 +336,12 @@ def texel_check(scene, settings, basis, prefs) -> dict:
     sets = {"frame": (tex, u, v),
             "seeded": (tex2.cuda(), uv2[0].cuda().contiguous(),
                        uv2[1].cuda().contiguous())}
-    out = {"rays": n, "channels": list(chans)}
+    out = {"rays": n, "channels": list(chans), "trace": []}
+    for b, rays in enumerate(traced):
+        tr = trace_check(*rays, f"general bounce {b}")
+        del tr["plain"]
+        out["trace"].append({"bounce": b, "rays": int(rays[1].x.shape[0]),
+                             **tr})
     for name, (a, b, c) in sets.items():
         got = texel_fetch(atlas, a, b, c, channels=chans)
         want = texel_plain(atlas, a, b, c, channels=chans)
@@ -328,16 +355,20 @@ def texel_check(scene, settings, basis, prefs) -> dict:
                              out["max_abs_err_seeded"])
     out["non_finite_uv_frame"] = int((~torch.isfinite(u) | ~torch.isfinite(v)
                                       ).sum())
-    t, tj, ti = texel_index(atlas, tex, u, v)
     ch = list(chans)
     out["ms"] = time_ms(lambda: texel_fetch(atlas, tex, u, v, channels=chans),
                         20)
     out["plain_ms"] = time_ms(
         lambda: texel_plain(atlas, tex, u, v, channels=chans), 5)
-    # the one PyTorch call that computes the fetch: the indexed read, with
-    # the channel select and the transpose to channel-major
+    # the fetch through PyTorch's indexed read: the index arithmetic, the
+    # read, the channel select and the transpose to channel-major (what
+    # texel_plain does); and the read alone on indices made beforehand
     out["library_ms"] = time_ms(
-        lambda: atlas[t, tj, ti][:, ch].t().contiguous(), 5)
+        lambda: atlas[texel_index(atlas, tex, u, v)][:, ch].t().contiguous(),
+        5)
+    index = texel_index(atlas, tex, u, v)
+    out["indexed_read_ms"] = time_ms(
+        lambda: atlas[index][:, ch].t().contiguous(), 5)
     out["bound_ms"], out["bound_by"] = texel_bound_ms(atlas, n, len(chans))
     return out
 
@@ -384,8 +415,8 @@ def shade_tri_check() -> dict:
                                             tri_attrs=tri_attrs), 10),
            "ms_without_stream": time_ms(
                lambda: shade_pass(*args, nee_type=1), 10)}
-    out["bound_ms"], out["bound_by"] = shade_bound_ms(tables, n, n, hits,
-                                                      True, tri=True)
+    out["bound_ms"], out["bound_by"] = shade_bound_ms(
+        tables, n, n, hits, True, n_entity=use_tri)
     return out
 
 

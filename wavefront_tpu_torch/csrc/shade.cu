@@ -23,10 +23,11 @@
 //
 // Dynamic entities: the closest-hit merge against the entity triangles is
 // plain PyTorch in the renderer (as it is XLA in the TPU version); the
-// kernel receives the merged t and an optional 12-array attribute stream
-// (48 more bytes per ray) and, on lanes whose flag word has bit 16 set,
-// shades with the triangle's frame, uv and texture instead of the voxel
-// face's.  Whether the stream is present is a template parameter, so the
+// kernel receives the merged t and an optional 12-array attribute stream;
+// it reads the flag word on every ray (4 more bytes) and, on lanes whose
+// flag word has bit 16 set, the other 11 words (44 more bytes), and shades
+// those lanes with the triangle's frame, uv and texture instead of the
+// voxel face's.  Whether the stream is present is a template parameter, so the
 // entity-free kernel is the one it was.
 //
 // Arithmetic mirrors kernels/shade.py::shade_plain operation for operation

@@ -70,18 +70,10 @@ def lamp_lattice(grid: np.ndarray, registry: BlockRegistry) -> list:
     return cells
 
 
-def headline_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
-                   device="cuda", lamps: bool = False, **settings_kw):
-    """The headline workload: (scene, settings, camera basis, prefs).
-
-    Compaction and the trace audit default on, as in the reference; its
-    TPU schedule settings are not set here because the port ignores them.
-    lamps: also write the lamp lattice (`lamp_lattice`) into the grid."""
-    registry = BlockRegistry.load(ASSETS)
-    grid, origin = build_scene(registry, WorldSettings())
-    if lamps:
-        for cell in lamp_lattice(grid, registry):
-            grid[cell] = registry.block_idx("lamp")
+def _frame_setup(registry, grid, origin, width, height, bounces, device,
+                 settings_kw):
+    """(scene, settings, camera basis, prefs) of the headline frame on
+    `grid`: the headline's pose, preferences and settings."""
     scene = VoxelScene(registry, grid, origin, max_light_prims=1024,
                        device=device)
     settings_kw.setdefault("trace_audit", True)
@@ -96,6 +88,18 @@ def headline_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
     cam.pitch = -0.55
     return scene, settings, cam.eye_front_right_up(), \
         RenderingPreferences(nee_type=1)
+
+
+def headline_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
+                   device="cuda", **settings_kw):
+    """The headline workload: (scene, settings, camera basis, prefs).
+
+    Compaction and the trace audit default on, as in the reference; its
+    TPU schedule settings are not set here because the port ignores them."""
+    registry = BlockRegistry.load(ASSETS)
+    grid, origin = build_scene(registry, WorldSettings())
+    return _frame_setup(registry, grid, origin, width, height, bounces,
+                        device, settings_kw)
 
 
 # slots per ray of the sparse NEE pdf sweep on the general frame: no ray of
@@ -125,8 +129,12 @@ def general_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
     settings_kw.setdefault("shade_fused", False)
     settings_kw.setdefault("shade_texel_kernel", True)
     settings_kw.setdefault("max_nee_hits", GENERAL_MAX_NEE_HITS)
-    scene, settings, basis, prefs = headline_setup(
-        width, height, bounces, device=device, lamps=True, **settings_kw)
+    registry = BlockRegistry.load(ASSETS)
+    grid, origin = build_scene(registry, WorldSettings())
+    for cell in lamp_lattice(grid, registry):
+        grid[cell] = registry.block_idx("lamp")
+    scene, settings, basis, prefs = _frame_setup(
+        registry, grid, origin, width, height, bounces, device, settings_kw)
     add_ego_cube(scene, basis)
     lights = scene.get_arrays().lights
     if lights.dense:

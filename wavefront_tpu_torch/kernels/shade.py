@@ -8,55 +8,49 @@ dense light-BVH pick, the dense NEE pdf sweep and the throughput/radiance
 fold, in one pass that reads each ray's state once and writes it once.
 
 Bound on the card: 112 bytes per ray cross device memory (16 input and 12
-output words; 48 more with the entity stream `tri_attrs`); the atlas stays
-in L2 and the light tables in shared memory.  At the headline's 8 light prims that byte bound is the floor;
-the per-ray light walk and pdf sweep grow with the prim count (see the
-source note in the .cu file and PERF.md).
+output words; with the entity stream `tri_attrs` 4 more for the flag word,
+and 44 more on each lane an entity wins); the atlas stays in L2 and the
+light tables in shared memory.  At the headline's 8 light prims that byte
+bound is the floor; the per-ray light walk and pdf sweep grow with the prim
+count (see the source note in the .cu file and PERF.md).
 
-`shade_plain` repeats the kernel's arithmetic in the kernel's order (prim
-probabilities by a walk up the parents, sums in prim order), so on the card
-the two differ only by the rounding of cos/sin/log/exp.
+`shade_plain` is the renderer's shade (`render/shading.py`) with the dense
+light pick and pdf sweep in the kernel's order (prim probabilities by a
+walk up the parents, sums in prim order), so on the card the two differ
+only by the rounding of cos/sin/log/exp.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from wavefront_tpu_torch.core import rng, vec3
-from wavefront_tpu_torch.core.config import (
-    EMISSION_SCALE,
-    EPSILON_BLOCK,
-    EPSILON_NEE,
-    MISS_DISTANCE,
-    NEE_MIS_WEIGHT,
-    SKY_COS_CUTOFF,
-    SKY_EMISSION,
-    T_MAX,
-)
+from wavefront_tpu_torch.core.config import EPSILON_BLOCK, EPSILON_NEE, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.kernels import _build
+from wavefront_tpu_torch.kernels.texel import texel_plain
+from wavefront_tpu_torch.render.intersect import unpack_hits
+from wavefront_tpu_torch.render.shading import (
+    CHANNELS,
+    EntityHit,
+    shade_rays,
+    throughput_factor,
+)
 from wavefront_tpu_torch.render.wavefront import (
+    BvhSample,
     aabb_importance,
-    cosine_hemisphere,
     normalized_node_importance,
-    reflect,
 )
 
 _F32 = torch.float32
-# the 8 packed-atlas channels the shade reads: reflectivity rgb, alpha,
-# emissivity rgb, metallicity
-CHANNELS = (0, 1, 2, 3, 4, 5, 6, 8)
 # light-table caps of the kernel (shared memory: 16 KB of nodes and
 # 32 KB of prims at the caps)
 MAX_NODES = 512
 MAX_PRIMS = 256
-_INV_PI = float(np.float32(1.0 / math.pi))
-_EPS15 = float(np.float32(EPSILON_BLOCK * 1.5))
 
 
 class ShadeTables(NamedTuple):
@@ -142,108 +136,25 @@ def prep_shade_tables(atlas_packed, lights) -> ShadeTables:
     )
 
 
-def shade_plain(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
-                pa, pb, t, tp: V3, rad: V3, rid, inv_seed: int, bounce: int,
-                num_prims: int, *, nee_type: int, tri_attrs=None):
-    """Plain PyTorch version of the shade kernel (same arguments as
-    shade_pass); returns (origin', direction', tp', rad') as V3s."""
-    f32 = dict(dtype=_F32, device=origin.x.device)
-    ox, oy, oz = origin
-    dx, dy, dz = direction
-    zero = torch.zeros_like(ox)
-    one = torch.ones_like(ox)
-    alive = vec3.any_nonzero(direction)
-
-    # ---- hit record ----
-    hit = (pa & 1) != 0
-    face = (pa >> 2) & 7
-    owner = (pa >> 14) & 255
-    vx = (pb & 1023) - 2
-    vy = ((pa >> 5) & 511) - 2
-    vz = (pb >> 10) - 2
-    hpx, hpy, hpz = ox + dx * t, oy + dy * t, oz + dz * t
-
-    # ---- face frame and uv ----
-    axis = face >> 1
-    signf = ((face & 1) * 2 - 1).to(_F32)
-    n_x = torch.where(axis == 0, signf, zero)
-    n_y = torch.where(axis == 1, signf, zero)
-    n_z = torch.where(axis == 2, signf, zero)
-    tg_x = torch.where(axis == 2, one, zero)
-    tg_y = torch.where(axis == 0, one, zero)
-    tg_z = torch.where(axis == 1, one, zero)
-    bt_x = n_y * tg_z - n_z * tg_y
-    bt_y = n_z * tg_x - n_x * tg_z
-    bt_z = n_x * tg_y - n_y * tg_x
-    g = [float(v) for v in grid_origin]
-    lx = hpx - (vx.to(_F32) + g[0])
-    ly = hpy - (vy.to(_F32) + g[1])
-    lz = hpz - (vz.to(_F32) + g[2])
-    u = torch.where(face == 0, 1.0 - lz, torch.where(
-        face == 1, lz, torch.where(face == 2, lx, torch.where(
-            face == 3, 1.0 - lx, torch.where(face == 4, lx, 1.0 - lx)))))
-    v = torch.where((face == 2) | (face == 3), lz, 1.0 - ly)
-    tex = owner * 6 + face
-
-    if tri_attrs is not None:
-        # entity hits (bit 16 of the flag word) take the winning triangle's
-        # frame, uv and texture over the voxel face's
-        (tnx, tny, tnz, ttx, tty, ttz, tbx, tby, tbz, tu, tv, tf) = tri_attrs
-        ut = ((tf >> 16) & 1) != 0
-        hit = hit | ut
-        n_x, n_y, n_z = (torch.where(ut, a, b) for a, b in
-                         ((tnx, n_x), (tny, n_y), (tnz, n_z)))
-        tg_x, tg_y, tg_z = (torch.where(ut, a, b) for a, b in
-                            ((ttx, tg_x), (tty, tg_y), (ttz, tg_z)))
-        bt_x, bt_y, bt_z = (torch.where(ut, a, b) for a, b in
-                            ((tbx, bt_x), (tby, bt_y), (tbz, bt_z)))
-        u = torch.where(ut, tu, u)
-        v = torch.where(ut, tv, v)
-        tex = torch.where(ut, tf & 0xFFFF, tex)
-
-    # ---- texels ----
-    n_tex, size = tables.atlas.shape[0], tables.atlas.shape[1]
-    tex = tex.clamp(0, n_tex - 1).to(torch.int64)
-    ti = (u * float(size)).to(torch.int32).clamp(0, size - 1).to(torch.int64)
-    tj = (v * float(size)).to(torch.int32).clamp(0, size - 1).to(torch.int64)
-    texel = tables.atlas[tex, tj, ti][:, list(CHANNELS)]
-    ch = [torch.where(hit, texel[:, c], zero) for c in range(len(CHANNELS))]
-    cos_in = -((dx * n_x + dy * n_y) + dz * n_z)
-    emx = EMISSION_SCALE * ch[4] * cos_in
-    emy = EMISSION_SCALE * ch[5] * cos_in
-    emz = EMISSION_SCALE * ch[6] * cos_in
-    alpha, metal = ch[3], ch[7]
-
-    # ---- scatter decision ----
-    seed = rng.combine(inv_seed, rid)
-    scatter_rand = rng.finalizef(rng.combine(seed, 0))
-    is_mirror = scatter_rand < metal
-    is_trans = ~is_mirror & (scatter_rand < metal + (1.0 - alpha))
-    is_lamb = hit & ~is_mirror & ~is_trans
-    lox, loy, loz = hpx + _EPS15 * n_x, hpy + _EPS15 * n_y, hpz + _EPS15 * n_z
-    if nee_type == 1:
-        do_nee = is_lamb
-    elif nee_type == 2:
-        do_nee = is_lamb & (bounce == 0)
-    else:
-        do_nee = torch.zeros_like(is_lamb)
-
-    # ---- dense light pick ----
-    p_prims = tables.p_prims
-    probs = []
-    prow = torch.zeros((ox.shape[0], 32), **f32)
-    imp, ok = zero, torch.zeros_like(is_lamb)
-    if nee_type != 0:
+def _pick_kernel_order(tables: ShadeTables, num_prims: int):
+    """The dense light pick in the kernel's order: each prim's probability
+    by a walk up its parents, the running sum in prim order.  Returns the
+    `pick` of `shading.shade_rays`; what it gives second is the list of
+    per-prim (N,) probabilities."""
+    def pick(point: V3, normal: V3, seed, active):
+        zero = torch.zeros_like(point.x)
         nd = tables.nodes
         node_imp = aabb_importance(
             nd[None, :, 0], nd[None, :, 1], nd[None, :, 2],
             nd[None, :, 3], nd[None, :, 4], nd[None, :, 5], nd[None, :, 6],
-            lox[:, None], loy[:, None], loz[:, None],
-            n_x[:, None], n_y[:, None], n_z[:, None], EPSILON_BLOCK, False)
+            point.x[:, None], point.y[:, None], point.z[:, None],
+            normal.x[:, None], normal.y[:, None], normal.z[:, None],
+            EPSILON_BLOCK, False)
         logn = torch.log(torch.clamp_min(
             normalized_node_importance(node_imp), 1e-35))
+        probs = []
         total = zero
-        for q in range(p_prims):
+        for q in range(tables.p_prims):
             p = zero
             if q < num_prims:
                 logp = zero
@@ -252,114 +163,102 @@ def shade_plain(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
                 p = torch.exp(logp)
             probs.append(p)
             total = total + p
-        uu = rng.finalizef(rng.combine(seed, 2)) * total
-        cum, cnt = zero, torch.zeros_like(rid, dtype=torch.int64)
+        uu = rng.finalizef(seed) * total
+        cum, cnt = zero, torch.zeros_like(seed, dtype=torch.int64)
         for p in probs:
             cum = cum + p
             cnt = cnt + (cum < uu).to(torch.int64)
-        idx = cnt.clamp_max(p_prims - 1)
+        idx = cnt.clamp_max(tables.p_prims - 1)
         prob = torch.stack(probs, dim=1).gather(1, idx[:, None])[:, 0]
         prow = tables.prims[idx]
         imp = aabb_importance(
             prow[:, 12], prow[:, 13], prow[:, 14], prow[:, 15], prow[:, 16],
-            prow[:, 17], prow[:, 11], lox, loy, loz, n_x, n_y, n_z,
-            EPSILON_BLOCK, True)
-        ok = do_nee & (total > 0) & (prob > 0)
-    mis = torch.where(ok & (imp > 0.0), NEE_MIS_WEIGHT, 0.0).to(_F32)
-    pick_light = rng.finalizef(rng.combine(seed, 3)) < mis
-    u4 = rng.finalizef(rng.combine(seed, 4))
-    u5 = rng.finalizef(rng.combine(seed, 5))
+            prow[:, 17], prow[:, 11], *point, *normal, EPSILON_BLOCK, True)
+        ok = active & (total > 0) & (prob > 0)
+        return BvhSample(ok, idx, prob, imp), probs
 
-    fold = (prow[:, 9] > 0.5) & (u4 + u5 > 1.0)
-    lu = torch.where(fold, 1.0 - u4, u4)
-    lv = torch.where(fold, 1.0 - u5, u5)
-    tlx = ((prow[:, 0] + lu * prow[:, 3]) + lv * prow[:, 6]) - lox
-    tly = ((prow[:, 1] + lu * prow[:, 4]) + lv * prow[:, 7]) - loy
-    tlz = ((prow[:, 2] + lu * prow[:, 5]) + lv * prow[:, 8]) - loz
-    tl_n = torch.clamp_min(torch.sqrt((tlx * tlx + tly * tly) + tlz * tlz),
-                           1e-20)
-    ldx, ldy, ldz = tlx / tl_n, tly / tl_n, tlz / tl_n
+    return pick
 
-    normal = V3(n_x, n_y, n_z)
-    hemi = cosine_hemisphere(u4, u5, normal, V3(tg_x, tg_y, tg_z),
-                             V3(bt_x, bt_y, bt_z))
-    lamdx = torch.where(pick_light, ldx, hemi.x)
-    lamdy = torch.where(pick_light, ldy, hemi.y)
-    lamdz = torch.where(pick_light, ldz, hemi.z)
-    lam_bsdf = ((lamdx * n_x + lamdy * n_y) + lamdz * n_z) * _INV_PI
 
-    # ---- merge branches ----
-    nox = torch.where(is_lamb, lox, hpx)
-    noy = torch.where(is_lamb, loy, hpy)
-    noz = torch.where(is_lamb, loz, hpz)
-    mirror = reflect(direction, normal)
-    ndx = torch.where(is_mirror, mirror.x, torch.where(is_trans, dx, lamdx))
-    ndy = torch.where(is_mirror, mirror.y, torch.where(is_trans, dy, lamdy))
-    ndz = torch.where(is_mirror, mirror.z, torch.where(is_trans, dz, lamdz))
-    orx = torch.where(is_mirror, ch[0], torch.where(is_trans, one, ch[0] * _INV_PI))
-    ory = torch.where(is_mirror, ch[1], torch.where(is_trans, one, ch[1] * _INV_PI))
-    orz = torch.where(is_mirror, ch[2], torch.where(is_trans, one, ch[2] * _INV_PI))
-    bsdf = torch.where(is_lamb, lam_bsdf, one)
-    mis_o = torch.where(is_lamb, mis, zero)
+def _pdf_kernel_order(tables: ShadeTables, num_prims: int, probs, point: V3,
+                      normal: V3, direction: V3, mis):
+    """The dense NEE pdf sweep in the kernel's order: prim by prim, from
+    the precomputed plane and edge products of the prim table."""
+    nox, noy, noz = point
+    ndx, ndy, ndz = direction
+    pdf = torch.zeros_like(mis)
+    one = torch.ones_like(mis)
+    act = (mis > 0) & vec3.any_nonzero(direction)
+    cos_r = vec3.dot(normal, direction)
+    for q in range(min(num_prims, tables.p_prims)):
+        c = [float(x) for x in tables.prims[q].cpu()]
+        nvd = (c[18] * ndx + c[19] * ndy) + c[20] * ndz
+        nvo = (c[18] * nox + c[19] * noy) + c[20] * noz
+        safe = nvd.abs() > 1e-12
+        tt = (c[25] - nvo) / torch.where(safe, nvd, one)
+        r1 = (((c[3] * nox + c[4] * noy) + c[5] * noz)
+              + tt * ((c[3] * ndx + c[4] * ndy) + c[5] * ndz)) - c[26]
+        r2 = (((c[6] * nox + c[7] * noy) + c[8] * noz)
+              + tt * ((c[6] * ndx + c[7] * ndy) + c[8] * ndz)) - c[27]
+        uq = (r1 * c[22] - r2 * c[23]) * c[24]
+        vq = (r2 * c[21] - r1 * c[23]) * c[24]
+        if c[9] > 0.5:
+            inside = (uq >= 0) & (vq >= 0) & (uq + vq <= 1)
+        else:
+            inside = (uq >= 0) & (uq <= 1) & (vq >= 0) & (vq <= 1)
+        hitp = act & safe & inside & (tt >= EPSILON_NEE) & (tt <= T_MAX)
+        contrib = probs[q] * tt * tt / (cos_r * c[10])
+        pdf = pdf + torch.where(hitp, contrib, torch.zeros_like(pdf))
+    return pdf
 
-    # ---- miss: directional sky ----
-    miss = ~hit
-    sky = torch.where(dy > SKY_COS_CUTOFF, SKY_EMISSION, 0.0).to(_F32)
-    nox = torch.where(miss, ox + dx * MISS_DISTANCE, nox)
-    noy = torch.where(miss, oy + dy * MISS_DISTANCE, noy)
-    noz = torch.where(miss, oz + dz * MISS_DISTANCE, noz)
-    ndx, ndy, ndz = (torch.where(miss, zero, c) for c in (ndx, ndy, ndz))
-    nmx, nmy, nmz = (torch.where(miss, zero, c) for c in (n_x, n_y, n_z))
-    ex, ey, ez = (torch.where(miss, sky, c) for c in (emx, emy, emz))
-    orx, ory, orz = (torch.where(miss, zero, c) for c in (orx, ory, orz))
-    mis_o = torch.where(miss, zero, mis_o)
-    bsdf = torch.where(miss, one, bsdf)
 
-    # ---- dense NEE pdf sweep ----
-    pdf = zero
-    if nee_type != 0:
-        act = (mis_o > 0) & ((ndx != 0.0) | (ndy != 0.0) | (ndz != 0.0))
-        cos_r = (nmx * ndx + nmy * ndy) + nmz * ndz
-        pr = tables.prims
-        for q in range(min(num_prims, p_prims)):
-            c = [float(x) for x in pr[q].cpu()]
-            nvd = (c[18] * ndx + c[19] * ndy) + c[20] * ndz
-            nvo = (c[18] * nox + c[19] * noy) + c[20] * noz
-            safe = nvd.abs() > 1e-12
-            tt = (c[25] - nvo) / torch.where(safe, nvd, one)
-            r1 = (((c[3] * nox + c[4] * noy) + c[5] * noz)
-                  + tt * ((c[3] * ndx + c[4] * ndy) + c[5] * ndz)) - c[26]
-            r2 = (((c[6] * nox + c[7] * noy) + c[8] * noz)
-                  + tt * ((c[6] * ndx + c[7] * ndy) + c[8] * ndz)) - c[27]
-            uq = (r1 * c[22] - r2 * c[23]) * c[24]
-            vq = (r2 * c[21] - r1 * c[23]) * c[24]
-            if c[9] > 0.5:
-                inside = (uq >= 0) & (vq >= 0) & (uq + vq <= 1)
-            else:
-                inside = (uq >= 0) & (uq <= 1) & (vq >= 0) & (vq <= 1)
-            hitp = act & safe & inside & (tt >= EPSILON_NEE) & (tt <= T_MAX)
-            contrib = probs[q] * tt * tt / (cos_r * c[10])
-            pdf = pdf + torch.where(hitp, contrib, zero)
+class _PrimGeometry(NamedTuple):
+    """The light prims' geometry as `shading.shade_rays` reads it, from
+    the columns of the prim table."""
 
-    # ---- throughput/radiance fold ----
-    valid = ((ndx != 0.0) | (ndy != 0.0) | (ndz != 0.0)).to(_F32)
-    qq = pdf * mis_o + (1.0 - mis_o) * bsdf
-    w = torch.where(qq > 0.0, bsdf / torch.clamp_min(qq, 1e-35), zero)
-    wv = w * valid
-    tpx, tpy, tpz = tp
-    rax, ray_, raz = rad
+    p0: torch.Tensor
+    e1: torch.Tensor
+    e2: torch.Tensor
+    is_tri: torch.Tensor
 
-    def out(live, dead):
-        return torch.where(alive, live, dead)
 
-    new_o = V3(out(nox, ox), out(noy, oy), out(noz, oz))
-    new_d = V3(out(ndx, zero), out(ndy, zero), out(ndz, zero))
-    new_tp = V3(out(tpx * (orx * wv), tpx * 0.0), out(tpy * (ory * wv), tpy * 0.0),
-                out(tpz * (orz * wv), tpz * 0.0))
-    new_rad = V3(out(rax + tpx * ex, rax + tpx * 0.0),
-                 out(ray_ + tpy * ey, ray_ + tpy * 0.0),
-                 out(raz + tpz * ez, raz + tpz * 0.0))
-    return new_o, new_d, new_tp, new_rad
+def shade_plain(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
+                pa, pb, t, tp: V3, rad: V3, rid, inv_seed: int, bounce: int,
+                num_prims: int, *, nee_type: int, tri_attrs=None):
+    """Plain PyTorch version of the shade kernel (same arguments as
+    shade_pass); returns (origin', direction', tp', rad') as V3s.
+
+    The shade itself is the renderer's (`shading.shade_rays` on
+    `texel_plain`); only the dense light pick and pdf sweep are written
+    out here, in the kernel's order."""
+    vox = unpack_hits(pa, pb, t)
+    entity = None
+    if tri_attrs is not None:
+        # entity hits (bit 16 of the flag word) take the winning triangle's
+        # frame, uv and texture over the voxel face's; t is already merged
+        a = tri_attrs
+        use = ((a[11] >> 16) & 1) != 0
+        entity = EntityHit(use, V3(*a[0:3]), V3(*a[3:6]), V3(*a[6:9]),
+                           a[9], a[10], a[11] & 0xFFFF)
+        vox = vox._replace(hit=vox.hit | use)
+    pr = tables.prims
+    geometry = _PrimGeometry(pr[:, 0:3], pr[:, 3:6], pr[:, 6:9],
+                             pr[:, 9] > 0.5)
+
+    def fetch(tex, u, v):
+        return texel_plain(tables.atlas, tex, u, v, channels=CHANNELS)
+
+    (new_o, new_d, normal, emis, refl, mis, bsdf_pdf, probs) = shade_rays(
+        grid_origin, geometry, nee_type, bounce, origin,
+        direction, rng.combine(inv_seed, rid), vox, entity, fetch,
+        _pick_kernel_order(tables, num_prims))
+    if nee_type == 0:
+        nee_pdf = torch.zeros_like(mis)
+    else:
+        nee_pdf = _pdf_kernel_order(tables, num_prims, probs, new_o, normal,
+                                    new_d, mis)
+    factor = throughput_factor(new_d, refl, mis, bsdf_pdf, nee_pdf)
+    return new_o, new_d, tp * factor, rad + tp * emis
 
 
 def _lib():

@@ -9,8 +9,9 @@ A bounce shades on one of two paths, chosen by `use_fused`:
     dense light pick, the dense NEE pdf sweep and the throughput/radiance
     fold in one pass; entity hits are merged into its inputs by
     `entity_attrs`.  It needs a dense light set within the kernel's caps.
-  * general (`shade_general` + `shade_m`): the same shade as plain tensor
-    stages around the texel kernel (`kernels/texel.py`), with the light
+  * general (`shade_m`): the same shade as plain tensor stages
+    (`render/shading.py`) around the texel kernel (`kernels/texel.py`),
+    with the light
     pick by `dense_sample_light` or, for sparse light sets, the stochastic
     BVH descent, and the NEE pdf by the dense or the sparse sweep.  It is
     what runs for `shade_fused=False`, the stage-isolation variants
@@ -31,28 +32,19 @@ accepted and change nothing.
 
 from __future__ import annotations
 
-import math
 import warnings
 from typing import Optional
 
-import numpy as np
 import torch
 
 from wavefront_tpu_torch.core import morton, rng, vec3
 from wavefront_tpu_torch.core.camera import CameraBasis
 from wavefront_tpu_torch.core.config import (
-    EMISSION_SCALE,
-    EPSILON_BLOCK,
-    MISS_DISTANCE,
-    NEE_MIS_WEIGHT,
-    SKY_COS_CUTOFF,
-    SKY_EMISSION,
     RenderingPreferences,
     RenderSettings,
 )
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.kernels.shade import (
-    CHANNELS,
     MAX_NODES,
     MAX_PRIMS,
     prep_shade_tables,
@@ -73,21 +65,22 @@ from wavefront_tpu_torch.render.intersect import (
     unpack_hits,
 )
 from wavefront_tpu_torch.render.scene import SceneArrays, VoxelScene
+from wavefront_tpu_torch.render.shading import (
+    CHANNELS,
+    EntityHit,
+    shade_rays,
+    throughput_factor,
+)
 from wavefront_tpu_torch.render.wavefront import (
-    BvhSample,
-    cosine_hemisphere,
     dense_sample_light,
     nee_pdf_sweep,
     postprocess,
     raygen_soa,
-    reflect,
     traverse_light_bvh,
 )
 
 _F32 = torch.float32
 _I32 = torch.int32
-_INV_PI = float(np.float32(1.0 / math.pi))
-_EPS15 = float(np.float32(EPSILON_BLOCK * 1.5))
 
 
 def _check_supported(settings: RenderSettings, nee_type: int,
@@ -200,193 +193,51 @@ def entity_attrs(scene: SceneArrays, origin: V3, direction: V3, pa, t):
         *normal, *tangent, *bitangent, u, v, tflag)
 
 
-def shade_general(scene: SceneArrays, settings: RenderSettings,
-                  nee_type: int, bounce: int, origin: V3, direction: V3,
-                  seed, vox: VoxelHit, use_entities: bool,
-                  texel=texel_fetch):
-    """The shade and sample step of one bounce for every ray (reference
-    raytrace.rs:467-694), on the hits `vox` of the tracer.
+def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
+            bounce: int, origin: V3, direction: V3, rid, inv_seed: int,
+            vox: VoxelHit, use_entities: bool, texel=texel_fetch):
+    """General shade plus NEE pdf of one (possibly compacted) ray block:
+    `shading.shade_rays` around the texel kernel, the light pick by
+    `dense_sample_light` or the BVH descent, then the dense or sparse pdf
+    sweep.
 
-    seed: per-ray murmur3 state (invocation seed combined with the pixel
-    id).  Returns (new origin V3, new direction V3, normal V3, emissivity
-    V3, reflectivity V3, MIS weight, bsdf pdf, dense prim probabilities or
-    None)."""
-    n = origin.x.shape[0]
-    dev = origin.x.device
-    alive = vec3.any_nonzero(direction)
-    zero = torch.zeros(n, dtype=_F32, device=dev)
-    one = torch.ones(n, dtype=_F32, device=dev)
-
+    Returns the next ray, the block's emission, its throughput factor
+    (`shading.throughput_factor`) and the count of rays whose light
+    crossings overflowed the sparse sweep's slots (0 unless
+    settings.trace_audit)."""
+    lights = scene.lights
+    atlas = scene.atlas_packed
+    entity = None
     if use_entities:
         tri = triangle_sweep(scene.tri_verts, scene.tri_active, origin,
                              direction)
         use_tri = tri.hit & (~vox.hit | (tri.t < vox.t))
-        hit_any = (vox.hit | tri.hit) & alive
-        t_hit = torch.where(use_tri, tri.t, vox.t)
-    else:
-        hit_any = vox.hit & alive
-        t_hit = vox.t
-    hit_point = origin + direction * t_hit
+        entity = EntityHit(use_tri, *_entity_frame(scene, tri))
+        vox = vox._replace(hit=vox.hit | tri.hit,
+                           t=torch.where(use_tri, tri.t, vox.t))
 
-    # ---- voxel face attributes ----
-    face = vox.face
-    axis = face >> 1                        # 0:x 1:y 2:z
-    signf = ((face & 1) * 2 - 1).to(_F32)   # outward
-    normal = V3(torch.where(axis == 0, signf, zero),
-                torch.where(axis == 1, signf, zero),
-                torch.where(axis == 2, signf, zero))
-    # canonical tangent = next axis in the xyz cycle
-    tangent = V3(torch.where(axis == 2, one, zero),
-                 torch.where(axis == 0, one, zero),
-                 torch.where(axis == 1, one, zero))
-    bitangent = vec3.cross(normal, tangent)
-    go = scene.grid_origin
-    lx = hit_point.x - (vox.vx + go[0]).to(_F32)
-    ly = hit_point.y - (vox.vy + go[1]).to(_F32)
-    lz = hit_point.z - (vox.vz + go[2]).to(_F32)
-    # face-local uv from the mesher's per-vertex assignment
-    # (chunk.rs:222-287): 0: (1-lz, 1-ly)  1: (lz, 1-ly)  2: (lx, lz)
-    #                     3: (1-lx, lz)    4: (lx, 1-ly)  5: (1-lx, 1-ly)
-    u = torch.where(face == 0, 1.0 - lz, torch.where(
-        face == 1, lz, torch.where(face == 2, lx, torch.where(
-            face == 3, 1.0 - lx, torch.where(face == 4, lx, 1.0 - lx)))))
-    v = torch.where((face == 2) | (face == 3), lz, 1.0 - ly)
-    # texture slot = block*6 + face (block.rs:116-119), clamped for miss
-    # lanes whose owner is the out-of-table air id
-    tex = (vox.owner * 6 + face).clamp(0, scene.atlas_packed.shape[0] - 1)
-
-    if use_entities:
-        tn, tt, tb, tu, tv, ttex = _entity_frame(scene, tri)
-        normal = vec3.where(use_tri, tn, normal)
-        tangent = vec3.where(use_tri, tt, tangent)
-        bitangent = vec3.where(use_tri, tb, bitangent)
-        u = torch.where(use_tri, tu, u)
-        v = torch.where(use_tri, tv, v)
-        tex = torch.where(use_tri, ttex, tex)
-
-    # ---- texels: the 8 consumed channels of the packed atlas ----
-    if settings.debug_stage == "notex":
-        # stage-isolation variant: a constant texel, no atlas read
-        const = torch.full((n,), 0.5, dtype=_F32, device=dev) * (u * 0 + 1)
-        ch = [const] * len(CHANNELS)
-    elif settings.shade_texel_kernel:
-        ch = texel(scene.atlas_packed, tex.to(_I32).contiguous(), u, v,
-                   channels=CHANNELS)
-    else:
+    def fetch(tex, u, v):
+        if settings.debug_stage == "notex":
+            # stage-isolation variant: a constant texel, no atlas read
+            return [torch.full_like(u, 0.5) * (u * 0 + 1)] * len(CHANNELS)
+        if settings.shade_texel_kernel:
+            return texel(atlas, tex.to(_I32).contiguous(), u, v,
+                         channels=CHANNELS)
         # the caller asked for PyTorch's indexed read instead of the kernel
-        tx = scene.atlas_packed[texel_index(scene.atlas_packed, tex, u, v)]
-        ch = [tx[:, c] for c in CHANNELS]
-    reflectivity = V3(ch[0], ch[1], ch[2])
-    alpha, metallicity = ch[3], ch[7]
-    cos_in = -vec3.dot(direction, normal)
-    emissivity = V3(EMISSION_SCALE * ch[4] * cos_in,
-                    EMISSION_SCALE * ch[5] * cos_in,
-                    EMISSION_SCALE * ch[6] * cos_in)
+        tx = atlas[texel_index(atlas, tex, u, v)]
+        return [tx[:, c] for c in CHANNELS]
 
-    # ---- scatter decision (reference raytrace.rs:588-603) ----
-    scatter_rand = rng.finalizef(rng.combine(seed, 0))
-    is_mirror = scatter_rand < metallicity
-    is_transmissive = ~is_mirror & (scatter_rand < metallicity + (1.0 - alpha))
-    is_lambertian = hit_any & ~is_mirror & ~is_transmissive
+    def pick(point, normal, seed, active):
+        if lights.dense:
+            return dense_sample_light(lights, point, normal, seed, active)
+        return traverse_light_bvh(lights, point, normal, seed, active,
+                                  settings.max_bvh_depth), None
 
-    # ---- lambertian branch (reference raytrace.rs:603-675) ----
-    lam_origin = hit_point + normal * _EPS15
-    if nee_type == 1:
-        do_nee = is_lambertian
-    elif nee_type == 2:
-        do_nee = is_lambertian & (bounce == 0)
-    else:
-        do_nee = torch.zeros_like(is_lambertian)
-
-    lights = scene.lights
-    dense_probs = None
-    if nee_type == 0:
-        # no light sampling; the draws below keep their indices, so images
-        # match across modes
-        bvh = BvhSample(success=do_nee,
-                        prim=torch.zeros(n, dtype=torch.int64, device=dev),
-                        probability=one, importance=zero)
-    elif lights.dense:
-        bvh, dense_probs = dense_sample_light(
-            lights, lam_origin, normal, rng.combine(seed, 2), do_nee)
-    else:
-        bvh = traverse_light_bvh(lights, lam_origin, normal,
-                                 rng.combine(seed, 2), do_nee,
-                                 settings.max_bvh_depth)
-    mis_weight = torch.where(bvh.success & (bvh.importance > 0.0),
-                             NEE_MIS_WEIGHT, 0.0).to(_F32)
-    pick_light = rng.finalizef(rng.combine(seed, 3)) < mis_weight
-    u4 = rng.finalizef(rng.combine(seed, 4))
-    u5 = rng.finalizef(rng.combine(seed, 5))
-
-    lam_dir = cosine_hemisphere(u4, u5, normal, tangent, bitangent)
-    if nee_type != 0:
-        # light point p0 + u*e1 + v*e2, with the triangle fold
-        # (raytrace.rs:317-323)
-        lp0, le1, le2 = (a[bvh.prim] for a in (lights.p0, lights.e1,
-                                               lights.e2))
-        fold = lights.is_tri[bvh.prim] & (u4 + u5 > 1.0)
-        lu = torch.where(fold, 1.0 - u4, u4)
-        lv = torch.where(fold, 1.0 - u5, u5)
-        to_light = V3(*(lp0[:, c] + lu * le1[:, c] + lv * le2[:, c] - lo
-                        for c, lo in enumerate(lam_origin)))
-        light_dir = to_light / vec3.norm(to_light).clamp_min(1e-20)
-        lam_dir = vec3.where(pick_light, light_dir, lam_dir)
-    lam_bsdf_pdf = vec3.dot(lam_dir, normal) * _INV_PI
-
-    # ---- merge branches ----
-    new_origin = vec3.where(is_lambertian, lam_origin, hit_point)
-    new_direction = vec3.where(
-        is_mirror, reflect(direction, normal),
-        vec3.where(is_transmissive, direction, lam_dir))
-    out_reflect = vec3.where(
-        is_mirror, reflectivity,
-        vec3.where(is_transmissive, V3(one, one, one),
-                   reflectivity * _INV_PI))
-    out_bsdf_pdf = torch.where(is_lambertian, lam_bsdf_pdf, one)
-    out_mis = torch.where(is_lambertian, mis_weight, zero)
-    out_emis = emissivity
-
-    # ---- miss: directional sky (reference raytrace.rs:528-538) ----
-    miss = alive & ~hit_any
-    sky = torch.where(direction.y > SKY_COS_CUTOFF, SKY_EMISSION, 0.0).to(_F32)
-    zero3 = V3(zero, zero, zero)
-    new_origin = vec3.where(miss, origin + direction * MISS_DISTANCE,
-                            new_origin)
-    new_direction = vec3.where(miss, zero3, new_direction)
-    normal = vec3.where(miss, zero3, normal)
-    out_emis = vec3.where(miss, V3(sky, sky, sky), out_emis)
-    out_reflect = vec3.where(miss, zero3, out_reflect)
-    out_mis = torch.where(miss, zero, out_mis)
-    out_bsdf_pdf = torch.where(miss, one, out_bsdf_pdf)
-
-    # ---- terminal passthrough (reference raytrace.rs:484-494) ----
-    dead = ~alive
-    new_origin = vec3.where(dead, origin, new_origin)
-    new_direction = vec3.where(dead, zero3, new_direction)
-    normal = vec3.where(dead, zero3, normal)
-    out_emis = vec3.where(dead, zero3, out_emis)
-    out_reflect = vec3.where(dead, zero3, out_reflect)
-    out_mis = torch.where(dead, zero, out_mis)
-    out_bsdf_pdf = torch.where(dead, one, out_bsdf_pdf)
-    return (new_origin, new_direction, normal, out_emis, out_reflect,
-            out_mis, out_bsdf_pdf, dense_probs)
-
-
-def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
-            bounce: int, origin: V3, direction: V3, rid, inv_seed: int,
-            vox: VoxelHit, use_entities: bool, texel=texel_fetch):
-    """General shade plus NEE pdf of one (possibly compacted) ray block.
-
-    Returns the next ray, the block's emission, its throughput factor
-    refl * (p/q) * valid — the one-sample-MIS reweighting of the
-    reference's backward recurrence (outgoing_radiance.rs:77-87), folded
-    forward — and the count of rays whose light crossings overflowed the
-    sparse sweep's slots (0 unless settings.trace_audit)."""
-    seed = rng.combine(inv_seed, rid)
     (new_o, new_d, normal, emis, refl, mis, bsdf_pdf,
-     dense_probs) = shade_general(scene, settings, nee_type, bounce, origin,
-                                  direction, seed, vox, use_entities, texel)
+     dense_probs) = shade_rays(scene.grid_origin, lights, nee_type, bounce,
+                               origin, direction,
+                               rng.combine(inv_seed, rid), vox, entity,
+                               fetch, pick)
     overflow = 0
     if nee_type == 0:
         nee_pdf = torch.zeros_like(mis)
@@ -395,17 +246,13 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
         nee_pdf = mis * 0.0
     else:
         nee_pdf = nee_pdf_sweep(
-            scene.lights, new_o, normal, new_d, mis, dense_probs,
+            lights, new_o, normal, new_d, mis, dense_probs,
             max_depth=settings.max_bvh_depth, max_hits=settings.max_nee_hits,
             with_overflow=settings.trace_audit)
         if settings.trace_audit:
             nee_pdf, overflow = nee_pdf
-    valid = vec3.any_nonzero(new_d)
-    q = nee_pdf * mis + (1.0 - mis) * bsdf_pdf
-    # a zero-probability sample contributes nothing beyond its emission
-    w = torch.where(q > 0.0, bsdf_pdf / q.clamp_min(1e-35),
-                    torch.zeros_like(q))
-    return new_o, new_d, emis, refl * (w * valid.to(_F32)), overflow
+    return (new_o, new_d, emis,
+            throughput_factor(new_d, refl, mis, bsdf_pdf, nee_pdf), overflow)
 
 
 def _bounce_dbg(m: int, on: bool, device) -> V3:
@@ -420,16 +267,15 @@ def _bounce_dbg(m: int, on: bool, device) -> V3:
 
 def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
                  *, settings: RenderSettings, nee_type: int, sort_type: int,
-                 debug_view: int = 0, tables=None, use_entities=None,
+                 debug_view: int = 0, tables=None,
                  trace=window_trace, shade=shade_pass, texel=texel_fetch):
     """Render one frame on the scene's device; returns ((H, W, 3) image
     tensor, aux) with aux = {"truncated", "nee_overflow"} as ints (both 0
     unless settings.trace_audit).
 
     tables: the scene's shade tables (prep_shade_tables), built here when
-    the fused path needs them and they are not given.  use_entities:
-    whether the entity pool holds a triangle (read from the pool when
-    None).  trace / shade / texel: the per-bounce kernels' wrappers;
+    the fused path needs them and they are not given.  trace / shade /
+    texel: the per-bounce kernels' wrappers;
     `intersect.trace_plain`, `shade.shade_plain` and `texel.texel_plain`
     (same arguments) render the frame with the plain versions on any
     device, which is how chip_smoke.py holds a whole frame on the card
@@ -439,8 +285,7 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     fused = use_fused(scene, settings, nee_type)
     if fused and tables is None:
         tables = prep_shade_tables(scene.atlas_packed, scene.lights)
-    if use_entities is None:
-        use_entities = bool(scene.tri_active.any())
+    use_entities = bool(scene.tri_active.any())
     w, h = settings.render_width, settings.render_height
     n = w * h
     b_total = settings.num_bounces
@@ -550,7 +395,7 @@ class Renderer:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.settings = settings
-        self._tables = None     # (scene arrays, shade tables, use_entities)
+        self._tables = None     # (scene arrays, shade tables)
 
     def _arrays(self, scene) -> SceneArrays:
         arrays = scene.get_arrays() if isinstance(scene, VoxelScene) else scene
@@ -569,14 +414,12 @@ class Renderer:
         if self._tables is None or self._tables[0] is not arrays:
             self._tables = (
                 arrays,
-                prep_shade_tables(arrays.atlas_packed, arrays.lights),
-                bool(arrays.tri_active.any()))
+                prep_shade_tables(arrays.atlas_packed, arrays.lights))
         img, aux = render_frame(
             arrays, camera.eye, camera.front, camera.right, camera.up,
             frame_count, settings=self.settings,
             nee_type=int(prefs.nee_type), sort_type=int(prefs.sort_type),
             debug_view=int(prefs.debug_view), tables=self._tables[1],
-            use_entities=self._tables[2],
         )
         if as_numpy:
             img = img.cpu().numpy()
