@@ -5,18 +5,26 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from `wavefront_tpu_torch/csrc/`, holds
-each against its plain PyTorch version on the card at the shapes its frame
+It builds the seven CUDA kernels from `wavefront_tpu_torch/csrc/`, holds
+each against its plain PyTorch version on the card at the shapes its path
 gives it, renders the golden config-1 scene against the stored image
 (tests/golden/config1_256.npz), renders reduced frames through the
-kernels and through the plain versions, and then renders two full frames
-through `Renderer.render`, checking which kernels ran on every bounce:
+kernels and through the plain versions, and then drives the main paths
+through their entry points, checking which kernels each launched:
 
   * the headline frame (1920x1080, 4 bounces, NEE, compaction; bench.py's
-    headline_setup): the tracer and the fused shade;
+    headline_setup) through `Renderer.render`: the tracer and the fused
+    shade;
   * the general frame (`headline.general_setup`: the same frame with a
     sparse light set of lamp voxels and a cube entity, shade_fused=False):
-    the tracer and the texel fetch, and never the fused shade.
+    the tracer and the texel fetch, and never the fused shade;
+  * the four labs (`wavefront_tpu_torch/tools/`: radix_lab, gpu_probe,
+    roofline, event_lab) at full size: the histogram and the three probe
+    kernels;
+  * the batched frame: the headline scene with `cache_primary`, through
+    `Renderer.render_batch(k=4)` as a stack and as a mean, held bit for
+    bit against four `render` calls; a frame that fills the primary cache
+    launches the tracer once per bounce, a cached frame once less.
 
 Each phase prints one JSON line; the line before the last lists every
 kernel with its launches, error, times and bound; the last line is
@@ -33,14 +41,18 @@ Tolerances:
   texel:   max |diff| 0 against the plain version (a fetch copies float32
            values), non-finite and out-of-range inputs included;
   images:  divergent pixels (max-channel |diff| > 1e-3) under 0.5% and
-           RMSE over the agreeing pixels under 1e-3 (tests/test_golden.py).
+           RMSE over the agreeing pixels under 1e-3 (tests/test_golden.py);
+  histogram and probes: max |diff| 0 against the plain versions (integer
+           results; the float32 add chain runs in one fixed order);
+  batch:   the batched frames equal the single frames bit for bit, their
+           mean within 2e-6 (tests/test_batch.py), a cached frame within
+           max |diff| 1e-3 and RMS 1e-5 of the uncached frame of its seed.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -50,13 +62,20 @@ import torch
 from wavefront_tpu_torch.core.config import RenderingPreferences, RenderSettings
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.headline import (
+    HEADLINE_RAYS,
     add_ego_cube,
     config1_grid,
     config1_pose,
     general_setup,
     headline_setup,
 )
-from wavefront_tpu_torch.kernels import _build
+from wavefront_tpu_torch.kernels import (
+    _build,
+    device_probe,
+    extract_probe,
+    loop_probe,
+)
+from wavefront_tpu_torch.kernels import radix_hist as rh
 from wavefront_tpu_torch.kernels.shade import (
     prep_shade_tables,
     shade_pass,
@@ -67,7 +86,11 @@ from wavefront_tpu_torch.kernels.texel import (
     texel_index,
     texel_plain,
 )
-from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
+from wavefront_tpu_torch.kernels.window_trace import (
+    auto_events,
+    coherence_key,
+    window_trace,
+)
 from wavefront_tpu_torch.render.intersect import trace_plain
 from wavefront_tpu_torch.render.renderer import (
     Renderer,
@@ -77,6 +100,10 @@ from wavefront_tpu_torch.render.renderer import (
 )
 from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.render.wavefront import raygen_soa
+from wavefront_tpu_torch.tools import event_lab, gpu_probe, radix_lab, roofline
+from wavefront_tpu_torch.tools._timing import FILL_GROUPS, card, time_ms
+from wavefront_tpu_torch.tools._timing import emit as emit_rows
+from wavefront_tpu_torch.tools.event_lab import dda_steps
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -121,21 +148,6 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` back-to-back calls (CUDA
-    events), after one warm-up call."""
-    fn()
-    sync()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    sync()
-    return e0.elapsed_time(e1) / reps
-
-
 def golden_gate(got: np.ndarray, want: np.ndarray, what: str) -> dict:
     check(got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}")
     check(bool(np.all(np.isfinite(got))), f"{what}: image has NaN/Inf")
@@ -147,39 +159,6 @@ def golden_gate(got: np.ndarray, want: np.ndarray, what: str) -> dict:
     check(rmse < 1e-3, f"{what}: RMSE {rmse} over agreeing pixels")
     return {"divergent_fraction": frac, "rmse": rmse,
             "max_abs": float(diff.max())}
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def dda_steps(scene, o: V3, d: V3, pa, t) -> int:
-    """Voxel boundaries the tracer crosses for these rays: per ray, the
-    integer planes between its grid entry and its hit (or its grid exit),
-    counted per axis, plus the entry crossing."""
-    go = [float(v) for v in scene.grid_origin]
-    dims = [float(v) for v in scene.grid.shape]
-    p = [o.x - go[0], o.y - go[1], o.z - go[2]]
-    dd = [d.x, d.y, d.z]
-    near = torch.full_like(t, -3e38)
-    far = torch.full_like(t, 3e38)
-    for pc, dc, dim in zip(p, dd, dims):
-        moving = dc.abs() > 1e-30
-        inv = 1.0 / torch.where(moving, dc, torch.ones_like(dc))
-        lo, hi = (0.0 - pc) * inv, (dim - pc) * inv
-        near = torch.where(moving, torch.maximum(near, torch.minimum(lo, hi)), near)
-        far = torch.where(moving, torch.minimum(far, torch.maximum(lo, hi)), far)
-    t0 = torch.clamp_min(near, 1e-3)
-    t1 = torch.where((pa & 1) != 0, t, torch.clamp_max(far, 1000.0))
-    live = (t0 <= t1) & ((dd[0] != 0) | (dd[1] != 0) | (dd[2] != 0))
-    steps = torch.zeros_like(t)
-    for pc, dc in zip(p, dd):
-        steps = steps + (torch.floor(pc + dc * t1) - torch.floor(pc + dc * t0)).abs()
-    return int(torch.where(live, steps + 1.0, torch.zeros_like(steps)).sum())
 
 
 def trace_bound_ms(scene, n: int, steps: int) -> tuple:
@@ -642,6 +621,369 @@ def full_frame(what: str, scene, settings, basis, prefs, name: str,
     }
 
 
+# integer operations per unit of work of the histogram and the probes,
+# tallied from the kernel sources, set against the float32 rate above (the
+# card's published table has no int32 rate; its int32 rate is lower, so
+# the bound stays a lower bound):
+# a key's digit (shift, mask) and its count
+HIST_OPS_PER_KEY = 3
+# beside the channel reads' XORs: the window test, the add into acc, the
+# compare and select of the next cx and its modulo
+EXTRACT_OPS_PER_ITER = 6
+# beside the table rows' adds: the low bit, the code update and its mask
+LOOP_OPS_PER_ITER = 3
+
+
+def exact(got, want, what: str) -> int:
+    """Hold integer tensors equal; returns max |diff| (0)."""
+    sync()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    check(err == 0, f"{what}: max |diff| {err} against the plain version")
+    return err
+
+
+def device_ms(fn, kernel: str, reps: int):
+    """Device time of the kernel named `kernel` per call of `fn`, from
+    torch.profiler over `reps` calls: the launch path and the wrapper's
+    host time, which CUDA events around a small kernel include, left out.
+    A side measurement for kernels of a few microseconds: None when the
+    profiler kept fewer than half of the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    spent = [e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    # the profiler may drop a launch at the edge of its window: average
+    # over the launches it kept
+    if len(spent) * 2 <= reps:
+        return None
+    return sum(spent) / 1e3 / len(spent)
+
+
+def radix_check(scene, settings, basis) -> dict:
+    """K4 against its plain version at the headline's ray count: on seeded
+    keys and on the headline frame's own bounce-0 coherence keys (their
+    low 32 bits), every shift, and the one-read form."""
+    n = HEADLINE_RAYS
+    rng = np.random.default_rng(radix_lab.SEED)
+    seeded = torch.as_tensor(
+        rng.integers(0, 2 ** 32, n, dtype=np.uint32).view(np.int32),
+        device="cuda")
+    arrays = scene.get_arrays()
+    o, d, _ = raygen_soa(basis.eye, basis.front, basis.right, basis.up,
+                         settings.render_width, settings.render_height,
+                         device="cuda")
+    go = arrays.grid_origin
+    frame = rh.as_key_bits(coherence_key(
+        o.x - float(go[0]), o.y - float(go[1]), o.z - float(go[2]),
+        d.x, d.y, d.z, *arrays.grid.shape))
+    check(frame.shape[0] == n, f"the frame has {frame.shape[0]} keys")
+    out = {"keys": n, "max_abs_err": 0}
+    for name, keys in (("seeded", seeded), ("frame", frame)):
+        for shift in (0, 8, 16, 24):
+            got = rh.digit_histogram(keys, shift)
+            out["max_abs_err"] = max(out["max_abs_err"], exact(
+                got, rh.hist_plain(keys, shift), f"radix {name} shift {shift}"))
+            check(int(got.sum()) == n, f"radix {name} shift {shift}: the "
+                  f"counts sum to {int(got.sum())}")
+        four = rh.digit_histograms4(keys)
+        exact(four, torch.stack([rh.hist_plain(keys, 8 * p)
+                                 for p in range(4)]), f"radix {name} one read")
+        out[f"distinct_digits_{name}"] = [int((row != 0).sum())
+                                          for row in four]
+        out[f"ms_{name}"] = time_ms(lambda: rh.digit_histogram(keys, 0), 20)
+        out[f"ms_one_read_{name}"] = time_ms(
+            lambda: rh.digit_histograms4(keys), 20)
+        out[f"device_ms_{name}"] = device_ms(
+            lambda: rh.digit_histogram(keys, 0), "hist_kernel", 20)
+        out[f"device_ms_one_read_{name}"] = device_ms(
+            lambda: rh.digit_histograms4(keys), "hist_kernel", 20)
+    out["ms"], out["device_ms"] = out["ms_seeded"], out["device_ms_seeded"]
+    out["plain_ms"] = time_ms(lambda: rh.hist_plain(seeded, 0), 5)
+    out["library_ms"] = time_ms(lambda: torch.bincount(
+        ((seeded.to(torch.int64) & 0xFFFFFFFF) >> 0) & 255, minlength=256), 5)
+    digits = ((seeded.to(torch.int64) & 0xFFFFFFFF) & 255).contiguous()
+    out["bincount_alone_ms"] = time_ms(
+        lambda: torch.bincount(digits, minlength=256), 5)
+    out["bound_ms"], out["bound_by"] = max_bound(
+        4 * n + 4 * 256, n * HIST_OPS_PER_KEY)
+    return out
+
+
+def probe_check() -> dict:
+    """K5, K6 and K7 against their plain versions on the card at small
+    iteration counts, for one group and for more groups than the card has
+    SMs; the shared memory a block is granted; and each kernel's time at a
+    shape its lab gives it, beside the plain version's."""
+    rng = np.random.default_rng(5)
+    out = {"max_abs_err": {"device_probe": 0, "extract_probe": 0,
+                           "loop_probe": 0}}
+    err = out["max_abs_err"]
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a).astype(np.int32),
+                               device="cuda")
+
+    def u8(shape):
+        return torch.as_tensor(rng.integers(0, 255, shape).astype(np.uint8),
+                               device="cuda")
+
+    def worst(key, e):
+        err[key] = max(err[key], e)
+
+    # K7
+    x = torch.as_tensor(rng.random((512, 128), np.float32), device="cuda")
+    got = device_probe.loop_add(x, 64)
+    sync()
+    check(torch.equal(got, device_probe.loop_add_plain(x, 64)),
+          "loop_add differs from its plain version")
+    ones = torch.ones((512, 128), device="cuda")
+    check(torch.equal(device_probe.loop_add(ones, 4096), ones * 4096.0),
+          "4096 adds of 1.0 are not 4096")
+    for rows in (8, 512, 2048, 4096):
+        t = i32(rng.integers(0, 100, (rows, 128)))
+        i = i32(rng.integers(0, rows, (rows, 128)))
+        for reps in (1, 64):
+            worst("device_probe", exact(
+                device_probe.row_gather_sum(t, i, reps),
+                device_probe.row_gather_sum_plain(t, i, reps),
+                f"row_gather_sum R={rows} reps={reps}"))
+    out["smem_capacity"] = device_probe.smem_capacity()
+    check(out["smem_capacity"]["max_bytes"] >= 48 * 1024,
+          f"smem_capacity {out['smem_capacity']}")
+    i64 = i.to(torch.int64)
+    gather = {
+        "rows": 4096, "reps": 1,
+        "device_ms": device_ms(
+            lambda: device_probe.row_gather_sum(t, i, 1),
+            "row_gather_kernel", 20),
+        "library_device_ms": device_ms(
+            lambda: torch.gather(t, 0, i64), "", 20),
+        "ms": time_ms(lambda: device_probe.row_gather_sum(t, i, 1), 50),
+        "plain_ms": time_ms(
+            lambda: device_probe.row_gather_sum_plain(t, i, 1), 20),
+        # one gather along the row axis on int64 indices made beforehand
+        "library_ms": time_ms(lambda: torch.gather(t, 0, i64), 50),
+        "ms_reps64": time_ms(
+            lambda: device_probe.row_gather_sum(t, i, 64), 20),
+        "plain_ms_reps64": time_ms(
+            lambda: device_probe.row_gather_sum_plain(t, i, 64), 5)}
+    gather["bound_ms"], gather["bound_by"] = max_bound(
+        3 * 4 * t.numel(), t.numel())
+    out["device_probe"] = gather
+
+    # K6: lanes mostly in one window, some elsewhere, a few off the table
+    nc, nwx, nwz = 7, 3, 2
+    table = u8((nc, nwz * 32, nwx * 32))
+    tw = extract_probe.tile_windows(table, nwx, nwz)
+    for groups, rows in ((1, 8), (140, 8), (3, 16), (133, 32)):
+        shape = (groups, rows, 128)
+        stray = rng.random(shape) < 0.1
+        cx = i32(np.where(stray, rng.integers(-3, nwx * 32 + 3, shape),
+                          rng.integers(32, 64, shape)))
+        cz = i32(np.where(stray, rng.integers(-3, nwz * 32 + 3, shape),
+                          rng.integers(0, 32, shape)))
+        for iters in (8, 24):
+            worst("extract_probe", exact(
+                extract_probe.extract_cur(table, cx, cz, iters),
+                extract_probe.extract_cur_plain(table, cx, cz, iters),
+                f"extract_cur {shape} iters={iters}"))
+            worst("extract_probe", exact(
+                extract_probe.extract_win(tw, cx, cz, iters, nwx, nwz),
+                extract_probe.extract_win_plain(tw, cx, cz, iters, nwx, nwz),
+                f"extract_win {shape} iters={iters}"))
+    groups, iters = FILL_GROUPS, 256
+    tw = u8((25, 64, 128))
+    cx, cz = roofline._lanes(rng, groups, 8, 160, 160, roofline.SPREAD)
+    lanes = groups * 8 * 128
+    ex = {"groups": groups, "rows": 8, "iters": iters, "windows": 25,
+          "ms": time_ms(lambda: extract_probe.extract_win(
+              tw, cx, cz, iters, 5, 5), 10),
+          "plain_ms": time_ms(lambda: extract_probe.extract_win_plain(
+              tw, cx, cz, iters, 5, 5), 1)}
+    ex["bound_ms"], ex["bound_by"] = max_bound(
+        tw.numel() + 3 * 4 * lanes, lanes * iters * (8 + EXTRACT_OPS_PER_ITER))
+    out["extract_probe"] = ex
+
+    # K5
+    for variant in loop_probe.VARIANTS:
+        body = variant.split("_")[0]
+        extras = {"issue": [None], "onehot": [u8((64, 128)), u8((8, 128))],
+                  "zsel": [torch.zeros((8, 8), dtype=torch.int32,
+                                       device="cuda"),
+                           i32(rng.integers(0, 255, (8, 8)))]}[body]
+        for groups, rows in ((1, 8), (140, 16), (133, 32)):
+            shape = (groups, rows, 128)
+            state = (i32(rng.integers(-5, 133, shape)),)
+            if body != "issue":
+                state += (i32(rng.integers(0, 100, shape)),)
+            for extra in extras:
+                got = loop_probe.loop_probe(variant, state, extra, 19)
+                want = loop_probe.loop_probe_plain(variant, state, extra, 19)
+                for g, w in zip(got, want):
+                    worst("loop_probe", exact(g, w, f"loop_probe {variant} "
+                                              f"{shape}"))
+    out["support"] = event_lab.support()
+    groups, iters = FILL_GROUPS, event_lab.ITERS["onehot64"][0]
+    shape = (groups, 16, 128)
+    state = (i32(rng.integers(0, 100, shape)),
+             torch.zeros(shape, dtype=torch.int32, device="cuda"))
+    table = u8((64, 128))
+    lanes = groups * 16 * 128
+    lo = {"variant": "onehot_smem", "table_rows": 64, "groups": groups,
+          "rows": 16, "iters": iters,
+          "ms": time_ms(lambda: loop_probe.loop_probe(
+              "onehot_smem", state, table, iters), 10),
+          "plain_ms": time_ms(lambda: loop_probe.loop_probe_plain(
+              "onehot_smem", state, table, iters), 1)}
+    lo["bound_ms"], lo["bound_by"] = max_bound(
+        table.numel() + 4 * 4 * lanes, lanes * iters * (64 + LOOP_OPS_PER_ITER))
+    out["loop_probe"] = lo
+    return out
+
+
+def probe_counters() -> dict:
+    return {"radix_hist": (rh.digit_histogram, rh.digit_histograms4),
+            "device_probe": (device_probe.loop_add,
+                             device_probe.row_gather_sum,
+                             device_probe.smem_copy),
+            "extract_probe": (extract_probe.extract_cur,
+                              extract_probe.extract_win),
+            "loop_probe": (loop_probe.loop_probe, loop_probe.primitive)}
+
+
+def labs() -> dict:
+    """The four labs at full size, each row on a line of its own, with the
+    launch counters of K4-K7 at 0 just before and read just after: every
+    one of them must have launched."""
+    counters = probe_counters()
+    for fns in counters.values():
+        for fn in fns:
+            fn.launches = 0
+    t0 = time.perf_counter()
+    n_rows = len(emit_rows(
+        {"lab": "radix_lab", **r} for r in radix_lab.rows()))
+    n_rows += len(emit_rows(
+        [{"lab": "gpu_probe", "row": "micro", **gpu_probe.micro_suite()}]))
+    n_rows += len(emit_rows({"lab": "roofline", **r} for r in roofline.rows()))
+    n_rows += len(emit_rows(
+        {"lab": "event_lab", **r} for r in event_lab.rows()))
+    sync()
+    launches = {k: sum(fn.launches for fn in fns)
+                for k, fns in counters.items()}
+    check(all(v > 0 for v in launches.values()),
+          f"labs: a kernel never launched: {launches}")
+    return {"rows": n_rows, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def image_close(got, want, what: str) -> dict:
+    """A cached frame against the uncached frame of its seed: max |diff|
+    under 1e-3 and RMS under 1e-5 (0 is expected: no per-ray result
+    depends on the order of the rays)."""
+    diff = (got - want).abs()
+    mx, rms = float(diff.max()), float(diff.pow(2).mean().sqrt())
+    check(mx < 1e-3 and rms < 1e-5, f"{what}: max {mx} rms {rms}")
+    return {"max_abs": mx, "rms": rms}
+
+
+def batch(what: str, scene, settings, basis, prefs, kernels: tuple,
+          k: int = 4, timed: int = 0) -> dict:
+    """The batched-frame path: `render_batch(k)` as a stack and as a mean
+    on a `cache_primary` renderer, with every frame counter at 0 just
+    before the stack; held bit for bit against k `render` calls of a
+    second such renderer, whose first frame fills the primary cache (the
+    tracer launches on every bounce) and whose others reuse it (once
+    less).  `timed` cached frames give `cached_frame_ms`."""
+    cached = settings.replace(cache_primary=True)
+    wrappers = {"window_trace": window_trace, "shade": shade_pass,
+                "texel": texel_fetch}
+    nb = settings.num_bounces
+
+    def reset():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def want(frames_filling, frames_cached):
+        frames = frames_filling + frames_cached
+        return {name: 0 if name not in kernels else
+                (nb * frames - frames_cached if name == "window_trace"
+                 else nb * frames) for name in wrappers}
+
+    single = Renderer(cached)
+    singles, per_frame, trunc = [], [], 0
+    for f in range(k):
+        reset()
+        img, aux = single.render(scene, basis, prefs, frame_count=f,
+                                 as_numpy=False, with_aux=True)
+        sync()
+        per_frame.append(read())
+        check(per_frame[-1] == want(int(f == 0), int(f > 0)),
+              f"{what} single frame {f} launches {per_frame[-1]}")
+        trunc += aux["truncated"] + aux["nee_overflow"]
+        singles.append(img)
+    singles = torch.stack(singles)
+
+    r = Renderer(cached)
+    reset()
+    stack, aux = r.render_batch(scene, basis, prefs, frame_count=0, k=k,
+                                as_numpy=False, with_aux=True)
+    sync()
+    launches = read()
+    check(launches == want(1, k - 1), f"{what} batch launches {launches}")
+    check(tuple(stack.shape) == (k, settings.height, settings.width, 3),
+          f"{what} batch shape {tuple(stack.shape)}")
+    check(bool(torch.isfinite(stack).all()), f"{what} batch has NaN/Inf")
+    check(torch.equal(stack, singles),
+          f"{what}: the batched frames differ from the single frames")
+    trunc += aux["truncated"] + aux["nee_overflow"]
+
+    reset()
+    mean, aux = r.render_batch(scene, basis, prefs, frame_count=0, k=k,
+                               accumulate=True, as_numpy=False, with_aux=True)
+    sync()
+    check(read() == want(0, k), f"{what} mean launches {read()}")
+    mean_err = float((mean - singles.mean(dim=0)).abs().max())
+    check(mean_err <= 2e-6, f"{what}: accumulated mean off by {mean_err}")
+    trunc += aux["truncated"] + aux["nee_overflow"]
+    check(trunc == 0, f"{what}: {trunc} rays truncated or overflowed")
+
+    uncached = Renderer(settings).render(scene, basis, prefs, frame_count=1,
+                                         as_numpy=False)
+    out = {"width": settings.width, "height": settings.height, "bounces": nb,
+           "k": k, "batch_equals_singles": True, "mean_max_abs_err": mean_err,
+           "truncated": trunc, "launches": launches,
+           "launches_filling_frame": per_frame[0],
+           "launches_cached_frame": per_frame[1],
+           "cached_vs_uncached": image_close(singles[1], uncached, what)}
+    if timed:
+        sync()
+        t0 = time.perf_counter()
+        for f in range(timed):
+            single.render(scene, basis, prefs, frame_count=k + f,
+                          as_numpy=False)
+        sync()
+        out["cached_frame_ms"] = (time.perf_counter() - t0) * 1e3 / timed
+        t0 = time.perf_counter()
+        r.render_batch(scene, basis, prefs, frame_count=k, k=k,
+                       accumulate=True, as_numpy=False)
+        sync()
+        out["batch_frame_ms"] = (time.perf_counter() - t0) * 1e3 / k
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -649,8 +991,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = card()
-    name, limit = (s.strip() for s in smi.split(",", 1))
+    name, limit = card()
     t0 = time.perf_counter()
     _build.build_all()
     emit("device", card=name, power_limit=limit,
@@ -684,6 +1025,19 @@ def main() -> int:
         "node_bucket": lights.node_min.shape[0], "dense": lights.dense})
     emit("general_profile", **profile_frames(*gen, gf["frame_ms"], frames=2),
          stages=stage_times(*gen, 10))
+    rc = radix_check(scene, settings, basis)
+    emit("radix_check", **rc)
+    pc = probe_check()
+    emit("probe_check", **pc)
+    lb = labs()
+    emit("labs", **lb)
+    bt = batch("batch", scene, settings, basis, prefs,
+               ("window_trace", "shade"), timed=5)
+    emit("batch", **bt, card=name, power_limit=limit,
+         uncached_frame_ms=hl["frame_ms"])
+    emit("batch_general", **batch(
+        "batch_general", *general_setup(480, 270, 4, device="cuda"),
+        ("window_trace", "texel")))
 
     kernels = []
     for kname, k, src, replaces, path in (
@@ -699,14 +1053,34 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": path["launches"][kname],
             "launches_by_path": {"headline": hl["launches"][kname],
-                                 "general": gf["launches"][kname]},
+                                 "general": gf["launches"][kname],
+                                 "batch": bt["launches"][kname]},
             "max_abs_err": k.get("max_abs_err_t", k.get("max_abs_err")),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
         })
+    for kname, k, err, replaces in (
+        ("radix_hist", rc, rc["max_abs_err"], "tools/radix_lab.py:109"),
+        ("device_probe", pc["device_probe"],
+         pc["max_abs_err"]["device_probe"], "tools/tpu_probe.py:117"),
+        ("extract_probe", pc["extract_probe"],
+         pc["max_abs_err"]["extract_probe"], "tools/roofline.py:129"),
+        ("loop_probe", pc["loop_probe"], pc["max_abs_err"]["loop_probe"],
+         "tools/event_lab.py:65"),
+    ):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"wavefront_tpu_torch/csrc/{kname}.cu",
+            "replaces": replaces, "launches": lb["launches"][kname],
+            "launches_by_path": {"labs": lb["launches"][kname]},
+            "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k.get("library_ms"),
+            "device_ms": k.get("device_ms"),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
+    print(f"{name}, {limit}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

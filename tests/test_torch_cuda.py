@@ -11,7 +11,9 @@ machine need not have; this file imports none of it.)  The tolerances are
 those of chip_smoke.py: the tracer's words may differ on at most 1e-5 of
 the rays (coplanar ties), every shade output within max |diff| 1e-3 and
 RMS 1e-5 (with and without the entity stream), the texel fetch bit-exact,
-frames under the golden gate.
+frames under the golden gate; the histogram and the probe kernels compute
+integers (and sums in one fixed order), so they equal their plain versions
+bit for bit; batched frames equal single frames bit for bit.
 """
 
 import numpy as np
@@ -21,6 +23,8 @@ import torch
 from wavefront_tpu_torch.core.config import RenderingPreferences, RenderSettings
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.headline import config1_grid, config1_pose
+from wavefront_tpu_torch.kernels import device_probe, extract_probe, loop_probe
+from wavefront_tpu_torch.kernels import radix_hist as rh
 from wavefront_tpu_torch.kernels.shade import (
     prep_shade_tables,
     shade_pass,
@@ -280,3 +284,174 @@ def test_wrappers_check_their_inputs(scene):
     strided = V3(o.x[::2], o.y[::2], o.z[::2])
     with pytest.raises(ValueError):
         window_trace(arrays, strided, V3(d.x[::2], d.y[::2], d.z[::2]), 64)
+
+
+# ---- the histogram and the probe kernels ----
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return np.random.default_rng(11)
+
+
+def _i32(a):
+    return torch.as_tensor(np.ascontiguousarray(a).astype(np.int32),
+                           device="cuda")
+
+
+@pytest.mark.parametrize("n", [1, 1000, 100_003])
+def test_radix_hist_kernel_matches_plain(card, n):
+    keys = torch.as_tensor(
+        card.integers(0, 2 ** 32, n, dtype=np.uint32).view(np.int32),
+        device="cuda")
+    # coherence-key-like: few distinct low digits, so warps contend
+    skew = (keys & 0x7FC000E0).contiguous()
+    for k in (keys, skew, keys[1:].clone(), keys[1:]):
+        before = rh.digit_histogram.launches
+        for shift in (0, 8, 16, 24, 3):
+            got = rh.digit_histogram(k, shift)
+            assert torch.equal(got, rh.hist_plain(k, shift))
+            assert int(got.sum()) == k.shape[0]
+        assert rh.digit_histogram.launches == before + 5
+        four = rh.digit_histograms4(k)
+        assert torch.equal(four, torch.stack(
+            [rh.hist_plain(k, 8 * d) for d in range(4)]))
+        assert torch.equal(rh.radix_hist(k), rh.radix_hist(k, one_read=True))
+        assert torch.equal(rh.radix_hist(k).cpu(), rh.radix_hist(k.cpu()))
+    with pytest.raises(ValueError):
+        rh.digit_histogram(keys.to(torch.int64), 0)
+    with pytest.raises(ValueError):
+        rh.digit_histogram(keys, 25)
+
+
+def test_device_probe_kernels_match_plain(card):
+    x = torch.as_tensor(card.random((512, 128), np.float32), device="cuda")
+    assert torch.equal(device_probe.loop_add(x, 100),
+                       device_probe.loop_add_plain(x, 100))
+    ones = torch.ones((512, 128), device="cuda")
+    assert torch.equal(device_probe.loop_add(ones, 4096), ones * 4096)
+    for rows in (8, 512, 4096):
+        t = _i32(card.integers(0, 100, (rows, 128)))
+        i = _i32(card.integers(-rows, 2 * rows, (rows, 128)))
+        before = device_probe.row_gather_sum.launches
+        got = device_probe.row_gather_sum(t, i, 64)
+        assert device_probe.row_gather_sum.launches == before + 1
+        assert torch.equal(got, device_probe.row_gather_sum_plain(t, i, 64))
+    cap = device_probe.smem_capacity()
+    assert cap["max_bytes"] >= 48 * 1024
+    assert (cap["refused_bytes"] is None) == (cap["refused_error"] is None)
+    # the refusal left no error behind: the next launch goes through
+    assert torch.equal(device_probe.loop_add(ones, 2), ones * 2)
+
+
+@pytest.mark.parametrize("groups,rows", [(1, 1), (1, 8), (3, 16), (140, 32)])
+def test_extract_probe_kernels_match_plain(card, groups, rows):
+    nc, nwx, nwz = 7, 3, 2
+    table = torch.as_tensor(
+        card.integers(0, 255, (nc, nwz * 32, nwx * 32)).astype(np.uint8),
+        device="cuda")
+    tw = extract_probe.tile_windows(table, nwx, nwz)
+    shape = (groups, rows, 128)
+    # most lanes in window (1, 0), some elsewhere, a few outside the table
+    cx = card.integers(32, 64, shape)
+    cz = card.integers(0, 32, shape)
+    stray = card.random(shape) < 0.1
+    cx = np.where(stray, card.integers(-3, nwx * 32 + 3, shape), cx)
+    cz = np.where(stray, card.integers(-3, nwz * 32 + 3, shape), cz)
+    cx, cz = _i32(cx), _i32(cz)
+    for iters in (1, 8, 40):
+        got = extract_probe.extract_cur(table, cx, cz, iters)
+        assert torch.equal(got, extract_probe.extract_cur_plain(
+            table, cx, cz, iters))
+        got = extract_probe.extract_win(tw, cx, cz, iters, nwx, nwz)
+        want = extract_probe.extract_win_plain(tw, cx, cz, iters, nwx, nwz)
+        assert torch.equal(got, want)
+        assert int(want.abs().sum()) > 0
+    # lanes that stay inside one window read the same voxels both ways
+    cx = _i32(card.integers(32, 56, shape))
+    cz = _i32(card.integers(32, 64, shape))
+    assert torch.equal(extract_probe.extract_cur(table, cx, cz, 8),
+                       extract_probe.extract_win(tw, cx, cz, 8, nwx, nwz))
+
+
+@pytest.mark.parametrize("variant", loop_probe.VARIANTS)
+def test_loop_probe_kernel_matches_plain(card, variant):
+    body = variant.split("_")[0]
+    for groups, rows in ((1, 1), (1, 8), (2, 16), (140, 32)):
+        shape = (groups, rows, 128)
+        state = (_i32(card.integers(-5, 133, shape)),)
+        if body != "issue":
+            state += (_i32(card.integers(0, 100, shape)),)
+        extras = {"issue": [None],
+                  "onehot": [torch.as_tensor(card.integers(
+                      0, 255, (nr, 128)).astype(np.uint8), device="cuda")
+                      for nr in (64, 8)],
+                  "zsel": [torch.zeros((8, 8), dtype=torch.int32,
+                                       device="cuda"),
+                           _i32(card.integers(0, 255, (8, 8)))]}[body]
+        for extra in extras:
+            before = loop_probe.loop_probe.launches
+            got = loop_probe.loop_probe(variant, state, extra, 37)
+            assert loop_probe.loop_probe.launches == before + 1
+            want = loop_probe.loop_probe_plain(variant, state, extra, 37)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+def test_loop_probe_primitives_match_plain(card):
+    a = _i32(card.integers(-40000, 40000, (128, 128)))
+    row = torch.arange(128, dtype=torch.int32, device="cuda")[:, None]
+    a[:, ::7] = row
+    a[:, 1::7] = row + 65536     # equal to the row after narrowing
+    a[:, 2::7] = row + 256       # equal as int8 only
+    for name in ("i16_cmp", "i8_cmp", "bf16_mul"):
+        # the bf16 square has to stay inside int32
+        x = a.clamp(-30000, 30000) if name == "bf16_mul" else a
+        got = loop_probe.primitive(name, x)
+        assert torch.equal(got, loop_probe.primitive_plain(name, x))
+        assert int(got.sum()) > 0
+    f = torch.as_tensor((card.random((8, 128)) * 1000 - 500).astype(
+        np.float32), device="cuda")
+    idx = _i32(card.integers(-20, 20, (8, 128)))
+    assert torch.equal(loop_probe.primitive("row_pick", f, idx),
+                       loop_probe.primitive_plain("row_pick", f, idx))
+    assert torch.equal(loop_probe.primitive("lane_roll", f),
+                       loop_probe.primitive_plain("lane_roll", f))
+
+
+# ---- batched frames ----
+
+
+@pytest.mark.parametrize("fused", [None, False], ids=["fused", "general"])
+def test_batch_matches_singles_on_the_card(cube_scene, fused):
+    """k batched frames equal k single frames bit for bit, with the
+    primary cache and with sort and compaction on; the frame that fills
+    the cache launches the tracer on every bounce, a cached frame once
+    less; a cached frame equals the uncached frame of its seed."""
+    settings = RenderSettings(width=96, height=64, num_bounces=3,
+                              compaction=True, trace_audit=True,
+                              shade_fused=fused, cache_primary=True)
+    prefs = RenderingPreferences(nee_type=1, sort_type=1)
+    basis = config1_pose()
+    single = Renderer(settings)
+    singles = []
+    for f in range(3):
+        before = window_trace.launches
+        singles.append(single.render(cube_scene, basis, prefs, frame_count=f,
+                                     as_numpy=False))
+        assert window_trace.launches - before == (3 if f == 0 else 2)
+    r = Renderer(settings)
+    stack, aux = r.render_batch(cube_scene, basis, prefs, frame_count=0, k=3,
+                                as_numpy=False, with_aux=True)
+    assert torch.equal(stack, torch.stack(singles))
+    assert aux["truncated"] == 0 and aux["nee_overflow"] == 0
+    mean = r.render_batch(cube_scene, basis, prefs, frame_count=0, k=3,
+                          accumulate=True, as_numpy=False)
+    assert float((mean - stack.mean(dim=0)).abs().max()) <= 2e-6
+    uncached = Renderer(settings.replace(cache_primary=False)).render(
+        cube_scene, basis, prefs, frame_count=1, as_numpy=False)
+    diff = (singles[1] - uncached).abs()
+    assert float(diff.max()) < 1e-3
+    assert float(diff.pow(2).mean().sqrt()) < 1e-5

@@ -237,7 +237,6 @@ def test_scene_arrays_from_numpy_round_trip(config1):
 
 
 @pytest.mark.parametrize("settings_kw,prefs_kw", [
-    (dict(cache_primary=True), {}),
     (dict(shade_bf16=True), {}),
 ])
 def test_unported_paths_raise(config1, settings_kw, prefs_kw):
@@ -249,9 +248,11 @@ def test_unported_paths_raise(config1, settings_kw, prefs_kw):
 
 
 def test_render_batch_and_entities_raise(config1):
-    """render_batch is not ported; entities are, within the pool."""
-    with pytest.raises(NotImplementedError):
-        Renderer(RenderSettings(), device="cpu").render_batch()
+    """render_batch is ported (tests/test_torch_batch.py) and refuses an
+    empty batch; an unknown debug_stage raises."""
+    with pytest.raises(ValueError):
+        Renderer(RenderSettings(width=8, height=8, num_bounces=1),
+                 device="cpu").render_batch(config1[0], config1_pose(), k=0)
     with pytest.raises(ValueError):
         Renderer(RenderSettings(width=8, height=8, num_bounces=1,
                                 debug_stage="nosuchstage"),

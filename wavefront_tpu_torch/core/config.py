@@ -64,6 +64,9 @@ class RenderSettings:
     # terminal-ray compaction: sort alive rays first and shade the smallest
     # of n, n/2, n/4 that holds them
     compaction: bool = False
+    # keep bounce 0's intersections of a pose and reuse them for later
+    # frames at that pose (they do not depend on the frame's seed); the
+    # renderer holds them only while jitter is 0
     cache_primary: bool = False
     # accepted for settings parity; the port has one tracer
     use_column_trace: "bool | None" = None

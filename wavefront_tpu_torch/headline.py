@@ -30,6 +30,8 @@ from wavefront_tpu_torch.world.worldgen import WorldGenerator
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "assets")
+# rays of a bounce of the headline frame
+HEADLINE_RAYS = 1920 * 1080
 
 
 def build_scene(registry: BlockRegistry, world: WorldSettings, span: int = 2):

@@ -26,7 +26,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "wavefront_tpu_torch")
-SOURCES = ("window_trace", "shade", "texel")
+SOURCES = ("window_trace", "shade", "texel", "radix_hist", "device_probe",
+           "extract_probe", "loop_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -94,6 +95,13 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all()
     return _libs[name]
+
+
+def library_path(name: str) -> str:
+    """The file of the built library of `csrc/<name>.cu` (built on first
+    use), for tools that read the compiled code."""
+    load(name)
+    return _lib_path(name)
 
 
 def check(err: int, what: str) -> None:

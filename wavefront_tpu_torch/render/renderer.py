@@ -24,10 +24,17 @@ ray order, so the sort only groups rays for the kernels and the image
 compares with the reference in pixel order.  (The `debug_view` image
 paints ray slots, so it does depend on the sort.)
 
-Not ported yet (each raises NotImplementedError): cache_primary,
-render_batch, shade_bf16.  The reference's TPU tracer schedule settings
-(trace_tile, trace_phases*, trace_windows*, sort_bounces, ...) are
-accepted and change nothing.
+With `cache_primary`, bounce 0 runs before the loop on the raygen rays as
+they are (all alive: no sort, no compaction) and its intersections go out
+in aux["primary"]; handed back as `primary` they replace the bounce-0
+trace (and triangle sweep) of later frames at the same pose and scene,
+since intersections do not depend on the frame's seed.
+`render_frame_batch` renders consecutive frames that way and returns
+their mean or their stack; `Renderer` holds the cache between calls.
+
+Not ported yet (raises NotImplementedError): shade_bf16.  The reference's
+TPU tracer schedule settings (trace_tile, trace_phases*, trace_windows*,
+sort_bounces, ...) are accepted and change nothing.
 """
 
 from __future__ import annotations
@@ -85,8 +92,6 @@ _I32 = torch.int32
 
 def _check_supported(settings: RenderSettings, nee_type: int,
                      sort_type: int) -> None:
-    if settings.cache_primary:
-        raise NotImplementedError("cache_primary is not ported yet")
     if settings.shade_bf16:
         raise NotImplementedError("shade_bf16 is not ported yet")
     if settings.debug_stage not in ("", "freetrace", "notex", "nonee_pdf"):
@@ -195,22 +200,28 @@ def entity_attrs(scene: SceneArrays, origin: V3, direction: V3, pa, t):
 
 def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
             bounce: int, origin: V3, direction: V3, rid, inv_seed: int,
-            vox: VoxelHit, use_entities: bool, texel=texel_fetch):
+            vox: VoxelHit, use_entities: bool, texel=texel_fetch,
+            tri: Optional[TriHit] = None):
     """General shade plus NEE pdf of one (possibly compacted) ray block:
     `shading.shade_rays` around the texel kernel, the light pick by
     `dense_sample_light` or the BVH descent, then the dense or sparse pdf
-    sweep.
+    sweep.  `tri`: the block's entity hits when the caller holds them (the
+    primary cache), else the triangle sweep runs here.
 
     Returns the next ray, the block's emission, its throughput factor
-    (`shading.throughput_factor`) and the count of rays whose light
+    (`shading.throughput_factor`), the count of rays whose light
     crossings overflowed the sparse sweep's slots (0 unless
-    settings.trace_audit)."""
+    settings.trace_audit) and the entity hits used (None without
+    entities)."""
     lights = scene.lights
     atlas = scene.atlas_packed
     entity = None
-    if use_entities:
-        tri = triangle_sweep(scene.tri_verts, scene.tri_active, origin,
-                             direction)
+    if not use_entities:
+        tri = None
+    else:
+        if tri is None:
+            tri = triangle_sweep(scene.tri_verts, scene.tri_active, origin,
+                                 direction)
         use_tri = tri.hit & (~vox.hit | (tri.t < vox.t))
         entity = EntityHit(use_tri, *_entity_frame(scene, tri))
         vox = vox._replace(hit=vox.hit | tri.hit,
@@ -252,7 +263,8 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
         if settings.trace_audit:
             nee_pdf, overflow = nee_pdf
     return (new_o, new_d, emis,
-            throughput_factor(new_d, refl, mis, bsdf_pdf, nee_pdf), overflow)
+            throughput_factor(new_d, refl, mis, bsdf_pdf, nee_pdf), overflow,
+            tri)
 
 
 def _bounce_dbg(m: int, on: bool, device) -> V3:
@@ -266,12 +278,20 @@ def _bounce_dbg(m: int, on: bool, device) -> V3:
 
 
 def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
-                 *, settings: RenderSettings, nee_type: int, sort_type: int,
-                 debug_view: int = 0, tables=None,
+                 primary=None, *, settings: RenderSettings, nee_type: int,
+                 sort_type: int, debug_view: int = 0,
+                 cache_primary: bool = False, tables=None,
                  trace=window_trace, shade=shade_pass, texel=texel_fetch):
     """Render one frame on the scene's device; returns ((H, W, 3) image
     tensor, aux) with aux = {"truncated", "nee_overflow"} as ints (both 0
     unless settings.trace_audit).
+
+    cache_primary: run bounce 0 on the raygen rays as they are (no sort,
+    no compaction) and add its intersections as aux["primary"]:
+    (pa, pb, t, tri_attrs) on the fused path, (VoxelHit, TriHit or None)
+    on the general one.  primary: such intersections from an earlier frame
+    at the same pose and scene; they replace this frame's bounce-0 trace
+    and triangle sweep (cache_primary must be on).
 
     tables: the scene's shade tables (prep_shade_tables), built here when
     the fused path needs them and they are not given.  trace / shade /
@@ -281,6 +301,8 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     device, which is how chip_smoke.py holds a whole frame on the card
     against them."""
     _check_supported(settings, nee_type, sort_type)
+    if primary is not None and not cache_primary:
+        raise ValueError("render_frame: primary hits need cache_primary")
     dev = scene.grid.device
     fused = use_fused(scene, settings, nee_type)
     if fused and tables is None:
@@ -306,15 +328,20 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     sort = settings.compaction or sort_type == 1
     trunc = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = 0
+    hits0 = None
 
     for b in range(b_total):
-        if sort and dbg is None:
-            o, d, tp, rad, rid = coherence_sort(scene, o, d, tp, rad, rid)
-        elif sort:
-            o, d, tp, rad, rid, dbg = coherence_sort(scene, o, d, tp, rad,
-                                                     rid, dbg)
+        # the cached bounce: every ray alive and in pixel order
+        outside = cache_primary and b == 0
+        cached = primary if outside else None
+        if sort and not outside:
+            if dbg is None:
+                o, d, tp, rad, rid = coherence_sort(scene, o, d, tp, rad, rid)
+            else:
+                o, d, tp, rad, rid, dbg = coherence_sort(scene, o, d, tp,
+                                                         rad, rid, dbg)
         m = n
-        if settings.compaction:
+        if settings.compaction and not outside:
             # smallest bucket (n, n/2, n/4) that holds every alive ray
             count = int(vec3.any_nonzero(d).sum())
             shift = int(count <= n // 2) + int(count <= n // 4)
@@ -326,28 +353,38 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
         bo, bd, btp, brad = head(o), head(d), head(tp), head(rad)
         brid = rid[:m].contiguous()
         inv_seed = (frame_count * b_total + b) & 0xFFFFFFFF
-        if freetrace:
+        if cached is None and freetrace:
             vox = _freetrace_hit(scene, bo, bd, vec3.any_nonzero(bd))
-        else:
+        elif cached is None:
             pa, pb, t = trace(scene, bo, bd, max_events)
             if settings.trace_audit:
                 trunc = trunc + ((pa >> TRUNCATED_BIT) & 1).sum()
         if fused:
-            if freetrace:
-                pa, pb, t = pack_hits(vox)
-            tri_attrs = None
-            if use_entities:
-                t, tri_attrs = entity_attrs(scene, bo, bd, pa, t)
+            if cached is not None:
+                pa, pb, t, tri_attrs = cached
+            else:
+                if freetrace:
+                    pa, pb, t = pack_hits(vox)
+                tri_attrs = None
+                if use_entities:
+                    t, tri_attrs = entity_attrs(scene, bo, bd, pa, t)
+            if outside:
+                hits0 = cached or (pa, pb, t, tri_attrs)
             no, nd, ntp, nrad = shade(
                 tables, go, bo, bd, pa, pb, t, btp, brad, brid, inv_seed, b,
                 scene.lights.num_prims, nee_type=nee_type,
                 tri_attrs=tri_attrs)
         else:
-            if not freetrace:
+            tri = None
+            if cached is not None:
+                vox, tri = cached
+            elif not freetrace:
                 vox = unpack_hits(pa, pb, t)
-            no, nd, emis, tpf, ovf = shade_m(
+            no, nd, emis, tpf, ovf, tri = shade_m(
                 scene, settings, nee_type, b, bo, bd, brid, inv_seed, vox,
-                use_entities, texel)
+                use_entities, texel, tri)
+            if outside:
+                hits0 = cached or (vox, tri)
             overflow += ovf
             nrad = brad + btp * emis
             ntp = btp * tpf
@@ -373,16 +410,57 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
                       settings.scale,
                       debug=None if dbg is None else pixel_order(dbg),
                       debug_view=debug_view)
-    return img, {"truncated": int(trunc), "nee_overflow": int(overflow)}
+    aux = {"truncated": int(trunc), "nee_overflow": int(overflow)}
+    if cache_primary:
+        aux["primary"] = hits0
+    return img, aux
+
+
+def render_frame_batch(scene: SceneArrays, eye, front, right, up, frame0: int,
+                       primary=None, *, k: int, accumulate: bool,
+                       cache_primary: bool = False, **frame_kw):
+    """Render k consecutive frames (frame counts frame0 .. frame0 + k - 1)
+    at one pose; returns (their mean image when `accumulate`, summed in
+    frame order, else the (k, H, W, 3) stack; aux).  Counterpart of the
+    reference's `render_frame_batch`, as a loop: a frame is a sequence of
+    launches here, not one compiled program.
+
+    cache_primary: the first frame fills the primary-hit cache when no
+    `primary` is given and the others reuse it; aux["primary"] hands it
+    out for a later batch at the same pose.  aux also sums the frames'
+    "truncated" and "nee_overflow".  frame_kw: render_frame's keywords."""
+    if int(k) < 1:
+        raise ValueError(f"render_frame_batch: k {k} is not positive")
+    frame0 = int(frame0) & 0xFFFFFFFF
+    aux = {"truncated": 0, "nee_overflow": 0}
+    imgs, acc = [], None
+    for i in range(int(k)):
+        img, a = render_frame(scene, eye, front, right, up, frame0 + i,
+                              primary, cache_primary=cache_primary,
+                              **frame_kw)
+        if cache_primary and primary is None:
+            primary = a["primary"]
+        aux["truncated"] += a["truncated"]
+        aux["nee_overflow"] += a["nee_overflow"]
+        if not accumulate:
+            imgs.append(img)
+        else:
+            acc = img if acc is None else acc + img
+    aux["primary"] = primary
+    return (acc / float(k) if accumulate else torch.stack(imgs)), aux
 
 
 class Renderer:
     """Host-facing renderer (reference Renderer,
     interactive_rendering.rs:396-1715): `render` runs one frame on
-    `device` and returns a numpy image.
+    `device` and returns a numpy image; `render_batch` runs k.
 
     device defaults to "cuda"; a CPU render must ask for it
-    (device="cpu"), and the kernels' plain versions then run."""
+    (device="cpu"), and the kernels' plain versions then run.
+
+    With settings.cache_primary (and no jitter) the renderer keeps the
+    bounce-0 intersections of the last pose it rendered and reuses them
+    while the scene arrays, the camera basis and the mode stay the same."""
 
     def __init__(self, settings: RenderSettings, device="cuda"):
         device = torch.device(device)
@@ -396,6 +474,7 @@ class Renderer:
         self.device = device
         self.settings = settings
         self._tables = None     # (scene arrays, shade tables)
+        self._primary = None    # (scene arrays, pose and mode, hits)
 
     def _arrays(self, scene) -> SceneArrays:
         arrays = scene.get_arrays() if isinstance(scene, VoxelScene) else scene
@@ -405,25 +484,61 @@ class Renderer:
                 f"{self.device}")
         return arrays
 
-    def render(self, scene, camera: CameraBasis,
-               prefs: Optional[RenderingPreferences] = None,
-               frame_count: int = 0, *, as_numpy: bool = True,
-               with_aux: bool = False):
+    def _frame_args(self, scene, camera: CameraBasis, prefs):
+        """(arrays, render_frame's keywords, the primary cache's key or
+        None, the cached primary hits or None) of one call."""
         prefs = prefs or RenderingPreferences()
         arrays = self._arrays(scene)
         if self._tables is None or self._tables[0] is not arrays:
             self._tables = (
                 arrays,
                 prep_shade_tables(arrays.atlas_packed, arrays.lights))
+        mode = (int(prefs.nee_type), int(prefs.sort_type),
+                int(prefs.debug_view))
+        kw = dict(settings=self.settings, nee_type=mode[0], sort_type=mode[1],
+                  debug_view=mode[2], tables=self._tables[1],
+                  cache_primary=self.settings.cache_primary)
+        pkey = primary = None
+        if self.settings.cache_primary and self.settings.jitter == 0.0:
+            pkey = (*(tuple(float(x) for x in v) for v in (
+                camera.eye, camera.front, camera.right, camera.up)), mode)
+            held = self._primary
+            if held is not None and held[0] is arrays and held[1] == pkey:
+                primary = held[2]
+        return arrays, kw, pkey, primary
+
+    def _keep_primary(self, arrays, pkey, primary, aux) -> None:
+        if pkey is not None and primary is None \
+                and aux.get("primary") is not None:
+            self._primary = (arrays, pkey, aux["primary"])
+
+    def render(self, scene, camera: CameraBasis,
+               prefs: Optional[RenderingPreferences] = None,
+               frame_count: int = 0, *, as_numpy: bool = True,
+               with_aux: bool = False):
+        arrays, kw, pkey, primary = self._frame_args(scene, camera, prefs)
         img, aux = render_frame(
             arrays, camera.eye, camera.front, camera.right, camera.up,
-            frame_count, settings=self.settings,
-            nee_type=int(prefs.nee_type), sort_type=int(prefs.sort_type),
-            debug_view=int(prefs.debug_view), tables=self._tables[1],
-        )
+            frame_count, primary, **kw)
+        self._keep_primary(arrays, pkey, primary, aux)
         if as_numpy:
             img = img.cpu().numpy()
         return (img, aux) if with_aux else img
 
-    def render_batch(self, *args, **kw):
-        raise NotImplementedError("render_batch is not ported yet")
+    def render_batch(self, scene, camera: CameraBasis,
+                     prefs: Optional[RenderingPreferences] = None,
+                     frame_count: int = 0, *, k: int,
+                     accumulate: bool = False, as_numpy: bool = True,
+                     with_aux: bool = False):
+        """k frames (frame counts frame_count .. frame_count + k - 1): the
+        mean image when `accumulate`, else (k, H, W, 3).  Equal bit for
+        bit to k successive `render` calls of a renderer with the same
+        settings."""
+        arrays, kw, pkey, primary = self._frame_args(scene, camera, prefs)
+        img, aux = render_frame_batch(
+            arrays, camera.eye, camera.front, camera.right, camera.up,
+            frame_count, primary, k=k, accumulate=accumulate, **kw)
+        self._keep_primary(arrays, pkey, primary, aux)
+        if as_numpy:
+            img = img.cpu().numpy()
+        return (img, aux) if with_aux else img

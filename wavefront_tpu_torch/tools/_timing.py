@@ -1,0 +1,90 @@
+"""What the labs share: the card's name and power limit, CUDA-event
+timing, and the slope between two iteration counts.
+
+A lab measures the card, so it refuses to run without one
+(`require_card`); nothing here falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+
+import torch
+
+
+# groups of lanes that fill an H100 in the probe kernels: two blocks of 512
+# threads for each of its 132 SMs
+FILL_GROUPS = 264
+
+
+def require_card() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this lab measures the card and "
+                         "has nothing to say without one")
+
+
+def card() -> tuple:
+    """(name, power limit) of the first card, as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    name, limit = out.stdout.strip().splitlines()[0].split(",", 1)
+    return name.strip(), limit.strip()
+
+
+def emit(rows) -> list:
+    """Print each row as one JSON line with the card's name and power
+    limit added; returns the rows as printed."""
+    name, limit = card()
+    out = []
+    for row in rows:
+        row = {**row, "card": name, "power_limit": limit}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of `fn` over `reps` back-to-back calls (CUDA
+    events), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = _events()
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def best_ms(fn, reps: int = 5) -> float:
+    """Least device time of one call of `fn` among `reps`, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        e0, e1 = _events()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1))
+    return best
+
+
+def time_slope(make, lo: int, hi: int, reps: int = 5) -> float:
+    """Milliseconds per iteration as the slope between two iteration
+    counts: `make(iters)` returns a function that runs `iters` iterations
+    in one launch, so launch and set-up costs cancel."""
+    return (best_ms(make(hi), reps) - best_ms(make(lo), reps)) / (hi - lo)
