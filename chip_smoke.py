@@ -34,7 +34,10 @@ no CUDA device is present.
 
 Tolerances:
   tracer:  at most 1e-5 of the rays may differ from the plain version in
-           pa, pb or t (the coplanar-tie class of docs/PARITY.md);
+           pa, pb or t (the coplanar-tie class of docs/PARITY.md), both
+           from its skipping march and from its unskipped one (a skip's
+           landing may fall a voxel off the exact path beside a grazed
+           edge);
   shade:   every output within max |diff| 1e-3 and RMS 1e-5 of the plain
            version (the bounds of tests/test_shade_fused.py), with and
            without the entity attribute stream;
@@ -109,23 +112,39 @@ from wavefront_tpu_torch.world.blocks import BlockRegistry
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "config1_256.npz")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): device memory rate
-# and float32 rate outside the tensor cores
+# H100 SXM: the device memory rate of NVIDIA's data sheet, and the rate at
+# which the card issues operations that are not fused: one per lane and
+# clock, 132 SMs x 128 lanes x 1.98 GHz (event_lab's `issue` rows measure
+# 3.3e13 a second).  The data sheet's 67 TFLOP/s of float32 counts a fused
+# multiply-add as two operations; every kernel here is built with
+# -fmad=false, so none of the operations counted below is fused, and that
+# rate would make each bound 2x optimistic.  Integer operations issue at
+# the same rate.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
 
-# float32 operations per unit of work, tallied from the kernel sources
-# (compares, selects and arithmetic; integer index math not counted):
-# one DDA boundary crossing of the tracer (axis pick 5, crossing-time
-# refresh 12, range checks 2)
-TRACE_OPS_PER_STEP = 19
+# operations per unit of work, tallied from the kernel sources (compares,
+# selects, conversions, integer and float arithmetic, loads; no branches
+# or loop control):
+# one fine crossing of the tracer: axis pick 5, the step, its range check
+# and index move 3, the aux load 1, the face rule 6, the hit window 3, the
+# march test 1, the stepped axis's crossing time 5, the skip test 1
+TRACE_OPS_PER_FINE = 25
+# one skip: radius 2, three cube exits 18, their minimum and the landing
+# 3, the landing voxel 12, range and clip tests 4, flat index 4, the aux
+# load 1, three crossing times 15, the skip test 1
+TRACE_OPS_PER_SKIP = 60
 # the shade of one live ray without NEE (hit point, face frame, uv,
 # emission, scatter, hemisphere sample, branch merge, throughput fold)
 SHADE_OPS_PER_RAY = 160
-# NEE per hit ray: one branch probability (two box importances, a divide,
-# a log) per path node, and a plane/quad test per prim in the pdf sweep
-SHADE_OPS_PER_PATH_NODE = 95
+# NEE, once per NEE ray: one box importance (45) per live node with its
+# share of the sibling sum, the divide, clamps, select and log (52); one
+# add per path node; per prim its exp and the pick's running sums (5) and
+# a plane/quad test in the pdf sweep (40); the picked prim's importance
+SHADE_OPS_PER_NODE = 52
+SHADE_OPS_PER_PICK_PRIM = 5
 SHADE_OPS_PER_PDF_PRIM = 40
+SHADE_OPS_PER_PICKED = 45
 # the texel fetch of one ray: two multiplies and the float side of two
 # saturating conversions and clamps
 TEXEL_OPS_PER_RAY = 8
@@ -161,11 +180,21 @@ def golden_gate(got: np.ndarray, want: np.ndarray, what: str) -> dict:
             "max_abs": float(diff.max())}
 
 
-def trace_bound_ms(scene, n: int, steps: int) -> tuple:
+def trace_bound_ms(scene, n: int, fine: int, skips: int) -> tuple:
     """(bound_ms, bound_by) of the tracer: origin and direction in, pa, pb
-    and t out, the grid and class table read once; or its boundary steps."""
-    nbytes = n * 36 + scene.grid.numel() + 256
-    return max_bound(nbytes, steps * TRACE_OPS_PER_STEP)
+    and t out, the grid and aux grid read once; or the operations of the
+    steps the rays take (fine crossings and skips, from the plain
+    version's march)."""
+    nbytes = n * 36 + scene.grid.numel() + scene.aux_grid.numel()
+    return max_bound(nbytes, fine * TRACE_OPS_PER_FINE
+                     + skips * TRACE_OPS_PER_SKIP)
+
+
+def live_nodes(tables) -> int:
+    """Light nodes the shade's table evaluates per ray: 1 .. the highest
+    node on a prim's path, and its sibling (shade.cu)."""
+    top = max((a for p in tables.paths for a in p), default=0)
+    return max(min(tables.m_nodes, top + 2) - 1, 0)
 
 
 def shade_bound_ms(tables, n: int, n_alive: int, n_hit: int,
@@ -179,9 +208,14 @@ def shade_bound_ms(tables, n: int, n_alive: int, n_hit: int,
               + tables.nodes.numel() * 4 + tables.prims.numel() * 4)
     ops = n_alive * SHADE_OPS_PER_RAY
     if nee:
-        nodes = sum(len(p) for p in tables.paths)
-        ops += n_hit * (nodes * SHADE_OPS_PER_PATH_NODE
-                        + len(tables.paths) * SHADE_OPS_PER_PDF_PRIM)
+        # every hit ray counted as an NEE ray (mirror and glass hits take
+        # none; the headline's are few)
+        prims = len(tables.paths)
+        ops += n_hit * (live_nodes(tables) * SHADE_OPS_PER_NODE
+                        + sum(len(p) for p in tables.paths)
+                        + prims * (SHADE_OPS_PER_PICK_PRIM
+                                   + SHADE_OPS_PER_PDF_PRIM)
+                        + SHADE_OPS_PER_PICKED)
     return max_bound(nbytes, ops)
 
 
@@ -194,30 +228,46 @@ def texel_bound_ms(atlas, n: int, nch: int) -> tuple:
 
 def max_bound(nbytes: int, ops: int) -> tuple:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP32_OPS_PER_S * 1e3
+    by_ops = ops / ISSUE_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def trace_check(arrays, o: V3, d: V3, events: int, what: str) -> dict:
-    """K1 against its plain version on one set of rays: the mismatch
-    counts (held under TRACE_MISMATCH_FRACTION), the largest |t| error on
-    common hits, the plain version's words and the boundary steps."""
+    """K1 against its plain version on one set of rays, and against the
+    plain version's unskipped march (the aux grid with its distances at
+    0): the mismatch counts (each held under TRACE_MISMATCH_FRACTION), the
+    largest |t| error on common hits, the plain version's words, and the
+    steps: fine crossings and skips of the plain march, and the crossings
+    of an unskipped one (`dda_crossings`)."""
     n = o.x.shape[0]
     pa, pb, t = window_trace(arrays, o, d, events)
-    qa, qb, qt = trace_plain(arrays, o, d, events)
+    stats = {}
+    qa, qb, qt = trace_plain(arrays, o, d, events, stats=stats)
+    ua, ub, ut = trace_plain(
+        arrays._replace(aux_grid=arrays.aux_grid & 3), o, d, events)
     sync()
-    both = ((pa & 1) != 0) & ((qa & 1) != 0)
-    mism = {k: int((x != y).sum()) for k, x, y in
-            (("pa", pa, qa), ("pb", pb, qb), ("t", t, qt))}
     limit = TRACE_MISMATCH_FRACTION * n
-    check(all(v <= limit for v in mism.values()),
-          f"tracer {what}: mismatches {mism} over {limit:.1f}")
+    mism = {}
+    for name, (ra, rb, rt) in (("skipped", (qa, qb, qt)),
+                               ("unskipped", (ua, ub, ut))):
+        mism[name] = {k: int((x != y).sum()) for k, x, y in
+                      (("pa", pa, ra), ("pb", pb, rb), ("t", t, rt))}
+        check(all(v <= limit for v in mism[name].values()),
+              f"tracer {what}: mismatches {mism[name]} against the "
+              f"{name} plain march, over {limit:.1f}")
+    both = ((pa & 1) != 0) & ((qa & 1) != 0)
     t_err = float((t - qt)[both].abs().max()) if bool(both.any()) else 0.0
     trunc = int(((pa >> 22) & 1).sum())
     check(trunc == 0, f"tracer {what}: {trunc} rays truncated")
-    return {"mismatch": mism, "max_abs_err_t": t_err,
-            "plain": (qa, qb, qt),
-            "steps": dda_steps(arrays, o, d, qa, qt)}
+    alive = int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum())
+    crossings = dda_steps(arrays, o, d, qa, qt)
+    steps = {**stats, "dda_crossings": crossings,
+             "steps_per_live_ray": (stats["fine"] + stats["skips"])
+             / max(alive, 1),
+             "crossings_per_live_ray": crossings / max(alive, 1)}
+    return {"mismatch": mism["skipped"],
+            "mismatch_unskipped": mism["unskipped"], "max_abs_err_t": t_err,
+            "plain": (qa, qb, qt), "steps": steps}
 
 
 def kernel_check(scene, settings, basis) -> dict:
@@ -233,7 +283,8 @@ def kernel_check(scene, settings, basis) -> dict:
     tp = V3(*(torch.ones(n, device="cuda") for _ in range(3)))
     rad = V3(*(torch.zeros(n, device="cuda") for _ in range(3)))
     events = auto_events(*arrays.grid.shape)
-    out = {"rays": n, "bounces": []}
+    out = {"rays": n, "bounces": [],
+           "march_loop_instructions": event_lab.march_loop_instructions()}
     for b in range(2):
         o, d, tp, rad, rid = coherence_sort(arrays, o, d, tp, rad, rid)
         tr = trace_check(arrays, o, d, events, f"bounce {b}")
@@ -267,7 +318,7 @@ def kernel_check(scene, settings, basis) -> dict:
                       "plain_ms": time_ms(lambda: shade_plain(*args, nee_type=1), 1)},
         }
         rec["trace"]["bound_ms"], rec["trace"]["bound_by"] = trace_bound_ms(
-            arrays, n, steps)
+            arrays, n, steps["fine"], steps["skips"])
         rec["shade"]["bound_ms"], rec["shade"]["bound_by"] = shade_bound_ms(
             tables, n, alive, hits, True)
         out["bounces"].append(rec)
@@ -996,7 +1047,9 @@ def main() -> int:
     _build.build_all()
     emit("device", card=name, power_limit=limit,
          kind=torch.cuda.get_device_name(0), torch=torch.__version__,
-         cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+         cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
+         ptxas={k: _build.resource_usage(k) for k in ("window_trace",
+                                                      "shade")})
 
     scene, settings, basis, prefs = headline_setup(1920, 1080, 4,
                                                    device="cuda")

@@ -22,7 +22,11 @@ import torch
 
 from wavefront_tpu_torch.core.config import RenderingPreferences, RenderSettings
 from wavefront_tpu_torch.core.vec3 import V3
-from wavefront_tpu_torch.headline import config1_grid, config1_pose
+from wavefront_tpu_torch.headline import (
+    config1_grid,
+    config1_pose,
+    headline_setup,
+)
 from wavefront_tpu_torch.kernels import device_probe, extract_probe, loop_probe
 from wavefront_tpu_torch.kernels import radix_hist as rh
 from wavefront_tpu_torch.kernels.shade import (
@@ -33,7 +37,7 @@ from wavefront_tpu_torch.kernels.shade import (
 from wavefront_tpu_torch.kernels.texel import texel_fetch, texel_plain
 from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
 from wavefront_tpu_torch.render import lights as lights_mod
-from wavefront_tpu_torch.render.intersect import trace_plain
+from wavefront_tpu_torch.render.intersect import make_aux_grid, trace_plain
 from wavefront_tpu_torch.render.renderer import (
     Renderer,
     entity_attrs,
@@ -100,7 +104,11 @@ def test_trace_kernel_exact_ties(scene):
     cells = g.integers(0, 12, (64, 3)).astype(np.float32) + 0.5
     o = np.repeat(cells, len(dirs), axis=0)
     d = np.tile(dirs, (len(cells), 1))
-    tied = arrays._replace(grid=torch.as_tensor(grid, device="cuda"))
+    tied = arrays._replace(
+        grid=torch.as_tensor(grid, device="cuda"),
+        aux_grid=torch.as_tensor(make_aux_grid(
+            grid, arrays.transparent.cpu().numpy(),
+            arrays.translucent.cpu().numpy()), device="cuda"))
 
     def v3(a):
         return V3(*(torch.as_tensor(np.ascontiguousarray(a[:, i]),
@@ -110,6 +118,130 @@ def test_trace_kernel_exact_ties(scene):
     want = trace_plain(tied, v3(o), v3(d), 256)
     for gw, ww in zip(got, want):
         assert torch.equal(gw, ww)
+
+
+def _cuda_v3(a):
+    return V3(*(torch.as_tensor(np.ascontiguousarray(a[:, i]),
+                                device="cuda") for i in range(3)))
+
+
+def _skip_case(case, arrays):
+    """(grid, origins, directions) of a case where the march skips."""
+    g = np.random.default_rng(23)
+    reg = BlockRegistry.load("assets")
+    stone, glass = reg.block_idx("stone"), reg.block_idx("glass")
+    if case == "sky":
+        # the golden scene: rays from above the terrain, most of them up
+        # or level, so that they leave through air
+        grid = arrays.grid.cpu().numpy()
+        o = g.uniform((0.5, 5.2, 0.5), (15.5, 15.5, 15.5), (4096, 3))
+        d = g.standard_normal((4096, 3))
+        d[:, 1] = np.abs(d[:, 1]) * np.where(g.random(4096) < 0.8, 1, -1)
+    elif case == "air_columns":
+        # pillars on a floor, with tall columns of air between them; rays
+        # down the columns, steep, level and along the axes
+        grid = np.full((48, 64, 48), reg.air, np.uint8)
+        grid[:, :2, :] = stone
+        for x in range(3, 48, 9):
+            for z in range(5, 48, 11):
+                grid[x, :20 + (x * z) % 37, z] = (stone, glass)[(x + z) % 2]
+        o = g.uniform((0.0, 30.0, 0.0), (48.0, 63.0, 48.0), (4096, 3))
+        d = g.standard_normal((4096, 3))
+        d[:2048, 1] = -np.abs(d[:2048, 1]) * 8.0
+        d[2048:2560] = [0.0, -1.0, 0.0]
+        d[2560:2600] = [1.0, 0.0, 0.0]
+        d[2600:2640] = [0.0, 0.0, -1.0]
+    else:
+        # lattice-diagonal rays from voxel centers in a sparse grid: ties
+        # at every crossing, skips between the solids
+        grid = np.where(g.random((24, 24, 24)) < 0.01, stone,
+                        reg.air).astype(np.uint8)
+        dirs = np.array([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                         for k in (-1, 0, 1) if (i, j, k) != (0, 0, 0)],
+                        np.float64)
+        cells = g.integers(0, 24, (128, 3)) + 0.5
+        o = np.repeat(cells, len(dirs), axis=0)
+        d = np.tile(dirs, (len(cells), 1))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return grid, o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["sky", "air_columns", "sparse_ties"])
+def test_trace_kernel_skips_match_plain(scene, case):
+    """K1 with the empty-space skip against the plain march, skipped and
+    unskipped, on rays that cross much air: at most 1e-5 of the words
+    differ (a skip that lands beside a grazed edge), none on the ties."""
+    arrays = scene.get_arrays()
+    grid, o, d = _skip_case(case, arrays)
+    aux = make_aux_grid(grid, arrays.transparent.cpu().numpy(),
+                        arrays.translucent.cpu().numpy())
+    assert (aux >> 2).max() >= 2
+    skipping = arrays._replace(grid=torch.as_tensor(grid, device="cuda"),
+                               aux_grid=torch.as_tensor(aux, device="cuda"))
+    unskipped = skipping._replace(aux_grid=skipping.aux_grid & 3)
+    o, d = _cuda_v3(o), _cuda_v3(d)
+    events = auto_events(*grid.shape)
+    got = window_trace(skipping, o, d, events)
+    stats = {}
+    for ref in (skipping, unskipped):
+        want = trace_plain(ref, o, d, events, stats=stats)
+        if ref is skipping:
+            assert stats["skips"] > 0
+        for gw, ww in zip(got, want):
+            if case == "sparse_ties":
+                assert torch.equal(gw, ww)
+            else:
+                assert int((gw != ww).sum()) <= max(1e-5 * o.x.shape[0], 0)
+    assert not bool(((got[0] >> 22) & 1).any())
+
+
+def _lamp_arrays(n_lamps):
+    """The golden grid with its lamp block replaced by `n_lamps` lamp
+    voxels hung in the air (six prims each), as scene arrays on the card."""
+    reg = BlockRegistry.load("assets")
+    grid = config1_grid(reg)
+    grid[6:9, 5:8, 6:9] = reg.air
+    cells = [(x, 9 + (7 * x + z) % 5, z) for x in range(1, 15, 3)
+             for z in range(1, 15, 3)][:n_lamps]
+    for c in cells:
+        grid[c] = reg.block_idx("lamp")
+    return VoxelScene(reg, grid, (0, 0, 0), max_light_prims=256,
+                      device="cuda").get_arrays()
+
+
+@pytest.mark.parametrize("light_set", ["headline", "lamps_64", "lamps_128"])
+def test_shade_kernel_pick_and_pdf_bit_equal(light_set):
+    """K2's once-per-ray node table (the headline's 6 prims; 64 prims at
+    the table's largest node count) and its walk past it (128 prims) give
+    the plain version's light pick and NEE pdf bit for bit: every output
+    equal, on the NEE and the lambertian bounce alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    if light_set == "headline":
+        scene, _, basis, _ = headline_setup(160, 90, 4, device="cuda")
+        arrays = scene.get_arrays()
+        o, d, rid = raygen_soa(basis.eye, basis.front, basis.right,
+                               basis.up, 160, 90, device="cuda")
+    else:
+        arrays = _lamp_arrays(8 if light_set == "lamps_64" else 20)
+        o, d, rid = _rays(64)
+    tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
+    want_p = {"headline": 8, "lamps_64": 64, "lamps_128": 128}[light_set]
+    assert tables.p_prims == want_p and tables.dense
+    n = o.x.shape[0]
+    pa, pb, t = trace_plain(arrays, o, d, auto_events(*arrays.grid.shape))
+    assert int((pa & 1).sum()) > n // 4
+    one = V3(*(torch.ones(n, device="cuda") for _ in range(3)))
+    zero = V3(*(torch.zeros(n, device="cuda") for _ in range(3)))
+    for bounce in (0, 1):
+        args = (tables, arrays.grid_origin, o, d, pa, pb, t, one, zero, rid,
+                3 + bounce, bounce, arrays.lights.num_prims)
+        got = shade_pass(*args, nee_type=1)
+        want = shade_plain(*args, nee_type=1)
+        torch.cuda.synchronize()
+        for gv, wv in zip(got, want):
+            for gc, wc in zip(gv, wv):
+                assert torch.equal(gc, wc)
 
 
 @pytest.mark.parametrize("nee_type", [0, 1, 2])

@@ -218,8 +218,8 @@ def test_scene_arrays_from_numpy_round_trip(config1):
     carried = scene_arrays_from_numpy(d, device="cpu")
     own = port_scene.get_arrays()
     assert carried.grid_origin == own.grid_origin == (0, 0, 0)
-    for f in ("grid", "transparent", "translucent", "luminescent",
-              "atlas_packed"):
+    for f in ("grid", "aux_grid", "transparent", "translucent",
+              "luminescent", "atlas_packed"):
         np.testing.assert_array_equal(getattr(carried, f).numpy(),
                                       getattr(own, f).numpy(), err_msg=f)
         np.testing.assert_array_equal(getattr(carried, f).numpy(),

@@ -77,12 +77,32 @@ def scenes():
 
 
 @pytest.fixture(scope="module")
+def lamp_scenes():
+    """The golden grid with its lamp block replaced by 20 lamp voxels in
+    the air: 120 light prims (a 128-prim, 256-node dense set), past the
+    node count whose per-ray table the CUDA kernel keeps."""
+    reg = BlockRegistry.load("assets")
+    grid = config1_grid(reg)
+    grid[6:9, 5:8, 6:9] = reg.air
+    for x in range(1, 15, 3):
+        for z in range(1, 15, 3)[:4]:
+            grid[x, 9 + (7 * x + z) % 5, z] = reg.block_idx("lamp")
+    jscene = JaxVoxelScene(JaxBlockRegistry.load("assets"), grid, (0, 0, 0),
+                           max_light_prims=256)
+    ja = jscene.get_arrays()
+    return ja, scene_arrays_from_numpy(numpy_fields(ja), device="cpu")
+
+
+@pytest.fixture(scope="module")
 def rays(scenes):
+    return _make_rays(scenes[0])
+
+
+def _make_rays(ja):
     """2048 rays: 1024 camera rays of the golden pose (32x32) and 1024
     bounce-like rays from random points above the terrain in random
     directions, a tenth of them dead; random throughput/radiance and
     shuffled pixel ids; their packed hits from the JAX DDA."""
-    ja, _ = scenes
     cam = SphericalCamera()
     cam.set_root_position([8.0, 8.0, 8.0])
     cam.offset = 14.0
@@ -147,6 +167,17 @@ def _both_shades(scenes, r, nee_type, bounce, t=None, tri_attrs=None):
 def test_shade_matches_jax(scenes, rays, nee_type, bounce):
     got, want = _both_shades(scenes, rays, nee_type, bounce)
     _assert_shades_agree(got, want, nee_type)
+
+
+def test_shade_past_node_table_matches_jax(lamp_scenes):
+    """A light set past the CUDA kernel's node table (which walks each
+    prim's path there): the plain version against the JAX kernel, under
+    the NEE bounds."""
+    _, ta = lamp_scenes
+    assert ta.lights.num_prims == 120 and ta.lights.p0.shape[0] == 128
+    assert ta.lights.node_min.shape[0] == 256
+    got, want = _both_shades(lamp_scenes, _make_rays(lamp_scenes[0]), 1, 0)
+    _assert_shades_agree(got, want, 1)
 
 
 @pytest.mark.parametrize("nee_type", [0, 1])

@@ -4,11 +4,13 @@
 version (`render.intersect.trace_plain`) for CPU tensors; that plain
 version is what the CUDA tracer is held to on the card (chip_smoke.py).
 Here it runs against `wavefront_tpu.render.intersect.dda_trace`
-(max_steps=512, with and without its empty-space skip grid) on the
-fixture grids of tests/test_window_trace.py.  The packed hit words must
-be equal on every ray (hit, entered, face, voxel and owner; misses carry
-owner 255 in both), and `t` must agree within 2e-4 on hits, the bound of
-tests/test_window_trace.py.
+(max_steps=512) on the fixture grids of tests/test_window_trace.py: the
+skipping march (the scene's aux grid) against `dda_trace(aux_grid=...)`,
+and the unskipped march (the same aux grid with its distances at 0)
+against `dda_trace` without one.  The packed hit words must be equal on
+every ray (hit, entered, face, voxel and owner; misses carry owner 255 in
+both), and `t` must agree within 2e-4 on hits, the bound of
+tests/test_window_trace.py; the two marches must give the same words.
 """
 
 import types
@@ -25,7 +27,8 @@ from wavefront_tpu.kernels.window_trace import (
     auto_events as jax_auto_events,
 )
 from wavefront_tpu.render.intersect import VoxelHit as JaxVoxelHit
-from wavefront_tpu.render.intersect import dda_trace, make_aux_grid
+from wavefront_tpu.render.intersect import dda_trace
+from wavefront_tpu.render.intersect import make_aux_grid as jax_make_aux_grid
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.kernels.window_trace import (
     auto_events,
@@ -34,6 +37,7 @@ from wavefront_tpu_torch.kernels.window_trace import (
 )
 from wavefront_tpu_torch.render.intersect import (
     VoxelHit,
+    make_aux_grid,
     pack_hits,
     truncated,
     unpack_hits,
@@ -53,12 +57,14 @@ def _tables(num_blocks=4):
     return transparent, translucent
 
 
-def _scene(grid, origin_world=(0, 0, 0), num_blocks=4):
+def _scene(grid, origin_world=(0, 0, 0), num_blocks=4, skip=True):
+    """The tracer's scene fields; skip=False zeroes the aux grid's
+    distances (the unskipped march)."""
     transparent, translucent = _tables(num_blocks)
+    aux = make_aux_grid(grid, transparent, translucent)
     return types.SimpleNamespace(
         grid=torch.as_tensor(grid), grid_origin=tuple(origin_world),
-        transparent=torch.as_tensor(transparent),
-        translucent=torch.as_tensor(translucent))
+        aux_grid=torch.as_tensor(aux if skip else aux & 3))
 
 
 def _v3(a):
@@ -66,13 +72,15 @@ def _v3(a):
 
 
 def _compare(grid, o, d, origin_world=(0, 0, 0), num_blocks=4):
-    scene = _scene(grid, origin_world, num_blocks)
-    budget = auto_events(*grid.shape)
-    pa, pb, t = window_trace(scene, _v3(o), _v3(d), budget)
-    assert not bool(truncated(pa).any()), "rays exhausted the budget"
-    got = unpack_hits(pa, pb, t)
     transparent, translucent = _tables(num_blocks)
-    for aux in (None, make_aux_grid(grid, transparent, translucent)):
+    budget = auto_events(*grid.shape)
+    words = []
+    for aux in (jax_make_aux_grid(grid, transparent, translucent), None):
+        scene = _scene(grid, origin_world, num_blocks, skip=aux is not None)
+        pa, pb, t = window_trace(scene, _v3(o), _v3(d), budget)
+        assert not bool(truncated(pa).any()), "rays exhausted the budget"
+        got = unpack_hits(pa, pb, t)
+        words.append((pa, pb, t))
         ref = dda_trace(
             jnp.asarray(grid), jnp.asarray(origin_world, jnp.int32),
             jnp.asarray(transparent), jnp.asarray(translucent), 255,
@@ -92,6 +100,8 @@ def _compare(grid, o, d, origin_world=(0, 0, 0), num_blocks=4):
         np.testing.assert_allclose(t.numpy()[hit], rt[hit], rtol=0,
                                    atol=T_ATOL)
         np.testing.assert_array_equal(t.numpy()[~hit], rt[~hit])
+    for skipped, unskipped in zip(*words):
+        np.testing.assert_array_equal(skipped.numpy(), unskipped.numpy())
     return got
 
 
@@ -241,6 +251,37 @@ CASES = {
     "window_boundaries": _window_boundaries,
     "grazing_terrain": _grazing_terrain,
 }
+
+
+def _worldgen_tables():
+    """A reduced worldgen grid (3x1x3 chunks) and the 256-entry tables the
+    port's scene builds for it."""
+    from wavefront_tpu_torch.core.config import WorldSettings
+    from wavefront_tpu_torch.headline import ASSETS, build_scene
+    from wavefront_tpu_torch.world.blocks import BlockRegistry
+
+    reg = BlockRegistry.load(ASSETS)
+    grid, _ = build_scene(reg, WorldSettings(), span=1)
+    nb = reg.num_blocks
+    transparent, translucent = np.ones(256, bool), np.ones(256, bool)
+    transparent[: nb + 1] = reg.transparent
+    translucent[: nb + 1] = reg.translucent
+    return grid, transparent, translucent
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["worldgen"])
+def test_make_aux_grid_matches_jax(case):
+    """The port's aux grid holds the JAX package's values, as uint8."""
+    if case == "worldgen":
+        grid, transparent, translucent = _worldgen_tables()
+    else:
+        grid = CASES[case]()[0]
+        transparent, translucent = _tables()
+    got = make_aux_grid(grid, transparent, translucent)
+    want = jax_make_aux_grid(grid, transparent, translucent)
+    assert got.dtype == np.uint8 and want.max() < 128
+    np.testing.assert_array_equal(got.astype(np.int32), want)
+    assert (got >> 2).max() >= 2, "no voxel far enough from a solid to skip"
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -13,13 +13,23 @@
 // What bounds it on this card: each ray reads 64 bytes (16 words) and
 // writes 48 (12 words), and those are the only device-memory bytes that
 // scale with the ray count; the atlas (T x 16 x 16 x 12 floats) stays in
-// L2 and the light tables sit in shared memory.  The NEE work grows with
-// the light set (P prims, a walk of depth ~log2 P per prim, one plane test
-// per prim), so at the headline's 8 prims the kernel is bound by bytes and
-// by the latency of the dependent texel load; at the 256-prim cap it would
-// be bound by those per-ray operations.  The prim count is a template
-// parameter, so each ray's probability array has a compile-time size and
-// the prim loops unroll up to 16 prims.
+// L2 and the light tables sit in shared memory.  Beside the bytes, a ray
+// that takes NEE evaluates the light BVH: the kernel is bound by the issue
+// of those operations (IEEE divides, precise logf/expf, no fused
+// multiply-adds), so the design does each node's work once per ray:
+//   * the light-node table: every live node's importance once, each
+//     sibling pair's two branch probabilities from one sum, one logf per
+//     node, written to the thread's slice of shared memory; then each
+//     prim's log probability is the sum of its path's entries, leaf first,
+//     as the plain version sums them (kernels/shade.py), so the floats are
+//     those of a walk that evaluates each path node where it meets it.
+//     That walk (two importances, a divide and a logf per path node, a
+//     node shared by k prims evaluated k times) remains only for light
+//     sets past TABLE_MAX_NODES nodes, whose table would not fit;
+//   * the light tables are staged once per resident block: the grid holds
+//     as many blocks as fit on the card at once and strides over the rays.
+// The prim count is a template parameter, so each ray's probability array
+// has a compile-time size and the prim loops unroll up to 16 prims.
 //
 // Dynamic entities: the closest-hit merge against the entity triangles is
 // plain PyTorch in the renderer (as it is XLA in the TPU version); the
@@ -142,31 +152,30 @@ __device__ __forceinline__ float node_nimp(
     return tot > 0.0f ? ij / fmaxf(tot, 1e-30f) : 0.0f;
 }
 
+// The light tables of one block in shared memory, and the block's slice
+// of per-thread node logs (node j of thread t at logn[j * blockDim.x + t],
+// so a warp's reads of one node fall in 32 banks), or null for the walk.
+struct LightSmem {
+    const float* nodes;
+    const float* prims;
+    const int* parent;
+    const int* leaf;
+    float* logn;
+    int live;               // nodes 1..live-1 cover every path and sibling
+};
+
 template <int P, bool TRI>
-__global__ void __launch_bounds__(128) shade_kernel(
-    ShadeIn in, TriIn tri, ShadeOut out, Tables tb, int n, uint32_t inv_seed,
-    int bounce, int nee_type)
+__device__ __forceinline__ void shade_ray(
+    int i, const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
+    const Tables& tb, const LightSmem& ls, uint32_t inv_seed, int bounce,
+    int nee_type)
 {
-    extern __shared__ float smem[];
     const bool nee = nee_type != 0;
     const int m = tb.m_nodes;
-    float* s_nodes = smem;                         // M * 8
-    float* s_prims = s_nodes + 8 * m;              // P * 32
-    int* s_parent = (int*)(s_prims + 32 * P);      // M
-    int* s_leaf = s_parent + m;                    // P
-    if (nee) {
-        for (int k = threadIdx.x; k < 8 * m; k += blockDim.x)
-            s_nodes[k] = tb.nodes[k];
-        for (int k = threadIdx.x; k < 32 * P; k += blockDim.x)
-            s_prims[k] = tb.prims[k];
-        for (int k = threadIdx.x; k < m; k += blockDim.x)
-            s_parent[k] = tb.parent[k];
-        for (int k = threadIdx.x; k < P; k += blockDim.x)
-            s_leaf[k] = tb.leaf[k];
-        __syncthreads();
-    }
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+    const float* s_nodes = ls.nodes;
+    const float* s_prims = ls.prims;
+    const int* s_parent = ls.parent;
+    const int* s_leaf = ls.leaf;
 
     const float ox = in.ox[i], oy = in.oy[i], oz = in.oz[i];
     const float dx = in.dx[i], dy = in.dy[i], dz = in.dz[i];
@@ -269,20 +278,61 @@ __global__ void __launch_bounds__(128) shade_kernel(
     const float* prow = nullptr;
     if (do_nee) {
         float total = 0.0f;
-#pragma unroll (P <= 16 ? P : 1)
-        for (int q = 0; q < P; ++q) {
-            float p = 0.0f;
-            if (q < tb.num_prims) {
-                // descent probability: sum of log branch probabilities over
-                // the non-root ancestors of the prim's leaf, then exp
-                float logp = 0.0f;
-                for (int a = s_leaf[q]; a > 0; a = s_parent[a])
-                    logp += logf(fmaxf(node_nimp(s_nodes, m, a, lox, loy, loz,
-                                                 n_x, n_y, n_z), 1e-35f));
-                p = expf(logp);
+        if (ls.logn) {
+            // the light-node table, once per ray: each live node's branch
+            // probability imp(j) / (imp(j) + imp(sibling)) and its log,
+            // siblings (j, j+1) for odd j computed together; the same
+            // floats node_nimp gives (imp(j) + imp(s) = imp(s) + imp(j))
+            const int bs = blockDim.x;
+            float* row = ls.logn + threadIdx.x;
+            for (int j = 1; j < ls.live; j += 2) {
+                if (j + 1 >= m) {               // padded tail row
+                    row[j * bs] = logf(fmaxf(0.0f, 1e-35f));
+                    break;
+                }
+                const float ij = aabb_importance(
+                    s_nodes + 8 * j, s_nodes[8 * j + 6], lox, loy, loz,
+                    n_x, n_y, n_z, false);
+                const float ik = aabb_importance(
+                    s_nodes + 8 * (j + 1), s_nodes[8 * (j + 1) + 6], lox, loy,
+                    loz, n_x, n_y, n_z, false);
+                const float tot = ij + ik;
+                row[j * bs] = logf(fmaxf(
+                    tot > 0.0f ? ij / fmaxf(tot, 1e-30f) : 0.0f, 1e-35f));
+                row[(j + 1) * bs] = logf(fmaxf(
+                    tot > 0.0f ? ik / fmaxf(tot, 1e-30f) : 0.0f, 1e-35f));
             }
-            probs[q] = p;
-            total += p;
+#pragma unroll (P <= 16 ? P : 1)
+            for (int q = 0; q < P; ++q) {
+                float p = 0.0f;
+                if (q < tb.num_prims) {
+                    // descent probability: the logs of the non-root
+                    // ancestors of the prim's leaf, summed leaf first
+                    float logp = 0.0f;
+                    for (int a = s_leaf[q]; a > 0; a = s_parent[a])
+                        logp += row[a * bs];
+                    p = expf(logp);
+                }
+                probs[q] = p;
+                total += p;
+            }
+        } else {
+            // past the table's shared memory: a walk per prim, each path
+            // node's branch probability evaluated where it is met
+#pragma unroll (P <= 16 ? P : 1)
+            for (int q = 0; q < P; ++q) {
+                float p = 0.0f;
+                if (q < tb.num_prims) {
+                    float logp = 0.0f;
+                    for (int a = s_leaf[q]; a > 0; a = s_parent[a])
+                        logp += logf(fmaxf(node_nimp(s_nodes, m, a, lox, loy,
+                                                     loz, n_x, n_y, n_z),
+                                           1e-35f));
+                    p = expf(logp);
+                }
+                probs[q] = p;
+                total += p;
+            }
         }
         const float uu = m3_finalizef(m3_combine(seed, 2u)) * total;
         float cum = 0.0f;
@@ -406,24 +456,97 @@ __global__ void __launch_bounds__(128) shade_kernel(
     out.tpz[i] = tpz * (orz * wv);
 }
 
+// Largest node count whose per-thread log table (m floats a thread) is
+// kept in shared memory: 64 KB a block of 128 threads, which leaves room
+// for three resident blocks beside the light tables at 128 nodes.  Larger
+// sets (P = 128 and 256 prims) walk each prim's path instead.
+constexpr int TABLE_MAX_NODES = 128;
+constexpr int BLOCK = 128;
+
+template <int P, bool TRI>
+__global__ void __launch_bounds__(BLOCK) shade_kernel(
+    ShadeIn in, TriIn tri, ShadeOut out, Tables tb, int n, uint32_t inv_seed,
+    int bounce, int nee_type, int table)
+{
+    extern __shared__ float smem[];
+    __shared__ int s_top;
+    const int m = tb.m_nodes;
+    float* s_nodes = smem;                         // M * 8
+    float* s_prims = s_nodes + 8 * m;              // P * 32
+    int* s_parent = (int*)(s_prims + 32 * P);      // M
+    int* s_leaf = s_parent + m;                    // P
+    LightSmem ls{s_nodes, s_prims, s_parent, s_leaf, nullptr, 0};
+    if (nee_type != 0) {
+        // staged once per resident block: the grid strides over the rays
+        if (threadIdx.x == 0) s_top = 0;
+        for (int k = threadIdx.x; k < 8 * m; k += blockDim.x)
+            s_nodes[k] = tb.nodes[k];
+        for (int k = threadIdx.x; k < 32 * P; k += blockDim.x)
+            s_prims[k] = tb.prims[k];
+        for (int k = threadIdx.x; k < m; k += blockDim.x)
+            s_parent[k] = tb.parent[k];
+        for (int k = threadIdx.x; k < P; k += blockDim.x)
+            s_leaf[k] = tb.leaf[k];
+        __syncthreads();
+        if (table) {
+            // the highest node on any prim's path bounds the table's rows
+            for (int q = threadIdx.x; q < tb.num_prims && q < P;
+                 q += blockDim.x) {
+                int top = 0;
+                for (int a = s_leaf[q]; a > 0; a = s_parent[a])
+                    top = max(top, a);
+                atomicMax(&s_top, top);
+            }
+            __syncthreads();
+            ls.logn = (float*)(s_leaf + P);         // M * blockDim
+            ls.live = min(m, s_top + 2);            // + an odd top's sibling
+        }
+    }
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += gridDim.x * blockDim.x)
+        shade_ray<P, TRI>(i, in, tri, out, tb, ls, inv_seed, bounce,
+                          nee_type);
+}
+
 template <int P, bool TRI>
 int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
            const Tables& tb, int n, uint32_t inv_seed, int bounce,
            int nee_type, cudaStream_t stream)
 {
+    const int table = nee_type != 0 && tb.m_nodes <= TABLE_MAX_NODES;
     const size_t smem = nee_type != 0
         ? (size_t)(8 * tb.m_nodes + 32 * P) * sizeof(float)
           + (size_t)(tb.m_nodes + P) * sizeof(int)
+          + (table ? (size_t)tb.m_nodes * BLOCK * sizeof(float) : 0)
         : 0;
+    cudaError_t e;
     if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
+        e = cudaFuncSetAttribute(
             shade_kernel<P, TRI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    const int block = 128;
-    shade_kernel<P, TRI><<<(n + block - 1) / block, block, smem, stream>>>(
-        in, tri, out, tb, n, inv_seed, bounce, nee_type);
+    // as many blocks as are resident at once, each looping over rays; the
+    // count is kept per device and shared-memory size
+    static int last_dev = -1, resident = 0;
+    static size_t last_smem = 0;
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if (dev != last_dev || smem != last_smem) {
+        int sms = 0, per_sm = 0;
+        if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) != cudaSuccess)
+            return (int)e;
+        if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &per_sm, shade_kernel<P, TRI>, BLOCK, smem)) != cudaSuccess)
+            return (int)e;
+        resident = max(sms * per_sm, 1);
+        last_dev = dev;
+        last_smem = smem;
+    }
+    const int blocks = min((n + BLOCK - 1) / BLOCK, resident);
+    shade_kernel<P, TRI><<<blocks, BLOCK, smem, stream>>>(
+        in, tri, out, tb, n, inv_seed, bounce, nee_type, table);
     return (int)cudaGetLastError();
 }
 

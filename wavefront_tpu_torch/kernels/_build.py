@@ -10,6 +10,9 @@ Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false` — contracting a*b+c
 into one fused multiply-add moves crossing times by an ulp, which flips
 coplanar voxel ties against the plain PyTorch tracer.  No fast math:
 division, square root and the transcendental functions stay IEEE-accurate.
+`-Xptxas=-v` makes the assembler report each kernel's registers, spills
+and shared memory; the report is kept beside the library
+(`resource_usage`).
 
 A missing `nvcc` or a failed build raises; nothing falls back.
 """
@@ -19,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +34,7 @@ SOURCES = ("window_trace", "shade", "texel", "radix_hist", "device_probe",
            "extract_probe", "loop_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -83,6 +87,8 @@ def build_all() -> None:
             if p.returncode != 0:
                 errors.append(f"nvcc failed for {n}.cu:\n{log}")
             else:
+                with open(out + ".log", "w") as f:
+                    f.write(log)
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("\n".join(errors))
@@ -102,6 +108,43 @@ def library_path(name: str) -> str:
     use), for tools that read the compiled code."""
     load(name)
     return _lib_path(name)
+
+
+def resource_usage(name: str) -> list:
+    """The assembler's report for each kernel of `csrc/<name>.cu` (built
+    on first use): [{"kernel", "registers", "spill_stores", "spill_loads",
+    "stack", "smem"}], byte counts as `ptxas -v` prints them, each kernel
+    named with its template arguments (`shade_kernel<8,0>`)."""
+    path = library_path(name) + ".log"
+    if not os.path.exists(path):
+        return []
+    out, cur = [], None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                mangled = m.group(1)
+                k = re.search(r"\d((?:[a-z]+_)*kernel)((?:I(?:L[ib]-?\d+E)+E)?)",
+                              mangled)
+                args = re.findall(r"L[ib](-?\d+)E", k.group(2)) if k else []
+                cur = {"kernel": (k.group(1) + (f"<{','.join(args)}>"
+                                                if args else ""))
+                       if k else mangled}
+                out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                    int(v) for v in m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def check(err: int, what: str) -> None:

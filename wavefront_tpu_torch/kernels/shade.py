@@ -10,14 +10,17 @@ fold, in one pass that reads each ray's state once and writes it once.
 Bound on the card: 112 bytes per ray cross device memory (16 input and 12
 output words; with the entity stream `tri_attrs` 4 more for the flag word,
 and 44 more on each lane an entity wins); the atlas stays in L2 and the
-light tables in shared memory.  At the headline's 8 light prims that byte
-bound is the floor; the per-ray light walk and pdf sweep grow with the prim
-count (see the source note in the .cu file and PERF.md).
+light tables in shared memory, staged once per resident block.  A ray that
+takes NEE also evaluates the light BVH once (a table of every live node's
+log branch probability, then each prim's path sum) and sweeps the prims'
+planes; that work grows with the light set (see the source note in the .cu
+file and PERF.md).
 
 `shade_plain` is the renderer's shade (`render/shading.py`) with the dense
-light pick and pdf sweep in the kernel's order (prim probabilities by a
-walk up the parents, sums in prim order), so on the card the two differ
-only by the rounding of cos/sin/log/exp.
+light pick and pdf sweep in the kernel's order (each node's log branch
+probability once, each prim's sum along its path leaf first, sums in prim
+order), so on the card the two differ only by the rounding of
+cos/sin/log/exp.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ from wavefront_tpu_torch.render.wavefront import (
 
 _F32 = torch.float32
 # light-table caps of the kernel (shared memory: 16 KB of nodes and
-# 32 KB of prims at the caps)
+# 32 KB of prims at the caps; past 128 nodes the kernel has no room for
+# its per-thread node table and walks each prim's path instead)
 MAX_NODES = 512
 MAX_PRIMS = 256
 

@@ -5,17 +5,18 @@ and the bounce-sort coherence key.
 Replaces the TPU kernel `wavefront_tpu/kernels/window_trace.py::_kernel`
 (called by `window_trace()`).  The TPU kernel's 32^3 window tables,
 one-hot extraction and tile schedules exist because a TPU kernel cannot
-gather; the CUDA kernel walks the dense grid one thread per ray and reads
-voxel bytes directly.  What it computes is the same: each ray's first
-voxel-face crossing under the mesher face rule, in packed hit words
-(`render.intersect.pack_hits`), with rays that exhaust their budget
-reported as misses with bit 22 set.
+gather; the CUDA kernel walks the dense aux grid (`scene.aux_grid`: class
+bits and empty-space distance) one thread per ray and reads its bytes
+directly, skipping empty cubes as the JAX package's DDA does.  What it
+computes is the same: each ray's first voxel-face crossing under the
+mesher face rule, in packed hit words (`render.intersect.pack_hits`),
+with rays that exhaust their budget reported as misses with bit 22 set.
 
 Bound on the card: 36 bytes per ray cross device memory (origin and
-direction in, pa/pb/t out); the grid and class table stay in L2 and
-shared memory.  The march is a chain of dependent byte loads, so the
-kernel runs above that byte bound by the latency of its steps (see the
-source note in the .cu file and PERF.md).
+direction in, pa/pb/t out); the grid and aux grid stay in L2.  The march
+is a chain of dependent steps, one byte load each, and the kernel is
+bound by the instructions of its steps (see the source note in the .cu
+file and PERF.md).
 """
 
 from __future__ import annotations
@@ -28,11 +29,7 @@ import torch
 from wavefront_tpu_torch.core.config import EPSILON_BLOCK, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.kernels import _build
-from wavefront_tpu_torch.render.intersect import (
-    MAX_GRID,
-    class_table,
-    trace_plain,
-)
+from wavefront_tpu_torch.render.intersect import MAX_GRID, trace_plain
 
 W = 32  # coherence-key window edge, in voxels
 
@@ -76,7 +73,7 @@ def _lib():
     lib = _build.load("window_trace")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.wt_trace.argtypes = [p, p, p, p, p, p, p, i, i, i, p,
+        lib.wt_trace.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                  f, f, f, i, i, f, f, p, p, p, p]
         lib.wt_trace.restype = ctypes.c_int
         lib._typed = True
@@ -86,8 +83,10 @@ def _lib():
 def window_trace(scene, origin: V3, direction: V3, max_events: int):
     """First face crossing of every ray; returns packed (pa, pb, t).
 
-    scene: render.scene.SceneArrays; origin/direction: V3 of (N,) float32
-    world-space components (a zero direction is an inactive ray).  CPU
+    scene: render.scene.SceneArrays (its `grid` and `aux_grid`);
+    origin/direction: V3 of (N,) float32 world-space components (a zero
+    direction is an inactive ray).  A skip counts as one of the
+    `max_events` steps.  CPU
     tensors take `trace_plain`; CUDA tensors launch the kernel or raise.
     Grids larger than the hit words hold (MAX_GRID) raise."""
     if any(g > m for g, m in zip(scene.grid.shape, MAX_GRID)):
@@ -103,23 +102,22 @@ def window_trace(scene, origin: V3, direction: V3, max_events: int):
                 or c.shape[0] != n or not c.is_contiguous()):
             raise ValueError("window_trace: origin/direction must be six "
                              "contiguous (N,) float32 tensors on one device")
-    grid = scene.grid
-    if grid.device != dev or grid.dtype != torch.uint8 or grid.dim() != 3 \
-            or not grid.is_contiguous():
-        raise ValueError("window_trace: grid must be a contiguous 3-D uint8 "
-                         "tensor on the rays' device")
+    grid, aux = scene.grid, scene.aux_grid
+    for x in (grid, aux):
+        if x.device != dev or x.dtype != torch.uint8 or x.dim() != 3 \
+                or not x.is_contiguous() or x.shape != grid.shape:
+            raise ValueError("window_trace: grid and aux_grid must be "
+                             "contiguous 3-D uint8 tensors of one shape on "
+                             "the rays' device")
     gx, gy, gz = grid.shape
-    cls = class_table(scene.transparent, scene.translucent).to(dev).contiguous()
-    if cls.shape != (256,):
-        raise ValueError("window_trace: block tables must have 256 entries")
     pa = torch.empty(n, dtype=torch.int32, device=dev)
     pb = torch.empty(n, dtype=torch.int32, device=dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     go = scene.grid_origin
     err = _lib().wt_trace(
-        *(c.data_ptr() for c in comps), grid.data_ptr(), gx, gy, gz,
-        cls.data_ptr(), float(go[0]), float(go[1]), float(go[2]), n,
+        *(c.data_ptr() for c in comps), grid.data_ptr(), aux.data_ptr(),
+        gx, gy, gz, float(go[0]), float(go[1]), float(go[2]), n,
         int(max_events), EPSILON_BLOCK, T_MAX, pa.data_ptr(), pb.data_ptr(),
         t.data_ptr(), stream)
     _build.check(err, "window_trace")

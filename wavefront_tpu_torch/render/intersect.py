@@ -16,6 +16,12 @@ boundary the ray crosses:
     crossing times x is taken before y before z;
   * voxels outside the grid read as air (id 255).
 
+The march reads an aux grid (`make_aux_grid`, built once per grid): each
+voxel's class bits and its Chebyshev distance to the nearest voxel that
+is not completely transparent.  From a voxel at distance d >= 2 the march
+jumps to the exit of the radius-(d-1) cube around it, where no face can
+lie (the JAX package's empty-space skip).
+
 Hit words (`pack_hits`, the layout of the reference's tracer kernel):
   pa: hit(0) | entered(1) | face(2..4) | vy+2(5..13) | owner(14..21)
       | truncated(22)
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from wavefront_tpu_torch.core.config import EPSILON_BLOCK, T_MAX
@@ -41,6 +48,8 @@ AIR_ID = 255             # id read outside the grid
 CLASS_TRANSPARENT = 1    # class bit 0: completely transparent
 CLASS_TRANSLUCENT = 2    # class bit 1: translucent
 TRUNCATED_BIT = 22       # pa bit: the ray exhausted its step budget
+MAX_SKIP = 31            # clamp of the aux grid's distance (bits 2-6)
+SKIP_NUDGE = 1e-4        # a skip lands this far before the cube's exit
 # largest grid the hit words hold (vx+2 in 10 bits, vy+2 in 9 bits), the
 # JAX package's window-pack limits
 MAX_GRID = (1020, 507, 1020)
@@ -59,10 +68,46 @@ class VoxelHit(NamedTuple):
     entered: torch.Tensor   # bool: True = front face (ray enters owner)
 
 
-def class_table(transparent, translucent) -> torch.Tensor:
-    """(256,) uint8 class bits from the two 256-entry block tables."""
-    return (transparent.to(torch.uint8) * CLASS_TRANSPARENT
-            + translucent.to(torch.uint8) * CLASS_TRANSLUCENT)
+def make_aux_grid(grid, transparent, translucent,
+                  max_skip: int = MAX_SKIP) -> np.ndarray:
+    """The tracer's aux grid of a (gx, gy, gz) uint8 block grid, as uint8:
+    bits 0-1 the voxel's class (CLASS_TRANSPARENT | CLASS_TRANSLUCENT),
+    bits 2-6 its Chebyshev distance to the nearest voxel that is not
+    completely transparent, clamped to `max_skip` (< 32).
+
+    The JAX package's `render.intersect.make_aux_grid` (which returns the
+    same values as int32): the distance grows by one per 3^3 dilation of
+    the solid mask, separable per axis.  Built once per grid; a grid edit
+    needs it again around the edit."""
+    if not 0 <= max_skip < 32:
+        raise ValueError(f"max_skip {max_skip} does not fit bits 2-6")
+    grid = np.asarray(grid)
+    transparent = np.asarray(transparent, bool)
+    translucent = np.asarray(translucent, bool)
+    cls = (transparent[grid].astype(np.uint8) * CLASS_TRANSPARENT
+           + translucent[grid].astype(np.uint8) * CLASS_TRANSLUCENT)
+    reach = ~transparent[grid]
+    dist = np.full(grid.shape, max_skip, np.uint8)
+    dist[reach] = 0
+
+    def dilate(m):
+        r = m.copy()
+        r[1:, :, :] |= m[:-1, :, :]
+        r[:-1, :, :] |= m[1:, :, :]
+        m = r.copy()
+        r[:, 1:, :] |= m[:, :-1, :]
+        r[:, :-1, :] |= m[:, 1:, :]
+        m = r.copy()
+        r[:, :, 1:] |= m[:, :, :-1]
+        r[:, :, :-1] |= m[:, :, 1:]
+        return r
+
+    for d in range(1, max_skip):
+        if reach.all():
+            break
+        reach = dilate(reach)
+        dist[reach & (dist == max_skip)] = d
+    return cls | (dist << 2)
 
 
 def pack_hits(vox: VoxelHit):
@@ -111,28 +156,37 @@ def _sign(d):
     return (d > 0).to(_I32) - (d < 0).to(_I32)
 
 
-def trace_plain(scene, origin: V3, direction: V3, max_events: int):
+def trace_plain(scene, origin: V3, direction: V3, max_events: int,
+                stats: dict | None = None):
     """Plain PyTorch version of the tracer kernel, with the arguments of
     `kernels.window_trace.window_trace`: every ray's first face crossing,
-    at most `max_events` voxel boundaries per ray.
+    at most `max_events` steps per ray.
 
     scene: anything with the SceneArrays fields `grid` ((gx, gy, gz) uint8
-    block ids), `grid_origin` (3 ints, world coords of grid[0,0,0]) and the
-    256-entry `transparent` / `translucent` tables.  Rays with a zero
-    direction are inactive.  Hits count between t = EPSILON_BLOCK and
-    T_MAX.  A ray still marching after `max_events` crossings reports a
-    miss with the truncated bit set.
+    block ids), `aux_grid` (its `make_aux_grid`, uint8) and `grid_origin`
+    (3 ints, world coords of grid[0,0,0]).  Rays with a zero direction are
+    inactive.  Hits count between t = EPSILON_BLOCK and T_MAX.  A ray
+    still marching after `max_events` steps reports a miss with the
+    truncated bit set.
 
-    Step for step the reference's `dda_trace` without its empty-space
-    skip (which never changes a hit): the slab entry and 1e-4 nudge, the
-    pre-entry voxel of rays that start outside, crossing times recomputed
-    from the voxel index at every step (no drift), the x/y/z tie order and
-    the enter-beats-exit face rule.  Returns (pa, pb, t)."""
+    Step for step the JAX package's `dda_trace` with its aux grid: the
+    slab entry and 1e-4 nudge, the pre-entry voxel of rays that start
+    outside, and then per step either a fine crossing (crossing times
+    recomputed from the voxel index, no drift; the x/y/z tie order; the
+    enter-beats-exit face rule) or, from a voxel at distance >= 2, a skip
+    to 1e-4 before the exit of the radius-(distance-1) cube (no face rule;
+    the march ends when the landing leaves the grid or lands past the
+    clip limit).  A skip is one step of the budget.  An aux grid whose
+    distances are all 0 (`aux & 3`) gives the unskipped march.  Returns
+    (pa, pb, t).
+
+    stats: when a dict is given, its "fine" and "skips" are set to the
+    steps of each kind the rays took (what a measurement of the kernel
+    counts its work by)."""
     t_min, t_max = EPSILON_BLOCK, T_MAX
     grid, grid_origin = scene.grid, scene.grid_origin
-    cls = class_table(scene.transparent, scene.translucent)
     gx, gy, gz = (int(s) for s in grid.shape)
-    cls_flat = cls.to(_I32)[grid.reshape(-1).to(torch.int64)]
+    aux_flat = scene.aux_grid.reshape(-1).to(_I32)
     air = CLASS_TRANSPARENT | CLASS_TRANSLUCENT
     go = [float(g) for g in grid_origin]
     px, py, pz = origin.x - go[0], origin.y - go[1], origin.z - go[2]
@@ -180,10 +234,16 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int):
         idx = (vx.clamp(0, gx - 1).to(torch.int64) * (gy * gz)
                + vy.clamp(0, gy - 1).to(torch.int64) * gz
                + vz.clamp(0, gz - 1).to(torch.int64))
-        return torch.where(inside, cls_flat[idx], air), inside, idx
+        return torch.where(inside, aux_flat[idx], air), inside, idx
 
     def cross_time(v, p, inv, s, moving):
         bound = v.to(_F32) + (s > 0).to(_F32)
+        return torch.where(moving, (bound - p) * inv, inf)
+
+    def cube_exit(v, p, inv, s, moving, r):
+        # ray parameter where the ray leaves the radius-r cube around v
+        # along one axis (dda_trace's skip, in its float order)
+        bound = v.to(_F32) + torch.where(s > 0, r + 1.0, -r)
         return torch.where(moving, (bound - p) * inv, inf)
 
     cur, _, _ = lookup(vx, vy, vz)
@@ -196,21 +256,39 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int):
     out_face = zero.clone()
     out_vx, out_vy, out_vz = zero.clone(), zero.clone(), zero.clone()
     out_ent = torch.zeros_like(active)
+    n_fine = n_skip = torch.zeros((), dtype=torch.int64, device=px.device)
 
     for step in range(max_events):
         if step % 8 == 0 and not bool(active.any()):
             break
+        dist = cur >> 2
+        do_skip = dist >= 2
+        if stats is not None:
+            n_fine = n_fine + (active & ~do_skip).sum()
+            n_skip = n_skip + (active & do_skip).sum()
         use_x = (tx <= ty) & (tx <= tz)
         use_y = ~use_x & (ty <= tz)
         use_z = ~use_x & ~use_y
         t_cross = torch.where(use_x, tx, torch.where(use_y, ty, tz))
-        nvx = vx + torch.where(use_x, sx, zero)
-        nvy = vy + torch.where(use_y, sy, zero)
-        nvz = vz + torch.where(use_z, sz, zero)
+        f_vx = vx + torch.where(use_x, sx, zero)
+        f_vy = vy + torch.where(use_y, sy, zero)
+        f_vz = vz + torch.where(use_z, sz, zero)
+        # empty-space skip: to just inside the exit of the radius-(dist-1)
+        # cube around the current voxel
+        r = (dist - 1).to(_F32)
+        t_exit = torch.minimum(
+            cube_exit(vx, px, ivx, sx, mx, r),
+            torch.minimum(cube_exit(vy, py, ivy, sy, my, r),
+                          cube_exit(vz, pz, ivz, sz, mz, r)))
+        t_land = t_exit - SKIP_NUDGE
+        nvx = torch.where(do_skip, torch.floor(px + dx * t_land).to(_I32), f_vx)
+        nvy = torch.where(do_skip, torch.floor(py + dy * t_land).to(_I32), f_vy)
+        nvz = torch.where(do_skip, torch.floor(pz + dz * t_land).to(_I32), f_vz)
         nxt, inside, _ = lookup(nvx, nvy, nvz)
-        enter = ((nxt & CLASS_TRANSPARENT) == 0) & (
+        # the face rule holds only on fine crossings
+        enter = ~do_skip & ((nxt & CLASS_TRANSPARENT) == 0) & (
             (cur & CLASS_TRANSLUCENT) != 0)
-        leave = ((cur & CLASS_TRANSPARENT) == 0) & (
+        leave = ~do_skip & ((cur & CLASS_TRANSPARENT) == 0) & (
             (nxt & CLASS_TRANSLUCENT) != 0)
         within = active & (t_cross <= limit) & (t_cross >= t_min)
         is_hit = within & (enter | leave)
@@ -225,7 +303,8 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int):
         out_vy = torch.where(is_hit, torch.where(enter, nvy, vy), out_vy)
         out_vz = torch.where(is_hit, torch.where(enter, nvz, vz), out_vz)
         out_ent = torch.where(is_hit, enter, out_ent)
-        active = active & ~is_hit & inside & ~(t_cross > limit)
+        past = torch.where(do_skip, t_land > limit, t_cross > limit)
+        active = active & ~is_hit & inside & ~past
         vx, vy, vz = nvx, nvy, nvz
         tx = cross_time(vx, px, ivx, sx, mx)
         ty = cross_time(vy, py, ivy, sy, my)
@@ -241,6 +320,8 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int):
         vx=out_vx, vy=out_vy, vz=out_vz, entered=out_ent,
     ))
     pa = pa | (active.to(_I32) << TRUNCATED_BIT)
+    if stats is not None:
+        stats["fine"], stats["skips"] = int(n_fine), int(n_skip)
     return pa, pb, t
 
 

@@ -3,9 +3,10 @@
 Counterpart of `wavefront_tpu.render.scene`: the dense uint8 voxel grid,
 its world origin, the 256-entry block tables, the packed texture atlas,
 the light set (dense or sparse) and the fixed-capacity triangle pool of
-the dynamic entities (reference scene.rs:150-232).  The grid does not
-change between frames: block edits and the streamed window come in later
-slices of the port.
+the dynamic entities (reference scene.rs:150-232), and the tracer's aux
+grid (class bits and empty-space distance, `intersect.make_aux_grid`),
+built once per grid.  The grid does not change between frames: block
+edits and the streamed window come in later slices of the port.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from wavefront_tpu_torch.render import lights as lights_mod
+from wavefront_tpu_torch.render.intersect import make_aux_grid
 from wavefront_tpu_torch.render.wavefront import LightArrays
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 
@@ -25,6 +27,7 @@ class SceneArrays(NamedTuple):
     """Everything a frame reads, as tensors on one device."""
 
     grid: torch.Tensor          # (gx, gy, gz) uint8 block ids
+    aux_grid: torch.Tensor      # (gx, gy, gz) uint8: class | distance << 2
     grid_origin: tuple          # 3 ints: world coords of grid[0,0,0]
     transparent: torch.Tensor   # (256,) bool
     translucent: torch.Tensor   # (256,) bool
@@ -76,8 +79,9 @@ def scene_arrays_from_numpy(d, device="cuda") -> SceneArrays:
 
     `d` is a mapping (or an object with attributes) holding the fields
     of `wavefront_tpu.render.scene.SceneArrays` as numpy arrays, with
-    `lights` itself a mapping or object of the LightArrays fields.  Fields
-    the port does not use (aux_grid, material_offset, atlas, winpack) are
+    `lights` itself a mapping or object of the LightArrays fields.  The
+    int32 `aux_grid` is carried as uint8 (a value past 255 raises).
+    Fields the port does not use (material_offset, atlas, winpack) are
     ignored.  Tests use it so that both packages render the same bytes."""
     def get(name):
         return d[name] if isinstance(d, Mapping) else getattr(d, name)
@@ -88,8 +92,13 @@ def scene_arrays_from_numpy(d, device="cuda") -> SceneArrays:
             a = a.astype(dtype)
         return torch.as_tensor(a, device=device)
 
+    aux = np.asarray(get("aux_grid"))
+    if aux.size and (aux.min() < 0 or aux.max() > 255):
+        raise ValueError("scene_arrays_from_numpy: aux_grid values outside "
+                         "0..255 do not fit uint8")
     return SceneArrays(
         grid=t("grid", np.uint8),
+        aux_grid=torch.as_tensor(aux.astype(np.uint8), device=device),
         grid_origin=tuple(int(v) for v in np.asarray(get("grid_origin"))),
         transparent=t("transparent", bool),
         translucent=t("translucent", bool),
@@ -108,8 +117,9 @@ class VoxelScene:
     entities (triangle meshes, at most `max_entity_tris` triangles).
 
     `get_arrays()` builds the light set (lights.build_from_grid, with the
-    emissive entity triangles) and moves everything to `device`; later
-    calls return the same arrays until an entity is added or removed.
+    emissive entity triangles) and, once per grid, the tracer's aux grid,
+    and moves everything to `device`; later calls return the same arrays
+    until an entity is added or removed.
     Moving an entity replaces only the triangle pool (and the light set
     when that entity emits)."""
 
@@ -133,6 +143,7 @@ class VoxelScene:
         # key -> (verts (T,3,3), uv (T,3,2), tex (T,), transform (3,3|4))
         self._entities: dict = {}
         self._arrays = None
+        self._aux = None
 
     @property
     def grid(self) -> np.ndarray:
@@ -239,8 +250,12 @@ class VoxelScene:
             return self._arrays
         verts, uv, tex, active = self._entity_pool()
         dev = self.device
+        if self._aux is None:
+            self._aux = torch.as_tensor(make_aux_grid(
+                self._grid, self._transparent, self._translucent), device=dev)
         self._arrays = SceneArrays(
             grid=torch.as_tensor(self._grid, device=dev),
+            aux_grid=self._aux,
             grid_origin=self._grid_origin,
             transparent=torch.as_tensor(self._transparent, device=dev),
             translucent=torch.as_tensor(self._translucent, device=dev),

@@ -16,16 +16,18 @@ counts of one launch.  Sections (`--only`):
            the table in shared, global (__ldg) and constant memory
   zsel     the pick of 1 row in 8 per channel: select tree, local-memory
            array, shared-memory row
-  event    the tracer kernel's own cost per voxel-boundary crossing:
-           rays that cross an all-air grid and outlast the budget, traced
-           at two budgets (every ray reports `truncated`), the slope taken
-           per ray-crossing; 160x32x160 and 416x96x416 grids, rays in
-           coherence order and shuffled (every ray marches the same count,
-           so the two differ by where their loads fall); and the headline
-           frame's bounce-1 rays, whose time per crossing against the
-           uniform rows is what warps of unequal marches cost; and the
-           machine instructions in one pass of the kernel's march loop
-           (`cuobjdump -sass`), to set beside the card's issue rate
+  event    the tracer kernel's own cost per step: rays that march an
+           all-air grid and outlast the budget, traced at two budgets
+           (every ray reports `truncated`), the slope taken per ray-step.
+           Fine crossings on an aux grid with its distances at 0 (no
+           skip), 160x32x160 and 416x96x416, rays in coherence order and
+           shuffled (every ray marches the same count, so the two differ
+           by where their loads fall); skip steps on a 416x96x416 field
+           of distance 2 everywhere (each skip lands a voxel or two on);
+           the headline frame's bounce-1 rays, whose time per step against
+           the uniform rows is what warps of unequal marches cost; and the
+           machine instructions of one fine crossing of the kernel's march
+           loop (`cuobjdump -sass`), to set beside the card's issue rate
 
 Loop rows come for one group and for enough groups to fill the card.
 
@@ -56,7 +58,12 @@ from wavefront_tpu_torch.kernels.window_trace import (
     coherence_key,
     window_trace,
 )
-from wavefront_tpu_torch.render.intersect import TRUNCATED_BIT
+from wavefront_tpu_torch.render.intersect import (
+    CLASS_TRANSLUCENT,
+    CLASS_TRANSPARENT,
+    TRUNCATED_BIT,
+    trace_plain,
+)
 from wavefront_tpu_torch.render.renderer import coherence_sort
 from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.render.wavefront import raygen_soa
@@ -175,17 +182,23 @@ def loop_rows(sections, rows: int = 16) -> list:
     return out
 
 
-def _air_scene(gx, gy, gz):
+def _air_scene(gx, gy, gz, dist: int):
+    """An all-air grid whose aux grid holds distance `dist` everywhere: 0
+    marches by fine crossings, >= 2 by skips of radius dist-1."""
     registry = BlockRegistry.load(ASSETS)
     grid = np.full((gx, gy, gz), registry.air, np.uint8)
-    return VoxelScene(registry, grid, (0, 0, 0), device="cuda").get_arrays()
+    arrays = VoxelScene(registry, grid, (0, 0, 0), device="cuda").get_arrays()
+    air = CLASS_TRANSPARENT | CLASS_TRANSLUCENT
+    return arrays._replace(aux_grid=torch.full_like(
+        arrays.aux_grid, air | (dist << 2)))
 
 
-def _uniform_event_rows(gx, gy, gz, lo, hi, n=HEADLINE_RAYS) -> list:
+def _uniform_event_rows(gx, gy, gz, lo, hi, n=HEADLINE_RAYS, dist=0,
+                        which=("sorted", "shuffled")) -> list:
     """Near-horizontal rays from the middle of an all-air grid, in every
-    azimuth: `hi` crossings leave each ray inside the grid, so each
-    marches exactly its budget."""
-    arrays = _air_scene(gx, gy, gz)
+    azimuth: `hi` steps (fine crossings, or skips when dist >= 2) leave
+    each ray inside the grid, so each marches exactly its budget."""
+    arrays = _air_scene(gx, gy, gz, dist)
     rng = np.random.default_rng(3)
     org = np.array([gx, gy, gz]) / 2.0 + rng.uniform(-8.0, 8.0, (n, 3))
     az = rng.uniform(0.0, 2.0 * np.pi, n)
@@ -202,27 +215,30 @@ def _uniform_event_rows(gx, gy, gz, lo, hi, n=HEADLINE_RAYS) -> list:
     key = coherence_key(o.x, o.y, o.z, d.x, d.y, d.z, gx, gy, gz)
     orders = {"sorted": torch.sort(key, stable=True).indices,
               "shuffled": torch.as_tensor(rng.permutation(n), device="cuda")}
+    kind = "skip" if dist >= 2 else "event"
     out = []
-    for name, order in orders.items():
+    for name in which:
+        order = orders[name]
         oo, dd = v3(org, order), v3(dirs, order)
         for budget in (lo, hi):
             pa = window_trace(arrays, oo, dd, budget)[0]
             if int(((pa >> TRUNCATED_BIT) & 1).sum()) != n:
                 raise AssertionError(
-                    f"event rows: not every ray outlasts {budget} crossings")
+                    f"{kind} rows: not every ray outlasts {budget} steps")
         per_step = time_slope(
             lambda ev: (lambda: window_trace(arrays, oo, dd, ev)), lo, hi)
-        out.append({"row": f"event_{gx}x{gy}x{gz}_{name}", "rays": n,
-                    "events": [lo, hi],
-                    "ns_per_ray_crossing": per_step * 1e6 / n,
-                    "ms_per_crossing_of_all_rays": per_step})
+        out.append({"row": f"{kind}_{gx}x{gy}x{gz}_{name}", "rays": n,
+                    "events": [lo, hi], "aux_distance": dist,
+                    "ns_per_ray_step": per_step * 1e6 / n,
+                    "ms_per_step_of_all_rays": per_step})
     return out
 
 
 def _headline_event_row() -> dict:
     """The tracer on the headline frame's bounce-1 rays (after the
     coherence sort, as the renderer hands them over): its time over the
-    crossings these rays make."""
+    steps these rays take (fine crossings and skips, counted by the plain
+    version), beside the crossings an unskipped march would make."""
     scene, settings, basis, _ = headline_setup(1920, 1080, 4, device="cuda")
     arrays = scene.get_arrays()
     tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
@@ -240,49 +256,104 @@ def _headline_event_row() -> dict:
                                nee_type=1)
     o, d, tp, rad, rid = coherence_sort(arrays, o, d, tp, rad, rid)
     pa, pb, t = window_trace(arrays, o, d, events)
-    steps = dda_steps(arrays, o, d, pa, t)
+    crossings = dda_steps(arrays, o, d, pa, t)
+    stats = {}
+    trace_plain(arrays, o, d, events, stats=stats)
+    steps = stats["fine"] + stats["skips"]
     # back to back, so that the wrapper's host time hides behind the
     # kernel before it (a launch timed alone would carry it)
     ms = time_ms(lambda: window_trace(arrays, o, d, events), 10)
     alive = int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum())
     return {"row": "event_headline_bounce1", "rays": n, "alive": alive,
-            "crossings": steps, "ms": ms,
-            "ns_per_ray_crossing": ms * 1e6 / steps}
+            "fine": stats["fine"], "skips": stats["skips"],
+            "crossings": crossings, "ms": ms,
+            "ns_per_ray_step": ms * 1e6 / steps}
 
 
-def march_loop_instructions() -> int:
-    """Machine instructions in one pass of the tracer kernel's march loop
-    (one voxel-boundary crossing that neither hits nor leaves): the span
-    of the largest backward branch in `trace_kernel`, read from the built
-    library with the toolkit's `cuobjdump -sass`."""
+def march_loop_instructions() -> dict:
+    """Machine instructions of the tracer kernel's march loop, read from
+    the built library with the toolkit's `cuobjdump -sass`.
+
+    The loop is the span of the largest backward branch in
+    `trace_kernel`; its head is that branch's target.  Inside it, the
+    control-flow graph of the instructions (fall-through, branch targets,
+    both for a predicated branch) is searched for the shortest way from
+    the head back to it: a step that neither hits nor leaves the grid.
+    A skip step recomputes three crossing times and the flat index where
+    a fine crossing recomputes one and adds to the index, so the shortest
+    cycle is the fine crossing.  Returns {"fine_crossing": its
+    instructions, "loop_span": the whole loop's, fine and skip paths
+    together}."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run(
         [tool, "-sass", _build.library_path("window_trace")],
         capture_output=True, text=True, timeout=120, check=True).stdout
-    inside, best = False, 0
+    inside, code = False, {}
     for line in sass.splitlines():
         if "Function :" in line:
             inside = "trace_kernel" in line
         m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if not (inside and m):
-            continue
-        addr = int(m.group(1), 16)
-        target = re.search(r"\bBRA\s+(0x[0-9a-f]+)", m.group(2))
-        if target and int(target.group(1), 16) < addr:
-            best = max(best, (addr - int(target.group(1), 16)) // 16 + 1)
-    if best == 0:
+        if inside and m:
+            code[int(m.group(1), 16)] = m.group(2).strip()
+    head, tail = None, None
+    for addr, text in code.items():
+        target = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+        if target and int(target.group(1), 16) < addr and (
+                tail is None or addr - int(target.group(1), 16)
+                > tail - head):
+            head, tail = int(target.group(1), 16), addr
+    if head is None:
         raise RuntimeError("march_loop_instructions: no loop found in the "
                            "tracer kernel's machine code")
-    return best
+    step = 16
+
+    def successors(addr):
+        text = code[addr]
+        predicated = text.startswith("@")
+        target = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+        out = []
+        if target:
+            out.append(int(target.group(1), 16))
+        elif re.search(r"\b(EXIT|RET|BRX|JMX)\b", text):
+            pass
+        else:
+            out.append(addr + step)
+        if predicated and (target or "EXIT" in text or "RET" in text):
+            out.append(addr + step)
+        return [a for a in out if head <= a <= tail and a in code]
+
+    # breadth-first: instructions executed from the head until it recurs
+    dist, frontier, fine = {head: 1}, [head], None
+    while frontier and fine is None:
+        nxt = []
+        for a in frontier:
+            for b in successors(a):
+                if b == head:
+                    fine = dist[a]
+                    break
+                if b not in dist:
+                    dist[b] = dist[a] + 1
+                    nxt.append(b)
+            if fine is not None:
+                break
+        frontier = nxt
+    if fine is None:
+        raise RuntimeError("march_loop_instructions: no path from the loop "
+                           "head back to it")
+    return {"fine_crossing": fine, "loop_span": (tail - head) // step + 1}
 
 
 def event_rows() -> list:
     """The tracer's per-crossing rows, measured on the card."""
+    loop = march_loop_instructions()
     return (_uniform_event_rows(160, 32, 160, 16, 64)
             + _uniform_event_rows(416, 96, 416, 32, 192)
+            + _uniform_event_rows(416, 96, 416, 16, 64, dist=2,
+                                  which=("sorted",))
             + [_headline_event_row(),
                {"row": "event_march_loop",
-                "instructions_per_crossing": march_loop_instructions()}])
+                "instructions_per_fine_crossing": loop["fine_crossing"],
+                "loop_span_instructions": loop["loop_span"]}])
 
 
 def rows(only=None, group_rows: int = 16) -> list:
