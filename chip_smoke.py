@@ -121,7 +121,7 @@ GOLDEN = os.path.join(HERE, "tests", "golden", "config1_256.npz")
 # rate would make each bound 2x optimistic.  Integer operations issue at
 # the same rate.
 HBM_BYTES_PER_S = 3.35e12
-ISSUE_OPS_PER_S = 132 * 128 * 1.98e9
+UNFUSED_OPS_PER_S = 132 * 128 * 1.98e9
 
 # operations per unit of work, tallied from the kernel sources (compares,
 # selects, conversions, integer and float arithmetic, loads; no branches
@@ -228,7 +228,7 @@ def texel_bound_ms(atlas, n: int, nch: int) -> tuple:
 
 def max_bound(nbytes: int, ops: int) -> tuple:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / ISSUE_OPS_PER_S * 1e3
+    by_ops = ops / UNFUSED_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 

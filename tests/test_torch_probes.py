@@ -21,6 +21,7 @@ Inputs come from a numpy seed and go to both sides.
 import functools
 import importlib.util
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -30,11 +31,18 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from wavefront_tpu_torch.kernels import _build
 from wavefront_tpu_torch.kernels import device_probe as dp
 from wavefront_tpu_torch.kernels import extract_probe as ep
 from wavefront_tpu_torch.kernels import loop_probe as lp
 from wavefront_tpu_torch.kernels import radix_hist as rh
-from wavefront_tpu_torch.tools import event_lab, gpu_probe, radix_lab, roofline
+from wavefront_tpu_torch.tools import (
+    event_lab,
+    gpu_probe,
+    kernel_times,
+    radix_lab,
+    roofline,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -406,7 +414,8 @@ def test_device_probe_plain_versions_match_numpy():
 # ---- the labs ----
 
 
-@pytest.mark.parametrize("lab", [radix_lab, gpu_probe, roofline, event_lab],
+@pytest.mark.parametrize("lab", [radix_lab, gpu_probe, roofline, event_lab,
+                                 kernel_times],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_lab_parses_help_and_needs_no_card_to_import(lab, capsys):
     with pytest.raises(SystemExit) as e:
@@ -418,7 +427,7 @@ def test_lab_parses_help_and_needs_no_card_to_import(lab, capsys):
 def test_labs_refuse_to_measure_without_a_card(tmp_path, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the labs would measure it")
-    for lab in (radix_lab, roofline, event_lab):
+    for lab in (radix_lab, roofline, event_lab, kernel_times):
         with pytest.raises(SystemExit) as e:
             lab.main([])
         assert e.value.code not in (0, None)
@@ -426,3 +435,62 @@ def test_labs_refuse_to_measure_without_a_card(tmp_path, capsys):
     assert gpu_probe.main(["--log", str(log)]) == 1
     assert '"up": false' in log.read_text()
     assert '"ok"' not in capsys.readouterr().out
+
+
+# a tracer loop as `cuobjdump -sass` prints it: head 0x10; the skip branch
+# (0x20) jumps over the fine path to 0x80; the fine path 0x10-0x70 may
+# leave at 0x50; both paths branch back to the head
+FAKE_SASS = """
+        Function : _ZN37_GLOBAL__N__c6aadfbd_15_window_trace_cu_wt_trace12trace_kernelEPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, 0x2, PT ;
+        /*0020*/              @P0 BRA 0x80 ;
+        /*0030*/                   FADD R2, R2, R3 ;
+        /*0040*/                   FMUL R2, R2, R3 ;
+        /*0050*/              @!P1 BRA 0x100 ;
+        /*0060*/                   IADD3 R4, R4, 0x1, RZ ;
+        /*0070*/                   BRA 0x10 ;
+        /*0080*/                   FADD R5, R5, R6 ;
+        /*0090*/                   FADD R5, R5, R6 ;
+        /*00a0*/                   FADD R5, R5, R6 ;
+        /*00b0*/                   FADD R5, R5, R6 ;
+        /*00c0*/                   FADD R5, R5, R6 ;
+        /*00d0*/                   FADD R5, R5, R6 ;
+        /*00e0*/              @P2 EXIT ;
+        /*00f0*/                   BRA 0x10 ;
+        /*0100*/                   EXIT ;
+"""
+
+
+def test_march_loop_instructions_counts_the_fine_path(monkeypatch):
+    """The fine crossing is the shortest way from the loop head back to
+    it (7 instructions here); the loop's span covers the skip path too."""
+    monkeypatch.setattr(event_lab.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=FAKE_SASS))
+    monkeypatch.setattr(event_lab._build, "nvcc_path", lambda: "/cuda/nvcc")
+    monkeypatch.setattr(event_lab._build, "library_path", lambda name: "lib")
+    assert event_lab.march_loop_instructions() == {"fine_crossing": 7,
+                                                   "loop_span": 15}
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__c6aadfbd_15_window_trace_cu_wt_trace12trace_kernelEPKfS1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN37_GLOBAL__N__c6aadfbd_15_window_trace_cu_wt_trace12trace_kernelEPKfS1_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__e755e4d6_8_shade_cu_785f9c2712shade_kernelILi8ELb1EEEvNS_7ShadeInE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__e755e4d6_8_shade_cu_785f9c2712shade_kernelILi8ELb1EEEvNS_7ShadeInE
+    64 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 91 registers, used 1 barriers, 16 bytes smem, 640 bytes cmem[0]
+"""
+
+
+def test_resource_usage_reads_the_assembler_report(tmp_path, monkeypatch):
+    lib = tmp_path / "libx.so"
+    (tmp_path / "libx.so.log").write_text(PTXAS_LOG)
+    monkeypatch.setattr(_build, "library_path", lambda name: str(lib))
+    assert _build.resource_usage("x") == [
+        {"kernel": "trace_kernel", "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 48, "smem": 0},
+        {"kernel": "shade_kernel<8,1>", "stack": 64, "spill_stores": 4,
+         "spill_loads": 8, "registers": 91, "smem": 16}]

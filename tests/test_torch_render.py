@@ -216,6 +216,9 @@ def test_scene_arrays_from_numpy_round_trip(config1):
     d["lights"] = {f: np.asarray(getattr(ja.lights, f))
                    for f in ja.lights._fields}
     carried = scene_arrays_from_numpy(d, device="cpu")
+    with pytest.raises(ValueError):     # an aux value past uint8
+        scene_arrays_from_numpy(dict(d, aux_grid=d["aux_grid"] + 256),
+                                device="cpu")
     own = port_scene.get_arrays()
     assert carried.grid_origin == own.grid_origin == (0, 0, 0)
     for f in ("grid", "aux_grid", "transparent", "translucent",

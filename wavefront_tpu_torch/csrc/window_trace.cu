@@ -36,7 +36,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdlib.h>
 
 #define INF_T 3.0e38f
 #define NUDGE 1e-4f
@@ -80,280 +79,147 @@ __device__ __forceinline__ bool in_range(int v, int n) {
     return (unsigned)v < (unsigned)n;
 }
 
-// One ray's march state (grid-local origin and direction, the current
-// voxel, its flat index and aux byte, the pending crossing times) and its
-// result.
-struct Ray {
-    float px, py, pz, dx, dy, dz, ivx, ivy, ivz, limit, tx, ty, tz, ot;
-    int sx, sy, sz, dix, diy, diz, vx, vy, vz, idx, cur;
-    int hit, face, entered, ovx, ovy, ovz, oidx;
-    bool mx, my, mz, okx, oky, okz, active;
-};
-
-// slab entry, start voxel and its aux byte; r.active when the ray marches
-__device__ __forceinline__ void init_ray(
-    Ray& r, const Grid& g, float px, float py, float pz, float dx, float dy,
-    float dz, float t_min, float t_max)
-{
-    r.px = px; r.py = py; r.pz = pz; r.dx = dx; r.dy = dy; r.dz = dz;
-    r.hit = 0; r.face = 0; r.entered = 0; r.ovx = r.ovy = r.ovz = 0;
-    r.oidx = 0; r.ot = INF_T;
-    const bool valid = dx != 0.0f || dy != 0.0f || dz != 0.0f;
-    r.ivx = safe_inv(dx); r.ivy = safe_inv(dy); r.ivz = safe_inv(dz);
-    r.mx = fabsf(dx) > 1e-30f; r.my = fabsf(dy) > 1e-30f;
-    r.mz = fabsf(dz) > 1e-30f;
-
-    float lo, hi;
-    lo = (0.0f - px) * r.ivx; hi = ((float)g.gx - px) * r.ivx;
-    const float nx = r.mx ? fminf(lo, hi) : -INF_T,
-                fx = r.mx ? fmaxf(lo, hi) : INF_T;
-    lo = (0.0f - py) * r.ivy; hi = ((float)g.gy - py) * r.ivy;
-    const float ny = r.my ? fminf(lo, hi) : -INF_T,
-                fy = r.my ? fmaxf(lo, hi) : INF_T;
-    lo = (0.0f - pz) * r.ivz; hi = ((float)g.gz - pz) * r.ivz;
-    const float nz = r.mz ? fminf(lo, hi) : -INF_T,
-                fz = r.mz ? fmaxf(lo, hi) : INF_T;
-    const float t_near = fmaxf(nx, fmaxf(ny, nz));
-    const float t_far = fminf(fx, fminf(fy, fz));
-    const float t_entry = fmaxf(t_near, t_min);
-    r.limit = fminf(t_far, t_max);
-    r.active = valid && t_entry <= r.limit;
-    if (!r.active) return;
-
-    r.sx = sgn(dx); r.sy = sgn(dy); r.sz = sgn(dz);
-    // flat-index moves of a fine step along each axis
-    r.dix = r.sx * g.gy * g.gz; r.diy = r.sy * g.gz; r.diz = r.sz;
-    const float tn = t_entry + NUDGE;
-    r.vx = (int)floorf(px + dx * tn);
-    r.vy = (int)floorf(py + dy * tn);
-    r.vz = (int)floorf(pz + dz * tn);
-    if (t_near > t_min) {                 // starts outside: pre-entry voxel
-        if (nx >= ny && nx >= nz) r.vx -= r.sx;
-        else if (ny >= nz) r.vy -= r.sy;
-        else r.vz -= r.sz;
-    }
-    r.okx = in_range(r.vx, g.gx); r.oky = in_range(r.vy, g.gy);
-    r.okz = in_range(r.vz, g.gz);
-    r.idx = (r.vx * g.gy + r.vy) * g.gz + r.vz;
-    r.cur = (r.okx && r.oky && r.okz) ? (int)__ldg(g.aux + r.idx) : C_AIR;
-    r.tx = cross_time(r.vx, px, r.ivx, r.sx, r.mx);
-    r.ty = cross_time(r.vy, py, r.ivy, r.sy, r.my);
-    r.tz = cross_time(r.vz, pz, r.ivz, r.sz, r.mz);
-}
-
-// One step of the march: a skip or a fine crossing.  Returns true when
-// the march ended (a hit, or the ray left the grid or its clip range),
-// with r.active false.  BL: the fine crossing picks the stepped axis's
-// values by selects, so lanes of a warp that step different axes run
-// one path.
-template <bool BL>
-__device__ __forceinline__ bool step_ray(Ray& r, const Grid& g, float t_min)
-{
-    const int dist = r.cur >> 2;
-    if (dist >= 2) {
-        // empty-space skip: no face inside the radius-(dist-1) cube
-        const float rad = (float)(dist - 1);
-        const float t_exit = fminf(
-            cube_exit(r.vx, r.px, r.ivx, r.sx, r.mx, rad),
-            fminf(cube_exit(r.vy, r.py, r.ivy, r.sy, r.my, rad),
-                  cube_exit(r.vz, r.pz, r.ivz, r.sz, r.mz, rad)));
-        const float t_land = t_exit - SKIP_NUDGE;
-        r.vx = (int)floorf(r.px + r.dx * t_land);
-        r.vy = (int)floorf(r.py + r.dy * t_land);
-        r.vz = (int)floorf(r.pz + r.dz * t_land);
-        r.okx = in_range(r.vx, g.gx);
-        r.oky = in_range(r.vy, g.gy);
-        r.okz = in_range(r.vz, g.gz);
-        if (!(r.okx && r.oky && r.okz) || t_land > r.limit) {
-            r.active = false;
-            return true;
-        }
-        r.idx = (r.vx * g.gy + r.vy) * g.gz + r.vz;
-        r.cur = (int)__ldg(g.aux + r.idx);
-        r.tx = cross_time(r.vx, r.px, r.ivx, r.sx, r.mx);
-        r.ty = cross_time(r.vy, r.py, r.ivy, r.sy, r.my);
-        r.tz = cross_time(r.vz, r.pz, r.ivz, r.sz, r.mz);
-        return false;
-    }
-    // fine crossing: only the stepped axis changes
-    const bool use_x = r.tx <= r.ty && r.tx <= r.tz;
-    const bool use_y = !use_x && r.ty <= r.tz;
-    const bool use_z = !use_x && !use_y;
-    const float tc = use_x ? r.tx : (use_y ? r.ty : r.tz);
-    int nidx;
-    if (BL) {
-        const int v = (use_x ? r.vx : (use_y ? r.vy : r.vz))
-            + (use_x ? r.sx : (use_y ? r.sy : r.sz));
-        const bool ok = in_range(v, use_x ? g.gx : (use_y ? g.gy : g.gz));
-        r.vx = use_x ? v : r.vx; r.okx = use_x ? ok : r.okx;
-        r.vy = use_y ? v : r.vy; r.oky = use_y ? ok : r.oky;
-        r.vz = use_z ? v : r.vz; r.okz = use_z ? ok : r.okz;
-        nidx = r.idx + (use_x ? r.dix : (use_y ? r.diy : r.diz));
-    } else if (use_x) {
-        r.vx += r.sx; r.okx = in_range(r.vx, g.gx); nidx = r.idx + r.dix;
-    } else if (use_y) {
-        r.vy += r.sy; r.oky = in_range(r.vy, g.gy); nidx = r.idx + r.diy;
-    } else {
-        r.vz += r.sz; r.okz = in_range(r.vz, g.gz); nidx = r.idx + r.diz;
-    }
-    const bool inside = r.okx && r.oky && r.okz;
-    const int nxt = inside ? (int)__ldg(g.aux + nidx) : C_AIR;
-    const bool enter = (nxt & C_TRANSPARENT) == 0 &&
-                       (r.cur & C_TRANSLUCENT) != 0;
-    const bool leave = (r.cur & C_TRANSPARENT) == 0 &&
-                       (nxt & C_TRANSLUCENT) != 0;
-    if (tc <= r.limit && tc >= t_min && (enter || leave)) {
-        const int ax_step = use_x ? r.sx : (use_y ? r.sy : r.sz);
-        const int axis = use_x ? 0 : (use_y ? 1 : 2);
-        const int nsign = enter ? -ax_step : ax_step;
-        r.hit = 1;
-        r.ot = tc;
-        r.face = axis * 2 + (nsign > 0 ? 1 : 0);
-        r.entered = enter ? 1 : 0;
-        // the owner is the voxel entered, or the one left
-        r.ovx = r.vx - (enter || !use_x ? 0 : r.sx);
-        r.ovy = r.vy - (enter || !use_y ? 0 : r.sy);
-        r.ovz = r.vz - (enter || !use_z ? 0 : r.sz);
-        r.oidx = enter ? nidx : r.idx;
-        r.active = false;
-        return true;
-    }
-    if (!inside || tc > r.limit) {
-        r.active = false;
-        return true;
-    }
-    r.idx = nidx;
-    if (BL) {
-        const int v = use_x ? r.vx : (use_y ? r.vy : r.vz);
-        const float t = cross_time(
-            v, use_x ? r.px : (use_y ? r.py : r.pz),
-            use_x ? r.ivx : (use_y ? r.ivy : r.ivz),
-            use_x ? r.sx : (use_y ? r.sy : r.sz),
-            use_x ? r.mx : (use_y ? r.my : r.mz));
-        r.tx = use_x ? t : r.tx;
-        r.ty = use_y ? t : r.ty;
-        r.tz = use_z ? t : r.tz;
-    } else if (use_x) {
-        r.tx = cross_time(r.vx, r.px, r.ivx, r.sx, r.mx);
-    } else if (use_y) {
-        r.ty = cross_time(r.vy, r.py, r.ivy, r.sy, r.my);
-    } else {
-        r.tz = cross_time(r.vz, r.pz, r.ivz, r.sz, r.mz);
-    }
-    r.cur = nxt;
-    return false;
-}
-
-// the packed hit words of ray i
-__device__ __forceinline__ void finish_ray(
-    const Ray& r, const Grid& g, int i, bool truncated,
+#ifndef TRACE_MIN_BLOCKS
+#define TRACE_MIN_BLOCKS 1
+#endif
+__global__ void __launch_bounds__(256, TRACE_MIN_BLOCKS) trace_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dxs,
+    const float* __restrict__ dys, const float* __restrict__ dzs,
+    Grid g, float gox, float goy, float goz, int n, int max_events,
+    float t_min, float t_max,
     int* __restrict__ pa_out, int* __restrict__ pb_out,
     float* __restrict__ t_out)
 {
-    // a face's owner is never transparent, so it lies inside the grid
-    const int owner = r.hit ? (int)g.ids[r.oidx] : AIR_ID;
-    pa_out[i] = r.hit | (r.entered << 1) | (r.face << 2)
-        | (min(max(r.ovy + 2, 0), 511) << 5) | ((owner & 255) << 14)
-        | ((truncated ? 1 : 0) << 22);
-    pb_out[i] = min(max(r.ovx + 2, 0), 1023)
-        | (min(max(r.ovz + 2, 0), (1 << 20) - 1) << 10);
-    t_out[i] = r.ot;
-}
-
-struct Rays {
-    const float *ox, *oy, *oz, *dx, *dy, *dz;
-    int *pa, *pb;
-    float* t;
-};
-
-template <bool BL>
-__global__ void __launch_bounds__(256) trace_kernel(
-    Rays q, Grid g, float gox, float goy, float goz, int n, int max_events,
-    float t_min, float t_max)
-{
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    Ray r;
-    init_ray(r, g, q.ox[i] - gox, q.oy[i] - goy, q.oz[i] - goz, q.dx[i],
-             q.dy[i], q.dz[i], t_min, t_max);
-    if (r.active)
-        for (int step = 0; step < max_events; ++step)
-            if (step_ray<BL>(r, g, t_min)) break;
-    // still marching: the budget is spent
-    finish_ray(r, g, i, r.active, q.pa, q.pb, q.t);
-}
 
-// next ray index of the persistent form
-__device__ unsigned int g_next_ray;
-constexpr int FETCH_MIN = 16;
+    const float px = ox[i] - gox, py = oy[i] - goy, pz = oz[i] - goz;
+    const float dx = dxs[i], dy = dys[i], dz = dzs[i];
+    const bool valid = dx != 0.0f || dy != 0.0f || dz != 0.0f;
+    const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+    const bool mx = fabsf(dx) > 1e-30f, my = fabsf(dy) > 1e-30f,
+               mz = fabsf(dz) > 1e-30f;
 
-// Persistent form: resident blocks only; a warp takes new rays (one
-// atomic add for the warp) once at least FETCH_MIN of its lanes are idle,
-// so lanes whose rays ended early march again instead of waiting for the
-// warp's longest ray.
-template <bool BL>
-__global__ void __launch_bounds__(256) trace_kernel_persistent(
-    Rays q, Grid g, float gox, float goy, float goz, int n, int max_events,
-    float t_min, float t_max)
-{
-    const unsigned full = 0xffffffffu;
-    const int lane = threadIdx.x & 31;
-    Ray r;
-    r.active = false;
-    int i = 0, steps = 0;
-    bool done = false;
-    while (true) {
-        const unsigned idle = __ballot_sync(full, !r.active && !done);
-        const unsigned busy = __ballot_sync(full, r.active);
-        if (idle == 0 && busy == 0) break;
-        if (idle != 0 && (busy == 0 || __popc(idle) >= FETCH_MIN)) {
-            const int leader = __ffs(idle) - 1;
-            unsigned base = 0;
-            if (lane == leader) base = atomicAdd(&g_next_ray, __popc(idle));
-            base = __shfl_sync(full, base, leader);
-            if (!r.active && !done) {
-                i = (int)(base + __popc(idle & ((1u << lane) - 1)));
-                if (i >= n) {
-                    done = true;
-                } else {
-                    init_ray(r, g, q.ox[i] - gox, q.oy[i] - goy,
-                             q.oz[i] - goz, q.dx[i], q.dy[i], q.dz[i],
-                             t_min, t_max);
-                    steps = 0;
-                    if (!r.active) finish_ray(r, g, i, false, q.pa, q.pb, q.t);
-                }
-            }
+    float lo, hi;
+    lo = (0.0f - px) * ivx; hi = ((float)g.gx - px) * ivx;
+    const float nx = mx ? fminf(lo, hi) : -INF_T, fx = mx ? fmaxf(lo, hi) : INF_T;
+    lo = (0.0f - py) * ivy; hi = ((float)g.gy - py) * ivy;
+    const float ny = my ? fminf(lo, hi) : -INF_T, fy = my ? fmaxf(lo, hi) : INF_T;
+    lo = (0.0f - pz) * ivz; hi = ((float)g.gz - pz) * ivz;
+    const float nz = mz ? fminf(lo, hi) : -INF_T, fz = mz ? fmaxf(lo, hi) : INF_T;
+    const float t_near = fmaxf(nx, fmaxf(ny, nz));
+    const float t_far = fminf(fx, fminf(fy, fz));
+    const float t_entry = fmaxf(t_near, t_min);
+    const float limit = fminf(t_far, t_max);
+    bool active = valid && t_entry <= limit;
+
+    int hit = 0, face = 0, ovx = 0, ovy = 0, ovz = 0, entered = 0, oidx = 0;
+    float ot = INF_T;
+    if (active) {
+        const int sx = sgn(dx), sy = sgn(dy), sz = sgn(dz);
+        const int gyz = g.gy * g.gz;
+        // flat-index moves of a fine step along each axis
+        const int dix = sx * gyz, diy = sy * g.gz, diz = sz;
+        const float tn = t_entry + NUDGE;
+        int vx = (int)floorf(px + dx * tn);
+        int vy = (int)floorf(py + dy * tn);
+        int vz = (int)floorf(pz + dz * tn);
+        if (t_near > t_min) {             // starts outside: pre-entry voxel
+            if (nx >= ny && nx >= nz) vx -= sx;
+            else if (ny >= nz) vy -= sy;
+            else vz -= sz;
         }
-        if (r.active) {
-            if (steps >= max_events) {
-                finish_ray(r, g, i, true, q.pa, q.pb, q.t);
-                r.active = false;
-            } else {
-                ++steps;
-                if (step_ray<BL>(r, g, t_min))
-                    finish_ray(r, g, i, false, q.pa, q.pb, q.t);
+        bool okx = in_range(vx, g.gx), oky = in_range(vy, g.gy),
+             okz = in_range(vz, g.gz);
+        int idx = (vx * g.gy + vy) * g.gz + vz;
+        int cur = (okx && oky && okz) ? (int)__ldg(g.aux + idx) : C_AIR;
+        float tx = cross_time(vx, px, ivx, sx, mx);
+        float ty = cross_time(vy, py, ivy, sy, my);
+        float tz = cross_time(vz, pz, ivz, sz, mz);
+        for (int step = 0; step < max_events; ++step) {
+            const int dist = cur >> 2;
+            if (dist >= 2) {
+                // empty-space skip: no face inside the radius-(dist-1) cube
+                const float r = (float)(dist - 1);
+                const float t_exit = fminf(
+                    cube_exit(vx, px, ivx, sx, mx, r),
+                    fminf(cube_exit(vy, py, ivy, sy, my, r),
+                          cube_exit(vz, pz, ivz, sz, mz, r)));
+                const float t_land = t_exit - SKIP_NUDGE;
+                vx = (int)floorf(px + dx * t_land);
+                vy = (int)floorf(py + dy * t_land);
+                vz = (int)floorf(pz + dz * t_land);
+                okx = in_range(vx, g.gx);
+                oky = in_range(vy, g.gy);
+                okz = in_range(vz, g.gz);
+                if (!(okx && oky && okz) || t_land > limit) {
+                    active = false;
+                    break;
+                }
+                idx = (vx * g.gy + vy) * g.gz + vz;
+                cur = (int)__ldg(g.aux + idx);
+                tx = cross_time(vx, px, ivx, sx, mx);
+                ty = cross_time(vy, py, ivy, sy, my);
+                tz = cross_time(vz, pz, ivz, sz, mz);
+                continue;
             }
+            // fine crossing: only the stepped axis changes
+            const bool use_x = tx <= ty && tx <= tz;
+            const bool use_y = !use_x && ty <= tz;
+            const float tc = use_x ? tx : (use_y ? ty : tz);
+            int nidx;
+            bool inside;
+            if (use_x) {
+                vx += sx; okx = in_range(vx, g.gx); nidx = idx + dix;
+            } else if (use_y) {
+                vy += sy; oky = in_range(vy, g.gy); nidx = idx + diy;
+            } else {
+                vz += sz; okz = in_range(vz, g.gz); nidx = idx + diz;
+            }
+            inside = okx && oky && okz;
+            const int nxt = inside ? (int)__ldg(g.aux + nidx) : C_AIR;
+            const bool enter = (nxt & C_TRANSPARENT) == 0 &&
+                               (cur & C_TRANSLUCENT) != 0;
+            const bool leave = (cur & C_TRANSPARENT) == 0 &&
+                               (nxt & C_TRANSLUCENT) != 0;
+            if (tc <= limit && tc >= t_min && (enter || leave)) {
+                const int ax_step = use_x ? sx : (use_y ? sy : sz);
+                const int axis = use_x ? 0 : (use_y ? 1 : 2);
+                const int nsign = enter ? -ax_step : ax_step;
+                hit = 1;
+                ot = tc;
+                face = axis * 2 + (nsign > 0 ? 1 : 0);
+                entered = enter ? 1 : 0;
+                // the owner is the voxel entered, or the one left
+                ovx = vx - (enter || !use_x ? 0 : sx);
+                ovy = vy - (enter || !use_y ? 0 : sy);
+                ovz = vz - (enter || use_x || use_y ? 0 : sz);
+                oidx = enter ? nidx : idx;
+                active = false;
+                break;
+            }
+            active = inside && !(tc > limit);
+            if (!active) break;
+            idx = nidx;
+            if (use_x) tx = cross_time(vx, px, ivx, sx, mx);
+            else if (use_y) ty = cross_time(vy, py, ivy, sy, my);
+            else tz = cross_time(vz, pz, ivz, sz, mz);
+            cur = nxt;
         }
     }
+    // a face's owner is never transparent, so it lies inside the grid
+    const int owner = hit ? (int)g.ids[oidx] : AIR_ID;
+    const int truncated = active ? 1 : 0;   // still marching: budget spent
+    pa_out[i] = hit | (entered << 1) | (face << 2)
+        | (min(max(ovy + 2, 0), 511) << 5) | ((owner & 255) << 14)
+        | (truncated << 22);
+    pb_out[i] = min(max(ovx + 2, 0), 1023)
+        | (min(max(ovz + 2, 0), (1 << 20) - 1) << 10);
+    t_out[i] = ot;
 }
 
 }  // namespace
-
-template <typename K>
-int resident_blocks(K kernel, int block, int* out)
-{
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-        return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, block, 0)) != cudaSuccess)
-        return (int)e;
-    *out = sms * per_sm;
-    return 0;
-}
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `aux` is
 // the (gx, gy, gz) uint8 aux grid of render/intersect.py::make_aux_grid.
@@ -366,38 +232,10 @@ extern "C" int wt_trace(
 {
     if (n <= 0) return 0;
     const int block = 256;
-    Grid g{grid, aux, gx, gy, gz};
-    Rays q{ox, oy, oz, dx, dy, dz, pa, pb, t};
-    cudaStream_t s = (cudaStream_t)stream;
-    const char* env = getenv("WT_VARIANT");
-    const int variant = env ? atoi(env) : 0;
-    if (variant >= 2) {
-        void* counter = nullptr;
-        cudaError_t e = cudaGetSymbolAddress(&counter, g_next_ray);
-        if (e != cudaSuccess) return (int)e;
-        if ((e = cudaMemsetAsync(counter, 0, sizeof(unsigned), s))
-            != cudaSuccess)
-            return (int)e;
-        int blocks = 0;
-        int err = variant == 3
-            ? resident_blocks(trace_kernel_persistent<true>, block, &blocks)
-            : resident_blocks(trace_kernel_persistent<false>, block, &blocks);
-        if (err) return err;
-        blocks = min(blocks, (n + block - 1) / block);
-        if (variant == 3)
-            trace_kernel_persistent<true><<<blocks, block, 0, s>>>(
-                q, g, gox, goy, goz, n, max_events, t_min, t_max);
-        else
-            trace_kernel_persistent<false><<<blocks, block, 0, s>>>(
-                q, g, gox, goy, goz, n, max_events, t_min, t_max);
-        return (int)cudaGetLastError();
-    }
     const int blocks = (n + block - 1) / block;
-    if (variant == 1)
-        trace_kernel<true><<<blocks, block, 0, s>>>(
-            q, g, gox, goy, goz, n, max_events, t_min, t_max);
-    else
-        trace_kernel<false><<<blocks, block, 0, s>>>(
-            q, g, gox, goy, goz, n, max_events, t_min, t_max);
+    Grid g{grid, aux, gx, gy, gz};
+    trace_kernel<<<blocks, block, 0, (cudaStream_t)stream>>>(
+        ox, oy, oz, dx, dy, dz, g, gox, goy, goz, n, max_events,
+        t_min, t_max, pa, pb, t);
     return (int)cudaGetLastError();
 }

@@ -86,9 +86,9 @@ def window_trace(scene, origin: V3, direction: V3, max_events: int):
     scene: render.scene.SceneArrays (its `grid` and `aux_grid`);
     origin/direction: V3 of (N,) float32 world-space components (a zero
     direction is an inactive ray).  A skip counts as one of the
-    `max_events` steps.  CPU
-    tensors take `trace_plain`; CUDA tensors launch the kernel or raise.
-    Grids larger than the hit words hold (MAX_GRID) raise."""
+    `max_events` steps.  CPU tensors take `trace_plain`; CUDA tensors
+    launch the kernel or raise.  Grids larger than the hit words hold
+    (MAX_GRID) raise."""
     if any(g > m for g, m in zip(scene.grid.shape, MAX_GRID)):
         raise ValueError(f"window_trace: grid {tuple(scene.grid.shape)} "
                          f"exceeds the hit-word limits {MAX_GRID}")
