@@ -464,10 +464,7 @@ constexpr int TABLE_MAX_NODES = 128;
 constexpr int BLOCK = 128;
 
 template <int P, bool TRI>
-#ifndef SHADE_MIN_BLOCKS
-#define SHADE_MIN_BLOCKS 1
-#endif
-__global__ void __launch_bounds__(BLOCK, SHADE_MIN_BLOCKS) shade_kernel(
+__global__ void __launch_bounds__(BLOCK) shade_kernel(
     ShadeIn in, TriIn tri, ShadeOut out, Tables tb, int n, uint32_t inv_seed,
     int bounce, int nee_type, int table)
 {

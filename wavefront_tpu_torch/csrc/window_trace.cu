@@ -79,10 +79,7 @@ __device__ __forceinline__ bool in_range(int v, int n) {
     return (unsigned)v < (unsigned)n;
 }
 
-#ifndef TRACE_MIN_BLOCKS
-#define TRACE_MIN_BLOCKS 1
-#endif
-__global__ void __launch_bounds__(256, TRACE_MIN_BLOCKS) trace_kernel(
+__global__ void __launch_bounds__(256) trace_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dxs,
     const float* __restrict__ dys, const float* __restrict__ dzs,

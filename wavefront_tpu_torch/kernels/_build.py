@@ -35,7 +35,7 @@ SOURCES = ("window_trace", "shade", "texel", "radix_hist", "device_probe",
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
-) + tuple(os.environ.get("WTT_NVCC_EXTRA", "").split())
+)
 
 _lock = threading.Lock()
 _libs: dict = {}
