@@ -190,13 +190,6 @@ def trace_bound_ms(scene, n: int, fine: int, skips: int) -> tuple:
                      + skips * TRACE_OPS_PER_SKIP)
 
 
-def live_nodes(tables) -> int:
-    """Light nodes the shade's table evaluates per ray: 1 .. the highest
-    node on a prim's path, and its sibling (shade.cu)."""
-    top = max((a for p in tables.paths for a in p), default=0)
-    return max(min(tables.m_nodes, top + 2) - 1, 0)
-
-
 def shade_bound_ms(tables, n: int, n_alive: int, n_hit: int,
                    nee: bool, n_entity=None) -> tuple:
     """(bound_ms, bound_by) of the shade: 16 words in and 12 out per ray,
@@ -211,7 +204,7 @@ def shade_bound_ms(tables, n: int, n_alive: int, n_hit: int,
         # every hit ray counted as an NEE ray (mirror and glass hits take
         # none; the headline's are few)
         prims = len(tables.paths)
-        ops += n_hit * (live_nodes(tables) * SHADE_OPS_PER_NODE
+        ops += n_hit * ((tables.live - 1) * SHADE_OPS_PER_NODE
                         + sum(len(p) for p in tables.paths)
                         + prims * (SHADE_OPS_PER_PICK_PRIM
                                    + SHADE_OPS_PER_PDF_PRIM)

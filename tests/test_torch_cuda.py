@@ -211,10 +211,10 @@ def _lamp_arrays(n_lamps):
 
 @pytest.mark.parametrize("light_set", ["headline", "lamps_64", "lamps_128"])
 def test_shade_kernel_pick_and_pdf_bit_equal(light_set):
-    """K2's once-per-ray node table (the headline's 6 prims; 64 prims at
-    the table's largest node count) and its walk past it (128 prims) give
-    the plain version's light pick and NEE pdf bit for bit: every output
-    equal, on the NEE and the lambertian bounce alike."""
+    """K2's once-per-ray node table gives the plain version's light pick
+    and NEE pdf bit for bit at the headline's 6 prims, at 64 prims and at
+    128 prims (256 nodes: a 1 KB table a ray, in local memory):
+    every output equal, on the NEE and the lambertian bounce alike."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     if light_set == "headline":

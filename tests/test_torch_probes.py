@@ -462,15 +462,23 @@ FAKE_SASS = """
 """
 
 
-def test_march_loop_instructions_counts_the_fine_path(monkeypatch):
+@pytest.mark.parametrize("library", [None, "other/libwindow_trace_0.so"])
+def test_march_loop_instructions_counts_the_fine_path(monkeypatch, library):
     """The fine crossing is the shortest way from the loop head back to
-    it (7 instructions here); the loop's span covers the skip path too."""
-    monkeypatch.setattr(event_lab.subprocess, "run",
-                        lambda *a, **k: types.SimpleNamespace(stdout=FAKE_SASS))
+    it (7 instructions here); the loop's span covers the skip path too.
+    The library read is this tree's, or the one named."""
+    read = []
+
+    def run(cmd, **kw):
+        read.append(cmd[-1])
+        return types.SimpleNamespace(stdout=FAKE_SASS)
+
+    monkeypatch.setattr(event_lab.subprocess, "run", run)
     monkeypatch.setattr(event_lab._build, "nvcc_path", lambda: "/cuda/nvcc")
     monkeypatch.setattr(event_lab._build, "library_path", lambda name: "lib")
-    assert event_lab.march_loop_instructions() == {"fine_crossing": 7,
-                                                   "loop_span": 15}
+    assert event_lab.march_loop_instructions(library) == {"fine_crossing": 7,
+                                                          "loop_span": 15}
+    assert read == [library or "lib"]
 
 
 PTXAS_LOG = """ptxas info    : 0 bytes gmem

@@ -79,8 +79,8 @@ def scenes():
 @pytest.fixture(scope="module")
 def lamp_scenes():
     """The golden grid with its lamp block replaced by 20 lamp voxels in
-    the air: 120 light prims (a 128-prim, 256-node dense set), past the
-    node count whose per-ray table the CUDA kernel keeps."""
+    the air: 120 light prims (a 128-prim, 256-node dense set), a node
+    table of 1 KB per ray in the CUDA kernel."""
     reg = BlockRegistry.load("assets")
     grid = config1_grid(reg)
     grid[6:9, 5:8, 6:9] = reg.air
@@ -170,14 +170,27 @@ def test_shade_matches_jax(scenes, rays, nee_type, bounce):
 
 
 def test_shade_past_node_table_matches_jax(lamp_scenes):
-    """A light set past the CUDA kernel's node table (which walks each
-    prim's path there): the plain version against the JAX kernel, under
-    the NEE bounds."""
+    """A light set past the headline's small buckets (the CUDA kernel's
+    node table at 256 rows): the plain version against the JAX kernel,
+    under the NEE bounds."""
     _, ta = lamp_scenes
     assert ta.lights.num_prims == 120 and ta.lights.p0.shape[0] == 128
     assert ta.lights.node_min.shape[0] == 256
     got, want = _both_shades(lamp_scenes, _make_rays(lamp_scenes[0]), 1, 0)
     _assert_shades_agree(got, want, 1)
+
+
+@pytest.mark.parametrize("which", ["scenes", "lamp_scenes"])
+def test_shade_tables_node_table_rows(request, which):
+    """The kernel's node table (2P floats a ray) computes rows 1..live-1
+    in sibling pairs (odd j, j + 1): every path node lies below `live`, and
+    so does the second node of every pair the kernel computes."""
+    ta = request.getfixturevalue(which)[1]
+    tables = prep_shade_tables(ta.atlas_packed, ta.lights)
+    top = max(a for p in tables.paths for a in p)
+    assert top < tables.live <= tables.m_nodes <= 2 * tables.p_prims
+    assert tables.live % 2 == 1 or tables.live == tables.m_nodes
+    assert tables.live <= top + 2
 
 
 @pytest.mark.parametrize("nee_type", [0, 1])

@@ -19,13 +19,14 @@
 // multiply-adds), so the design does each node's work once per ray:
 //   * the light-node table: every live node's importance once, each
 //     sibling pair's two branch probabilities from one sum, one logf per
-//     node, written to the thread's slice of shared memory; then each
-//     prim's log probability is the sum of its path's entries, leaf first,
-//     as the plain version sums them (kernels/shade.py), so the floats are
-//     those of a walk that evaluates each path node where it meets it.
-//     That walk (two importances, a divide and a logf per path node, a
-//     node shared by k prims evaluated k times) remains only for light
-//     sets past TABLE_MAX_NODES nodes, whose table would not fit;
+//     node; then each prim's log probability is the sum of its path's
+//     entries, leaf first, as the plain version sums them
+//     (kernels/shade.py), so the floats are those of a walk that evaluates
+//     each path node where it meets it.  The table is an array of 2P
+//     floats a thread in local memory (the card's per-thread, interleaved
+//     slice of device memory, cached in L1 and L2): a path node is a
+//     runtime index, which registers cannot take, and a table in shared
+//     memory holds too few threads at large sets (PERF.md);
 //   * the light tables are staged once per resident block: the grid holds
 //     as many blocks as fit on the card at once and strides over the rays.
 // The prim count is a template parameter, so each ray's probability array
@@ -90,6 +91,7 @@ struct Tables {
     const float* prims;     // (P, 32), column layout of prep_shade_tables
     const int* leaf;        // (P,) leaf node of each prim
     int m_nodes, num_prims;
+    int live;               // node-table rows: 1..live-1 in sibling pairs
     float g0, g1, g2;       // grid origin
 };
 
@@ -136,32 +138,12 @@ __device__ __forceinline__ float aabb_importance(
     return power / dist_sq * (visible * 0.125f);
 }
 
-// branch probability of node j: imp(j) / (imp(j) + imp(sibling(j)))
-__device__ __forceinline__ float node_nimp(
-    const float* nodes, int m, int j, float px, float py, float pz,
-    float nx, float ny, float nz)
-{
-    const int m2 = ((m - 1) / 2) * 2;
-    if (m2 + 1 < m && j > m2) return 0.0f;          // padded tail row
-    const int s = (j & 1) ? (j + 1) % m : j - 1;
-    const float ij = aabb_importance(nodes + 8 * j, nodes[8 * j + 6],
-                                     px, py, pz, nx, ny, nz, false);
-    const float is = aabb_importance(nodes + 8 * s, nodes[8 * s + 6],
-                                     px, py, pz, nx, ny, nz, false);
-    const float tot = ij + is;
-    return tot > 0.0f ? ij / fmaxf(tot, 1e-30f) : 0.0f;
-}
-
-// The light tables of one block in shared memory, and the block's slice
-// of per-thread node logs (node j of thread t at logn[j * blockDim.x + t],
-// so a warp's reads of one node fall in 32 banks), or null for the walk.
+// The light tables of one block in shared memory.
 struct LightSmem {
     const float* nodes;
     const float* prims;
     const int* parent;
     const int* leaf;
-    float* logn;
-    int live;               // nodes 1..live-1 cover every path and sibling
 };
 
 template <int P, bool TRI>
@@ -277,62 +259,42 @@ __device__ __forceinline__ void shade_ray(
     float imp = 0.0f;
     const float* prow = nullptr;
     if (do_nee) {
+        // the light-node table, once per ray: each live node's branch
+        // probability imp(j) / (imp(j) + imp(sibling)) and its log,
+        // siblings (j, j+1) for odd j computed together (imp(j) + imp(s) =
+        // imp(s) + imp(j)); a padded tail row (j + 1 = M) has probability 0
+        float row[2 * P];
+        for (int j = 1; j < tb.live; j += 2) {
+            if (j + 1 >= m) {
+                row[j] = logf(fmaxf(0.0f, 1e-35f));
+                break;
+            }
+            const float ij = aabb_importance(
+                s_nodes + 8 * j, s_nodes[8 * j + 6], lox, loy, loz,
+                n_x, n_y, n_z, false);
+            const float ik = aabb_importance(
+                s_nodes + 8 * (j + 1), s_nodes[8 * (j + 1) + 6], lox, loy,
+                loz, n_x, n_y, n_z, false);
+            const float tot = ij + ik;
+            row[j] = logf(fmaxf(
+                tot > 0.0f ? ij / fmaxf(tot, 1e-30f) : 0.0f, 1e-35f));
+            row[j + 1] = logf(fmaxf(
+                tot > 0.0f ? ik / fmaxf(tot, 1e-30f) : 0.0f, 1e-35f));
+        }
         float total = 0.0f;
-        if (ls.logn) {
-            // the light-node table, once per ray: each live node's branch
-            // probability imp(j) / (imp(j) + imp(sibling)) and its log,
-            // siblings (j, j+1) for odd j computed together; the same
-            // floats node_nimp gives (imp(j) + imp(s) = imp(s) + imp(j))
-            const int bs = blockDim.x;
-            float* row = ls.logn + threadIdx.x;
-            for (int j = 1; j < ls.live; j += 2) {
-                if (j + 1 >= m) {               // padded tail row
-                    row[j * bs] = logf(fmaxf(0.0f, 1e-35f));
-                    break;
-                }
-                const float ij = aabb_importance(
-                    s_nodes + 8 * j, s_nodes[8 * j + 6], lox, loy, loz,
-                    n_x, n_y, n_z, false);
-                const float ik = aabb_importance(
-                    s_nodes + 8 * (j + 1), s_nodes[8 * (j + 1) + 6], lox, loy,
-                    loz, n_x, n_y, n_z, false);
-                const float tot = ij + ik;
-                row[j * bs] = logf(fmaxf(
-                    tot > 0.0f ? ij / fmaxf(tot, 1e-30f) : 0.0f, 1e-35f));
-                row[(j + 1) * bs] = logf(fmaxf(
-                    tot > 0.0f ? ik / fmaxf(tot, 1e-30f) : 0.0f, 1e-35f));
-            }
 #pragma unroll (P <= 16 ? P : 1)
-            for (int q = 0; q < P; ++q) {
-                float p = 0.0f;
-                if (q < tb.num_prims) {
-                    // descent probability: the logs of the non-root
-                    // ancestors of the prim's leaf, summed leaf first
-                    float logp = 0.0f;
-                    for (int a = s_leaf[q]; a > 0; a = s_parent[a])
-                        logp += row[a * bs];
-                    p = expf(logp);
-                }
-                probs[q] = p;
-                total += p;
+        for (int q = 0; q < P; ++q) {
+            float p = 0.0f;
+            if (q < tb.num_prims) {
+                // descent probability: the logs of the non-root ancestors
+                // of the prim's leaf, summed leaf first
+                float logp = 0.0f;
+                for (int a = s_leaf[q]; a > 0; a = s_parent[a])
+                    logp += row[a];
+                p = expf(logp);
             }
-        } else {
-            // past the table's shared memory: a walk per prim, each path
-            // node's branch probability evaluated where it is met
-#pragma unroll (P <= 16 ? P : 1)
-            for (int q = 0; q < P; ++q) {
-                float p = 0.0f;
-                if (q < tb.num_prims) {
-                    float logp = 0.0f;
-                    for (int a = s_leaf[q]; a > 0; a = s_parent[a])
-                        logp += logf(fmaxf(node_nimp(s_nodes, m, a, lox, loy,
-                                                     loz, n_x, n_y, n_z),
-                                           1e-35f));
-                    p = expf(logp);
-                }
-                probs[q] = p;
-                total += p;
-            }
+            probs[q] = p;
+            total += p;
         }
         const float uu = m3_finalizef(m3_combine(seed, 2u)) * total;
         float cum = 0.0f;
@@ -456,29 +418,22 @@ __device__ __forceinline__ void shade_ray(
     out.tpz[i] = tpz * (orz * wv);
 }
 
-// Largest node count whose per-thread log table (m floats a thread) is
-// kept in shared memory: 64 KB a block of 128 threads, which leaves room
-// for three resident blocks beside the light tables at 128 nodes.  Larger
-// sets (P = 128 and 256 prims) walk each prim's path instead.
-constexpr int TABLE_MAX_NODES = 128;
 constexpr int BLOCK = 128;
 
 template <int P, bool TRI>
 __global__ void __launch_bounds__(BLOCK) shade_kernel(
     ShadeIn in, TriIn tri, ShadeOut out, Tables tb, int n, uint32_t inv_seed,
-    int bounce, int nee_type, int table)
+    int bounce, int nee_type)
 {
     extern __shared__ float smem[];
-    __shared__ int s_top;
     const int m = tb.m_nodes;
     float* s_nodes = smem;                         // M * 8
     float* s_prims = s_nodes + 8 * m;              // P * 32
     int* s_parent = (int*)(s_prims + 32 * P);      // M
     int* s_leaf = s_parent + m;                    // P
-    LightSmem ls{s_nodes, s_prims, s_parent, s_leaf, nullptr, 0};
+    LightSmem ls{s_nodes, s_prims, s_parent, s_leaf};
     if (nee_type != 0) {
         // staged once per resident block: the grid strides over the rays
-        if (threadIdx.x == 0) s_top = 0;
         for (int k = threadIdx.x; k < 8 * m; k += blockDim.x)
             s_nodes[k] = tb.nodes[k];
         for (int k = threadIdx.x; k < 32 * P; k += blockDim.x)
@@ -488,19 +443,6 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
         for (int k = threadIdx.x; k < P; k += blockDim.x)
             s_leaf[k] = tb.leaf[k];
         __syncthreads();
-        if (table) {
-            // the highest node on any prim's path bounds the table's rows
-            for (int q = threadIdx.x; q < tb.num_prims && q < P;
-                 q += blockDim.x) {
-                int top = 0;
-                for (int a = s_leaf[q]; a > 0; a = s_parent[a])
-                    top = max(top, a);
-                atomicMax(&s_top, top);
-            }
-            __syncthreads();
-            ls.logn = (float*)(s_leaf + P);         // M * blockDim
-            ls.live = min(m, s_top + 2);            // + an odd top's sibling
-        }
     }
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += gridDim.x * blockDim.x)
@@ -513,11 +455,9 @@ int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
            const Tables& tb, int n, uint32_t inv_seed, int bounce,
            int nee_type, cudaStream_t stream)
 {
-    const int table = nee_type != 0 && tb.m_nodes <= TABLE_MAX_NODES;
     const size_t smem = nee_type != 0
         ? (size_t)(8 * tb.m_nodes + 32 * P) * sizeof(float)
           + (size_t)(tb.m_nodes + P) * sizeof(int)
-          + (table ? (size_t)tb.m_nodes * BLOCK * sizeof(float) : 0)
         : 0;
     cudaError_t e;
     if (smem > 48 * 1024) {
@@ -546,7 +486,7 @@ int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
     }
     const int blocks = min((n + BLOCK - 1) / BLOCK, resident);
     shade_kernel<P, TRI><<<blocks, BLOCK, smem, stream>>>(
-        in, tri, out, tb, n, inv_seed, bounce, nee_type, table);
+        in, tri, out, tb, n, inv_seed, bounce, nee_type);
     return (int)cudaGetLastError();
 }
 
@@ -567,13 +507,16 @@ int launch_p(const ShadeIn& in, const TriIn* tri, const ShadeOut& out,
 // ins: 16 device pointers (ox oy oz dx dy dz pa pb t tpx tpy tpz rax ray raz
 // rid); outs: 12 (ox oy oz dx dy dz tpx tpy tpz rax ray raz); tris: null, or
 // 12 (normal xyz, tangent xyz, bitangent xyz, u, v, tf).  p_prims must be
-// one of 8..256 (powers of two).  Returns cudaGetLastError().
+// one of 8..256 (powers of two); live_nodes (at most 2 p_prims) bounds the
+// nodes on the prims' paths and their siblings (prep_shade_tables).
+// Returns cudaGetLastError().
 extern "C" int shade_launch(
     void* const* ins, void* const* outs, void* const* tris, int n,
     const float* atlas, int size, int n_tex,
     const float* nodes, const int* parent, int m_nodes,
     const float* prims, const int* leaf, int p_prims, int num_prims,
-    float g0, float g1, float g2, unsigned int inv_seed, int bounce,
+    int live_nodes, float g0, float g1, float g2, unsigned int inv_seed,
+    int bounce,
     int nee_type, void* stream)
 {
     if (n <= 0) return 0;
@@ -588,7 +531,7 @@ extern "C" int shade_launch(
                  (float*)outs[6], (float*)outs[7], (float*)outs[8],
                  (float*)outs[9], (float*)outs[10], (float*)outs[11]};
     Tables tb{atlas, size, n_tex, nodes, parent, prims, leaf, m_nodes,
-              num_prims, g0, g1, g2};
+              num_prims, live_nodes, g0, g1, g2};
     TriIn tri_in{};
     if (tris)
         tri_in = TriIn{

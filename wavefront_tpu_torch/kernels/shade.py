@@ -51,8 +51,8 @@ from wavefront_tpu_torch.render.wavefront import (
 
 _F32 = torch.float32
 # light-table caps of the kernel (shared memory: 16 KB of nodes and
-# 32 KB of prims at the caps; past 128 nodes the kernel has no room for
-# its per-thread node table and walks each prim's path instead)
+# 32 KB of prims at the caps); its per-ray node table holds 2 P nodes,
+# which every light set's M fits (M = bucket(2p - 1) <= 2 bucket(p))
 MAX_NODES = 512
 MAX_PRIMS = 256
 
@@ -70,6 +70,8 @@ class ShadeTables(NamedTuple):
     #   25 p0.nvec | 26 p0.e1 | 27 p0.e2 | 28-31 zero
     leaf: torch.Tensor     # (P,) int32 leaf node of each prim
     paths: tuple           # per real prim: its non-root ancestors, leaf first
+    live: int              # rows of the kernel's node table: nodes 1..live-1,
+    #                        in sibling pairs (odd j, j+1), hold every path
     dense: bool
 
     @property
@@ -129,6 +131,8 @@ def prep_shade_tables(atlas_packed, lights) -> ShadeTables:
         parent = np.full(8, -1, np.int32)
         leaf = np.zeros(8, np.int32)
         paths = ()
+    # the highest node on a path, and the sibling pair it belongs to
+    top = max((a for p in paths for a in p), default=0)
     return ShadeTables(
         atlas=atlas_packed.contiguous(),
         nodes=nodes.contiguous(),
@@ -136,6 +140,7 @@ def prep_shade_tables(atlas_packed, lights) -> ShadeTables:
         prims=prims.contiguous(),
         leaf=torch.as_tensor(leaf, device=dev),
         paths=tuple(paths),
+        live=min(nodes.shape[0], (top + 1) | 1),
         dense=dense,
     )
 
@@ -270,7 +275,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.shade_launch.argtypes = [
-            p, p, p, i, p, i, i, p, p, i, p, p, i, i, f, f, f,
+            p, p, p, i, p, i, i, p, p, i, p, p, i, i, i, f, f, f,
             ctypes.c_uint, i, i, p]
         lib.shade_launch.restype = ctypes.c_int
         lib._typed = True
@@ -303,7 +308,8 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
     if nee_type != 0:
         if not tables.dense:
             raise ValueError("NEE on the fused shade needs a dense light set")
-        if tables.m_nodes > MAX_NODES or tables.p_prims > MAX_PRIMS:
+        if (tables.m_nodes > min(MAX_NODES, 2 * tables.p_prims)
+                or tables.p_prims > MAX_PRIMS):
             raise ValueError(
                 f"light set of {tables.m_nodes} nodes / {tables.p_prims} "
                 f"prims exceeds the shade caps {MAX_NODES}/{MAX_PRIMS}")
@@ -351,7 +357,7 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
         tables.atlas.shape[1], tables.atlas.shape[0],
         tables.nodes.data_ptr(), tables.parent.data_ptr(), tables.m_nodes,
         tables.prims.data_ptr(), tables.leaf.data_ptr(), tables.p_prims,
-        int(num_prims), g[0], g[1], g[2], inv_seed, int(bounce),
+        int(num_prims), tables.live, g[0], g[1], g[2], inv_seed, int(bounce),
         nee_type, stream)
     _build.check(err, "shade_pass")
     shade_pass.launches += 1

@@ -68,26 +68,23 @@ class VoxelHit(NamedTuple):
     entered: torch.Tensor   # bool: True = front face (ray enters owner)
 
 
-def make_aux_grid(grid, transparent, translucent,
-                  max_skip: int = MAX_SKIP) -> np.ndarray:
+def make_aux_grid(grid, transparent, translucent) -> np.ndarray:
     """The tracer's aux grid of a (gx, gy, gz) uint8 block grid, as uint8:
     bits 0-1 the voxel's class (CLASS_TRANSPARENT | CLASS_TRANSLUCENT),
     bits 2-6 its Chebyshev distance to the nearest voxel that is not
-    completely transparent, clamped to `max_skip` (< 32).
+    completely transparent, clamped to MAX_SKIP.
 
     The JAX package's `render.intersect.make_aux_grid` (which returns the
     same values as int32): the distance grows by one per 3^3 dilation of
     the solid mask, separable per axis.  Built once per grid; a grid edit
     needs it again around the edit."""
-    if not 0 <= max_skip < 32:
-        raise ValueError(f"max_skip {max_skip} does not fit bits 2-6")
     grid = np.asarray(grid)
     transparent = np.asarray(transparent, bool)
     translucent = np.asarray(translucent, bool)
     cls = (transparent[grid].astype(np.uint8) * CLASS_TRANSPARENT
            + translucent[grid].astype(np.uint8) * CLASS_TRANSLUCENT)
     reach = ~transparent[grid]
-    dist = np.full(grid.shape, max_skip, np.uint8)
+    dist = np.full(grid.shape, MAX_SKIP, np.uint8)
     dist[reach] = 0
 
     def dilate(m):
@@ -102,11 +99,11 @@ def make_aux_grid(grid, transparent, translucent,
         r[:, :, :-1] |= m[:, :, 1:]
         return r
 
-    for d in range(1, max_skip):
+    for d in range(1, MAX_SKIP):
         if reach.all():
             break
         reach = dilate(reach)
-        dist[reach & (dist == max_skip)] = d
+        dist[reach & (dist == MAX_SKIP)] = d
     return cls | (dist << 2)
 
 

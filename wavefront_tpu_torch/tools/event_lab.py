@@ -30,8 +30,12 @@ counts of one launch.  Sections (`--only`):
            loop (`cuobjdump -sass`), to set beside the card's issue rate
 
 Loop rows come for one group and for enough groups to fill the card.
+`--tracer-library` counts the march loop of another build of the tracer
+(an older checkout's `build/wavefront_tpu_torch/libwindow_trace_*.so`)
+by the same rule, and prints that row alone.
 
     python -m wavefront_tpu_torch.tools.event_lab [--only support,issue,...]
+    python -m wavefront_tpu_torch.tools.event_lab --tracer-library LIB
 """
 
 from __future__ import annotations
@@ -270,9 +274,10 @@ def _headline_event_row() -> dict:
             "ns_per_ray_step": ms * 1e6 / steps}
 
 
-def march_loop_instructions() -> dict:
+def march_loop_instructions(library: str | None = None) -> dict:
     """Machine instructions of the tracer kernel's march loop, read from
-    the built library with the toolkit's `cuobjdump -sass`.
+    a built library (`library`, or this tree's, built on first use) with
+    the toolkit's `cuobjdump -sass`.
 
     The loop is the span of the largest backward branch in
     `trace_kernel`; its head is that branch's target.  Inside it, the
@@ -286,7 +291,7 @@ def march_loop_instructions() -> dict:
     together}."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run(
-        [tool, "-sass", _build.library_path("window_trace")],
+        [tool, "-sass", library or _build.library_path("window_trace")],
         capture_output=True, text=True, timeout=120, check=True).stdout
     inside, code = False, {}
     for line in sass.splitlines():
@@ -343,17 +348,21 @@ def march_loop_instructions() -> dict:
     return {"fine_crossing": fine, "loop_span": (tail - head) // step + 1}
 
 
+def march_loop_row(library: str | None = None) -> dict:
+    loop = march_loop_instructions(library)
+    return {"row": "event_march_loop",
+            "library": library or "this tree",
+            "instructions_per_fine_crossing": loop["fine_crossing"],
+            "loop_span_instructions": loop["loop_span"]}
+
+
 def event_rows() -> list:
     """The tracer's per-crossing rows, measured on the card."""
-    loop = march_loop_instructions()
     return (_uniform_event_rows(160, 32, 160, 16, 64)
             + _uniform_event_rows(416, 96, 416, 32, 192)
             + _uniform_event_rows(416, 96, 416, 16, 64, dist=2,
                                   which=("sorted",))
-            + [_headline_event_row(),
-               {"row": "event_march_loop",
-                "instructions_per_fine_crossing": loop["fine_crossing"],
-                "loop_span_instructions": loop["loop_span"]}])
+            + [_headline_event_row(), march_loop_row()])
 
 
 def rows(only=None, group_rows: int = 16) -> list:
@@ -379,9 +388,15 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=16,
                     help="rows of 128 lanes in a group of the onehot and "
                          "zsel rows (8, 16 or 32)")
+    ap.add_argument("--tracer-library", default=None,
+                    help="print only the march-loop row of this built "
+                         "tracer library")
     args = ap.parse_args(argv)
     only = [s for s in args.only.split(",") if s] or None
     require_card()
+    if args.tracer_library:
+        emit([march_loop_row(os.path.abspath(args.tracer_library))])
+        return 0
     emit(rows(only, args.rows))
     return 0
 
