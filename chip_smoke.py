@@ -323,7 +323,9 @@ def texel_check(scene, settings, basis, prefs) -> dict:
     """K3 against its plain version on the card: on the (tex, u, v) the
     general frame's first bounce hands it (miss lanes carry huge u, v), and
     on a seeded set of the same size with out-of-range slots, coordinates
-    past both edges and non-finite lanes.  Times are of the first.  Also
+    past both edges and non-finite lanes.  Times are of the first: through
+    the wrapper by CUDA events (`ms`) and the kernel's own from
+    torch.profiler (`device_ms`), beside PyTorch's indexed read.  Also
     K1 against its plain version on the rays the general frame's first two
     bounces hand it (the grid with the lamp lattice; bounce 1 leaves voxel
     faces, lamps and the cube)."""
@@ -392,6 +394,12 @@ def texel_check(scene, settings, basis, prefs) -> dict:
     index = texel_index(atlas, tex, u, v)
     out["indexed_read_ms"] = time_ms(
         lambda: atlas[index][:, ch].t().contiguous(), 5)
+    out["device_ms"] = device_ms(
+        lambda: texel_fetch(atlas, tex, u, v, channels=chans),
+        "texel_kernel", 20)
+    out["library_device_ms"] = device_ms(
+        lambda: atlas[texel_index(atlas, tex, u, v)][:, ch].t().contiguous(),
+        "", 5)
     out["bound_ms"], out["bound_by"] = texel_bound_ms(atlas, n, len(chans))
     return out
 
@@ -689,10 +697,11 @@ def exact(got, want, what: str) -> int:
 
 
 def device_ms(fn, kernel: str, reps: int):
-    """Device time of the kernel named `kernel` per call of `fn`, from
+    """Device time of the kernel named `kernel` per launch in `fn`, from
     torch.profiler over `reps` calls: the launch path and the wrapper's
-    host time, which CUDA events around a small kernel include, left out.
-    A side measurement for kernels of a few microseconds: None when the
+    host time, which CUDA events around a small kernel include, left out;
+    with `kernel` "" the time of every kernel `fn` launches, per call.  A
+    side measurement for kernels of a few microseconds: None when the
     profiler kept fewer than half of the launches."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -710,7 +719,7 @@ def device_ms(fn, kernel: str, reps: int):
     # over the launches it kept
     if len(spent) * 2 <= reps:
         return None
-    return sum(spent) / 1e3 / len(spent)
+    return sum(spent) / 1e3 / (len(spent) if kernel else reps)
 
 
 def radix_check(scene, settings, basis) -> dict:
@@ -767,7 +776,9 @@ def probe_check() -> dict:
     """K5, K6 and K7 against their plain versions on the card at small
     iteration counts, for one group and for more groups than the card has
     SMs; the shared memory a block is granted; and each kernel's time at a
-    shape its lab gives it, beside the plain version's."""
+    shape its lab gives it, beside the plain version's; for K7 also its
+    device time, torch.gather's, and its launch path taken apart on the
+    host clock (`gpu_probe.launch_split`)."""
     rng = np.random.default_rng(5)
     out = {"max_abs_err": {"device_probe": 0, "extract_probe": 0,
                            "loop_probe": 0}}
@@ -821,6 +832,8 @@ def probe_check() -> dict:
             lambda: device_probe.row_gather_sum(t, i, 64), 20),
         "plain_ms_reps64": time_ms(
             lambda: device_probe.row_gather_sum_plain(t, i, 64), 5)}
+    # after the profiled calls: the split launches 30,000 kernels more
+    gather["host_split"] = gpu_probe.launch_split(t, i)
     gather["bound_ms"], gather["bound_by"] = max_bound(
         3 * 4 * t.numel(), t.numel())
     out["device_probe"] = gather
@@ -1038,11 +1051,18 @@ def main() -> int:
     name, limit = card()
     t0 = time.perf_counter()
     _build.build_all()
+    ptxas = {k: _build.resource_usage(k) for k in ("window_trace", "shade",
+                                                   "texel")}
     emit("device", card=name, power_limit=limit,
          kind=torch.cuda.get_device_name(0), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
-         ptxas={k: _build.resource_usage(k) for k in ("window_trace",
-                                                      "shade")})
+         ptxas=ptxas)
+    # the texel row lives in registers: a stack frame or a spill would
+    # mean the channel picks indexed it in local memory
+    check(len(ptxas["texel"]) > 0 and all(
+        k.get("stack") == k.get("spill_stores") == k.get("spill_loads") == 0
+        for k in ptxas["texel"]), f"texel kernels use local memory: "
+        f"{ptxas['texel']}")
 
     scene, settings, basis, prefs = headline_setup(1920, 1080, 4,
                                                    device="cuda")
@@ -1105,6 +1125,8 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
+            "device_ms": k.get("device_ms"),
+            "library_device_ms": k.get("library_device_ms"),
         })
     for kname, k, err, replaces in (
         ("radix_hist", rc, rc["max_abs_err"], "tools/radix_lab.py:109"),
@@ -1124,6 +1146,7 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
             "device_ms": k.get("device_ms"),
+            "library_device_ms": k.get("library_device_ms"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{name}, {limit}", flush=True)

@@ -311,7 +311,13 @@ def test_shade_kernel_with_tri_attrs_matches_plain(cube_scene, nee_type):
                    tri_attrs=tri_attrs[:11] + (tri_attrs[11].float(),))
 
 
-@pytest.mark.parametrize("channels", [None, (0, 1, 2, 3, 4, 5, 6, 8), (11,)])
+# one channel, the shade's eight, all twelve in order and by name,
+# unordered, and with a repeat
+TEXEL_CHANNELS = [None, (0, 1, 2, 3, 4, 5, 6, 8), (11,), tuple(range(12)),
+                  (8, 3, 11, 0, 5), (2, 2, 7, 2)]
+
+
+@pytest.mark.parametrize("channels", TEXEL_CHANNELS)
 def test_texel_kernel_matches_plain(scene, channels):
     """Bit-exact on in-range lanes, lanes past both edges, out-of-range
     slots and non-finite coordinates; an unaligned ray count."""
@@ -336,6 +342,80 @@ def test_texel_kernel_matches_plain(scene, channels):
     assert torch.equal(want.cpu(), texel_plain(atlas.cpu(), tex.cpu(),
                                                u.cpu(), v.cpu(),
                                                channels=channels))
+
+
+@pytest.mark.parametrize("n", [1, 37, 2085])
+@pytest.mark.parametrize("channels", TEXEL_CHANNELS[1:])
+def test_texel_kernel_small_ray_counts(scene, n, channels):
+    """Ray counts below, at and past a block's: every lane written, none
+    past N."""
+    atlas = scene.get_arrays().atlas_packed
+    g = torch.Generator(device="cpu").manual_seed(n)
+    tex = torch.randint(-3, atlas.shape[0] + 3, (n,), generator=g,
+                        dtype=torch.int32).cuda()
+    uv = (torch.rand((2, n), generator=g) * 1.2 - 0.1).cuda()
+    out = texel_fetch(atlas, tex, uv[0], uv[1], channels=channels)
+    assert torch.equal(out, texel_plain(atlas, tex, uv[0], uv[1],
+                                        channels=channels))
+
+
+def test_texel_wrapper_refuses_a_misaligned_atlas(scene):
+    """The kernel reads texel rows as 16-byte vectors: a contiguous atlas
+    at a 4-byte offset is refused, the same atlas at a 16-byte offset
+    read."""
+    atlas = scene.get_arrays().atlas_packed
+    buf = torch.zeros(atlas.numel() + 4, device="cuda")
+    tex = torch.zeros(5, dtype=torch.int32, device="cuda")
+    uv = torch.full((5,), 0.5, device="cuda")
+    for offset in (1, 4):
+        moved = buf[offset:offset + atlas.numel()].view(atlas.shape)
+        moved.copy_(atlas)
+        assert moved.is_contiguous()
+        if offset == 1:
+            with pytest.raises(ValueError):
+                texel_fetch(moved, tex, uv, uv)
+        else:
+            assert torch.equal(texel_fetch(moved, tex, uv, uv),
+                               texel_plain(atlas, tex, uv, uv))
+
+
+def test_kernels_launch_on_the_current_stream(scene):
+    """K7, K3 and K1 launched under `torch.cuda.stream(s)` read inputs
+    that s writes after a delay: a launch on any other stream would read
+    them before they are written (zeros)."""
+    arrays = scene.get_arrays()
+    atlas = arrays.atlas_packed
+    rng = np.random.default_rng(3)
+    table = _i32(rng.integers(0, 100, (512, 128)))
+    idx_src = _i32(rng.integers(0, 512, (512, 128)))
+    n = 4099
+    tex_src = _i32(rng.integers(1, atlas.shape[0], n))
+    uv_src = torch.as_tensor(rng.random((2, n), np.float32), device="cuda")
+    o_src, d_src, _ = _rays(32)
+    srcs = (idx_src, tex_src, uv_src, *o_src, *d_src)
+    dsts = tuple(torch.zeros_like(x) for x in srcs)
+    idx, tex, uv = dsts[:3]
+    o, d = V3(*dsts[3:6]), V3(*dsts[6:9])
+    events = auto_events(*arrays.grid.shape)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(20_000_000)
+        for dst, src in zip(dsts, srcs):
+            dst.copy_(src)
+        got = (device_probe.row_gather_sum(table, idx, 3),
+               texel_fetch(atlas, tex, uv[0], uv[1],
+                           channels=(0, 1, 2, 3, 4, 5, 6, 8)),
+               window_trace(arrays, o, d, events))
+    s.synchronize()
+    assert torch.equal(got[0], device_probe.row_gather_sum_plain(
+        table, idx_src, 3))
+    assert torch.equal(got[1], texel_plain(
+        atlas, tex_src, uv_src[0], uv_src[1],
+        channels=(0, 1, 2, 3, 4, 5, 6, 8)))
+    want = trace_plain(arrays, o_src, d_src, events)
+    for g, w in zip(got[2], want):
+        assert int((g != w).sum()) <= 1e-5 * o.x.shape[0]
 
 
 def test_texel_wrapper_checks_its_inputs(scene):

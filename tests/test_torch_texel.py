@@ -1,12 +1,23 @@
-"""The port's texel fetch against the JAX package's.
+"""The port's texel fetch against the JAX package's, and the launch path
+every kernel wrapper of the port shares.
 
 `wavefront_tpu_torch.kernels.texel.texel_fetch` takes its plain version
 (`texel_plain`, the function the CUDA kernel is held to on the card by
 chip_smoke.py) for CPU tensors.  Here it runs against the JAX
 `kernels/texel.py::texel_fetch` in interpret mode, as tests/test_texel.py
-runs it, and against the numpy gather, on that file's five input classes.
+runs it, and against the numpy gather, on that file's five input classes
+and on channel lists of one, all twelve, out of order and with a repeat.
 A fetch copies float32 values, so every comparison is bit-exact.
+
+The launch path (`kernels/_build.py::Launcher`) and the options of
+`tools/kernel_times.py` are checked here without a card: each wrapper's
+C signature against its source, and the tool's arguments.
 """
+
+import glob
+import importlib
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,13 +25,17 @@ import pytest
 import torch
 
 from wavefront_tpu.kernels.texel import texel_fetch as jax_texel_fetch
+from wavefront_tpu_torch.kernels import _build
 from wavefront_tpu_torch.kernels.texel import (
     texel_fetch,
     texel_index,
     texel_plain,
 )
+from wavefront_tpu_torch.tools import kernel_times
 
 CHANS = (0, 1, 2, 3, 4, 5, 6, 8)
+OTHER_CHANNELS = {"one_channel": (9,), "all_twelve": tuple(range(12)),
+                  "unordered": (8, 3, 11, 0, 5), "repeated": (2, 2, 7, 2)}
 
 
 def _gather_ref(atlas, tex, u, v):
@@ -45,10 +60,13 @@ def _inputs(name):
     elif name == "tex_out_of_range":
         rng, n, n_tex = np.random.default_rng(2), 600, 3
         wide, tile, chans = False, 2048, None
-    else:
-        assert name == "channels"
+    elif name == "channels":
         rng, n, n_tex = np.random.default_rng(4), 3000, 7
         wide, tile, chans = False, 2048, CHANS
+    else:
+        # the channel lists the kernel picks at run time
+        rng, n, n_tex = np.random.default_rng(6), 777, 5
+        wide, tile, chans = True, 256, OTHER_CHANNELS[name]
     atlas = rng.random((n_tex, 16, 16, 12), np.float32)
     if name == "one_texture":
         tex = np.full(n, 2, np.int32)
@@ -65,7 +83,8 @@ def _inputs(name):
 
 
 @pytest.mark.parametrize("name", ["mixed", "one_texture", "unaligned",
-                                  "tex_out_of_range", "channels"])
+                                  "tex_out_of_range", "channels",
+                                  *OTHER_CHANNELS])
 def test_texel_matches_jax_and_gather(name):
     atlas, tex, u, v, chans, tile = _inputs(name)
     args = tuple(torch.as_tensor(a) for a in (atlas, tex, u, v))
@@ -112,3 +131,64 @@ def test_texel_rejects_bad_channels():
     for chans in ((), (12,), (-1,), tuple(range(12)) + (0,)):
         with pytest.raises(ValueError):
             texel_fetch(atlas, z.to(torch.int32), z, z, channels=chans)
+
+
+def _c_signatures():
+    """{C function: its parameters' letters (Launcher.signature plus the
+    stream)} of every `extern "C"` function of the port's CUDA sources."""
+    def letter(param):
+        kind = param.split()[0]
+        if "*" in param:
+            return "p"
+        return {"int": "i", "float": "f", "uint32_t": "u", "unsigned": "u",
+                "uint64_t": "q"}[kind]
+
+    out = {}
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        with open(path) as f:
+            src = f.read()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+            out[m.group(1)] = "".join(
+                letter(p.strip()) for p in m.group(2).split(","))
+    return out
+
+
+def test_launchers_match_their_c_functions():
+    """Every wrapper's Launcher names a C function of its library and
+    types each of its parameters as the source declares it, the stream
+    last; building the modules loads no library."""
+    sigs = _c_signatures()
+    seen = []
+    for name in _build.SOURCES:
+        mod = importlib.import_module(f"wavefront_tpu_torch.kernels.{name}")
+        for launcher in vars(mod).values():
+            if isinstance(launcher, _build.Launcher):
+                assert launcher.lib == name
+                assert sigs[launcher.fn] == launcher.signature + "p"
+                assert launcher._call is None
+                seen.append(launcher.fn)
+    assert sorted(seen) == sorted(sigs)
+
+
+def test_launcher_refuses_an_unknown_parameter_type():
+    with pytest.raises(ValueError):
+        _build.Launcher("texel", "texel_launch", "pix", "texel_fetch")
+
+
+def test_kernel_times_options_parse_with_no_card(capsys):
+    args = kernel_times.parse(["--kernels", "texel", "row_gather",
+                               "--frames", "3", "--root", "build/parent"])
+    assert args.kernels == ["texel", "row_gather"] and args.frames == 3
+    assert kernel_times.parse([]).kernels == ["trace", "shade"]
+    with pytest.raises(SystemExit) as e:
+        kernel_times.parse(["--kernels", "sort"])
+    assert e.value.code != 0
+    with pytest.raises(SystemExit) as e:
+        kernel_times.main(["--help"])
+    assert e.value.code == 0
+    usage = capsys.readouterr().out
+    assert "--kernels" in usage and "--frames" in usage
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit) as e:
+            kernel_times.main(["--kernels", "texel", "row_gather"])
+        assert e.value.code not in (0, None)

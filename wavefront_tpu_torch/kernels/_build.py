@@ -15,6 +15,11 @@ and shared memory; the report is kept beside the library
 (`resource_usage`).
 
 A missing `nvcc` or a failed build raises; nothing falls back.
+
+Every wrapper launches through a `Launcher`: the C function typed and
+bound once, called with the raw handle of PyTorch's current stream.  A
+kernel of a few microseconds costs what its host path costs, so the path
+holds no per-call library lookup and builds no `torch.cuda.Stream`.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import re
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -124,9 +131,9 @@ def resource_usage(name: str) -> list:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 mangled = m.group(1)
-                k = re.search(r"\d((?:[a-z]+_)*kernel)((?:I(?:L[ib]-?\d+E)+E)?)",
+                k = re.search(r"\d((?:[a-z]+_)*kernel)((?:I(?:L[a-z]-?\d+E)+E)?)",
                               mangled)
-                args = re.findall(r"L[ib](-?\d+)E", k.group(2)) if k else []
+                args = re.findall(r"L[a-z](-?\d+)E", k.group(2)) if k else []
                 cur = {"kernel": (k.group(1) + (f"<{','.join(args)}>"
                                                 if args else ""))
                        if k else mangled}
@@ -147,7 +154,53 @@ def resource_usage(name: str) -> list:
     return out
 
 
-def check(err: int, what: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a launch wrapper."""
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
+# the ctypes type of each letter of a Launcher's signature
+ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint,
+             "q": ctypes.c_uint64, "f": ctypes.c_float}
+
+
+class Launcher:
+    """The C launch function `fn` of `csrc/<lib>.cu`, called on the
+    caller's current CUDA stream.
+
+    `signature` names the function's parameters before its last, one
+    letter each (ARG_TYPES: p a pointer, passed as an int or None, i an
+    int, u an unsigned int, q a uint64, f a float); the last parameter is
+    the stream.  The library is built and the function typed on the first
+    call; later calls go straight to it.
+
+    `launcher(device, *args)` calls `fn(*args, stream)` with the handle of
+    PyTorch's current stream on CUDA device index `device`, read by
+    `torch._C._cuda_getCurrentRawStream` (the call PyTorch's own generated
+    code makes) without building a `torch.cuda.Stream`, and returns the
+    function's `cudaError`: 0, or one listed in `returned`; any other
+    raises."""
+
+    def __init__(self, lib: str, fn: str, signature: str, what: str,
+                 returned: tuple = ()):
+        if any(c not in ARG_TYPES for c in signature):
+            raise ValueError(f"Launcher {fn}: signature {signature!r} has "
+                             f"letters outside {''.join(ARG_TYPES)}")
+        self.lib, self.fn, self.signature = lib, fn, signature
+        self.what, self.returned = what, tuple(returned)
+        self._call = self._stream = None
+
+    def bind(self):
+        """Build and load the library and type the function; returns the
+        typed function."""
+        if self._call is None:
+            f = getattr(load(self.lib), self.fn)
+            f.argtypes = [ARG_TYPES[c] for c in self.signature] + [
+                ctypes.c_void_p]
+            f.restype = ctypes.c_int
+            self._stream = torch._C._cuda_getCurrentRawStream
+            self._call = f
+        return self._call
+
+    def __call__(self, device: int, *args) -> int:
+        call = self._call or self.bind()
+        err = call(*args, self._stream(device))
+        if err and err not in self.returned:
+            raise RuntimeError(
+                f"{self.what}: CUDA launch failed (cudaError {err})")
+        return err

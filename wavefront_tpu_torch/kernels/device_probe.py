@@ -15,8 +15,6 @@ file.  `tools/gpu_probe.py --micro` prints their rows.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from wavefront_tpu_torch.kernels import _build
@@ -30,21 +28,13 @@ SMEM_SIZES_KB = (48, 64, 96, 128, 164, 200, 227, 228)
 SMEM_REFUSALS = (1, 9, 701)
 
 
-def _lib():
-    lib = _build.load("device_probe")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dp_loop_add.argtypes = [p, p, i, i, p]
-        lib.dp_row_gather_sum.argtypes = [p, p, p, i, i, p]
-        lib.dp_smem_copy.argtypes = [p, p, i, i, p]
-        for fn in (lib.dp_loop_add, lib.dp_row_gather_sum, lib.dp_smem_copy):
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
-
-
-def _stream(x) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+_LOOP_ADD = _build.Launcher("device_probe", "dp_loop_add", "ppii", "loop_add")
+_ROW_GATHER = _build.Launcher("device_probe", "dp_row_gather_sum", "pppii",
+                              "row_gather_sum")
+# a refused shared-memory size is this probe's measurement: returned
+_SMEM_COPY = _build.Launcher("device_probe", "dp_smem_copy", "ppii",
+                             "smem_copy", returned=SMEM_REFUSALS)
+_I32 = torch.int32
 
 
 def loop_add_plain(x, iters: int):
@@ -67,9 +57,8 @@ def loop_add(x, iters: int):
     if x.device.type == "cpu":
         return loop_add_plain(x, iters)
     out = torch.empty_like(x)
-    err = _lib().dp_loop_add(x.data_ptr(), out.data_ptr(), x.numel(),
-                             int(iters), _stream(x))
-    _build.check(err, "loop_add")
+    _LOOP_ADD(x.get_device(), x.data_ptr(), out.data_ptr(), x.numel(),
+              int(iters))
     loop_add.launches += 1
     return out
 
@@ -88,26 +77,33 @@ def row_gather_sum_plain(table, idx, reps: int = 64):
     return acc
 
 
+def _check_gather(table, idx, reps):
+    """row_gather_sum's argument checks; returns (R, reps) as ints."""
+    shape = table.shape
+    if not (table.dtype == _I32 and idx.dtype == _I32 and len(shape) == 2
+            and shape[1] == 128 and idx.shape == shape
+            and idx.device == table.device
+            and table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("row_gather_sum: table and idx must be "
+                         "contiguous (R, 128) int32 tensors on one device")
+    reps = int(reps)
+    if shape[0] < 1 or reps < 0:
+        raise ValueError("row_gather_sum: needs R >= 1 and reps >= 0")
+    return shape[0], reps
+
+
 def row_gather_sum(table, idx, reps: int = 64):
     """(R, 128) int32 table and row indices ->
     `out[i, l] = sum_{k < reps} table[(idx[i, l] + k) mod R, l]` (floor
     modulo, int32 sums that wrap).  CPU tensors take
     `row_gather_sum_plain`; CUDA tensors launch the kernel or raise."""
-    for x in (table, idx):
-        if (x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != 128
-                or x.shape != table.shape or x.device != table.device
-                or not x.is_contiguous()):
-            raise ValueError("row_gather_sum: table and idx must be "
-                             "contiguous (R, 128) int32 tensors on one device")
-    if table.shape[0] < 1 or int(reps) < 0:
-        raise ValueError("row_gather_sum: needs R >= 1 and reps >= 0")
-    if table.device.type == "cpu":
+    rows, reps = _check_gather(table, idx, reps)
+    dev = table.get_device()     # -1 on the CPU
+    if dev < 0:
         return row_gather_sum_plain(table, idx, reps)
     out = torch.empty_like(table)
-    err = _lib().dp_row_gather_sum(table.data_ptr(), idx.data_ptr(),
-                                   out.data_ptr(), table.shape[0], int(reps),
-                                   _stream(table))
-    _build.check(err, "row_gather_sum")
+    _ROW_GATHER(dev, table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows,
+                reps)
     row_gather_sum.launches += 1
     return out
 
@@ -137,11 +133,10 @@ def smem_copy(x, nbytes: int):
     if x.device.type == "cpu":
         return smem_copy_plain(x, nbytes), 0
     out = torch.empty_like(x)
-    err = _lib().dp_smem_copy(x.data_ptr(), out.data_ptr(), x.numel(),
-                              int(nbytes), _stream(x))
-    if err in SMEM_REFUSALS:
+    err = _SMEM_COPY(x.get_device(), x.data_ptr(), out.data_ptr(), x.numel(),
+                     int(nbytes))
+    if err:
         return None, err
-    _build.check(err, "smem_copy")
     smem_copy.launches += 1
     return out, 0
 

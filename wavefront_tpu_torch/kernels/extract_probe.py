@@ -23,7 +23,6 @@ PERF.md).
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -102,15 +101,10 @@ def extract_win_plain(tw, cx, cz, iters: int, nwx: int, nwz: int):
     return acc.reshape(shape)
 
 
-def _lib():
-    lib = _build.load("extract_probe")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.ep_extract_cur, lib.ep_extract_win):
-            fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_CUR = _build.Launcher("extract_probe", "ep_extract_cur", "ppppiiiiii",
+                      "extract_cur")
+_WIN = _build.Launcher("extract_probe", "ep_extract_win", "ppppiiiiii",
+                      "extract_win")
 
 
 def extract_cur(table, cx, cz, iters: int):
@@ -127,11 +121,8 @@ def extract_cur(table, cx, cz, iters: int):
         return extract_cur_plain(table, cx, cz, iters)
     nc, gz, gx = table.shape
     out = torch.empty_like(cx)
-    stream = torch.cuda.current_stream(cx.device).cuda_stream
-    err = _lib().ep_extract_cur(
-        table.data_ptr(), cx.data_ptr(), cz.data_ptr(), out.data_ptr(),
-        gx, gz, nc, int(iters), groups, lanes, stream)
-    _build.check(err, "extract_cur")
+    _CUR(cx.get_device(), table.data_ptr(), cx.data_ptr(), cz.data_ptr(),
+         out.data_ptr(), gx, gz, nc, int(iters), groups, lanes)
     extract_cur.launches += 1
     return out
 
@@ -160,11 +151,9 @@ def extract_win(tw, cx, cz, iters: int, nwx: int, nwz: int):
     if cx.device.type == "cpu":
         return extract_win_plain(tw, cx, cz, iters, nwx, nwz)
     out = torch.empty_like(cx)
-    stream = torch.cuda.current_stream(cx.device).cuda_stream
-    err = _lib().ep_extract_win(
-        tw.data_ptr(), cx.data_ptr(), cz.data_ptr(), out.data_ptr(),
-        nwx, nwz, tw.shape[1] // 8, int(iters), groups, lanes, stream)
-    _build.check(err, "extract_win")
+    _WIN(cx.get_device(), tw.data_ptr(), cx.data_ptr(), cz.data_ptr(),
+         out.data_ptr(), nwx, nwz, tw.shape[1] // 8, int(iters), groups,
+         lanes)
     extract_win.launches += 1
     return out
 

@@ -28,7 +28,6 @@ What bounds each form on the card is in the source note of the .cu file.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -110,16 +109,9 @@ def loop_probe_plain(variant: str, state, extra, iters: int):
     return code, acc
 
 
-def _lib():
-    lib = _build.load("loop_probe")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lp_loop.argtypes = [i, i, p, p, p, p, p, p, i, i, i, p]
-        lib.lp_loop.restype = ctypes.c_int
-        lib.lp_primitive.argtypes = [i, p, p, p, p]
-        lib.lp_primitive.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_LOOP = _build.Launcher("loop_probe", "lp_loop", "iippppppiii", "loop_probe")
+_PRIMITIVE = _build.Launcher("loop_probe", "lp_primitive", "ippp",
+                             "primitive")
 
 
 def loop_probe(variant: str, state, extra, iters: int):
@@ -139,12 +131,10 @@ def loop_probe(variant: str, state, extra, iters: int):
     offsets = extra.data_ptr() if body == "zsel" else None
     acc_in = state[1].data_ptr() if len(state) == 2 else None
     acc_out = outs[1].data_ptr() if len(state) == 2 else None
-    stream = torch.cuda.current_stream(first.device).cuda_stream
-    err = _lib().lp_loop(
-        VARIANTS.index(variant), extra.shape[0] if body == "onehot" else 0,
-        first.data_ptr(), acc_in, table, offsets, outs[0].data_ptr(),
-        acc_out, int(iters), groups, lanes, stream)
-    _build.check(err, f"loop_probe {variant}")
+    _LOOP(first.get_device(), VARIANTS.index(variant),
+          extra.shape[0] if body == "onehot" else 0, first.data_ptr(),
+          acc_in, table, offsets, outs[0].data_ptr(), acc_out, int(iters),
+          groups, lanes)
     loop_probe.launches += 1
     return outs
 
@@ -198,12 +188,9 @@ def primitive(name: str, a, idx=None):
     if a.device.type == "cpu":
         return primitive_plain(name, a, idx)
     out = torch.empty(a.shape, dtype=_I32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _lib().lp_primitive(
-        PRIMITIVES.index(name), a.data_ptr(),
-        idx.data_ptr() if name == "row_pick" else None, out.data_ptr(),
-        stream)
-    _build.check(err, f"primitive {name}")
+    _PRIMITIVE(a.get_device(), PRIMITIVES.index(name), a.data_ptr(),
+               idx.data_ptr() if name == "row_pick" else None,
+               out.data_ptr())
     primitive.launches += 1
     return out
 

@@ -20,8 +20,6 @@ and PERF.md).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from wavefront_tpu_torch.kernels import _build
@@ -57,16 +55,10 @@ def hist_plain(keys, shift: int):
     return torch.bincount(digit, minlength=256).to(torch.int32)
 
 
-def _lib():
-    lib = _build.load("radix_hist")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rh_digit_histogram.argtypes = [p, i, i, p, p]
-        lib.rh_digit_histogram.restype = ctypes.c_int
-        lib.rh_digit_histograms4.argtypes = [p, i, p, p]
-        lib.rh_digit_histograms4.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_HIST = _build.Launcher("radix_hist", "rh_digit_histogram", "piip",
+                       "digit_histogram")
+_HIST4 = _build.Launcher("radix_hist", "rh_digit_histograms4", "pip",
+                        "digit_histograms4")
 
 
 def digit_histogram(keys, shift: int):
@@ -80,10 +72,8 @@ def digit_histogram(keys, shift: int):
     if keys.device.type == "cpu":
         return hist_plain(keys, shift)
     out = torch.zeros(256, dtype=torch.int32, device=keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = _lib().rh_digit_histogram(keys.data_ptr(), keys.shape[0],
-                                    int(shift), out.data_ptr(), stream)
-    _build.check(err, "digit_histogram")
+    _HIST(keys.get_device(), keys.data_ptr(), keys.shape[0], int(shift),
+          out.data_ptr())
     digit_histogram.launches += 1
     return out
 
@@ -100,10 +90,7 @@ def digit_histograms4(keys):
     if keys.device.type == "cpu":
         return torch.stack([hist_plain(keys, 8 * d) for d in range(4)])
     out = torch.zeros((4, 256), dtype=torch.int32, device=keys.device)
-    stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = _lib().rh_digit_histograms4(keys.data_ptr(), keys.shape[0],
-                                      out.data_ptr(), stream)
-    _build.check(err, "digit_histograms4")
+    _HIST4(keys.get_device(), keys.data_ptr(), keys.shape[0], out.data_ptr())
     digit_histograms4.launches += 1
     return out
 

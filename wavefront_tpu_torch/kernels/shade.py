@@ -270,16 +270,8 @@ def shade_plain(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
     return new_o, new_d, tp * factor, rad + tp * emis
 
 
-def _lib():
-    lib = _build.load("shade")
-    if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.shade_launch.argtypes = [
-            p, p, p, i, p, i, i, p, p, i, p, p, i, i, i, f, f, f,
-            ctypes.c_uint, i, i, p]
-        lib.shade_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_LAUNCH = _build.Launcher("shade", "shade_launch", "pppipiippippiiifffuii",
+                         "shade_pass")
 
 
 def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
@@ -351,15 +343,12 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
     tri_ptrs = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in tri)) \
         if tri else None
     g = [float(v) for v in grid_origin]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().shade_launch(
-        in_ptrs, out_ptrs, tri_ptrs, n, tables.atlas.data_ptr(),
-        tables.atlas.shape[1], tables.atlas.shape[0],
-        tables.nodes.data_ptr(), tables.parent.data_ptr(), tables.m_nodes,
-        tables.prims.data_ptr(), tables.leaf.data_ptr(), tables.p_prims,
-        int(num_prims), tables.live, g[0], g[1], g[2], inv_seed, int(bounce),
-        nee_type, stream)
-    _build.check(err, "shade_pass")
+    _LAUNCH(dev.index, in_ptrs, out_ptrs, tri_ptrs, n, tables.atlas.data_ptr(),
+            tables.atlas.shape[1], tables.atlas.shape[0],
+            tables.nodes.data_ptr(), tables.parent.data_ptr(), tables.m_nodes,
+            tables.prims.data_ptr(), tables.leaf.data_ptr(), tables.p_prims,
+            int(num_prims), tables.live, g[0], g[1], g[2], inv_seed,
+            int(bounce), nee_type)
     shade_pass.launches += 1
     return (V3(*outs[0:3]), V3(*outs[3:6]), V3(*outs[6:9]), V3(*outs[9:12]))
 

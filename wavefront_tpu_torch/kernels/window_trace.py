@@ -21,7 +21,6 @@ file and PERF.md).
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -69,15 +68,8 @@ def coherence_key(ox, oy, oz, dx, dy, dz, gx: int, gy: int, gz: int):
             | (angq << 13) | (xq << 10) | (zq << 7) | (yq << 5))
 
 
-def _lib():
-    lib = _build.load("window_trace")
-    if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.wt_trace.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                 f, f, f, i, i, f, f, p, p, p, p]
-        lib.wt_trace.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_LAUNCH = _build.Launcher("window_trace", "wt_trace", "ppppppppiiifffiiffppp",
+                         "window_trace")
 
 
 def window_trace(scene, origin: V3, direction: V3, max_events: int):
@@ -113,14 +105,11 @@ def window_trace(scene, origin: V3, direction: V3, max_events: int):
     pa = torch.empty(n, dtype=torch.int32, device=dev)
     pb = torch.empty(n, dtype=torch.int32, device=dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     go = scene.grid_origin
-    err = _lib().wt_trace(
-        *(c.data_ptr() for c in comps), grid.data_ptr(), aux.data_ptr(),
-        gx, gy, gz, float(go[0]), float(go[1]), float(go[2]), n,
-        int(max_events), EPSILON_BLOCK, T_MAX, pa.data_ptr(), pb.data_ptr(),
-        t.data_ptr(), stream)
-    _build.check(err, "window_trace")
+    _LAUNCH(dev.index, *(c.data_ptr() for c in comps), grid.data_ptr(),
+            aux.data_ptr(), gx, gy, gz, float(go[0]), float(go[1]),
+            float(go[2]), n, int(max_events), EPSILON_BLOCK, T_MAX,
+            pa.data_ptr(), pb.data_ptr(), t.data_ptr())
     window_trace.launches += 1
     return pa, pb, t
 

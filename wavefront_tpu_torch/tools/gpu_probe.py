@@ -5,6 +5,7 @@ the card and run a 128x128 matrix product, appends a JSON record to
 `--log`, prints it, and exits 0 when the card is up and 1 when it is not.
 With `--micro` the record also holds the microbenchmarks of `micro_suite`,
 whose numbers are the constants the bounds in PERF.md divide by.
+`launch_split` takes K7's launch path apart on the host clock.
 
     python -m wavefront_tpu_torch.tools.gpu_probe [--micro] [--log PATH]
 """
@@ -20,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from wavefront_tpu_torch.kernels import _build, device_probe
 from wavefront_tpu_torch.kernels.device_probe import (
     loop_add,
     row_gather_sum,
@@ -44,6 +46,69 @@ def _host_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def launch_split(table, idx, calls: int = 10_000) -> dict:
+    """Host microseconds a call of each piece of `row_gather_sum`'s launch
+    path, at the (R, 128) `table` and `idx` on the card and reps 1, each
+    over `calls` calls on the host clock (`time.perf_counter_ns`, the
+    queue drained before and after), beside one `torch.gather` on the same
+    table:
+
+      loop            an empty call: the timing loop's own cost, in every
+                      row below
+      checks          the wrapper's argument checks
+      empty_like      the output's allocation
+      data_ptrs       the three tensors' data pointers
+      raw_stream      the current stream's handle as the wrapper reads it
+                      (`torch._C._cuda_getCurrentRawStream`)
+      stream_object   the same handle through a `torch.cuda.Stream`
+                      (`torch.cuda.current_stream(device).cuda_stream`)
+      library_lookup  the library and its function looked up by name
+                      (`_build.load` and a `getattr`)
+      ctypes_call     the typed C function with R = 0, which returns
+                      before it launches: ctypes alone
+      ctypes_launch   the typed C function launching the kernel: ctypes,
+                      `cudaLaunchKernel` and `cudaGetLastError`
+      wrapper         `row_gather_sum(table, idx, 1)` whole
+      torch_gather    `torch.gather(table, 0, idx as int64)`
+
+    The wrapper reads the stream and binds the function the lean way;
+    `stream_object` and `library_lookup` are what each call paid before."""
+    dev = table.get_device()
+    fn = device_probe._ROW_GATHER.bind()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    out = torch.empty_like(table)
+    tp, ip, op, rows = (table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                        table.shape[0])
+    i64 = idx.to(torch.int64)
+    pieces = {
+        "loop": lambda: None,
+        "checks": lambda: device_probe._check_gather(table, idx, 1),
+        "empty_like": lambda: torch.empty_like(table),
+        "data_ptrs": lambda: (table.data_ptr(), idx.data_ptr(),
+                              out.data_ptr()),
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "stream_object": lambda: torch.cuda.current_stream(
+            table.device).cuda_stream,
+        "library_lookup": lambda: _build.load(
+            "device_probe").dp_row_gather_sum,
+        "ctypes_call": lambda: fn(tp, ip, op, 0, 1, stream),
+        "ctypes_launch": lambda: fn(tp, ip, op, rows, 1, stream),
+        "wrapper": lambda: row_gather_sum(table, idx, 1),
+        "torch_gather": lambda: torch.gather(table, 0, i64),
+    }
+    split = {}
+    for name, piece in pieces.items():
+        for _ in range(100):
+            piece()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            piece()
+        split[name] = (time.perf_counter_ns() - t0) / calls / 1e3
+        torch.cuda.synchronize()
+    return {"calls": calls, "rows": rows, "us_per_call": split}
 
 
 def micro_suite() -> dict:

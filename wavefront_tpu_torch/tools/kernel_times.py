@@ -1,21 +1,42 @@
-"""Per-launch times of the tracer (K1) and the fused shade (K2) at the
-headline frame's shapes, to compare two trees of the port on one card.
+"""Per-launch times of the port's render-path kernels and of the K7 row
+gather, and the headline frame's device time, to compare two trees of the
+port on one card.
 
     python wavefront_tpu_torch/tools/kernel_times.py [--root DIR]
-        [--lamps L] [--reps N]
+        [--kernels K [K ...]] [--frames F] [--lamps L] [--reps N]
 
 DIR is a checkout whose `wavefront_tpu_torch` package is timed (default:
 the one this file belongs to); it builds its own kernels under DIR.  Run
 the file as a script: under `python -m` the package of the current
 directory is imported before DIR can be put first, and the tool stops.
-On the headline scene (1920x1080), with the bounce-0 rays sorted as the
-renderer sorts them and the bounce-1 rays the shade makes from them, each
-kernel runs `reps` times back to back between CUDA events.  With `--lamps
-L` the scene also holds the first L lamp voxels of the general frame's
-lattice (six light prims each; up to 41 keep the set dense), to time the
-shade at a larger light set.  One JSON line per bounce, with the card's
-name and power limit, the tree's root and the light set's size.  Compare
-two trees within one machine, in turns (A, B, B, A).
+
+`--kernels` picks what is timed (default: trace shade), each kernel run
+back to back between CUDA events:
+
+  trace, shade  the tracer (K1) and the fused shade (K2) on the headline
+                scene (1920x1080), on the bounce-0 rays sorted as the
+                renderer sorts them and on the bounce-1 rays the shade
+                makes from them, `reps` launches each; one line a bounce.
+                With `--lamps L` the scene also holds the first L lamp
+                voxels of the general frame's lattice (six light prims
+                each; up to 41 keep the set dense), to time the shade at
+                a larger light set.
+  texel         the texel fetch (K3) on the (tex, u, v) that the general
+                frame's (`headline.general_setup`) first bounce hands it,
+                `reps` launches.
+  row_gather    K7's `row_gather_sum` at R = 4096, reps 1 (one gather a
+                launch: its time is the wrapper's host path), over
+                GATHER_CALLS calls, beside `torch.gather` on the same
+                table and indices; also the host clock's microseconds a
+                call of each.
+
+`--frames F` adds one line for the headline frame: `frame_ms` over F
+frames (host clock, ending in a synchronize) and, over F more frames
+under torch.profiler, the device's busy ms a frame and idle share.
+
+Every line is one JSON object with the card's name and power limit and
+the tree's root.  Compare two trees within one machine, in turns (A, B,
+B, A).
 """
 
 from __future__ import annotations
@@ -24,21 +45,32 @@ import argparse
 import json
 import os
 import sys
+import time
+
+KERNELS = ("trace", "shade", "texel", "row_gather")
+GATHER_ROWS = 4096
+GATHER_CALLS = 1000
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))),
         help="checkout holding the wavefront_tpu_torch package to time")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=["trace", "shade"], help="what to time")
+    ap.add_argument("--frames", type=int, default=0,
+                    help="headline frames to time and profile (0: none)")
     ap.add_argument("--lamps", type=int, default=0,
                     help="lamp voxels of the lattice added to the scene")
     ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-
-    import torch
 
     import wavefront_tpu_torch
     if not os.path.abspath(wavefront_tpu_torch.__file__).startswith(
@@ -47,6 +79,30 @@ def main(argv=None) -> int:
             f"kernel_times: the package was imported from "
             f"{wavefront_tpu_torch.__file__}, not from {root}; run this file "
             "as a script (python wavefront_tpu_torch/tools/kernel_times.py)")
+    from wavefront_tpu_torch.tools._timing import card, require_card
+
+    require_card()
+    name, limit = card()
+
+    def emit(row):
+        print(json.dumps({"root": root, **row, "card": name,
+                          "power_limit": limit}), flush=True)
+
+    if {"trace", "shade"} & set(args.kernels):
+        for row in trace_shade_rows(args):
+            emit(row)
+    if "texel" in args.kernels:
+        emit(texel_row(args.reps))
+    if "row_gather" in args.kernels:
+        emit(gather_row())
+    if args.frames:
+        emit(frame_row(args.frames))
+    return 0
+
+
+def trace_shade_rows(args):
+    import torch
+
     from wavefront_tpu_torch.core.config import WorldSettings
     from wavefront_tpu_torch.core.vec3 import V3
     from wavefront_tpu_torch.headline import (
@@ -63,11 +119,9 @@ def main(argv=None) -> int:
     from wavefront_tpu_torch.render.renderer import coherence_sort
     from wavefront_tpu_torch.render.scene import VoxelScene
     from wavefront_tpu_torch.render.wavefront import raygen_soa
-    from wavefront_tpu_torch.tools._timing import card, require_card, time_ms
+    from wavefront_tpu_torch.tools._timing import time_ms
     from wavefront_tpu_torch.world.blocks import BlockRegistry
 
-    require_card()
-    name, limit = card()
     scene, settings, basis, _ = headline_setup(1920, 1080, 4, device="cuda")
     if args.lamps:
         registry = BlockRegistry.load(ASSETS)
@@ -91,19 +145,114 @@ def main(argv=None) -> int:
         args_ = (tables, arrays.grid_origin, o, d, pa, pb, t, tp, rad, rid,
                  b, b, arrays.lights.num_prims)
         row = {
-            "root": root, "bounce": b, "rays": n,
+            "bounce": b, "rays": n,
             "light_prims": int(arrays.lights.num_prims),
             "light_nodes": tables.m_nodes,
-            "alive": int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum()),
-            "window_trace_ms": time_ms(
-                lambda: window_trace(arrays, o, d, events), args.reps),
-            "shade_ms": time_ms(lambda: shade_pass(*args_, nee_type=1),
-                                args.reps),
-            "card": name, "power_limit": limit}
-        print(json.dumps(row), flush=True)
+            "alive": int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum())}
+        if "trace" in args.kernels:
+            row["window_trace_ms"] = time_ms(
+                lambda: window_trace(arrays, o, d, events), args.reps)
+        if "shade" in args.kernels:
+            row["shade_ms"] = time_ms(
+                lambda: shade_pass(*args_, nee_type=1), args.reps)
+        yield row
         o, d, tp, rad = (V3(*(c.contiguous() for c in v))
                          for v in shade_pass(*args_, nee_type=1))
-    return 0
+
+
+def texel_row(reps: int) -> dict:
+    from wavefront_tpu_torch.headline import general_setup
+    from wavefront_tpu_torch.kernels.texel import texel_fetch
+    from wavefront_tpu_torch.render.renderer import render_frame
+    from wavefront_tpu_torch.tools._timing import time_ms
+
+    scene, settings, basis, prefs = general_setup(1920, 1080, 4,
+                                                  device="cuda")
+    seen = []
+
+    def spy(atlas, tex, u, v, channels=None):
+        seen.append((atlas, tex, u, v, channels))
+        return texel_fetch(atlas, tex, u, v, channels=channels)
+
+    render_frame(scene.get_arrays(), basis.eye, basis.front, basis.right,
+                 basis.up, 0, settings=settings.replace(num_bounces=1),
+                 nee_type=prefs.nee_type, sort_type=prefs.sort_type,
+                 texel=spy)
+    atlas, tex, u, v, chans = seen[0]
+    return {"kernel": "texel", "rays": int(tex.shape[0]),
+            "channels": list(chans),
+            "texel_ms": time_ms(
+                lambda: texel_fetch(atlas, tex, u, v, channels=chans), reps)}
+
+
+def _host_us(fn, calls: int) -> float:
+    """Host-clock microseconds a call over `calls` calls (the queue
+    drained before, not after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return dt / calls / 1e3
+
+
+def gather_row() -> dict:
+    import numpy as np
+    import torch
+
+    from wavefront_tpu_torch.kernels.device_probe import row_gather_sum
+    from wavefront_tpu_torch.tools._timing import time_ms
+
+    rng = np.random.default_rng(5)
+    shape = (GATHER_ROWS, 128)
+    t = torch.as_tensor(rng.integers(0, 100, shape).astype(np.int32),
+                        device="cuda")
+    i = torch.as_tensor(rng.integers(0, GATHER_ROWS, shape).astype(np.int32),
+                        device="cuda")
+    i64 = i.to(torch.int64)
+    k7 = (lambda: row_gather_sum(t, i, 1))
+    lib = (lambda: torch.gather(t, 0, i64))
+    return {"kernel": "row_gather", "rows": GATHER_ROWS, "reps": 1,
+            "calls": GATHER_CALLS,
+            "row_gather_ms": time_ms(k7, GATHER_CALLS),
+            "torch_gather_ms": time_ms(lib, GATHER_CALLS),
+            "row_gather_host_us": _host_us(k7, GATHER_CALLS),
+            "torch_gather_host_us": _host_us(lib, GATHER_CALLS)}
+
+
+def frame_row(frames: int) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wavefront_tpu_torch.headline import headline_setup
+    from wavefront_tpu_torch.render.renderer import Renderer
+
+    scene, settings, basis, prefs = headline_setup(1920, 1080, 4,
+                                                   device="cuda")
+    r = Renderer(settings)
+    r.render(scene, basis, prefs, frame_count=0, as_numpy=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(1, frames + 1):
+        r.render(scene, basis, prefs, frame_count=f, as_numpy=False)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / frames
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in range(frames):
+            r.render(scene, basis, prefs, frame_count=100 + f,
+                     as_numpy=False)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in dev) / 1e3 / frames
+    return {"frame": "headline", "frames": frames, "frame_ms": frame_ms,
+            "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / frame_ms),
+            "device_events_per_frame": len(dev) / frames}
 
 
 if __name__ == "__main__":
