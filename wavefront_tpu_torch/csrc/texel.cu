@@ -168,11 +168,14 @@ extern "C" int texel_launch(
     if (n <= 0) return 0;
     // measurement hook: TEXEL_VARIANT 0 (float4, one ray a thread), 1
     // (scalar loads), 2 or 4 (float4, that many rays a thread), 3 (float4,
-    // one ray a thread, the shade's list picked at run time)
+    // one ray a thread, the shade's list picked at run time), 5 (scalar
+    // loads at the run-time list's offsets, one ray a thread)
     const char* env = getenv("TEXEL_VARIANT");
     const int variant = env ? atoi(env) : 0;
     const cudaStream_t s = (cudaStream_t)stream;
-    if (nch == SHADE_NCH && code == SHADE_CODE && row == ROW_MAX && variant != 3)
+    if (variant == 5)
+        launch<0, 0, 1, false>(atlas, n_tex, size, row / 4, tex, u, v, out, n, nch, code, s);
+    else if (nch == SHADE_NCH && code == SHADE_CODE && row == ROW_MAX && variant != 3)
         launch_variant<SHADE_NCH, SHADE_CODE>(variant, atlas, n_tex, size, row / 4, tex, u, v, out, n, nch, code, s);
     else
         launch_variant<0, 0>(variant, atlas, n_tex, size, row / 4, tex, u, v, out, n, nch, code, s);

@@ -59,6 +59,8 @@ def launch_split(table, idx, calls: int = 10_000) -> dict:
                       row below
       checks          the wrapper's argument checks
       empty_like      the output's allocation
+      empty           the same by `torch.empty(shape, dtype=, device=)`
+      new_empty       the same by `table.new_empty(shape)`
       data_ptrs       the three tensors' data pointers
       raw_stream      the current stream's handle as the wrapper reads it
                       (`torch._C._cuda_getCurrentRawStream`)
@@ -86,6 +88,9 @@ def launch_split(table, idx, calls: int = 10_000) -> dict:
         "loop": lambda: None,
         "checks": lambda: device_probe._check_gather(table, idx, 1),
         "empty_like": lambda: torch.empty_like(table),
+        "empty": lambda: torch.empty((rows, 128), dtype=torch.int32,
+                                     device=table.device),
+        "new_empty": lambda: table.new_empty((rows, 128)),
         "data_ptrs": lambda: (table.data_ptr(), idx.data_ptr(),
                               out.data_ptr()),
         "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
