@@ -776,9 +776,10 @@ def probe_check() -> dict:
     """K5, K6 and K7 against their plain versions on the card at small
     iteration counts, for one group and for more groups than the card has
     SMs; the shared memory a block is granted; and each kernel's time at a
-    shape its lab gives it, beside the plain version's; for K7 also its
-    device time, torch.gather's, and its launch path taken apart on the
-    host clock (`gpu_probe.launch_split`)."""
+    shape its lab gives it, beside the plain version's and the kernel's
+    own device time (torch.profiler); for K7 also torch.gather's device
+    time and its launch path taken apart on the host clock
+    (`gpu_probe.launch_split`)."""
     rng = np.random.default_rng(5)
     out = {"max_abs_err": {"device_probe": 0, "extract_probe": 0,
                            "loop_probe": 0}}
@@ -866,7 +867,9 @@ def probe_check() -> dict:
           "ms": time_ms(lambda: extract_probe.extract_win(
               tw, cx, cz, iters, 5, 5), 10),
           "plain_ms": time_ms(lambda: extract_probe.extract_win_plain(
-              tw, cx, cz, iters, 5, 5), 1)}
+              tw, cx, cz, iters, 5, 5), 1),
+          "device_ms": device_ms(lambda: extract_probe.extract_win(
+              tw, cx, cz, iters, 5, 5), "win_kernel", 10)}
     ex["bound_ms"], ex["bound_by"] = max_bound(
         tw.numel() + 3 * 4 * lanes, lanes * iters * (8 + EXTRACT_OPS_PER_ITER))
     out["extract_probe"] = ex
@@ -901,7 +904,9 @@ def probe_check() -> dict:
           "ms": time_ms(lambda: loop_probe.loop_probe(
               "onehot_smem", state, table, iters), 10),
           "plain_ms": time_ms(lambda: loop_probe.loop_probe_plain(
-              "onehot_smem", state, table, iters), 1)}
+              "onehot_smem", state, table, iters), 1),
+          "device_ms": device_ms(lambda: loop_probe.loop_probe(
+              "onehot_smem", state, table, iters), "loop_kernel", 10)}
     lo["bound_ms"], lo["bound_by"] = max_bound(
         table.numel() + 4 * 4 * lanes, lanes * iters * (64 + LOOP_OPS_PER_ITER))
     out["loop_probe"] = lo

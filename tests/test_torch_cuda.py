@@ -359,24 +359,23 @@ def test_texel_kernel_small_ray_counts(scene, n, channels):
                                         channels=channels))
 
 
-def test_texel_wrapper_refuses_a_misaligned_atlas(scene):
-    """The kernel reads texel rows as 16-byte vectors: a contiguous atlas
-    at a 4-byte offset is refused, the same atlas at a 16-byte offset
-    read."""
+def test_texel_kernel_reads_a_misaligned_atlas(scene):
+    """The kernel reads texel rows a float at a time, so an atlas that
+    starts 4 bytes past a 16-byte boundary (a contiguous view at a storage
+    offset) reads as the aligned one does."""
     atlas = scene.get_arrays().atlas_packed
-    buf = torch.zeros(atlas.numel() + 4, device="cuda")
-    tex = torch.zeros(5, dtype=torch.int32, device="cuda")
-    uv = torch.full((5,), 0.5, device="cuda")
-    for offset in (1, 4):
-        moved = buf[offset:offset + atlas.numel()].view(atlas.shape)
-        moved.copy_(atlas)
-        assert moved.is_contiguous()
-        if offset == 1:
-            with pytest.raises(ValueError):
-                texel_fetch(moved, tex, uv, uv)
-        else:
-            assert torch.equal(texel_fetch(moved, tex, uv, uv),
-                               texel_plain(atlas, tex, uv, uv))
+    buf = torch.zeros(atlas.numel() + 1, device="cuda")
+    moved = buf[1:].view(atlas.shape)
+    moved.copy_(atlas)
+    assert moved.is_contiguous() and moved.data_ptr() % 16 == 4
+    g = torch.Generator(device="cpu").manual_seed(7)
+    tex = torch.randint(0, atlas.shape[0], (999,), generator=g,
+                        dtype=torch.int32).cuda()
+    uv = torch.rand((2, 999), generator=g).cuda()
+    for channels in TEXEL_CHANNELS:
+        assert torch.equal(
+            texel_fetch(moved, tex, uv[0], uv[1], channels=channels),
+            texel_plain(atlas, tex, uv[0], uv[1], channels=channels))
 
 
 def test_kernels_launch_on_the_current_stream(scene):

@@ -140,8 +140,8 @@ def _c_signatures():
         kind = param.split()[0]
         if "*" in param:
             return "p"
-        return {"int": "i", "float": "f", "uint32_t": "u", "unsigned": "u",
-                "uint64_t": "q"}[kind]
+        return {"int": "i", "float": "f", "uint32_t": "u",
+                "unsigned": "u"}[kind]
 
     out = {}
     for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):

@@ -3,181 +3,76 @@
 // Replaces the TPU kernel wavefront_tpu/kernels/texel.py::_kernel (called
 // by texel_fetch()).  Per ray: clamp the texture slot, turn (u, v) into a
 // texel column and row, and copy the selected channels of that texel's
-// row (12 floats in the packed atlas) into a channel-major (nch, N)
-// output.  The TPU kernel's one-hot matrix product, its 3-term bf16 split
-// of the atlas and its log2(size) select tree exist because a TPU kernel
-// cannot gather; here the texel is a direct load, exact in float32 by
-// construction.
+// 12-float row into a channel-major (nch, N) output.  The TPU kernel's
+// one-hot matrix product, its 3-term bf16 split of the atlas and its
+// log2(size) select tree exist because a TPU kernel cannot gather; here the
+// texel is a direct load, exact in float32 by construction.
 //
 // What bounds it on this card: bytes.  Each ray reads 12 (tex, u, v) and
 // writes 4 per channel, 32 at the shade's 8 channels; the atlas
 // (T x 16 x 16 x 12 floats, a few hundred KB) stays in L2.  One thread per
 // ray: the three input loads and every per-channel store are coalesced
-// across the warp, and the only scattered access is the texel row.  That
-// row is read as 16-byte vectors, one load instruction per 4 floats (3 for
-// a 12-float row) where a load per channel took 8 at the shade's list:
-// each warp-wide load of scattered rows costs the L1 a request per row it
-// touches, whatever the width, so the row costs 3 of them, not 8.  The
-// channels are then picked from registers (`pick`): a run-time index into
-// the row would put it in local memory.  The shade's own list is a
-// template argument, so its picks are plain register moves; any other list
-// picks by compare and select.
+// across the warp, and the only scattered access is the texel row itself.
+// The channel loop runs to the compile-time maximum (MAX_CHANNELS, each
+// step predicated on the run-time count), so it unrolls and no load of
+// the row need wait behind the store of the channel before it; the loop
+// to the run-time count took 1.5x the time, and reading the row as 16-byte
+// vectors bought nothing over the unrolled loads (PERF.md).
 //
 // Float-to-int: __float2int_rz saturates and maps NaN to 0, so after the
 // clamp a non-finite or huge u or v lands on texel 0 (NaN, negative) or
 // size-1 (positive), never out of bounds; kernels/texel.py::texel_plain
 // states the same rule in PyTorch.
-//
-// The vector loads need the atlas 16-byte aligned and a row of 4, 8 or 12
-// floats; texel_launch refuses anything else (the wrapper raises before).
 
 #include <cuda_runtime.h>
-#include <stdint.h>
-#include <stdlib.h>
 
 namespace {
 
 constexpr int MAX_CHANNELS = 12;
-constexpr int ROW_MAX = 12;
 
-// a channel list packed 4 bits a channel: channel k in bits 4k..4k+3
-constexpr uint64_t SHADE_CODE = 0x86543210ull;  // (0, 1, 2, 3, 4, 5, 6, 8)
-constexpr int SHADE_NCH = 8;
+struct Channels {
+    int n;
+    int idx[MAX_CHANNELS];
+};
 
-// Entry c of the row r[0..11].  With c known at compile time the chain
-// folds to one register; at run time it is 11 compares and selects, and
-// the row stays in registers.
-__device__ __forceinline__ float pick(const float (&r)[ROW_MAX], int c)
-{
-    float x = r[0];
-#pragma unroll
-    for (int j = 1; j < ROW_MAX; ++j) x = c == j ? r[j] : x;
-    return x;
-}
-
-__host__ __device__ __forceinline__ int channel(uint64_t code, int k)
-{
-    return (int)((code >> (4 * k)) & 15);
-}
-
-// NCH > 0: the list is CODE, fixed at compile time; NCH == 0: nch and code
-// come at run time.  RAYS rays a thread, blockDim apart; VEC reads the row
-// as float4 vectors, else one scalar load per channel.
-template <int NCH, uint64_t CODE, int RAYS, bool VEC>
 __global__ void __launch_bounds__(256) texel_kernel(
-    const float* __restrict__ atlas, int n_tex, int size, int quads,
+    const float* __restrict__ atlas, int n_tex, int size, int row,
     const int* __restrict__ tex, const float* __restrict__ u,
-    const float* __restrict__ v, float* __restrict__ out, int n, int nch,
-    uint64_t code)
+    const float* __restrict__ v, float* __restrict__ out, int n, Channels ch)
 {
-    const int base = blockIdx.x * (blockDim.x * RAYS) + threadIdx.x;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
     const float fs = (float)size;
-    size_t at[RAYS];
+    const int t = min(max(tex[i], 0), n_tex - 1);
+    const int ti = min(max(__float2int_rz(u[i] * fs), 0), size - 1);
+    const int tj = min(max(__float2int_rz(v[i] * fs), 0), size - 1);
+    const float* texel = atlas + ((size_t)(t * size + tj) * size + ti) * row;
 #pragma unroll
-    for (int r = 0; r < RAYS; ++r) {
-        const int i = base + r * (int)blockDim.x;
-        at[r] = 0;
-        if (i < n) {
-            const int t = min(max(__ldg(tex + i), 0), n_tex - 1);
-            const int ti = min(max(__float2int_rz(__ldg(u + i) * fs), 0), size - 1);
-            const int tj = min(max(__float2int_rz(__ldg(v + i) * fs), 0), size - 1);
-            at[r] = (size_t)(t * size + tj) * size + ti;
-        }
-    }
-    if constexpr (VEC) {
-        float row[RAYS][ROW_MAX];
-#pragma unroll
-        for (int r = 0; r < RAYS; ++r) {
-            const float4* p = reinterpret_cast<const float4*>(atlas) + at[r] * quads;
-#pragma unroll
-            for (int q = 0; q < ROW_MAX / 4; ++q) {
-                const float4 w = q < quads ? __ldg(p + q) : make_float4(0.f, 0.f, 0.f, 0.f);
-                row[r][4 * q] = w.x;
-                row[r][4 * q + 1] = w.y;
-                row[r][4 * q + 2] = w.z;
-                row[r][4 * q + 3] = w.w;
-            }
-        }
-#pragma unroll
-        for (int r = 0; r < RAYS; ++r) {
-            const int i = base + r * (int)blockDim.x;
-            if (i >= n) continue;
-#pragma unroll
-            for (int k = 0; k < (NCH > 0 ? NCH : MAX_CHANNELS); ++k)
-                if (NCH > 0 || k < nch)
-                    out[(size_t)k * n + i] =
-                        pick(row[r], channel(NCH > 0 ? CODE : code, k));
-        }
-    } else {
-#pragma unroll
-        for (int r = 0; r < RAYS; ++r) {
-            const int i = base + r * (int)blockDim.x;
-            if (i >= n) continue;
-            const float* p = atlas + at[r] * (4 * quads);
-#pragma unroll
-            for (int k = 0; k < (NCH > 0 ? NCH : MAX_CHANNELS); ++k)
-                if (NCH > 0 || k < nch)
-                    out[(size_t)k * n + i] =
-                        __ldg(p + channel(NCH > 0 ? CODE : code, k));
-        }
-    }
-}
-
-template <int NCH, uint64_t CODE, int RAYS, bool VEC>
-void launch(const float* atlas, int n_tex, int size, int quads,
-            const int* tex, const float* u, const float* v, float* out, int n,
-            int nch, uint64_t code, cudaStream_t stream)
-{
-    const int block = 256, per = block * RAYS;
-    texel_kernel<NCH, CODE, RAYS, VEC><<<(n + per - 1) / per, block, 0, stream>>>(
-        atlas, n_tex, size, quads, tex, u, v, out, n, nch, code);
-}
-
-template <int NCH, uint64_t CODE>
-void launch_variant(int variant, const float* atlas, int n_tex, int size,
-                    int quads, const int* tex, const float* u, const float* v,
-                    float* out, int n, int nch, uint64_t code,
-                    cudaStream_t stream)
-{
-    switch (variant) {
-    case 1: launch<NCH, CODE, 1, false>(atlas, n_tex, size, quads, tex, u, v, out, n, nch, code, stream); break;
-    case 2: launch<NCH, CODE, 2, true>(atlas, n_tex, size, quads, tex, u, v, out, n, nch, code, stream); break;
-    case 4: launch<NCH, CODE, 4, true>(atlas, n_tex, size, quads, tex, u, v, out, n, nch, code, stream); break;
-    default: launch<NCH, CODE, 1, true>(atlas, n_tex, size, quads, tex, u, v, out, n, nch, code, stream); break;
-    }
+    for (int k = 0; k < MAX_CHANNELS; ++k)
+        if (k < ch.n) out[(size_t)k * n + i] = __ldg(texel + ch.idx[k]);
 }
 
 }  // namespace
 
-// atlas: (n_tex, size, size, row) float32, 16-byte aligned, row 4, 8 or
-// 12; tex/u/v: (n,); out: (nch, n); code: nch channel indices into a texel
-// row, channel k in bits 4k..4k+3, each below row.  Returns
-// cudaGetLastError() (cudaErrorInvalidValue for an atlas or a channel list
-// the kernel cannot take).
+// atlas: (n_tex, size, size, row) float32; tex/u/v: (n,); out: (nch, n);
+// channels: nch indices into a texel row, each in [0, row).  Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a bad channel list).
 extern "C" int texel_launch(
     const float* atlas, int n_tex, int size, int row, const int* tex,
-    const float* u, const float* v, float* out, int n, uint64_t code,
-    int nch, void* stream)
+    const float* u, const float* v, float* out, int n,
+    const int* channels, int nch, void* stream)
 {
-    if (nch < 1 || nch > MAX_CHANNELS || n_tex < 1 || size < 1
-        || row < 4 || row > ROW_MAX || row % 4 != 0
-        || ((uintptr_t)atlas & 15) != 0)
+    if (nch < 1 || nch > MAX_CHANNELS || n_tex < 1 || size < 1)
         return (int)cudaErrorInvalidValue;
-    for (int k = 0; k < nch; ++k)
-        if (channel(code, k) >= row) return (int)cudaErrorInvalidValue;
+    Channels ch;
+    ch.n = nch;
+    for (int k = 0; k < MAX_CHANNELS; ++k) {
+        ch.idx[k] = k < nch ? channels[k] : 0;
+        if (ch.idx[k] < 0 || ch.idx[k] >= row) return (int)cudaErrorInvalidValue;
+    }
     if (n <= 0) return 0;
-    // measurement hook: TEXEL_VARIANT 0 (float4, one ray a thread), 1
-    // (scalar loads), 2 or 4 (float4, that many rays a thread), 3 (float4,
-    // one ray a thread, the shade's list picked at run time), 5 (scalar
-    // loads at the run-time list's offsets, one ray a thread)
-    const char* env = getenv("TEXEL_VARIANT");
-    const int variant = env ? atoi(env) : 0;
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (variant == 5)
-        launch<0, 0, 1, false>(atlas, n_tex, size, row / 4, tex, u, v, out, n, nch, code, s);
-    else if (nch == SHADE_NCH && code == SHADE_CODE && row == ROW_MAX && variant != 3)
-        launch_variant<SHADE_NCH, SHADE_CODE>(variant, atlas, n_tex, size, row / 4, tex, u, v, out, n, nch, code, s);
-    else
-        launch_variant<0, 0>(variant, atlas, n_tex, size, row / 4, tex, u, v, out, n, nch, code, s);
+    const int block = 256;
+    texel_kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+        atlas, n_tex, size, row, tex, u, v, out, n, ch);
     return (int)cudaGetLastError();
 }

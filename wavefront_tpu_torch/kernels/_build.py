@@ -156,7 +156,7 @@ def resource_usage(name: str) -> list:
 
 # the ctypes type of each letter of a Launcher's signature
 ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint,
-             "q": ctypes.c_uint64, "f": ctypes.c_float}
+             "f": ctypes.c_float}
 
 
 class Launcher:
@@ -164,10 +164,10 @@ class Launcher:
     caller's current CUDA stream.
 
     `signature` names the function's parameters before its last, one
-    letter each (ARG_TYPES: p a pointer, passed as an int or None, i an
-    int, u an unsigned int, q a uint64, f a float); the last parameter is
-    the stream.  The library is built and the function typed on the first
-    call; later calls go straight to it.
+    letter each (ARG_TYPES: p a pointer, passed as an int, None or a
+    ctypes array, i an int, u an unsigned int, f a float); the last
+    parameter is the stream.  The library is built and the function
+    typed on the first call; later calls go straight to it.
 
     `launcher(device, *args)` calls `fn(*args, stream)` with the handle of
     PyTorch's current stream on CUDA device index `device`, read by

@@ -9,10 +9,7 @@ The non-fused shade (`render.renderer`) calls it once per bounce.
 
 Bound on the card: bytes — 12 per ray in (tex, u, v) and 4 per channel
 out; the atlas stays in L2 (see the source note in the .cu file and
-PERF.md).  The kernel reads a texel row as 16-byte vectors, so on the card
-the atlas must start on a 16-byte boundary and hold 4, 8 or 12 channels a
-texel (the scene's packed atlas holds 12); `texel_fetch` raises on any
-other, and nothing falls back.
+PERF.md).
 
 Non-finite and huge coordinates: the conversion to a texel index
 saturates, so NaN and anything below 0 read texel 0 and anything at or
@@ -23,6 +20,8 @@ with such values; the shade masks their texels.)
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -63,7 +62,7 @@ def texel_plain(atlas_packed, tex, u, v, channels=None):
     return atlas_packed[t, tj, ti][:, list(chans)].t().contiguous()
 
 
-_LAUNCH = _build.Launcher("texel", "texel_launch", "piiippppiqi",
+_LAUNCH = _build.Launcher("texel", "texel_launch", "piiippppipi",
                          "texel_fetch")
 
 
@@ -74,9 +73,8 @@ def texel_fetch(atlas_packed, tex, u, v, channels=None):
     tex: (N,) int32 texture slots; u, v: (N,) float32; channels: up to 12
     channel indices (output row k is channel channels[k]; any order,
     repeats allowed), all C channels when None.  CPU tensors take
-    `texel_plain`; CUDA tensors launch the kernel or raise (on an atlas
-    the kernel cannot read too: module note).  What a non-finite u or v
-    yields is in the module note."""
+    `texel_plain`; CUDA tensors launch the kernel or raise.  What a
+    non-finite u or v yields is in the module note."""
     chans = _channel_list(atlas_packed, channels)
     if tex.device.type == "cpu":
         return texel_plain(atlas_packed, tex, u, v, chans)
@@ -93,18 +91,10 @@ def texel_fetch(atlas_packed, tex, u, v, channels=None):
         raise ValueError("texel_fetch: atlas must be a contiguous "
                          "(T, size, size, C) float32 tensor on the rays' "
                          "device")
-    if a.data_ptr() % 16 or a.shape[3] not in (4, 8, 12):
-        raise ValueError("texel_fetch: the kernel reads 16-byte vectors and "
-                         "needs an atlas on a 16-byte boundary with 4, 8 or "
-                         f"12 channels a texel (C = {a.shape[3]}, address "
-                         f"{a.data_ptr():#x})")
     out = torch.empty((len(chans), n), dtype=torch.float32, device=dev)
-    code = 0
-    for k, c in enumerate(chans):
-        code |= c << (4 * k)
-    _LAUNCH(dev.index, a.data_ptr(), a.shape[0], a.shape[1],
-            a.shape[3], tex.data_ptr(), u.data_ptr(), v.data_ptr(),
-            out.data_ptr(), n, code, len(chans))
+    _LAUNCH(dev.index, a.data_ptr(), a.shape[0], a.shape[1], a.shape[3],
+            tex.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), n,
+            (ctypes.c_int * len(chans))(*chans), len(chans))
     texel_fetch.launches += 1
     return out
 
