@@ -305,9 +305,15 @@ def kernel_check(scene, settings, basis) -> dict:
             "bounce": b, "alive": alive, "hits": hits, "steps": steps,
             "trace": {**tr,
                       "ms": time_ms(lambda: window_trace(arrays, o, d, events), 10),
+                      "device_ms": device_ms(
+                          lambda: window_trace(arrays, o, d, events),
+                          "trace_kernel", 10),
                       "plain_ms": time_ms(lambda: trace_plain(arrays, o, d, events), 1)},
             "shade": {"max_abs_err": s_max, "rms": s_rms,
                       "ms": time_ms(lambda: shade_pass(*args, nee_type=1), 10),
+                      "device_ms": device_ms(
+                          lambda: shade_pass(*args, nee_type=1),
+                          "shade_kernel", 10),
                       "plain_ms": time_ms(lambda: shade_plain(*args, nee_type=1), 1)},
         }
         rec["trace"]["bound_ms"], rec["trace"]["bound_by"] = trace_bound_ms(
@@ -764,6 +770,9 @@ def radix_check(scene, settings, basis) -> dict:
     out["plain_ms"] = time_ms(lambda: rh.hist_plain(seeded, 0), 5)
     out["library_ms"] = time_ms(lambda: torch.bincount(
         ((seeded.to(torch.int64) & 0xFFFFFFFF) >> 0) & 255, minlength=256), 5)
+    out["library_device_ms"] = device_ms(lambda: torch.bincount(
+        ((seeded.to(torch.int64) & 0xFFFFFFFF) >> 0) & 255, minlength=256),
+        "", 5)
     digits = ((seeded.to(torch.int64) & 0xFFFFFFFF) & 255).contiguous()
     out["bincount_alone_ms"] = time_ms(
         lambda: torch.bincount(digits, minlength=256), 5)
