@@ -1071,8 +1071,8 @@ def main() -> int:
          kind=torch.cuda.get_device_name(0), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
          ptxas=ptxas)
-    # the texel row lives in registers: a stack frame or a spill would
-    # mean the channel picks indexed it in local memory
+    # K3's unrolled channel loop keeps its loads in registers: a stack
+    # frame or a spill would mean they went through local memory
     check(len(ptxas["texel"]) > 0 and all(
         k.get("stack") == k.get("spill_stores") == k.get("spill_loads") == 0
         for k in ptxas["texel"]), f"texel kernels use local memory: "
