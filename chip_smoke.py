@@ -690,6 +690,22 @@ HIST_OPS_PER_KEY = 3
 EXTRACT_OPS_PER_ITER = 6
 # beside the table rows' adds: the low bit, the code update and its mask
 LOOP_OPS_PER_ITER = 3
+# the card's shared memory serves one 128-byte row of its 32 banks a clock
+# on each SM; a load of fewer than 4 bytes still takes a bank's slot
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
+
+
+def smem_floor_ms(lane_iters: int, sass: dict, per_pass: int) -> float:
+    """The least time the shared loads of `lane_iters` lane-iterations
+    take: the loop's loads (`event_lab.probe_loop_sass`, a pass of the
+    loop being `per_pass` lane-iterations) each counted as at least one
+    4-byte bank slot, at SMEM_BYTES_PER_S."""
+    return lane_iters * sass["shared_bank_bytes"] / per_pass \
+        / SMEM_BYTES_PER_S * 1e3
+
+
+def per_lane_iter(sass: dict, per_pass: int) -> dict:
+    return {k: v / per_pass for k, v in sass.items()}
 
 
 def exact(got, want, what: str) -> int:
@@ -868,19 +884,62 @@ def probe_check() -> dict:
                 extract_probe.extract_win(tw, cx, cz, iters, nwx, nwz),
                 extract_probe.extract_win_plain(tw, cx, cz, iters, nwx, nwz),
                 f"extract_win {shape} iters={iters}"))
+    # the edges of the unrolled channel loop and the wrap: nc 1 to 16,
+    # lanes that start 3 before the table and 2 past it, iteration counts
+    # that are not a multiple of 8
+    for nc in (1, 7, 8, 16):
+        table = u8((nc, nwz * 32, nwx * 32))
+        tw = extract_probe.tile_windows(table, nwx, nwz)
+        for groups, rows in ((1, 1), (3, 8)):
+            shape = (groups, rows, 128)
+            edge = rng.random(shape)
+            cx = i32(np.where(edge < 0.2, -3, np.where(
+                edge > 0.8, nwx * 32 + 2, rng.integers(0, nwx * 32, shape))))
+            cz = i32(np.where(edge > 0.9, nwz * 32 + 2,
+                              rng.integers(0, nwz * 32, shape)))
+            for iters in (1, 8, 40):
+                worst("extract_probe", exact(
+                    extract_probe.extract_cur(table, cx, cz, iters),
+                    extract_probe.extract_cur_plain(table, cx, cz, iters),
+                    f"extract_cur nc={nc} {shape} edges iters={iters}"))
+                worst("extract_probe", exact(
+                    extract_probe.extract_win(tw, cx, cz, iters, nwx, nwz),
+                    extract_probe.extract_win_plain(tw, cx, cz, iters, nwx,
+                                                    nwz),
+                    f"extract_win nc={nc} {shape} edges iters={iters}"))
     groups, iters = FILL_GROUPS, 256
     tw = u8((25, 64, 128))
     cx, cz = roofline._lanes(rng, groups, 8, 160, 160, roofline.SPREAD)
     lanes = groups * 8 * 128
+    # lab shapes: 8 rows of a group are 512 threads of 2 lanes
+    win_sass = event_lab.probe_loop_sass("extract_probe",
+                                         r"win_kernelILi2ELi8ELi0EE")
+    cur_sass = event_lab.probe_loop_sass("extract_probe", r"cur_kernelILi2EE")
     ex = {"groups": groups, "rows": 8, "iters": iters, "windows": 25,
           "ms": time_ms(lambda: extract_probe.extract_win(
               tw, cx, cz, iters, 5, 5), 10),
           "plain_ms": time_ms(lambda: extract_probe.extract_win_plain(
               tw, cx, cz, iters, 5, 5), 1),
           "device_ms": device_ms(lambda: extract_probe.extract_win(
-              tw, cx, cz, iters, 5, 5), "win_kernel", 10)}
+              tw, cx, cz, iters, 5, 5), "win_kernel", 10),
+          # a pass of the window loop is 8 iterations of 2 lanes, its
+          # stage included
+          "smem_floor_ms": smem_floor_ms(lanes * iters, win_sass, 16),
+          "sass_per_lane_iter": per_lane_iter(win_sass, 16)}
     ex["bound_ms"], ex["bound_by"] = max_bound(
         tw.numel() + 3 * 4 * lanes, lanes * iters * (8 + EXTRACT_OPS_PER_ITER))
+    table = u8((6, 160, 160))
+    ux, uz = roofline._lanes(rng, groups, 8, 160, 160)
+    cur = {"channels": 6, "table": [160, 160],
+           "ms": time_ms(lambda: extract_probe.extract_cur(
+               table, ux, uz, iters), 10),
+           "device_ms": device_ms(lambda: extract_probe.extract_cur(
+               table, ux, uz, iters), "cur_kernel", 10),
+           "sass_per_lane_iter": per_lane_iter(cur_sass, 2)}
+    cur["bound_ms"], cur["bound_by"] = max_bound(
+        table.numel() + 3 * 4 * lanes,
+        lanes * iters * (6 + EXTRACT_OPS_PER_ITER))
+    ex["cur"] = cur
     out["extract_probe"] = ex
 
     # K5
@@ -901,6 +960,32 @@ def probe_check() -> dict:
                 for g, w in zip(got, want):
                     worst("loop_probe", exact(g, w, f"loop_probe {variant} "
                                               f"{shape}"))
+    # the onehot forms' edges: every lane on one code, codes that share a
+    # bank group (equal mod 16), codes outside [0, 128) (an empty one-hot;
+    # the first iteration's & 127 brings them back), table bytes >= 128
+    for variant in ("onehot_smem", "onehot_ldg", "onehot_const"):
+        for nr in (64, 8):
+            for case in ("one_code", "bank_group", "outside", "high_bytes"):
+                for groups, rows in ((1, 1), (3, 16)):
+                    shape = (groups, rows, 128)
+                    code = {"one_code": np.full(shape, 77),
+                            "bank_group": 16 * rng.integers(0, 8, shape) + 5,
+                            "outside": rng.choice([-1, -128, 128, 1000, 3],
+                                                  shape),
+                            "high_bytes": rng.integers(0, 128, shape)}[case]
+                    table = (torch.as_tensor(rng.integers(
+                        128, 256, (nr, 128)).astype(np.uint8), device="cuda")
+                        if case == "high_bytes" else u8((nr, 128)))
+                    state = (i32(code), i32(rng.integers(0, 100, shape)))
+                    for iters in (1, 5):
+                        got = loop_probe.loop_probe(variant, state, table,
+                                                    iters)
+                        want = loop_probe.loop_probe_plain(variant, state,
+                                                           table, iters)
+                        for g, w in zip(got, want):
+                            worst("loop_probe", exact(
+                                g, w, f"loop_probe {variant} nr={nr} {case} "
+                                f"{shape} iters={iters}"))
     out["support"] = event_lab.support()
     groups, iters = FILL_GROUPS, event_lab.ITERS["onehot64"][0]
     shape = (groups, 16, 128)
@@ -916,8 +1001,22 @@ def probe_check() -> dict:
               "onehot_smem", state, table, iters), 1),
           "device_ms": device_ms(lambda: loop_probe.loop_probe(
               "onehot_smem", state, table, iters), "loop_kernel", 10)}
+    # 16 rows of a group are 512 threads of 4 lanes; a pass of the loop is
+    # one iteration of each
+    sass = event_lab.probe_loop_sass("loop_probe",
+                                     r"loop_kernelILi1ELi64ELi4ELi0EE")
+    lo["smem_floor_ms"] = smem_floor_ms(lanes * iters, sass, 4)
+    lo["sass_per_lane_iter"] = per_lane_iter(sass, 4)
     lo["bound_ms"], lo["bound_by"] = max_bound(
         table.numel() + 4 * 4 * lanes, lanes * iters * (64 + LOOP_OPS_PER_ITER))
+    table8 = u8((8, 128))
+    sass8 = event_lab.probe_loop_sass("loop_probe",
+                                      r"loop_kernelILi1ELi8ELi4ELi0EE")
+    lo["table_rows_8"] = {
+        "ms": time_ms(lambda: loop_probe.loop_probe(
+            "onehot_smem", state, table8, iters), 10),
+        "smem_floor_ms": smem_floor_ms(lanes * iters, sass8, 4),
+        "sass_per_lane_iter": per_lane_iter(sass8, 4)}
     out["loop_probe"] = lo
     return out
 
@@ -1065,18 +1164,25 @@ def main() -> int:
     name, limit = card()
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = {k: _build.resource_usage(k) for k in ("window_trace", "shade",
-                                                   "texel")}
+    ptxas = {k: _build.resource_usage(k) for k in (
+        "window_trace", "shade", "texel", "extract_probe", "loop_probe")}
     emit("device", card=name, power_limit=limit,
          kind=torch.cuda.get_device_name(0), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
          ptxas=ptxas)
     # K3's unrolled channel loop keeps its loads in registers: a stack
     # frame or a spill would mean they went through local memory
-    check(len(ptxas["texel"]) > 0 and all(
-        k.get("stack") == k.get("spill_stores") == k.get("spill_loads") == 0
-        for k in ptxas["texel"]), f"texel kernels use local memory: "
-        f"{ptxas['texel']}")
+    # so do K5's onehot forms (loop_kernel<1..3,...>) and K6's unrolled
+    # channel loops; zsel_local keeps its array in local memory on purpose
+    held = {"texel": ptxas["texel"],
+            "extract_probe": ptxas["extract_probe"],
+            "loop_probe": [k for k in ptxas["loop_probe"] if any(
+                k["kernel"].startswith(f"loop_kernel<{v},")
+                for v in (1, 2, 3))]}
+    for src, kerns in held.items():
+        check(len(kerns) > 0 and all(
+            k.get("stack") == k.get("spill_stores") == k.get("spill_loads")
+            == 0 for k in kerns), f"{src} kernels use local memory: {kerns}")
 
     scene, settings, basis, prefs = headline_setup(1920, 1080, 4,
                                                    device="cuda")

@@ -611,6 +611,108 @@ def test_loop_probe_kernel_matches_plain(card, variant):
                 assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("case", ["one_code", "bank_group", "outside",
+                                  "high_bytes"])
+@pytest.mark.parametrize("nr", [64, 8])
+@pytest.mark.parametrize("variant", ["onehot_smem", "onehot_ldg",
+                                     "onehot_const"])
+def test_loop_probe_onehot_edges(card, variant, nr, case):
+    """The column reads at their edges: every lane on one code (one
+    address for the whole warp), codes equal mod 16 (one bank group of a
+    single column-major copy), codes outside [0, 128) (an empty one-hot,
+    no read), table bytes >= 128 (unsigned sums); one row and 16 rows a
+    group, 1 and 5 iterations."""
+    for groups, rows in ((1, 1), (3, 16)):
+        shape = (groups, rows, 128)
+        code = {"one_code": np.full(shape, 77),
+                "bank_group": 16 * card.integers(0, 8, shape) + 5,
+                "outside": card.choice([-1, -128, 128, 1000, 3], shape),
+                "high_bytes": card.integers(0, 128, shape)}[case]
+        lo = 128 if case == "high_bytes" else 0
+        table = torch.as_tensor(card.integers(lo, 256, (nr, 128)).astype(
+            np.uint8), device="cuda")
+        state = (_i32(code), _i32(card.integers(0, 100, shape)))
+        for iters in (1, 5):
+            got = loop_probe.loop_probe(variant, state, table, iters)
+            want = loop_probe.loop_probe_plain(variant, state, table, iters)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    if case == "outside":
+        # one iteration of codes outside the table adds nothing
+        out = loop_probe.loop_probe(variant, state, table, 1)[1]
+        off = (state[0] < 0) | (state[0] >= 128)
+        assert torch.equal(out[off], state[1][off])
+
+
+@pytest.mark.parametrize("nc", [1, 7, 8, 16])
+def test_extract_probe_edges(card, nc):
+    """The unrolled channel loop at nc 1 to 16 and the division-free wrap:
+    lanes that start 3 before the table and 2 past its width (some also
+    2 past its depth),
+    iteration counts 1, 8 and 40 (the window kernel rounds up to 16 and
+    40), groups of one row (128 threads) and of 8 and 32 rows."""
+    nwx, nwz = 3, 2
+    table = torch.as_tensor(
+        card.integers(0, 255, (nc, nwz * 32, nwx * 32)).astype(np.uint8),
+        device="cuda")
+    tw = extract_probe.tile_windows(table, nwx, nwz)
+    for groups, rows in ((1, 1), (3, 8), (2, 32)):
+        shape = (groups, rows, 128)
+        edge = card.random(shape)
+        cx = _i32(np.where(edge < 0.2, -3, np.where(
+            edge > 0.8, nwx * 32 + 2, card.integers(0, nwx * 32, shape))))
+        cz = _i32(np.where(edge > 0.9, nwz * 32 + 2,
+                           card.integers(0, nwz * 32, shape)))
+        for iters in (1, 8, 40):
+            assert torch.equal(
+                extract_probe.extract_cur(table, cx, cz, iters),
+                extract_probe.extract_cur_plain(table, cx, cz, iters))
+            want = extract_probe.extract_win_plain(tw, cx, cz, iters, nwx,
+                                                   nwz)
+            assert torch.equal(
+                extract_probe.extract_win(tw, cx, cz, iters, nwx, nwz), want)
+            assert int(want.abs().sum()) > 0
+
+
+def test_kernels_launch_on_their_tensors_device(scene):
+    """K1, K3 and K7 on cuda:1 while cuda:0 is current equal their plain
+    versions, and cuda:0 stays current.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    dev = torch.device("cuda:1")
+    reg = BlockRegistry.load("assets")
+    arrays = VoxelScene(reg, config1_grid(reg), (0, 0, 0),
+                        max_light_prims=256, device=dev).get_arrays()
+    rng = np.random.default_rng(4)
+    table = torch.as_tensor(rng.integers(0, 100, (512, 128)).astype(
+        np.int32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 512, (512, 128)).astype(np.int32),
+                          device=dev)
+    n = 4099
+    atlas = arrays.atlas_packed
+    tex = torch.as_tensor(rng.integers(1, atlas.shape[0], n).astype(
+        np.int32), device=dev)
+    uv = torch.as_tensor(rng.random((2, n), np.float32), device=dev)
+    o, d, _ = _rays(32)
+    o, d = (V3(*(c.to(dev) for c in v)) for v in (o, d))
+    events = auto_events(*arrays.grid.shape)
+    torch.cuda.set_device(0)
+    got = (device_probe.row_gather_sum(table, idx, 3),
+           texel_fetch(atlas, tex, uv[0], uv[1],
+                       channels=(0, 1, 2, 3, 4, 5, 6, 8)),
+           window_trace(arrays, o, d, events))
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    assert torch.equal(got[0], device_probe.row_gather_sum_plain(
+        table, idx, 3))
+    assert torch.equal(got[1], texel_plain(
+        atlas, tex, uv[0], uv[1], channels=(0, 1, 2, 3, 4, 5, 6, 8)))
+    want = trace_plain(arrays, o, d, events)
+    for g, w in zip(got[2], want):
+        assert g.device == dev
+        assert int((g != w).sum()) <= 1e-5 * o.x.shape[0]
+
+
 def test_loop_probe_primitives_match_plain(card):
     a = _i32(card.integers(-40000, 40000, (128, 128)))
     row = torch.arange(128, dtype=torch.int32, device="cuda")[:, None]

@@ -181,6 +181,48 @@ def test_extract_win_matches_tpu_kernel(jax_roofline, iters):
     assert first.numpy()[~away].any()
 
 
+@pytest.mark.parametrize("form", ["cur", "win"])
+def test_extract_lanes_off_the_table_match_tpu_kernel(jax_roofline, form):
+    """Lanes that start 3 before the table or 2 past its width read 0
+    until they wrap into it, in the TPU kernels as in the port's, and so
+    do lanes 2 past its depth, for good.  For the window form the lanes 3
+    before the table stand 2 past its depth too, so that the consensus
+    window index stays inside the table: below it the port reads the
+    nearest block and the interpret mode wraps the index as JAX's
+    indexing does (the TPU kernel would read outside its table)."""
+    rng = np.random.default_rng(8)
+    nwx, nwz, nc, rows, iters = 2, 2, 3, 8, 16
+    gx, gz = nwx * 32, nwz * 32
+    table = rng.integers(0, 255, (nc, gz, gx))
+    edge = rng.random((rows, 128))
+    cx = np.where(edge < 0.2, -3, np.where(edge > 0.8, gx + 2,
+                                           rng.integers(0, gx, (rows, 128))))
+    deep = (edge > 0.9) | ((edge < 0.2) if form == "win" else False)
+    cz = np.where(deep, gz + 2, rng.integers(0, gz, (rows, 128)))
+    spec = pl.BlockSpec(memory_space=pltpu.VMEM)
+    if form == "cur":
+        kern = functools.partial(jax_roofline._cur_kernel, gx=gx, gz=gz,
+                                 nc=nc, iters=iters)
+        m = table.reshape(nc * gz, gx)
+    else:
+        kern = functools.partial(jax_roofline._win_kernel, nwx=nwx, nwz=nwz,
+                                 nc=nc, iters=iters, dtype=jnp.bfloat16)
+        m = ep.tile_windows(_t(table, np.uint8), nwx, nwz).numpy()
+    with pltpu.force_tpu_interpret_mode():
+        want = pl.pallas_call(
+            kern, in_specs=[spec] * 3, out_specs=spec,
+            out_shape=jax.ShapeDtypeStruct((rows, 128), jnp.int32),
+        )(jnp.asarray(m.astype(np.float32), jnp.bfloat16),
+          jnp.asarray(cx, jnp.int32), jnp.asarray(cz, jnp.int32))
+    if form == "cur":
+        got = ep.extract_cur(_t(table, np.uint8), _t(cx), _t(cz), iters)
+    else:
+        got = ep.extract_win(_t(m, np.uint8), _t(cx), _t(cz), iters, nwx,
+                             nwz)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.abs().sum() > 0
+
+
 def test_extract_groups_and_window_tiling():
     """Each group takes its own consensus window; lanes that stay inside
     one window read the same voxels from the whole-scene table and from

@@ -170,9 +170,60 @@ def test_launchers_match_their_c_functions():
     assert sorted(seen) == sorted(sigs)
 
 
+def _fake_launcher(result=0, current=0):
+    """A Launcher whose typed function, stream and device calls are fakes
+    that log what they are asked; the log and the device state returned
+    beside it."""
+    log, state = [], {"device": current}
+    launcher = _build.Launcher("texel", "texel_launch", "pi", "fake")
+
+    def call(*args):
+        log.append(("launch", state["device"], args))
+        if isinstance(result, Exception):
+            raise result
+        return result
+
+    def set_device(d):
+        log.append(("set", d))
+        state["device"] = d
+
+    launcher._call = call
+    launcher._stream = lambda d: 1000 + d
+    launcher._get_device = lambda: state["device"]
+    launcher._set_device = set_device
+    return launcher, log, state
+
+
+def test_launcher_switches_device_only_when_it_differs():
+    """On the current device a launch switches nothing; on another it
+    makes that device current for the launch, with that device's stream,
+    and restores the old one after it, also when the launch fails or
+    raises."""
+    launcher, log, state = _fake_launcher()
+    assert launcher(0, 7, 3) == 0
+    assert log == [("launch", 0, (7, 3, 1000))]
+    log.clear()
+    assert launcher(2, 7, 3) == 0
+    assert log == [("set", 2), ("launch", 2, (7, 3, 1002)), ("set", 0)]
+    assert state["device"] == 0
+    for result in (700, RuntimeError("lost")):
+        launcher, log, state = _fake_launcher(result, current=1)
+        with pytest.raises(RuntimeError):
+            launcher(3, 7, 3)
+        assert log == [("set", 3), ("launch", 3, (7, 3, 1003)), ("set", 1)]
+        assert state["device"] == 1
+
+
 def test_launcher_refuses_an_unknown_parameter_type():
     with pytest.raises(ValueError):
         _build.Launcher("texel", "texel_launch", "pix", "texel_fetch")
+
+
+def test_kernel_times_takes_the_probe_kernels():
+    args = kernel_times.parse(["--kernels", "loop_probe", "extract_cur",
+                               "extract_win", "--root", "build/parent"])
+    assert args.kernels == ["loop_probe", "extract_cur", "extract_win"]
+    assert args.root == "build/parent"
 
 
 def test_kernel_times_options_parse_with_no_card(capsys):

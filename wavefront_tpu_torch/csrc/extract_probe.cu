@@ -17,15 +17,39 @@
 // the (rows, 128) tiles are the TPU's means; the integers in `acc` are
 // the semantics.  Tables here are uint8 holding 0..254.
 //
-// What bounds them on this card: load latency.  Every lane-iteration is
-// nc byte loads whose address hangs on the previous iteration's result;
-// `cur` takes them from L2/L1 with ordinary loads, `win` from shared
-// memory after the block has copied the window's nc*1024 bytes in with
-// 16-byte loads.  A group of lanes is one thread block (the TPU kernel's
-// whole tile: the consensus minimum is a block reduction), each thread
-// keeping LPT lanes in registers; many groups in one launch fill the card.
+// What bounds them on this card: the dependent chain of each lane and the
+// instructions on it.  Every lane-iteration reads nc channel bytes of its
+// own voxel, at an address that hangs on the previous iteration's result:
+// `cur` from L2/L1 with ordinary byte loads, `win` from the window staged
+// in shared memory.  The design keeps that chain to the read and little
+// else:
+//   * the channel loop runs to the compile-time MAX_NC, each step
+//     predicated on the run-time nc, so a lane's nc loads go out together
+//     (looped to nc, each load waited behind the XOR before it); `cur`
+//     reads channels past MAX_NC, which no lab row has, in a loop after;
+//   * the next cx wraps by a compare and a select while cx + 1 lies in
+//     [0, width]; any other value (a lane that starts off the table) takes
+//     the floor modulo on a branch of its own, so no step divides;
+//   * `win` stages the window voxel-major: voxel (zrel, xl) holds its nc
+//     channel bytes together, zero-padded to an 8-byte slot (nc <= 8) or a
+//     16-byte one (nc <= 16; zero is neutral to XOR), so a read is one
+//     8- or 16-byte shared load and an XOR fold.  Read channel-planar, the
+//     nc byte loads of a warp fell on random words of 1 KB planes and each
+//     waited for its bank conflicts, nc times;
+//   * `win` agrees on its window with one barrier: each warp's minimum
+//     (__reduce_min_sync) goes into a shared atomicMin, in one of three
+//     slots used in turn (thread 0 resets the slot two rounds ahead, which
+//     no thread can touch before the next barrier), and the window is
+//     staged again only when the consensus moved: the lab's `win` rows
+//     therefore time that saving too.  A stage reads the window's rows as
+//     4-byte words, each thread four voxels, and transposes them in
+//     registers (__byte_perm) into the slots; a second barrier follows it.
+// A group of lanes is one thread block (the TPU kernel's whole tile: the
+// consensus minimum is a block reduction), each thread keeping LPT lanes
+// in registers; many groups in one launch fill the card.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -43,6 +67,13 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
     return r < 0 ? r + m : r;
 }
 
+// (x + 1) mod m for any x (m >= 1): no division while x + 1 lies in [0, m]
+__device__ __forceinline__ int step_mod(int x, int m) {
+    const int n = (int)((unsigned)x + 1u);
+    if (__builtin_expect((unsigned)n <= (unsigned)m, 1)) return n == m ? 0 : n;
+    return floor_mod(n, m);
+}
+
 template <int LPT>
 __global__ void __launch_bounds__(512) cur_kernel(
     const uint8_t* __restrict__ table, const int* __restrict__ cx0,
@@ -58,16 +89,21 @@ __global__ void __launch_bounds__(512) cur_kernel(
         cz[l] = cz0[base + l * blockDim.x];
         acc[l] = 0;
     }
-    const int plane = gz * gx;
+    const size_t plane = (size_t)gz * gx;
+    // one iteration a pass: the machine code's loop is one iteration
+#pragma unroll 1
     for (int it = 0; it < iters; ++it) {
 #pragma unroll
         for (int l = 0; l < LPT; ++l) {
             int s = 0;
             if ((unsigned)cx[l] < (unsigned)gx && (unsigned)cz[l] < (unsigned)gz) {
-                const uint8_t* p = table + cz[l] * gx + cx[l];
-                for (int c = 0; c < nc; ++c) s ^= (int)p[c * plane];
+                const uint8_t* p = table + (size_t)cz[l] * gx + cx[l];
+#pragma unroll
+                for (int c = 0; c < MAX_NC; ++c)
+                    if (c < nc) s ^= (int)p[c * plane];
+                for (int c = MAX_NC; c < nc; ++c) s ^= (int)p[c * plane];
             }
-            cx[l] = s == never ? cz[l] : floor_mod(cx[l] + 1, gx);
+            cx[l] = s == never ? cz[l] : step_mod(cx[l], gx);
             acc[l] += (unsigned)s;
         }
     }
@@ -75,15 +111,38 @@ __global__ void __launch_bounds__(512) cur_kernel(
     for (int l = 0; l < LPT; ++l) out[base + l * blockDim.x] = (int)acc[l];
 }
 
-template <int LPT>
+// a window's voxel slot: nc <= 8 channel bytes in a uint2, <= 16 in a uint4
+template <int SLOT> struct SlotOf { using T = uint2; };
+template <> struct SlotOf<16> { using T = uint4; };
+
+__device__ __forceinline__ unsigned fold(uint2 v) { return v.x ^ v.y; }
+__device__ __forceinline__ unsigned fold(uint4 v) {
+    return (v.x ^ v.y) ^ (v.z ^ v.w);
+}
+
+// byte i of each of the four words a, b, c, d, in that order
+__device__ __forceinline__ uint32_t byte_column(uint32_t a, uint32_t b,
+                                                uint32_t c, uint32_t d,
+                                                int i) {
+    const uint32_t sel = (uint32_t)i | ((uint32_t)(i + 4) << 4);
+    return __byte_perm(__byte_perm(a, b, sel), __byte_perm(c, d, sel), 0x5410);
+}
+
+// Measurement schemes: 0 as the source note; 1 the same (the launch takes
+// 256 threads a block); 2 the parent's channel-planar stage and byte
+// reads, with the unrolled loop, the wrap and the consensus of scheme 0;
+// 3 scheme 0 staging every round.
+template <int LPT, int SLOT, int S = 0>
 __global__ void __launch_bounds__(512) win_kernel(
     const uint8_t* __restrict__ tw, const int* __restrict__ cx0,
     const int* __restrict__ cz0, int* __restrict__ out,
     int nwx, int nwz, int nc, int iters, int lanes, int never)
 {
-    __shared__ __align__(16) uint8_t blk[MAX_NC * 8 * 128];
-    __shared__ int warp_min[16];
-    __shared__ int window;
+    using Slot = typename SlotOf<SLOT>::T;
+    constexpr int WORDS = SLOT / 4;
+    __shared__ Slot win[S == 2 ? 1 : 1024];      // voxel zrel * 32 + xl
+    __shared__ __align__(16) uint8_t planar[S == 2 ? MAX_NC * 1024 : 16];
+    __shared__ int consensus[3];
 
     const size_t base = (size_t)blockIdx.x * lanes + threadIdx.x;
     int cx[LPT], cz[LPT];
@@ -94,49 +153,92 @@ __global__ void __launch_bounds__(512) win_kernel(
         cz[l] = cz0[base + l * blockDim.x];
         acc[l] = 0;
     }
+    if (threadIdx.x < 3) consensus[threadIdx.x] = INT_MAX;
+    __syncthreads();
     const int width = nwx * 32;
-    const int block_bytes = nc * 8 * 128;
-    const int warps = (blockDim.x + 31) >> 5;
+    const int block_bytes = nc * 1024;
+    bool have = false;
+    int staged = 0;
 
-    for (int i = 0; i < iters; i += 8) {
+#pragma unroll 1
+    for (int i = 0, round = 0; i < iters; i += 8, ++round) {
         // the window all lanes of the group agree on
-        int w = 0x7fffffff;
+        int w = INT_MAX;
 #pragma unroll
         for (int l = 0; l < LPT; ++l)
             w = min(w, (cx[l] >> 5) * nwz + (cz[l] >> 5));
         w = __reduce_min_sync(0xffffffffu, w);
-        if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = w;
+        const int slot = round % 3;
+        if ((threadIdx.x & 31) == 0) atomicMin(&consensus[slot], w);
         __syncthreads();
-        if (threadIdx.x == 0) {
-            int m = warp_min[0];
-            for (int k = 1; k < warps; ++k) m = min(m, warp_min[k]);
-            window = m;
-        }
-        __syncthreads();
-        w = window;
-        const int x0 = (w >= 0 ? w / nwz : -((-w + nwz - 1) / nwz)) * 32;
+        w = consensus[slot];
+        if (threadIdx.x == 0) consensus[(round + 2) % 3] = INT_MAX;
+        const int x0 = (w >= 0 ? w / nwz : -((-(w + 1)) / nwz) - 1) * 32;
         const int z0 = floor_mod(w, nwz) * 32;
-        // stage its block; a window index outside the table reads the
-        // nearest block (an in-range index is the caller's to give)
-        const int wc = min(max(w, 0), nwx * nwz - 1);
-        const uint4* src = reinterpret_cast<const uint4*>(
-            tw + (size_t)wc * block_bytes);
-        uint4* dst = reinterpret_cast<uint4*>(blk);
-        for (int k = threadIdx.x; k < block_bytes / 16; k += blockDim.x)
-            dst[k] = src[k];
-        __syncthreads();
+        if (S == 3 || !have || w != staged) {
+            // stage its block; a window index outside the table reads the
+            // nearest block (an in-range index is the caller's to give)
+            const int wc = min(max(w, 0), nwx * nwz - 1);
+            const uint8_t* src = tw + (size_t)wc * block_bytes;
+            if constexpr (S == 2) {
+                const uint4* s4 = reinterpret_cast<const uint4*>(src);
+                uint4* d4 = reinterpret_cast<uint4*>(planar);
+                for (int k = threadIdx.x; k < block_bytes / 16; k += blockDim.x)
+                    d4[k] = s4[k];
+            } else {
+                // thread k: voxels xl = 4 * (k & 7) + 0..3 of row zrel = k >> 3,
+                // a 4-byte word of each channel's row c * 8 + (zrel & 7)
+                for (int k = threadIdx.x; k < 256; k += blockDim.x) {
+                    const int zrel = k >> 3;
+                    const uint8_t* row = src + (zrel & 7) * 128
+                        + (zrel >> 3) * 32 + (k & 7) * 4;
+                    uint32_t ch[SLOT];
+#pragma unroll
+                    for (int c = 0; c < SLOT; ++c)
+                        ch[c] = c < nc ? *reinterpret_cast<const uint32_t*>(
+                                             row + c * 1024) : 0u;
+#pragma unroll
+                    for (int v = 0; v < 4; ++v) {
+                        uint32_t part[WORDS];
+#pragma unroll
+                        for (int g = 0; g < WORDS; ++g)
+                            part[g] = byte_column(ch[4 * g], ch[4 * g + 1],
+                                                  ch[4 * g + 2], ch[4 * g + 3], v);
+                        Slot out_slot;
+                        if constexpr (SLOT == 8) {
+                            out_slot = make_uint2(part[0], part[1]);
+                        } else {
+                            out_slot = make_uint4(part[0], part[1], part[2], part[3]);
+                        }
+                        win[zrel * 32 + (k & 7) * 4 + v] = out_slot;
+                    }
+                }
+            }
+            __syncthreads();
+            staged = w;
+            have = true;
+        }
 
+#pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int l = 0; l < LPT; ++l) {
                 const int xl = cx[l] - x0, zrel = cz[l] - z0;
                 int s = 0;
                 if ((unsigned)xl < 32u && (unsigned)zrel < 32u) {
-                    const uint8_t* p = blk + (zrel & 7) * 128
-                        + ((zrel >> 3) << 5) + xl;
-                    for (int c = 0; c < nc; ++c) s ^= (int)p[c * 1024];
+                    if constexpr (S == 2) {
+                        const uint8_t* p = planar + (zrel & 7) * 128
+                            + ((zrel >> 3) << 5) + xl;
+#pragma unroll
+                        for (int c = 0; c < MAX_NC; ++c)
+                            if (c < nc) s ^= (int)p[c * 1024];
+                    } else {
+                        unsigned x = fold(win[zrel * 32 + xl]);
+                        x ^= x >> 16;
+                        s = (int)((x ^ (x >> 8)) & 0xffu);
+                    }
                 }
-                cx[l] = s == never ? cz[l] : floor_mod(cx[l] + 1, width);
+                cx[l] = s == never ? cz[l] : step_mod(cx[l], width);
                 acc[l] += (unsigned)s;
             }
         }
@@ -146,10 +248,10 @@ __global__ void __launch_bounds__(512) win_kernel(
 }
 
 // threads per block and lanes per thread of a group of `lanes` lanes:
-// up to 512 threads, then 2, 4 or 8 lanes a thread
-bool group_shape(int lanes, int* threads, int* lpt) {
+// up to `most` threads, then 2, 4 or 8 lanes a thread
+bool group_shape(int lanes, int most, int* threads, int* lpt) {
     if (lanes < 32 || lanes % 32 != 0) return false;
-    *threads = lanes < 512 ? lanes : 512;
+    *threads = lanes < most ? lanes : most;
     if (lanes % *threads != 0) return false;
     *lpt = lanes / *threads;
     return *lpt == 1 || *lpt == 2 || *lpt == 4 || *lpt == 8;
@@ -174,7 +276,8 @@ extern "C" int ep_extract_cur(const uint8_t* table, const int* cx,
                               void* stream)
 {
     int threads, lpt;
-    if (!group_shape(lanes, &threads, &lpt) || gx < 1 || gz < 1 || nc < 1)
+    if (!group_shape(lanes, 512, &threads, &lpt) || gx < 1 || gz < 1
+            || nc < 1)
         return (int)cudaErrorInvalidValue;
     if (groups <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
@@ -183,20 +286,48 @@ extern "C" int ep_extract_cur(const uint8_t* table, const int* cx,
     return (int)cudaGetLastError();
 }
 
+template <int LPT>
+void launch_win(int scheme, int groups, int threads, cudaStream_t s,
+                const uint8_t* tw, const int* cx, const int* cz, int* out,
+                int nwx, int nwz, int nc, int iters, int lanes)
+{
+#define EP_ARGS tw, cx, cz, out, nwx, nwz, nc, iters, lanes, NEVER
+    if constexpr (LPT == 2 || LPT == 4) {
+        if (scheme == 2 && nc <= 8) {
+            win_kernel<LPT, 8, 2><<<groups, threads, 0, s>>>(EP_ARGS);
+            return;
+        }
+        if (scheme == 3 && nc <= 8) {
+            win_kernel<LPT, 8, 3><<<groups, threads, 0, s>>>(EP_ARGS);
+            return;
+        }
+    }
+    if (nc <= 8)
+        win_kernel<LPT, 8><<<groups, threads, 0, s>>>(EP_ARGS);
+    else
+        win_kernel<LPT, 16><<<groups, threads, 0, s>>>(EP_ARGS);
+#undef EP_ARGS
+}
+
 // tw: (nwx*nwz, nc*8, 128) uint8, 16-byte aligned; cx, cz, out:
 // (groups, lanes) int32.  iters rounds up to a multiple of 8.
 extern "C" int ep_extract_win(const uint8_t* tw, const int* cx,
                               const int* cz, int* out, int nwx, int nwz,
                               int nc, int iters, int groups, int lanes,
-                              void* stream)
+                              int scheme, void* stream)
 {
     int threads, lpt;
-    if (!group_shape(lanes, &threads, &lpt) || nwx < 1 || nwz < 1 || nc < 1
+    if (!group_shape(lanes, scheme == 1 ? 256 : 512, &threads, &lpt)
+            || nwx < 1 || nwz < 1 || nc < 1
             || nc > MAX_NC || (reinterpret_cast<uintptr_t>(tw) & 15u) != 0)
         return (int)cudaErrorInvalidValue;
     if (groups <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    LAUNCH_BY_LPT(win_kernel, tw, cx, cz, out, nwx, nwz, nc, iters, lanes,
-                  NEVER)
+    switch (lpt) {
+    case 1: launch_win<1>(scheme, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc, iters, lanes); break;
+    case 2: launch_win<2>(scheme, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc, iters, lanes); break;
+    case 4: launch_win<4>(scheme, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc, iters, lanes); break;
+    default: launch_win<8>(scheme, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc, iters, lanes); break;
+    }
     return (int)cudaGetLastError();
 }

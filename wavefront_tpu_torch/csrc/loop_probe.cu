@@ -33,6 +33,35 @@
 // iteration), the rest by the latency and bandwidth of the memory they
 // read.  A group of rows * 128 lanes is one thread block with the lanes
 // in registers, LPT to a thread.
+//
+// The onehot forms read the table column-major: a code's NR bytes lie
+// together (64 B for NR 64, 8 B for NR 8) and are read as four 16-byte
+// chunks or one 8-byte chunk, summed with __dp4a on unsigned operands
+// (bytes 0..255; the sum is exact).  Read a byte at a time, the table's
+// 64 loads a lane-iteration held the shared form at 97% of the card's
+// shared-memory rate for byte loads; wide loads move the same 64 bytes in
+// 4 loads.  A wide load is served a quarter-warp (16 B) or a half-warp
+// (8 B) at a time, one 128-byte row of the 32 banks a clock, and lanes of
+// one phase that fall in one 16-byte (8-byte) bank group wait for each
+// other.  So the shared form holds shifted copies of the table, and each
+// lane picks its copy and its chunk order so that the lanes of a phase
+// fall in distinct groups whatever their codes:
+//   NR 64  two copies, the second 64 B further along; a column spans half
+//          a bank row, its 16-byte chunks are groups 4*(code & 1) + c in
+//          the first copy and 4*(~code & 1) + c in the second; lane l reads
+//          copy (code ^ (l >> 2)) & 1 and at step k chunk (k + l) & 3, so
+//          it meets group 4*((l >> 2) & 1) + ((k + l) & 3): distinct for the
+//          8 lanes of a quarter-warp
+//   NR 8   sixteen copies, copy q 8 B further along than copy q - 1; lane l
+//          reads copy (l - code) & 15, which puts its column in group
+//          l & 15: distinct for the 16 lanes of a half-warp
+// (16.1 KB of shared memory either way, staged once a launch).  The
+// global (__ldg) and constant forms read a column-major copy that the
+// launch makes first (one small transposing kernel; one copy, chunks in
+// the same staggered order): they differ from the shared form in where
+// the table lives, and in the copies, which only shared memory's banks
+// ask for.  Every iteration still reads all NR bytes of its code's
+// column; nothing is hoisted out of the dependent loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,18 +76,49 @@ enum Variant {
 };
 
 constexpr int TABLE_BYTES = 64 * 128;
-__constant__ uint8_t c_table[TABLE_BYTES];
+__constant__ __align__(16) uint8_t c_table[TABLE_BYTES];
 
-// s = sum over r < NR of tab[r * 128 + code], 0 when code is outside
-// [0, 128) (the one-hot of such a code is empty)
-template <int NR, typename Load>
-__device__ __forceinline__ int column_sum(int code, Load load) {
-    int s = 0;
-    if ((unsigned)code < 128u) {
-#pragma unroll 8
-        for (int r = 0; r < NR; ++r) s += load(r * 128 + code);
+// the shared form's copies of an (NR, 128) table (source note)
+template <int NR>
+struct Copies {
+    static constexpr int N = NR == 64 ? 2 : 16;
+    static constexpr int STRIDE = NR * 128 + (NR == 64 ? 64 : 8);
+    static constexpr int BYTES = N * STRIDE;
+};
+
+// Measurement schemes of the shared form (NR 64; NR 8 takes 0, 5 or one
+// plain copy): 0 the copies above; 1 one copy, 16-byte chunks in order;
+// 2 one copy, staggered chunks; 3 one copy, chunk k ^ ((code >> 1) & 3);
+// 4 one copy, 8-byte chunks staggered; 5 the byte loads of a row-major
+// table.
+__device__ __forceinline__ unsigned add4(uint32_t w, unsigned s) {
+    return __dp4a(w, 0x01010101u, s);
+}
+
+__device__ __forceinline__ unsigned add16(uint4 v) {
+    // two independent chains, so that no add waits for three others
+    return add4(v.x, add4(v.y, 0u)) + add4(v.z, add4(v.w, 0u));
+}
+
+__device__ __forceinline__ unsigned add8(uint2 v) {
+    return add4(v.x, add4(v.y, 0u));
+}
+
+// s = sum over r < NR of table[r, code] from a column-major table at
+// `cols` (code * NR + r), chunks in the order given by `rot`; 0 when code
+// is outside [0, 128) (the one-hot of such a code is empty)
+template <int NR, typename Chunk16, typename Chunk8>
+__device__ __forceinline__ int column_sum(int code, int rot, Chunk16 c16,
+                                          Chunk8 c8) {
+    if ((unsigned)code >= 128u) return 0;
+    if constexpr (NR == 64) {
+        unsigned s = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s += add16(c16(code * 64 + ((k + rot) & 3) * 16));
+        return (int)s;
+    } else {
+        return (int)add8(c8(code * 8));
     }
-    return s;
 }
 
 __device__ __forceinline__ int pick_tree(const int* v, int z) {
@@ -68,18 +128,54 @@ __device__ __forceinline__ int pick_tree(const int* v, int z) {
     return (z & 4) ? f : e;
 }
 
-template <int V, int NR, int LPT>
+// the shared form's byte count of an (NR, 128) table under scheme S
+template <int NR, int S>
+constexpr int smem_bytes() {
+    return S == 0 ? Copies<NR>::BYTES : NR * 128;
+}
+
+// the column-major copy of a row-major (nr, 128) table: cols[code * nr + r]
+__global__ void column_major_kernel(const uint8_t* __restrict__ table,
+                                    uint8_t* __restrict__ cols, int nr)
+{
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k < nr * 128) cols[(k & 127) * nr + (k >> 7)] = table[k];
+}
+
+template <int V, int NR, int LPT, int S = 0>
 __global__ void __launch_bounds__(512) loop_kernel(
     const int* __restrict__ code0, const int* __restrict__ acc0,
     const uint8_t* __restrict__ table, const int* __restrict__ offsets,
     int* __restrict__ code_out, int* __restrict__ acc_out,
     int iters, int lanes, int one, int zero)
 {
-    __shared__ uint8_t s_table[V == ONEHOT_SMEM ? TABLE_BYTES : 1];
+    __shared__ __align__(16) uint8_t s_table[
+        V == ONEHOT_SMEM ? smem_bytes<NR, S>() : 16];
     __shared__ int s_off[V == ZSEL_SMEM ? 64 : 1];
-    if constexpr (V == ONEHOT_SMEM) {
+    if constexpr (V == ONEHOT_SMEM && S == 5) {
         for (int k = threadIdx.x; k < NR * 128; k += blockDim.x)
             s_table[k] = table[k];
+    } else if constexpr (V == ONEHOT_SMEM) {
+        // eight rows of a code's column a thread: byte loads that are
+        // coalesced across the warp's codes, one 8-byte store a copy
+        for (int k = threadIdx.x; k < NR * 16; k += blockDim.x) {
+            const int code = k & 127, h = k >> 7;
+            uint32_t lo = 0, hi = 0;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                lo |= (uint32_t)table[(8 * h + i) * 128 + code] << (8 * i);
+                hi |= (uint32_t)table[(8 * h + 4 + i) * 128 + code] << (8 * i);
+            }
+            const uint2 u = make_uint2(lo, hi);
+            const int at = code * NR + 8 * h;
+            if constexpr (S == 0) {
+#pragma unroll
+                for (int q = 0; q < Copies<NR>::N; ++q)
+                    *reinterpret_cast<uint2*>(s_table + q * Copies<NR>::STRIDE + at) = u;
+            } else {
+                *reinterpret_cast<uint2*>(s_table + at) = u;
+            }
+        }
     }
     if constexpr (V == ZSEL_SMEM) {
         for (int k = threadIdx.x; k < 64; k += blockDim.x)
@@ -87,6 +183,7 @@ __global__ void __launch_bounds__(512) loop_kernel(
     }
     __syncthreads();
 
+    const int lane = threadIdx.x & 31;
     const size_t base = (size_t)blockIdx.x * lanes + threadIdx.x;
     int code[LPT];
     unsigned acc[LPT];
@@ -101,7 +198,7 @@ __global__ void __launch_bounds__(512) loop_kernel(
         for (int k = 0; k < 64; ++k) off[k] = offsets[k];
     }
 
-    for (int it = 0; it < iters; ++it) {
+    auto step = [&]() {
         if constexpr (V == ADD_CHAIN) {
             // 64 adds per lane, each followed by an XOR with a zero the
             // assembler cannot see: it merges a bare chain of adds of one
@@ -117,12 +214,57 @@ __global__ void __launch_bounds__(512) loop_kernel(
 #pragma unroll
             for (int l = 0; l < LPT; ++l) {
                 int s = 0;
-                if constexpr (V == ONEHOT_SMEM)
-                    s = column_sum<NR>(code[l], [&](int k) { return (int)s_table[k]; });
+                if constexpr (V == ONEHOT_SMEM && S == 0) {
+                    // the copy and chunk order of the source note
+                    const uint8_t* t = s_table;
+                    if constexpr (NR == 64)
+                        t += ((code[l] ^ (lane >> 2)) & 1) * Copies<NR>::STRIDE;
+                    else
+                        t += ((lane - code[l]) & 15) * Copies<NR>::STRIDE;
+                    s = column_sum<NR>(
+                        code[l], lane,
+                        [&](int k) { return *reinterpret_cast<const uint4*>(t + k); },
+                        [&](int k) { return *reinterpret_cast<const uint2*>(t + k); });
+                }
+                if constexpr (V == ONEHOT_SMEM && S >= 1 && S <= 4) {
+                    const int c = code[l];
+                    if ((unsigned)c < 128u) {
+                        unsigned u = 0;
+                        if constexpr (NR == 8) {
+                            u = add8(*reinterpret_cast<const uint2*>(s_table + c * 8));
+                        } else if constexpr (S == 4) {
+#pragma unroll
+                            for (int k = 0; k < 8; ++k)
+                                u += add8(*reinterpret_cast<const uint2*>(
+                                    s_table + c * 64 + ((k + lane) & 7) * 8));
+                        } else {
+#pragma unroll
+                            for (int k = 0; k < 4; ++k) {
+                                const int ch = S == 1 ? k : S == 2 ? ((k + lane) & 3)
+                                                             : (k ^ ((c >> 1) & 3));
+                                u += add16(*reinterpret_cast<const uint4*>(
+                                    s_table + c * 64 + ch * 16));
+                            }
+                        }
+                        s = (int)u;
+                    }
+                }
+                if constexpr (V == ONEHOT_SMEM && S == 5) {
+                    if ((unsigned)code[l] < 128u) {
+#pragma unroll 8
+                        for (int r = 0; r < NR; ++r) s += s_table[r * 128 + code[l]];
+                    }
+                }
                 if constexpr (V == ONEHOT_LDG)
-                    s = column_sum<NR>(code[l], [&](int k) { return (int)__ldg(table + k); });
+                    s = column_sum<NR>(
+                        code[l], lane,
+                        [&](int k) { return __ldg(reinterpret_cast<const uint4*>(table + k)); },
+                        [&](int k) { return __ldg(reinterpret_cast<const uint2*>(table + k)); });
                 if constexpr (V == ONEHOT_CONST)
-                    s = column_sum<NR>(code[l], [&](int k) { return (int)c_table[k]; });
+                    s = column_sum<NR>(
+                        code[l], lane,
+                        [&](int k) { return *reinterpret_cast<const uint4*>(c_table + k); },
+                        [&](int k) { return *reinterpret_cast<const uint2*>(c_table + k); });
                 if constexpr (V == ZSEL_TREE) {
 #pragma unroll
                     for (int c = 0; c < 8; ++c) {
@@ -154,6 +296,14 @@ __global__ void __launch_bounds__(512) loop_kernel(
                 acc[l] += (unsigned)s;
             }
         }
+    };
+    if constexpr (V == ONEHOT_SMEM || V == ONEHOT_LDG || V == ONEHOT_CONST) {
+        // one iteration a pass, so that the machine code's loop is one
+        // iteration of the body (probe_check counts its loads)
+#pragma unroll 1
+        for (int it = 0; it < iters; ++it) step();
+    } else {
+        for (int it = 0; it < iters; ++it) step();
     }
 #pragma unroll
     for (int l = 0; l < LPT; ++l) {
@@ -174,18 +324,25 @@ template <int V, int NR>
 void launch(int lpt, int groups, int threads, cudaStream_t s,
             const int* code, const int* acc, const uint8_t* table,
             const int* offsets, int* code_out, int* acc_out, int iters,
-            int lanes)
+            int lanes, int scheme)
 {
-    switch (lpt) {
-    case 1: loop_kernel<V, NR, 1><<<groups, threads, 0, s>>>(
-        code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0); break;
-    case 2: loop_kernel<V, NR, 2><<<groups, threads, 0, s>>>(
-        code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0); break;
-    case 4: loop_kernel<V, NR, 4><<<groups, threads, 0, s>>>(
-        code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0); break;
-    default: loop_kernel<V, NR, 8><<<groups, threads, 0, s>>>(
-        code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0); break;
+#define LP_ARGS code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0
+    if constexpr (V == ONEHOT_SMEM) if (lpt == 4 && scheme != 0) {
+        switch (scheme) {
+        case 1: loop_kernel<V, NR, 4, 1><<<groups, threads, 0, s>>>(LP_ARGS); return;
+        case 2: loop_kernel<V, NR, 4, 2><<<groups, threads, 0, s>>>(LP_ARGS); return;
+        case 3: loop_kernel<V, NR, 4, 3><<<groups, threads, 0, s>>>(LP_ARGS); return;
+        case 4: loop_kernel<V, NR, 4, 4><<<groups, threads, 0, s>>>(LP_ARGS); return;
+        default: loop_kernel<V, NR, 4, 5><<<groups, threads, 0, s>>>(LP_ARGS); return;
+        }
     }
+    switch (lpt) {
+    case 1: loop_kernel<V, NR, 1><<<groups, threads, 0, s>>>(LP_ARGS); break;
+    case 2: loop_kernel<V, NR, 2><<<groups, threads, 0, s>>>(LP_ARGS); break;
+    case 4: loop_kernel<V, NR, 4><<<groups, threads, 0, s>>>(LP_ARGS); break;
+    default: loop_kernel<V, NR, 8><<<groups, threads, 0, s>>>(LP_ARGS); break;
+    }
+#undef LP_ARGS
 }
 
 // ---- the five primitives of probe_support ----
@@ -239,12 +396,16 @@ __global__ void lane_roll_kernel(const float* __restrict__ a,
 
 // code, acc, code_out, acc_out: (groups, lanes) int32 (acc and acc_out
 // unused by `issue`); table: (nr, 128) uint8 with nr 8 or 64 (onehot);
+// cols: nr * 128 bytes of scratch, 16-byte aligned, for
+// the column-major copy of the global and constant forms (else unused);
 // offsets: (8, 8) int32 (zsel).  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a variant, nr or group size it does not take.
+// cudaErrorInvalidValue for a variant, nr, alignment or group size it
+// does not take.
 extern "C" int lp_loop(int variant, int nr, const int* code, const int* acc,
-                       const uint8_t* table, const int* offsets,
-                       int* code_out, int* acc_out, int iters, int groups,
-                       int lanes, void* stream)
+                       const uint8_t* table, uint8_t* cols,
+                       const int* offsets, int* code_out, int* acc_out,
+                       int iters, int groups, int lanes, int scheme,
+                       void* stream)
 {
     int threads, lpt;
     if (!group_shape(lanes, &threads, &lpt)) return (int)cudaErrorInvalidValue;
@@ -252,13 +413,19 @@ extern "C" int lp_loop(int variant, int nr, const int* code, const int* acc,
     cudaStream_t s = (cudaStream_t)stream;
     const bool onehot = variant >= ONEHOT_SMEM && variant <= ONEHOT_CONST;
     if (onehot && nr != 8 && nr != 64) return (int)cudaErrorInvalidValue;
+    if (variant == ONEHOT_LDG || variant == ONEHOT_CONST) {
+        if ((reinterpret_cast<uintptr_t>(cols) & 15u) != 0)
+            return (int)cudaErrorInvalidValue;
+        column_major_kernel<<<(nr * 128 + 255) / 256, 256, 0, s>>>(table, cols, nr);
+        table = cols;
+    }
     if (variant == ONEHOT_CONST) {
         cudaError_t err = cudaMemcpyToSymbolAsync(
-            c_table, table, nr * 128, 0, cudaMemcpyDeviceToDevice, s);
+            c_table, cols, nr * 128, 0, cudaMemcpyDeviceToDevice, s);
         if (err != cudaSuccess) return (int)err;
     }
 #define GO(V, NR) launch<V, NR>(lpt, groups, threads, s, code, acc, table, \
-                                offsets, code_out, acc_out, iters, lanes)
+                                offsets, code_out, acc_out, iters, lanes, scheme)
     switch (variant) {
     case ADD_CHAIN: GO(ADD_CHAIN, 8); break;
     case ONEHOT_SMEM: if (nr == 64) GO(ONEHOT_SMEM, 64); else GO(ONEHOT_SMEM, 8); break;

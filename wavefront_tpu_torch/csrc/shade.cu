@@ -467,12 +467,16 @@ int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
         if (e != cudaSuccess) return (int)e;
     }
     // as many blocks as are resident at once, each looping over rays; the
-    // count is kept per device and shared-memory size
-    static int last_dev = -1, resident = 0;
-    static size_t last_smem = 0;
+    // count is read for the device that launches (the caller makes it
+    // current: _build.Launcher) and kept per device with its shared-memory
+    // size
+    constexpr int MAX_DEVICES = 64;
+    static int resident[MAX_DEVICES] = {};
+    static size_t resident_smem[MAX_DEVICES] = {};
     int dev = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if (dev != last_dev || smem != last_smem) {
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (resident[dev] == 0 || resident_smem[dev] != smem) {
         int sms = 0, per_sm = 0;
         if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                         dev)) != cudaSuccess)
@@ -480,11 +484,10 @@ int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
         if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                  &per_sm, shade_kernel<P, TRI>, BLOCK, smem)) != cudaSuccess)
             return (int)e;
-        resident = max(sms * per_sm, 1);
-        last_dev = dev;
-        last_smem = smem;
+        resident[dev] = max(sms * per_sm, 1);
+        resident_smem[dev] = smem;
     }
-    const int blocks = min((n + BLOCK - 1) / BLOCK, resident);
+    const int blocks = min((n + BLOCK - 1) / BLOCK, resident[dev]);
     shade_kernel<P, TRI><<<blocks, BLOCK, smem, stream>>>(
         in, tri, out, tb, n, inv_seed, bounce, nee_type);
     return (int)cudaGetLastError();

@@ -169,12 +169,15 @@ class Launcher:
     parameter is the stream.  The library is built and the function
     typed on the first call; later calls go straight to it.
 
-    `launcher(device, *args)` calls `fn(*args, stream)` with the handle of
-    PyTorch's current stream on CUDA device index `device`, read by
-    `torch._C._cuda_getCurrentRawStream` (the call PyTorch's own generated
-    code makes) without building a `torch.cuda.Stream`, and returns the
-    function's `cudaError`: 0, or one listed in `returned`; any other
-    raises."""
+    `launcher(device, *args)` calls `fn(*args, stream)` on CUDA device
+    index `device`, with the handle of PyTorch's current stream there,
+    read by `torch._C._cuda_getCurrentRawStream` (the call PyTorch's own
+    generated code makes) without building a `torch.cuda.Stream`, and
+    returns the function's `cudaError`: 0, or one listed in `returned`;
+    any other raises.  The launch goes to `device`: when another device
+    is current, `device` is made current for the call and the old one
+    restored after it; when it is current already, nothing switches (one
+    compare of device indices, `torch._C._cuda_getDevice`)."""
 
     def __init__(self, lib: str, fn: str, signature: str, what: str,
                  returned: tuple = ()):
@@ -184,6 +187,7 @@ class Launcher:
         self.lib, self.fn, self.signature = lib, fn, signature
         self.what, self.returned = what, tuple(returned)
         self._call = self._stream = None
+        self._get_device = self._set_device = None
 
     def bind(self):
         """Build and load the library and type the function; returns the
@@ -194,12 +198,22 @@ class Launcher:
                 ctypes.c_void_p]
             f.restype = ctypes.c_int
             self._stream = torch._C._cuda_getCurrentRawStream
+            self._get_device = torch._C._cuda_getDevice
+            self._set_device = torch._C._cuda_setDevice
             self._call = f
         return self._call
 
     def __call__(self, device: int, *args) -> int:
         call = self._call or self.bind()
-        err = call(*args, self._stream(device))
+        current = self._get_device()
+        if current == device:
+            err = call(*args, self._stream(device))
+        else:
+            self._set_device(device)
+            try:
+                err = call(*args, self._stream(device))
+            finally:
+                self._set_device(current)
         if err and err not in self.returned:
             raise RuntimeError(
                 f"{self.what}: CUDA launch failed (cudaError {err})")

@@ -109,7 +109,10 @@ def loop_probe_plain(variant: str, state, extra, iters: int):
     return code, acc
 
 
-_LOOP = _build.Launcher("loop_probe", "lp_loop", "iippppppiii", "loop_probe")
+_LOOP = _build.Launcher("loop_probe", "lp_loop", "iipppppppiiii",
+                        "loop_probe")
+# the shared form's layout, for measuring the alternatives (csrc note)
+_SMEM_SCHEME = 0
 _PRIMITIVE = _build.Launcher("loop_probe", "lp_primitive", "ippp",
                              "primitive")
 
@@ -128,13 +131,17 @@ def loop_probe(variant: str, state, extra, iters: int):
         return loop_probe_plain(variant, state, extra, iters)
     outs = tuple(torch.empty_like(x) for x in state)
     table = extra.data_ptr() if body == "onehot" else None
+    # the global and constant forms' column-major copy of the table
+    cols = (torch.empty(extra.numel(), dtype=torch.uint8, device=first.device)
+            if variant in ("onehot_ldg", "onehot_const") else None)
     offsets = extra.data_ptr() if body == "zsel" else None
     acc_in = state[1].data_ptr() if len(state) == 2 else None
     acc_out = outs[1].data_ptr() if len(state) == 2 else None
     _LOOP(first.get_device(), VARIANTS.index(variant),
           extra.shape[0] if body == "onehot" else 0, first.data_ptr(),
-          acc_in, table, offsets, outs[0].data_ptr(), acc_out, int(iters),
-          groups, lanes)
+          acc_in, table, None if cols is None else cols.data_ptr(), offsets,
+          outs[0].data_ptr(), acc_out, int(iters), groups, lanes,
+          _SMEM_SCHEME)
     loop_probe.launches += 1
     return outs
 

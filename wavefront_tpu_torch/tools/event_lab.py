@@ -274,6 +274,76 @@ def _headline_event_row() -> dict:
             "ns_per_ray_step": ms * 1e6 / steps}
 
 
+def _function_code(library: str, kernel: str) -> dict:
+    """{address: instruction} of the first function of `library` whose
+    mangled name matches the regular expression `kernel`, read with the
+    toolkit's `cuobjdump -sass`."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    state, code = "before", {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            if state == "inside":
+                break
+            if re.search(kernel, line):
+                state = "inside"
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if state == "inside" and m:
+            code[int(m.group(1), 16)] = m.group(2).strip()
+    return code
+
+
+def _outer_loop(code: dict, what: str) -> tuple:
+    """(head, tail) of the largest backward branch in `code`."""
+    head, tail = None, None
+    for addr, text in code.items():
+        target = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+        if target and int(target.group(1), 16) < addr and (
+                tail is None or addr - int(target.group(1), 16)
+                > tail - head):
+            head, tail = int(target.group(1), 16), addr
+    if head is None:
+        raise RuntimeError(f"{what}: no loop found in the kernel's machine "
+                           "code")
+    return head, tail
+
+
+# bytes a shared load moves by its opcode's width suffix (no suffix: 4)
+_LDS_BYTES = {"U8": 1, "S8": 1, "U16": 2, "S16": 2, "64": 8, "128": 16}
+
+
+def probe_loop_sass(lib: str, kernel: str) -> dict:
+    """The machine code of the dependent loop of a probe kernel: the
+    largest backward branch of the function of `csrc/<lib>.cu` whose
+    mangled name matches `kernel` (this tree's build).  Returns
+    {"instructions": the loop's span, "shared_loads": LDS instructions in
+    it, "shared_load_bytes": their widths summed, "shared_bank_bytes":
+    the same with each load counted as at least one 4-byte bank slot,
+    "dp4a": IDP.4A
+    instructions, "global_loads": LDG, "constant_loads": LDC}."""
+    code = _function_code(_build.library_path(lib), kernel)
+    head, tail = _outer_loop(code, f"probe_loop_sass {kernel}")
+    out = {"instructions": 0, "shared_loads": 0, "shared_load_bytes": 0,
+           "shared_bank_bytes": 0, "dp4a": 0, "global_loads": 0, "constant_loads": 0}
+    for addr, text in code.items():
+        if not head <= addr <= tail:
+            continue
+        out["instructions"] += 1
+        op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+        name, _, suffix = op.partition(".")
+        if name == "LDS":
+            out["shared_loads"] += 1
+            width = [_LDS_BYTES[x] for x in suffix.split(".")
+                     if x in _LDS_BYTES]
+            out["shared_load_bytes"] += width[0] if width else 4
+            out["shared_bank_bytes"] += max(4, width[0] if width else 4)
+        out["dp4a"] += name == "IDP"
+        out["global_loads"] += name == "LDG"
+        out["constant_loads"] += name == "LDC"
+    return out
+
+
 def march_loop_instructions(library: str | None = None) -> dict:
     """Machine instructions of the tracer kernel's march loop, read from
     a built library (`library`, or this tree's, built on first use) with
@@ -289,27 +359,9 @@ def march_loop_instructions(library: str | None = None) -> dict:
     cycle is the fine crossing.  Returns {"fine_crossing": its
     instructions, "loop_span": the whole loop's, fine and skip paths
     together}."""
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run(
-        [tool, "-sass", library or _build.library_path("window_trace")],
-        capture_output=True, text=True, timeout=120, check=True).stdout
-    inside, code = False, {}
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = "trace_kernel" in line
-        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if inside and m:
-            code[int(m.group(1), 16)] = m.group(2).strip()
-    head, tail = None, None
-    for addr, text in code.items():
-        target = re.search(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+)", text)
-        if target and int(target.group(1), 16) < addr and (
-                tail is None or addr - int(target.group(1), 16)
-                > tail - head):
-            head, tail = int(target.group(1), 16), addr
-    if head is None:
-        raise RuntimeError("march_loop_instructions: no loop found in the "
-                           "tracer kernel's machine code")
+    code = _function_code(library or _build.library_path("window_trace"),
+                          "trace_kernel")
+    head, tail = _outer_loop(code, "march_loop_instructions")
     step = 16
 
     def successors(addr):

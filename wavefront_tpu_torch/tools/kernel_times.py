@@ -24,6 +24,16 @@ back to back between CUDA events:
   texel         the texel fetch (K3) on the (tex, u, v) that the general
                 frame's (`headline.general_setup`) first bounce hands it,
                 `reps` launches.
+  loop_probe    K5's onehot forms at the shape `chip_smoke.py`'s
+                `probe_check` times: 264 groups of 16 rows, 64 iterations,
+                a 64-row table (and an 8-row one, 256 iterations), `reps`
+                launches each.
+  extract_cur   K6's whole-scene read: 264 groups of 8 rows, 256
+                iterations, a 160x160 table of 6 channels, lanes spread
+                over it.
+  extract_win   K6's window read: 264 groups of 8 rows, 256 iterations,
+                25 windows of 8 channels, each group's lanes within 32
+                voxels.
   row_gather    K7's `row_gather_sum` at R = 4096, reps 1 (one gather a
                 launch: its time is the wrapper's host path), over
                 GATHER_CALLS calls, beside `torch.gather` on the same
@@ -47,7 +57,9 @@ import os
 import sys
 import time
 
-KERNELS = ("trace", "shade", "texel", "row_gather")
+KERNELS = ("trace", "shade", "texel", "loop_probe", "extract_cur",
+           "extract_win", "row_gather")
+PROBE_GROUPS = 264
 GATHER_ROWS = 4096
 GATHER_CALLS = 1000
 
@@ -64,6 +76,8 @@ def parse(argv=None):
     ap.add_argument("--lamps", type=int, default=0,
                     help="lamp voxels of the lattice added to the scene")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--schemes", type=int, nargs="+", default=[0],
+                    help="the probes' alternative layouts to time in turn")
     return ap.parse_args(argv)
 
 
@@ -93,6 +107,10 @@ def main(argv=None) -> int:
             emit(row)
     if "texel" in args.kernels:
         emit(texel_row(args.reps))
+    for kernel in ("loop_probe", "extract_cur", "extract_win"):
+        if kernel in args.kernels:
+            for scheme in args.schemes:
+                emit(probe_row(kernel, args.reps, scheme))
     if "row_gather" in args.kernels:
         emit(gather_row())
     if args.frames:
@@ -183,6 +201,60 @@ def texel_row(reps: int) -> dict:
             "channels": list(chans),
             "texel_ms": time_ms(
                 lambda: texel_fetch(atlas, tex, u, v, channels=chans), reps)}
+
+
+def probe_row(kernel: str, reps: int, scheme: int = 0) -> dict:
+    import numpy as np
+    import torch
+
+    from wavefront_tpu_torch.kernels import extract_probe, loop_probe
+    from wavefront_tpu_torch.tools._timing import time_ms
+
+    rng = np.random.default_rng(5)
+
+    def i32(a):
+        return torch.as_tensor(a.astype(np.int32), device="cuda")
+
+    def u8(shape):
+        return torch.as_tensor(rng.integers(0, 255, shape).astype(np.uint8),
+                               device="cuda")
+
+    row = {"kernel": kernel, "groups": PROBE_GROUPS, "reps": reps}
+    if scheme:
+        row["scheme"] = scheme
+        loop_probe._SMEM_SCHEME = extract_probe._WIN_SCHEME = scheme
+    if kernel == "loop_probe":
+        shape = (PROBE_GROUPS, 16, 128)
+        state = (i32(rng.integers(0, 100, shape)),
+                 torch.zeros(shape, dtype=torch.int32, device="cuda"))
+        row["rows"] = 16
+        for nr, iters in ((64, 64), (8, 256)):
+            table = u8((nr, 128))
+            forms = ("smem",) if scheme else ("smem", "ldg", "const")
+            for where in forms:
+                row[f"onehot_{where}_{nr}_ms"] = time_ms(
+                    lambda: loop_probe.loop_probe(
+                        f"onehot_{where}", state, table, iters), reps)
+            row[f"iters_{nr}"] = iters
+    else:
+        shape = (PROBE_GROUPS, 8, 128)
+        row.update(rows=8, iters=256)
+        if kernel == "extract_cur":
+            table = u8((6, 160, 160))
+            cx, cz = (i32(rng.integers(0, 160, shape)) for _ in range(2))
+            row["ms"] = time_ms(lambda: extract_probe.extract_cur(
+                table, cx, cz, 256), reps)
+        else:
+            tw = u8((25, 64, 128))
+            bx = rng.integers(0, 128, (PROBE_GROUPS, 1, 1))
+            bz = rng.integers(0, 128, (PROBE_GROUPS, 1, 1))
+            cx = i32(bx + rng.integers(0, 32, shape))
+            cz = i32(bz + rng.integers(0, 32, shape))
+            row["ms"] = time_ms(lambda: extract_probe.extract_win(
+                tw, cx, cz, 256, 5, 5), reps)
+    if scheme:
+        loop_probe._SMEM_SCHEME = extract_probe._WIN_SCHEME = 0
+    return row
 
 
 def _host_us(fn, calls: int) -> float:
