@@ -130,9 +130,9 @@ __device__ __forceinline__ int pick_tree(const int* v, int z) {
 
 // the shared form's byte count of an (NR, 128) table under scheme S
 template <int NR, int S>
-constexpr int smem_bytes() {
-    return S == 0 ? Copies<NR>::BYTES : NR * 128;
-}
+struct SmemBytes {
+    static constexpr int value = S == 0 ? Copies<NR>::BYTES : NR * 128;
+};
 
 // the column-major copy of a row-major (nr, 128) table: cols[code * nr + r]
 __global__ void column_major_kernel(const uint8_t* __restrict__ table,
@@ -150,7 +150,7 @@ __global__ void __launch_bounds__(512) loop_kernel(
     int iters, int lanes, int one, int zero)
 {
     __shared__ __align__(16) uint8_t s_table[
-        V == ONEHOT_SMEM ? smem_bytes<NR, S>() : 16];
+        V == ONEHOT_SMEM ? SmemBytes<NR, S>::value : 16];
     __shared__ int s_off[V == ZSEL_SMEM ? 64 : 1];
     if constexpr (V == ONEHOT_SMEM && S == 5) {
         for (int k = threadIdx.x; k < NR * 128; k += blockDim.x)
