@@ -131,9 +131,10 @@ __device__ __forceinline__ uint32_t byte_column(uint32_t a, uint32_t b,
 // Measurement schemes: 0 as the source note; 1 the same (the launch takes
 // 256 threads a block); 2 the parent's channel-planar stage and byte
 // reads, with the unrolled loop, the wrap and the consensus of scheme 0;
-// 3 scheme 0 staging every round.
+// 3 scheme 0 staging every round; 4 scheme 0 with up to 1024 threads a
+// block.
 template <int LPT, int SLOT, int S = 0>
-__global__ void __launch_bounds__(512) win_kernel(
+__global__ void __launch_bounds__(LPT == 1 ? 1024 : 512) win_kernel(
     const uint8_t* __restrict__ tw, const int* __restrict__ cx0,
     const int* __restrict__ cz0, int* __restrict__ out,
     int nwx, int nwz, int nc, int iters, int lanes, int never)
@@ -219,7 +220,9 @@ __global__ void __launch_bounds__(512) win_kernel(
             have = true;
         }
 
-#pragma unroll
+        // eight lanes a thread are enough to interleave without unrolling
+        // the steps (unrolled, the 16-byte slots spill)
+#pragma unroll (LPT >= 8 ? 1 : 8)
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int l = 0; l < LPT; ++l) {
@@ -317,7 +320,8 @@ extern "C" int ep_extract_win(const uint8_t* tw, const int* cx,
                               int scheme, void* stream)
 {
     int threads, lpt;
-    if (!group_shape(lanes, scheme == 1 ? 256 : 512, &threads, &lpt)
+    if (!group_shape(lanes, scheme == 1 ? 256 : scheme == 4 ? 1024 : 512,
+                     &threads, &lpt)
             || nwx < 1 || nwz < 1 || nc < 1
             || nc > MAX_NC || (reinterpret_cast<uintptr_t>(tw) & 15u) != 0)
         return (int)cudaErrorInvalidValue;

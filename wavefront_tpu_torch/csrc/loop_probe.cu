@@ -43,19 +43,19 @@
 // 4 loads.  A wide load is served a quarter-warp (16 B) or a half-warp
 // (8 B) at a time, one 128-byte row of the 32 banks a clock, and lanes of
 // one phase that fall in one 16-byte (8-byte) bank group wait for each
-// other.  So the shared form holds shifted copies of the table, and each
-// lane picks its copy and its chunk order so that the lanes of a phase
-// fall in distinct groups whatever their codes:
-//   NR 64  two copies, the second 64 B further along; a column spans half
-//          a bank row, its 16-byte chunks are groups 4*(code & 1) + c in
-//          the first copy and 4*(~code & 1) + c in the second; lane l reads
-//          copy (code ^ (l >> 2)) & 1 and at step k chunk (k + l) & 3, so
-//          it meets group 4*((l >> 2) & 1) + ((k + l) & 3): distinct for the
-//          8 lanes of a quarter-warp
-//   NR 8   sixteen copies, copy q 8 B further along than copy q - 1; lane l
-//          reads copy (l - code) & 15, which puts its column in group
-//          l & 15: distinct for the 16 lanes of a half-warp
-// (16.1 KB of shared memory either way, staged once a launch).  The
+// other.  So the shared form of the 64-row table holds two copies, and
+// each lane picks its copy and its chunk order so that the lanes of a
+// quarter-warp fall in distinct groups whatever their codes: the second
+// copy starts 64 B further along; a column spans half a bank row, its
+// 16-byte chunks are groups 4*(code & 1) + c in the first copy and
+// 4*(~code & 1) + c in the second; lane l reads copy (code ^ (l >> 2)) & 1
+// and at step k chunk (k + l) & 3, so it meets group
+// 4*((l >> 2) & 1) + ((k + l) & 3): distinct for the 8 lanes of a
+// quarter-warp.  The 8-row table is one column-major copy: sixteen copies
+// shifted so that a half-warp's 8-byte loads fall in distinct groups
+// measured slower, the 8-row form being held by its instructions, not by
+// its loads (PERF.md).
+// (16.1 KB or 1 KB of shared memory, staged once a launch).  The
 // global (__ldg) and constant forms read a column-major copy that the
 // launch makes first (one small transposing kernel; one copy, chunks in
 // the same staggered order): they differ from the shared form in where
@@ -81,8 +81,8 @@ __constant__ __align__(16) uint8_t c_table[TABLE_BYTES];
 // the shared form's copies of an (NR, 128) table (source note)
 template <int NR>
 struct Copies {
-    static constexpr int N = NR == 64 ? 2 : 16;
-    static constexpr int STRIDE = NR * 128 + (NR == 64 ? 64 : 8);
+    static constexpr int N = NR == 64 ? 2 : 1;
+    static constexpr int STRIDE = NR * 128 + (NR == 64 ? 64 : 0);
     static constexpr int BYTES = N * STRIDE;
 };
 
@@ -219,8 +219,6 @@ __global__ void __launch_bounds__(512) loop_kernel(
                     const uint8_t* t = s_table;
                     if constexpr (NR == 64)
                         t += ((code[l] ^ (lane >> 2)) & 1) * Copies<NR>::STRIDE;
-                    else
-                        t += ((lane - code[l]) & 15) * Copies<NR>::STRIDE;
                     s = column_sum<NR>(
                         code[l], lane,
                         [&](int k) { return *reinterpret_cast<const uint4*>(t + k); },
