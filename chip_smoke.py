@@ -913,7 +913,7 @@ def probe_check() -> dict:
     lanes = groups * 8 * 128
     # lab shapes: 8 rows of a group are 512 threads of 2 lanes
     win_sass = event_lab.probe_loop_sass("extract_probe",
-                                         r"win_kernelILi2ELi8ELi0EE")
+                                         r"win_kernelILi2ELi8EE")
     cur_sass = event_lab.probe_loop_sass("extract_probe", r"cur_kernelILi2EE")
     ex = {"groups": groups, "rows": 8, "iters": iters, "windows": 25,
           "ms": time_ms(lambda: extract_probe.extract_win(
@@ -1004,14 +1004,14 @@ def probe_check() -> dict:
     # 16 rows of a group are 512 threads of 4 lanes; a pass of the loop is
     # one iteration of each
     sass = event_lab.probe_loop_sass("loop_probe",
-                                     r"loop_kernelILi1ELi64ELi4ELi0EE")
+                                     r"loop_kernelILi1ELi64ELi4EE")
     lo["smem_floor_ms"] = smem_floor_ms(lanes * iters, sass, 4)
     lo["sass_per_lane_iter"] = per_lane_iter(sass, 4)
     lo["bound_ms"], lo["bound_by"] = max_bound(
         table.numel() + 4 * 4 * lanes, lanes * iters * (64 + LOOP_OPS_PER_ITER))
     table8 = u8((8, 128))
     sass8 = event_lab.probe_loop_sass("loop_probe",
-                                      r"loop_kernelILi1ELi8ELi4ELi0EE")
+                                      r"loop_kernelILi1ELi8ELi4EE")
     lo["table_rows_8"] = {
         "ms": time_ms(lambda: loop_probe.loop_probe(
             "onehot_smem", state, table8, iters), 10),

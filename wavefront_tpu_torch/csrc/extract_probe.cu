@@ -128,21 +128,15 @@ __device__ __forceinline__ uint32_t byte_column(uint32_t a, uint32_t b,
     return __byte_perm(__byte_perm(a, b, sel), __byte_perm(c, d, sel), 0x5410);
 }
 
-// Measurement schemes: 0 as the source note; 1 the same (the launch takes
-// 256 threads a block); 2 the parent's channel-planar stage and byte
-// reads, with the unrolled loop, the wrap and the consensus of scheme 0;
-// 3 scheme 0 staging every round; 4 scheme 0 with up to 1024 threads a
-// block.
-template <int LPT, int SLOT, int S = 0>
-__global__ void __launch_bounds__(LPT == 1 ? 1024 : 512) win_kernel(
+template <int LPT, int SLOT>
+__global__ void __launch_bounds__(512) win_kernel(
     const uint8_t* __restrict__ tw, const int* __restrict__ cx0,
     const int* __restrict__ cz0, int* __restrict__ out,
     int nwx, int nwz, int nc, int iters, int lanes, int never)
 {
     using Slot = typename SlotOf<SLOT>::T;
     constexpr int WORDS = SLOT / 4;
-    __shared__ Slot win[S == 2 ? 1 : 1024];      // voxel zrel * 32 + xl
-    __shared__ __align__(16) uint8_t planar[S == 2 ? MAX_NC * 1024 : 16];
+    __shared__ Slot win[1024];      // voxel zrel * 32 + xl
     __shared__ int consensus[3];
 
     const size_t base = (size_t)blockIdx.x * lanes + threadIdx.x;
@@ -176,43 +170,36 @@ __global__ void __launch_bounds__(LPT == 1 ? 1024 : 512) win_kernel(
         if (threadIdx.x == 0) consensus[(round + 2) % 3] = INT_MAX;
         const int x0 = (w >= 0 ? w / nwz : -((-(w + 1)) / nwz) - 1) * 32;
         const int z0 = floor_mod(w, nwz) * 32;
-        if (S == 3 || !have || w != staged) {
+        if (!have || w != staged) {
             // stage its block; a window index outside the table reads the
             // nearest block (an in-range index is the caller's to give)
             const int wc = min(max(w, 0), nwx * nwz - 1);
             const uint8_t* src = tw + (size_t)wc * block_bytes;
-            if constexpr (S == 2) {
-                const uint4* s4 = reinterpret_cast<const uint4*>(src);
-                uint4* d4 = reinterpret_cast<uint4*>(planar);
-                for (int k = threadIdx.x; k < block_bytes / 16; k += blockDim.x)
-                    d4[k] = s4[k];
-            } else {
-                // thread k: voxels xl = 4 * (k & 7) + 0..3 of row zrel = k >> 3,
-                // a 4-byte word of each channel's row c * 8 + (zrel & 7)
-                for (int k = threadIdx.x; k < 256; k += blockDim.x) {
-                    const int zrel = k >> 3;
-                    const uint8_t* row = src + (zrel & 7) * 128
-                        + (zrel >> 3) * 32 + (k & 7) * 4;
-                    uint32_t ch[SLOT];
+            // thread k: voxels xl = 4 * (k & 7) + 0..3 of row zrel = k >> 3,
+            // a 4-byte word of each channel's row c * 8 + (zrel & 7)
+            for (int k = threadIdx.x; k < 256; k += blockDim.x) {
+                const int zrel = k >> 3;
+                const uint8_t* row = src + (zrel & 7) * 128
+                    + (zrel >> 3) * 32 + (k & 7) * 4;
+                uint32_t ch[SLOT];
 #pragma unroll
-                    for (int c = 0; c < SLOT; ++c)
-                        ch[c] = c < nc ? *reinterpret_cast<const uint32_t*>(
-                                             row + c * 1024) : 0u;
+                for (int c = 0; c < SLOT; ++c)
+                    ch[c] = c < nc ? *reinterpret_cast<const uint32_t*>(
+                                         row + c * 1024) : 0u;
 #pragma unroll
-                    for (int v = 0; v < 4; ++v) {
-                        uint32_t part[WORDS];
+                for (int v = 0; v < 4; ++v) {
+                    uint32_t part[WORDS];
 #pragma unroll
-                        for (int g = 0; g < WORDS; ++g)
-                            part[g] = byte_column(ch[4 * g], ch[4 * g + 1],
-                                                  ch[4 * g + 2], ch[4 * g + 3], v);
-                        Slot out_slot;
-                        if constexpr (SLOT == 8) {
-                            out_slot = make_uint2(part[0], part[1]);
-                        } else {
-                            out_slot = make_uint4(part[0], part[1], part[2], part[3]);
-                        }
-                        win[zrel * 32 + (k & 7) * 4 + v] = out_slot;
+                    for (int g = 0; g < WORDS; ++g)
+                        part[g] = byte_column(ch[4 * g], ch[4 * g + 1],
+                                              ch[4 * g + 2], ch[4 * g + 3], v);
+                    Slot out_slot;
+                    if constexpr (SLOT == 8) {
+                        out_slot = make_uint2(part[0], part[1]);
+                    } else {
+                        out_slot = make_uint4(part[0], part[1], part[2], part[3]);
                     }
+                    win[zrel * 32 + (k & 7) * 4 + v] = out_slot;
                 }
             }
             __syncthreads();
@@ -226,21 +213,13 @@ __global__ void __launch_bounds__(LPT == 1 ? 1024 : 512) win_kernel(
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int l = 0; l < LPT; ++l) {
+                // a lane outside the window reads slot 0 and keeps 0: no
+                // branch around the load
                 const int xl = cx[l] - x0, zrel = cz[l] - z0;
-                int s = 0;
-                if ((unsigned)xl < 32u && (unsigned)zrel < 32u) {
-                    if constexpr (S == 2) {
-                        const uint8_t* p = planar + (zrel & 7) * 128
-                            + ((zrel >> 3) << 5) + xl;
-#pragma unroll
-                        for (int c = 0; c < MAX_NC; ++c)
-                            if (c < nc) s ^= (int)p[c * 1024];
-                    } else {
-                        unsigned x = fold(win[zrel * 32 + xl]);
-                        x ^= x >> 16;
-                        s = (int)((x ^ (x >> 8)) & 0xffu);
-                    }
-                }
+                const bool in = (unsigned)xl < 32u && (unsigned)zrel < 32u;
+                unsigned x = fold(win[in ? zrel * 32 + xl : 0]);
+                x ^= x >> 16;
+                const int s = in ? (int)((x ^ (x >> 8)) & 0xffu) : 0;
                 cx[l] = s == never ? cz[l] : step_mod(cx[l], width);
                 acc[l] += (unsigned)s;
             }
@@ -251,10 +230,10 @@ __global__ void __launch_bounds__(LPT == 1 ? 1024 : 512) win_kernel(
 }
 
 // threads per block and lanes per thread of a group of `lanes` lanes:
-// up to `most` threads, then 2, 4 or 8 lanes a thread
-bool group_shape(int lanes, int most, int* threads, int* lpt) {
+// up to 512 threads, then 2, 4 or 8 lanes a thread
+bool group_shape(int lanes, int* threads, int* lpt) {
     if (lanes < 32 || lanes % 32 != 0) return false;
-    *threads = lanes < most ? lanes : most;
+    *threads = lanes < 512 ? lanes : 512;
     if (lanes % *threads != 0) return false;
     *lpt = lanes / *threads;
     return *lpt == 1 || *lpt == 2 || *lpt == 4 || *lpt == 8;
@@ -262,13 +241,18 @@ bool group_shape(int lanes, int most, int* threads, int* lpt) {
 
 }  // namespace
 
-#define LAUNCH_BY_LPT(kernel, ...)                                        \
-    switch (lpt) {                                                        \
-    case 1: kernel<1><<<groups, threads, 0, s>>>(__VA_ARGS__); break;     \
-    case 2: kernel<2><<<groups, threads, 0, s>>>(__VA_ARGS__); break;     \
-    case 4: kernel<4><<<groups, threads, 0, s>>>(__VA_ARGS__); break;     \
-    default: kernel<8><<<groups, threads, 0, s>>>(__VA_ARGS__); break;    \
+// the kernel (a template of the lanes a thread and then `extra`) launched
+// for the group shape in `lpt`
+#define LAUNCH_BY_LPT(kernel, extra, ...)                                     \
+    switch (lpt) {                                                            \
+    case 1: kernel<1 extra><<<groups, threads, 0, s>>>(__VA_ARGS__); break;   \
+    case 2: kernel<2 extra><<<groups, threads, 0, s>>>(__VA_ARGS__); break;   \
+    case 4: kernel<4 extra><<<groups, threads, 0, s>>>(__VA_ARGS__); break;   \
+    default: kernel<8 extra><<<groups, threads, 0, s>>>(__VA_ARGS__); break;  \
     }
+#define NOTHING
+#define SLOT8 , 8
+#define SLOT16 , 16
 
 // table: (nc*gz, gx) uint8; cx, cz, out: (groups, lanes) int32.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for a group size the
@@ -279,37 +263,14 @@ extern "C" int ep_extract_cur(const uint8_t* table, const int* cx,
                               void* stream)
 {
     int threads, lpt;
-    if (!group_shape(lanes, 512, &threads, &lpt) || gx < 1 || gz < 1
+    if (!group_shape(lanes, &threads, &lpt) || gx < 1 || gz < 1
             || nc < 1)
         return (int)cudaErrorInvalidValue;
     if (groups <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    LAUNCH_BY_LPT(cur_kernel, table, cx, cz, out, gx, gz, nc, iters, lanes,
-                  NEVER)
+    LAUNCH_BY_LPT(cur_kernel, NOTHING, table, cx, cz, out, gx, gz, nc, iters,
+                  lanes, NEVER)
     return (int)cudaGetLastError();
-}
-
-template <int LPT>
-void launch_win(int scheme, int groups, int threads, cudaStream_t s,
-                const uint8_t* tw, const int* cx, const int* cz, int* out,
-                int nwx, int nwz, int nc, int iters, int lanes)
-{
-#define EP_ARGS tw, cx, cz, out, nwx, nwz, nc, iters, lanes, NEVER
-    if constexpr (LPT == 2 || LPT == 4) {
-        if (scheme == 2 && nc <= 8) {
-            win_kernel<LPT, 8, 2><<<groups, threads, 0, s>>>(EP_ARGS);
-            return;
-        }
-        if (scheme == 3 && nc <= 8) {
-            win_kernel<LPT, 8, 3><<<groups, threads, 0, s>>>(EP_ARGS);
-            return;
-        }
-    }
-    if (nc <= 8)
-        win_kernel<LPT, 8><<<groups, threads, 0, s>>>(EP_ARGS);
-    else
-        win_kernel<LPT, 16><<<groups, threads, 0, s>>>(EP_ARGS);
-#undef EP_ARGS
 }
 
 // tw: (nwx*nwz, nc*8, 128) uint8, 16-byte aligned; cx, cz, out:
@@ -317,21 +278,22 @@ void launch_win(int scheme, int groups, int threads, cudaStream_t s,
 extern "C" int ep_extract_win(const uint8_t* tw, const int* cx,
                               const int* cz, int* out, int nwx, int nwz,
                               int nc, int iters, int groups, int lanes,
-                              int scheme, void* stream)
+                              void* stream)
 {
     int threads, lpt;
-    if (!group_shape(lanes, scheme == 1 ? 256 : scheme == 4 ? 1024 : 512,
-                     &threads, &lpt)
+    if (!group_shape(lanes, &threads, &lpt)
             || nwx < 1 || nwz < 1 || nc < 1
             || nc > MAX_NC || (reinterpret_cast<uintptr_t>(tw) & 15u) != 0)
         return (int)cudaErrorInvalidValue;
     if (groups <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    switch (lpt) {
-    case 1: launch_win<1>(scheme, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc, iters, lanes); break;
-    case 2: launch_win<2>(scheme, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc, iters, lanes); break;
-    case 4: launch_win<4>(scheme, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc, iters, lanes); break;
-    default: launch_win<8>(scheme, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc, iters, lanes); break;
+    // a voxel's channels in an 8-byte slot up to 8 channels, else 16 bytes
+    if (nc <= 8) {
+        LAUNCH_BY_LPT(win_kernel, SLOT8, tw, cx, cz, out, nwx, nwz, nc, iters,
+                      lanes, NEVER)
+    } else {
+        LAUNCH_BY_LPT(win_kernel, SLOT16, tw, cx, cz, out, nwx, nwz, nc,
+                      iters, lanes, NEVER)
     }
     return (int)cudaGetLastError();
 }

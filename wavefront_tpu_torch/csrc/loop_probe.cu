@@ -86,11 +86,6 @@ struct Copies {
     static constexpr int BYTES = N * STRIDE;
 };
 
-// Measurement schemes of the shared form (NR 64; NR 8 takes 0, 5 or one
-// plain copy): 0 the copies above; 1 one copy, 16-byte chunks in order;
-// 2 one copy, staggered chunks; 3 one copy, chunk k ^ ((code >> 1) & 3);
-// 4 one copy, 8-byte chunks staggered; 5 the byte loads of a row-major
-// table.
 __device__ __forceinline__ unsigned add4(uint32_t w, unsigned s) {
     return __dp4a(w, 0x01010101u, s);
 }
@@ -128,12 +123,6 @@ __device__ __forceinline__ int pick_tree(const int* v, int z) {
     return (z & 4) ? f : e;
 }
 
-// the shared form's byte count of an (NR, 128) table under scheme S
-template <int NR, int S>
-struct SmemBytes {
-    static constexpr int value = S == 0 ? Copies<NR>::BYTES : NR * 128;
-};
-
 // the column-major copy of a row-major (nr, 128) table: cols[code * nr + r]
 __global__ void column_major_kernel(const uint8_t* __restrict__ table,
                                     uint8_t* __restrict__ cols, int nr)
@@ -142,7 +131,7 @@ __global__ void column_major_kernel(const uint8_t* __restrict__ table,
     if (k < nr * 128) cols[(k & 127) * nr + (k >> 7)] = table[k];
 }
 
-template <int V, int NR, int LPT, int S = 0>
+template <int V, int NR, int LPT>
 __global__ void __launch_bounds__(512) loop_kernel(
     const int* __restrict__ code0, const int* __restrict__ acc0,
     const uint8_t* __restrict__ table, const int* __restrict__ offsets,
@@ -150,12 +139,9 @@ __global__ void __launch_bounds__(512) loop_kernel(
     int iters, int lanes, int one, int zero)
 {
     __shared__ __align__(16) uint8_t s_table[
-        V == ONEHOT_SMEM ? SmemBytes<NR, S>::value : 16];
+        V == ONEHOT_SMEM ? Copies<NR>::BYTES : 16];
     __shared__ int s_off[V == ZSEL_SMEM ? 64 : 1];
-    if constexpr (V == ONEHOT_SMEM && S == 5) {
-        for (int k = threadIdx.x; k < NR * 128; k += blockDim.x)
-            s_table[k] = table[k];
-    } else if constexpr (V == ONEHOT_SMEM) {
+    if constexpr (V == ONEHOT_SMEM) {
         // eight rows of a code's column a thread: byte loads that are
         // coalesced across the warp's codes, one 8-byte store a copy
         for (int k = threadIdx.x; k < NR * 16; k += blockDim.x) {
@@ -167,14 +153,10 @@ __global__ void __launch_bounds__(512) loop_kernel(
                 hi |= (uint32_t)table[(8 * h + 4 + i) * 128 + code] << (8 * i);
             }
             const uint2 u = make_uint2(lo, hi);
-            const int at = code * NR + 8 * h;
-            if constexpr (S == 0) {
 #pragma unroll
-                for (int q = 0; q < Copies<NR>::N; ++q)
-                    *reinterpret_cast<uint2*>(s_table + q * Copies<NR>::STRIDE + at) = u;
-            } else {
-                *reinterpret_cast<uint2*>(s_table + at) = u;
-            }
+            for (int q = 0; q < Copies<NR>::N; ++q)
+                *reinterpret_cast<uint2*>(
+                    s_table + q * Copies<NR>::STRIDE + code * NR + 8 * h) = u;
         }
     }
     if constexpr (V == ZSEL_SMEM) {
@@ -214,7 +196,7 @@ __global__ void __launch_bounds__(512) loop_kernel(
 #pragma unroll
             for (int l = 0; l < LPT; ++l) {
                 int s = 0;
-                if constexpr (V == ONEHOT_SMEM && S == 0) {
+                if constexpr (V == ONEHOT_SMEM) {
                     // the copy and chunk order of the source note
                     const uint8_t* t = s_table;
                     if constexpr (NR == 64)
@@ -223,35 +205,6 @@ __global__ void __launch_bounds__(512) loop_kernel(
                         code[l], lane,
                         [&](int k) { return *reinterpret_cast<const uint4*>(t + k); },
                         [&](int k) { return *reinterpret_cast<const uint2*>(t + k); });
-                }
-                if constexpr (V == ONEHOT_SMEM && S >= 1 && S <= 4) {
-                    const int c = code[l];
-                    if ((unsigned)c < 128u) {
-                        unsigned u = 0;
-                        if constexpr (NR == 8) {
-                            u = add8(*reinterpret_cast<const uint2*>(s_table + c * 8));
-                        } else if constexpr (S == 4) {
-#pragma unroll
-                            for (int k = 0; k < 8; ++k)
-                                u += add8(*reinterpret_cast<const uint2*>(
-                                    s_table + c * 64 + ((k + lane) & 7) * 8));
-                        } else {
-#pragma unroll
-                            for (int k = 0; k < 4; ++k) {
-                                const int ch = S == 1 ? k : S == 2 ? ((k + lane) & 3)
-                                                             : (k ^ ((c >> 1) & 3));
-                                u += add16(*reinterpret_cast<const uint4*>(
-                                    s_table + c * 64 + ch * 16));
-                            }
-                        }
-                        s = (int)u;
-                    }
-                }
-                if constexpr (V == ONEHOT_SMEM && S == 5) {
-                    if ((unsigned)code[l] < 128u) {
-#pragma unroll 8
-                        for (int r = 0; r < NR; ++r) s += s_table[r * 128 + code[l]];
-                    }
                 }
                 if constexpr (V == ONEHOT_LDG)
                     s = column_sum<NR>(
@@ -322,25 +275,18 @@ template <int V, int NR>
 void launch(int lpt, int groups, int threads, cudaStream_t s,
             const int* code, const int* acc, const uint8_t* table,
             const int* offsets, int* code_out, int* acc_out, int iters,
-            int lanes, int scheme)
+            int lanes)
 {
-#define LP_ARGS code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0
-    if constexpr (V == ONEHOT_SMEM) if (lpt == 4 && scheme != 0) {
-        switch (scheme) {
-        case 1: loop_kernel<V, NR, 4, 1><<<groups, threads, 0, s>>>(LP_ARGS); return;
-        case 2: loop_kernel<V, NR, 4, 2><<<groups, threads, 0, s>>>(LP_ARGS); return;
-        case 3: loop_kernel<V, NR, 4, 3><<<groups, threads, 0, s>>>(LP_ARGS); return;
-        case 4: loop_kernel<V, NR, 4, 4><<<groups, threads, 0, s>>>(LP_ARGS); return;
-        default: loop_kernel<V, NR, 4, 5><<<groups, threads, 0, s>>>(LP_ARGS); return;
-        }
-    }
     switch (lpt) {
-    case 1: loop_kernel<V, NR, 1><<<groups, threads, 0, s>>>(LP_ARGS); break;
-    case 2: loop_kernel<V, NR, 2><<<groups, threads, 0, s>>>(LP_ARGS); break;
-    case 4: loop_kernel<V, NR, 4><<<groups, threads, 0, s>>>(LP_ARGS); break;
-    default: loop_kernel<V, NR, 8><<<groups, threads, 0, s>>>(LP_ARGS); break;
+    case 1: loop_kernel<V, NR, 1><<<groups, threads, 0, s>>>(
+        code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0); break;
+    case 2: loop_kernel<V, NR, 2><<<groups, threads, 0, s>>>(
+        code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0); break;
+    case 4: loop_kernel<V, NR, 4><<<groups, threads, 0, s>>>(
+        code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0); break;
+    default: loop_kernel<V, NR, 8><<<groups, threads, 0, s>>>(
+        code, acc, table, offsets, code_out, acc_out, iters, lanes, 1, 0); break;
     }
-#undef LP_ARGS
 }
 
 // ---- the five primitives of probe_support ----
@@ -402,8 +348,7 @@ __global__ void lane_roll_kernel(const float* __restrict__ a,
 extern "C" int lp_loop(int variant, int nr, const int* code, const int* acc,
                        const uint8_t* table, uint8_t* cols,
                        const int* offsets, int* code_out, int* acc_out,
-                       int iters, int groups, int lanes, int scheme,
-                       void* stream)
+                       int iters, int groups, int lanes, void* stream)
 {
     int threads, lpt;
     if (!group_shape(lanes, &threads, &lpt)) return (int)cudaErrorInvalidValue;
@@ -423,7 +368,7 @@ extern "C" int lp_loop(int variant, int nr, const int* code, const int* acc,
         if (err != cudaSuccess) return (int)err;
     }
 #define GO(V, NR) launch<V, NR>(lpt, groups, threads, s, code, acc, table, \
-                                offsets, code_out, acc_out, iters, lanes, scheme)
+                                offsets, code_out, acc_out, iters, lanes)
     switch (variant) {
     case ADD_CHAIN: GO(ADD_CHAIN, 8); break;
     case ONEHOT_SMEM: if (nr == 64) GO(ONEHOT_SMEM, 64); else GO(ONEHOT_SMEM, 8); break;

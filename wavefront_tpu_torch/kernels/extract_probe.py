@@ -103,10 +103,8 @@ def extract_win_plain(tw, cx, cz, iters: int, nwx: int, nwz: int):
 
 _CUR = _build.Launcher("extract_probe", "ep_extract_cur", "ppppiiiiii",
                       "extract_cur")
-_WIN = _build.Launcher("extract_probe", "ep_extract_win", "ppppiiiiiii",
+_WIN = _build.Launcher("extract_probe", "ep_extract_win", "ppppiiiiii",
                       "extract_win")
-# the window kernel's form, for measuring the alternatives (csrc note)
-_WIN_SCHEME = 0
 
 
 def extract_cur(table, cx, cz, iters: int):
@@ -155,7 +153,7 @@ def extract_win(tw, cx, cz, iters: int, nwx: int, nwz: int):
     out = torch.empty_like(cx)
     _WIN(cx.get_device(), tw.data_ptr(), cx.data_ptr(), cz.data_ptr(),
          out.data_ptr(), nwx, nwz, tw.shape[1] // 8, int(iters), groups,
-         lanes, _WIN_SCHEME)
+         lanes)
     extract_win.launches += 1
     return out
 

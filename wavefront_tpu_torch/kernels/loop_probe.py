@@ -109,10 +109,8 @@ def loop_probe_plain(variant: str, state, extra, iters: int):
     return code, acc
 
 
-_LOOP = _build.Launcher("loop_probe", "lp_loop", "iipppppppiiii",
+_LOOP = _build.Launcher("loop_probe", "lp_loop", "iipppppppiii",
                         "loop_probe")
-# the shared form's layout, for measuring the alternatives (csrc note)
-_SMEM_SCHEME = 0
 _PRIMITIVE = _build.Launcher("loop_probe", "lp_primitive", "ippp",
                              "primitive")
 
@@ -140,8 +138,7 @@ def loop_probe(variant: str, state, extra, iters: int):
     _LOOP(first.get_device(), VARIANTS.index(variant),
           extra.shape[0] if body == "onehot" else 0, first.data_ptr(),
           acc_in, table, None if cols is None else cols.data_ptr(), offsets,
-          outs[0].data_ptr(), acc_out, int(iters), groups, lanes,
-          _SMEM_SCHEME)
+          outs[0].data_ptr(), acc_out, int(iters), groups, lanes)
     loop_probe.launches += 1
     return outs
 

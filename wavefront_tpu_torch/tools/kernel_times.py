@@ -76,8 +76,6 @@ def parse(argv=None):
     ap.add_argument("--lamps", type=int, default=0,
                     help="lamp voxels of the lattice added to the scene")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--schemes", type=int, nargs="+", default=[0],
-                    help="the probes' alternative layouts to time in turn")
     return ap.parse_args(argv)
 
 
@@ -109,8 +107,7 @@ def main(argv=None) -> int:
         emit(texel_row(args.reps))
     for kernel in ("loop_probe", "extract_cur", "extract_win"):
         if kernel in args.kernels:
-            for scheme in args.schemes:
-                emit(probe_row(kernel, args.reps, scheme))
+            emit(probe_row(kernel, args.reps))
     if "row_gather" in args.kernels:
         emit(gather_row())
     if args.frames:
@@ -203,7 +200,7 @@ def texel_row(reps: int) -> dict:
                 lambda: texel_fetch(atlas, tex, u, v, channels=chans), reps)}
 
 
-def probe_row(kernel: str, reps: int, scheme: int = 0) -> dict:
+def probe_row(kernel: str, reps: int) -> dict:
     import numpy as np
     import torch
 
@@ -220,9 +217,6 @@ def probe_row(kernel: str, reps: int, scheme: int = 0) -> dict:
                                device="cuda")
 
     row = {"kernel": kernel, "groups": PROBE_GROUPS, "reps": reps}
-    if scheme:
-        row["scheme"] = scheme
-        loop_probe._SMEM_SCHEME = extract_probe._WIN_SCHEME = scheme
     if kernel == "loop_probe":
         shape = (PROBE_GROUPS, 16, 128)
         state = (i32(rng.integers(0, 100, shape)),
@@ -230,8 +224,7 @@ def probe_row(kernel: str, reps: int, scheme: int = 0) -> dict:
         row["rows"] = 16
         for nr, iters in ((64, 64), (8, 256)):
             table = u8((nr, 128))
-            forms = ("smem",) if scheme else ("smem", "ldg", "const")
-            for where in forms:
+            for where in ("smem", "ldg", "const"):
                 row[f"onehot_{where}_{nr}_ms"] = time_ms(
                     lambda: loop_probe.loop_probe(
                         f"onehot_{where}", state, table, iters), reps)
@@ -252,8 +245,6 @@ def probe_row(kernel: str, reps: int, scheme: int = 0) -> dict:
             cz = i32(bz + rng.integers(0, 32, shape))
             row["ms"] = time_ms(lambda: extract_probe.extract_win(
                 tw, cx, cz, 256, 5, 5), reps)
-    if scheme:
-        loop_probe._SMEM_SCHEME = extract_probe._WIN_SCHEME = 0
     return row
 
 
