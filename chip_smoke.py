@@ -708,6 +708,36 @@ def per_lane_iter(sass: dict, per_pass: int) -> dict:
     return {k: v / per_pass for k, v in sass.items()}
 
 
+def win_wavefronts(cx, cz, iters: int, nwx: int, nwz: int) -> int:
+    """Shared-memory wavefronts the window kernel's 8-byte slot loads need
+    on these lanes (extract_win's walk, nc <= 8): a half-warp's load takes
+    as many as the most distinct slots that fall in one of the 16 bank
+    pairs; a lane outside the window reads slot 0.  Lanes sit in threads
+    as the kernel holds them: lane l * threads + t of a group in thread
+    t."""
+    groups, rows, _ = cx.shape
+    lanes = rows * 128
+    threads = min(lanes, 512)
+    cx, cz = cx.reshape(groups, lanes).clone(), cz.reshape(groups, lanes)
+    total = torch.zeros((), dtype=torch.int64, device=cx.device)
+    for _ in range(0, iters, 8):
+        w = ((cx >> 5) * nwz + (cz >> 5)).amin(dim=1, keepdim=True)
+        x0 = torch.div(w, nwz, rounding_mode="floor") * 32
+        z0 = torch.remainder(w, nwz) * 32
+        for _ in range(8):
+            xl, zrel = cx - x0, cz - z0
+            inw = (xl >= 0) & (xl < 32) & (zrel >= 0) & (zrel < 32)
+            slot = torch.where(inw, zrel * 32 + xl, torch.zeros_like(xl))
+            half = slot.reshape(groups, -1, 16).sort(dim=-1).values
+            new = torch.ones_like(half, dtype=torch.int32)
+            new[..., 1:] = (half[..., 1:] != half[..., :-1]).to(torch.int32)
+            per_pair = torch.zeros_like(new).scatter_add_(-1, half & 15, new)
+            total += per_pair.amax(dim=-1).sum()
+            # no XOR of bytes equals the kernel's `never`: x steps by one
+            cx = torch.remainder(cx + 1, nwx * 32)
+    return int(total)
+
+
 def exact(got, want, what: str) -> int:
     """Hold integer tensors equal; returns max |diff| (0)."""
     sync()
@@ -821,6 +851,82 @@ def probe_check() -> dict:
     def worst(key, e):
         err[key] = max(err[key], e)
 
+    # K6 and K5 at their lab shapes first: torch.profiler keeps device
+    # events only for so many launches in a process, and the checks below
+    # launch many small kernels of the plain versions
+    groups, iters = FILL_GROUPS, 256
+    tw = u8((25, 64, 128))
+    cx, cz = roofline._lanes(rng, groups, 8, 160, 160, roofline.SPREAD)
+    lanes = groups * 8 * 128
+    # lab shapes: 8 rows of a group are 512 threads of 2 lanes
+    win_sass = event_lab.probe_loop_sass("extract_probe",
+                                         r"win_kernelILi2ELi8EE")
+    cur_sass = event_lab.probe_loop_sass("extract_probe", r"cur_kernelILi2EE")
+    ex = {"groups": groups, "rows": 8, "iters": iters, "windows": 25,
+          "ms": time_ms(lambda: extract_probe.extract_win(
+              tw, cx, cz, iters, 5, 5), 10),
+          "plain_ms": time_ms(lambda: extract_probe.extract_win_plain(
+              tw, cx, cz, iters, 5, 5), 1),
+          "device_ms": device_ms(lambda: extract_probe.extract_win(
+              tw, cx, cz, iters, 5, 5), "win_kernel", 10),
+          # a pass of the window loop is 8 iterations of 2 lanes, its
+          # stage included
+          "smem_floor_ms": smem_floor_ms(lanes * iters, win_sass, 16),
+          "sass_per_lane_iter": per_lane_iter(win_sass, 16)}
+    # the same floor with the bank conflicts of these lanes: one wavefront
+    # a clock on each SM
+    ex["shared_wavefronts"] = win_wavefronts(cx, cz, iters, 5, 5)
+    ex["smem_conflict_floor_ms"] = (ex["shared_wavefronts"] / 132 / 1.98e9
+                                    * 1e3)
+    ex["bound_ms"], ex["bound_by"] = max_bound(
+        tw.numel() + 3 * 4 * lanes, lanes * iters * (8 + EXTRACT_OPS_PER_ITER))
+    table = u8((6, 160, 160))
+    ux, uz = roofline._lanes(rng, groups, 8, 160, 160)
+    cur = {"channels": 6, "table": [160, 160],
+           "ms": time_ms(lambda: extract_probe.extract_cur(
+               table, ux, uz, iters), 10),
+           "device_ms": device_ms(lambda: extract_probe.extract_cur(
+               table, ux, uz, iters), "cur_kernel", 10),
+           "sass_per_lane_iter": per_lane_iter(cur_sass, 2)}
+    cur["bound_ms"], cur["bound_by"] = max_bound(
+        table.numel() + 3 * 4 * lanes,
+        lanes * iters * (6 + EXTRACT_OPS_PER_ITER))
+    ex["cur"] = cur
+    out["extract_probe"] = ex
+
+    out["support"] = event_lab.support()
+    groups, iters = FILL_GROUPS, event_lab.ITERS["onehot64"][0]
+    shape = (groups, 16, 128)
+    state = (i32(rng.integers(0, 100, shape)),
+             torch.zeros(shape, dtype=torch.int32, device="cuda"))
+    table = u8((64, 128))
+    lanes = groups * 16 * 128
+    lo = {"variant": "onehot_smem", "table_rows": 64, "groups": groups,
+          "rows": 16, "iters": iters,
+          "ms": time_ms(lambda: loop_probe.loop_probe(
+              "onehot_smem", state, table, iters), 10),
+          "plain_ms": time_ms(lambda: loop_probe.loop_probe_plain(
+              "onehot_smem", state, table, iters), 1),
+          "device_ms": device_ms(lambda: loop_probe.loop_probe(
+              "onehot_smem", state, table, iters), "loop_kernel", 10)}
+    # 16 rows of a group are 512 threads of 4 lanes; a pass of the loop is
+    # one iteration of each
+    sass = event_lab.probe_loop_sass("loop_probe",
+                                     r"loop_kernelILi1ELi64ELi4EE")
+    lo["smem_floor_ms"] = smem_floor_ms(lanes * iters, sass, 4)
+    lo["sass_per_lane_iter"] = per_lane_iter(sass, 4)
+    lo["bound_ms"], lo["bound_by"] = max_bound(
+        table.numel() + 4 * 4 * lanes, lanes * iters * (64 + LOOP_OPS_PER_ITER))
+    table8 = u8((8, 128))
+    sass8 = event_lab.probe_loop_sass("loop_probe",
+                                      r"loop_kernelILi1ELi8ELi4EE")
+    lo["table_rows_8"] = {
+        "ms": time_ms(lambda: loop_probe.loop_probe(
+            "onehot_smem", state, table8, iters), 10),
+        "smem_floor_ms": smem_floor_ms(lanes * iters, sass8, 4),
+        "sass_per_lane_iter": per_lane_iter(sass8, 4)}
+    out["loop_probe"] = lo
+
     # K7
     x = torch.as_tensor(rng.random((512, 128), np.float32), device="cuda")
     got = device_probe.loop_add(x, 64)
@@ -907,41 +1013,6 @@ def probe_check() -> dict:
                     extract_probe.extract_win_plain(tw, cx, cz, iters, nwx,
                                                     nwz),
                     f"extract_win nc={nc} {shape} edges iters={iters}"))
-    groups, iters = FILL_GROUPS, 256
-    tw = u8((25, 64, 128))
-    cx, cz = roofline._lanes(rng, groups, 8, 160, 160, roofline.SPREAD)
-    lanes = groups * 8 * 128
-    # lab shapes: 8 rows of a group are 512 threads of 2 lanes
-    win_sass = event_lab.probe_loop_sass("extract_probe",
-                                         r"win_kernelILi2ELi8EE")
-    cur_sass = event_lab.probe_loop_sass("extract_probe", r"cur_kernelILi2EE")
-    ex = {"groups": groups, "rows": 8, "iters": iters, "windows": 25,
-          "ms": time_ms(lambda: extract_probe.extract_win(
-              tw, cx, cz, iters, 5, 5), 10),
-          "plain_ms": time_ms(lambda: extract_probe.extract_win_plain(
-              tw, cx, cz, iters, 5, 5), 1),
-          "device_ms": device_ms(lambda: extract_probe.extract_win(
-              tw, cx, cz, iters, 5, 5), "win_kernel", 10),
-          # a pass of the window loop is 8 iterations of 2 lanes, its
-          # stage included
-          "smem_floor_ms": smem_floor_ms(lanes * iters, win_sass, 16),
-          "sass_per_lane_iter": per_lane_iter(win_sass, 16)}
-    ex["bound_ms"], ex["bound_by"] = max_bound(
-        tw.numel() + 3 * 4 * lanes, lanes * iters * (8 + EXTRACT_OPS_PER_ITER))
-    table = u8((6, 160, 160))
-    ux, uz = roofline._lanes(rng, groups, 8, 160, 160)
-    cur = {"channels": 6, "table": [160, 160],
-           "ms": time_ms(lambda: extract_probe.extract_cur(
-               table, ux, uz, iters), 10),
-           "device_ms": device_ms(lambda: extract_probe.extract_cur(
-               table, ux, uz, iters), "cur_kernel", 10),
-           "sass_per_lane_iter": per_lane_iter(cur_sass, 2)}
-    cur["bound_ms"], cur["bound_by"] = max_bound(
-        table.numel() + 3 * 4 * lanes,
-        lanes * iters * (6 + EXTRACT_OPS_PER_ITER))
-    ex["cur"] = cur
-    out["extract_probe"] = ex
-
     # K5
     for variant in loop_probe.VARIANTS:
         body = variant.split("_")[0]
@@ -986,38 +1057,6 @@ def probe_check() -> dict:
                             worst("loop_probe", exact(
                                 g, w, f"loop_probe {variant} nr={nr} {case} "
                                 f"{shape} iters={iters}"))
-    out["support"] = event_lab.support()
-    groups, iters = FILL_GROUPS, event_lab.ITERS["onehot64"][0]
-    shape = (groups, 16, 128)
-    state = (i32(rng.integers(0, 100, shape)),
-             torch.zeros(shape, dtype=torch.int32, device="cuda"))
-    table = u8((64, 128))
-    lanes = groups * 16 * 128
-    lo = {"variant": "onehot_smem", "table_rows": 64, "groups": groups,
-          "rows": 16, "iters": iters,
-          "ms": time_ms(lambda: loop_probe.loop_probe(
-              "onehot_smem", state, table, iters), 10),
-          "plain_ms": time_ms(lambda: loop_probe.loop_probe_plain(
-              "onehot_smem", state, table, iters), 1),
-          "device_ms": device_ms(lambda: loop_probe.loop_probe(
-              "onehot_smem", state, table, iters), "loop_kernel", 10)}
-    # 16 rows of a group are 512 threads of 4 lanes; a pass of the loop is
-    # one iteration of each
-    sass = event_lab.probe_loop_sass("loop_probe",
-                                     r"loop_kernelILi1ELi64ELi4EE")
-    lo["smem_floor_ms"] = smem_floor_ms(lanes * iters, sass, 4)
-    lo["sass_per_lane_iter"] = per_lane_iter(sass, 4)
-    lo["bound_ms"], lo["bound_by"] = max_bound(
-        table.numel() + 4 * 4 * lanes, lanes * iters * (64 + LOOP_OPS_PER_ITER))
-    table8 = u8((8, 128))
-    sass8 = event_lab.probe_loop_sass("loop_probe",
-                                      r"loop_kernelILi1ELi8ELi4EE")
-    lo["table_rows_8"] = {
-        "ms": time_ms(lambda: loop_probe.loop_probe(
-            "onehot_smem", state, table8, iters), 10),
-        "smem_floor_ms": smem_floor_ms(lanes * iters, sass8, 4),
-        "sass_per_lane_iter": per_lane_iter(sass8, 4)}
-    out["loop_probe"] = lo
     return out
 
 
