@@ -67,11 +67,13 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
     return r < 0 ? r + m : r;
 }
 
-// (x + 1) mod m for any x (m >= 1): no division while x + 1 lies in [0, m]
+// (x + 1) mod m for any x (m >= 1): a compare and a select while x + 1
+// lies in [0, m], the division on a branch of its own for other values
 __device__ __forceinline__ int step_mod(int x, int m) {
     const int n = (int)((unsigned)x + 1u);
-    if (__builtin_expect((unsigned)n <= (unsigned)m, 1)) return n == m ? 0 : n;
-    return floor_mod(n, m);
+    int r = n == m ? 0 : n;
+    if (__builtin_expect((unsigned)n > (unsigned)m, 0)) r = floor_mod(n, m);
+    return r;
 }
 
 template <int LPT>
@@ -103,7 +105,8 @@ __global__ void __launch_bounds__(512) cur_kernel(
                     if (c < nc) s ^= (int)p[c * plane];
                 for (int c = MAX_NC; c < nc; ++c) s ^= (int)p[c * plane];
             }
-            cx[l] = s == never ? cz[l] : step_mod(cx[l], gx);
+            const int next = step_mod(cx[l], gx);
+            cx[l] = s == never ? cz[l] : next;
             acc[l] += (unsigned)s;
         }
     }
@@ -207,6 +210,15 @@ __global__ void __launch_bounds__(512) win_kernel(
             have = true;
         }
 
+        // what stays fixed for a lane in a round: whether its z lies in
+        // the window, and its slot less its x (zrel * 32 - x0)
+        bool z_in[LPT];
+        int row[LPT];
+#pragma unroll
+        for (int l = 0; l < LPT; ++l) {
+            z_in[l] = (unsigned)(cz[l] - z0) < 32u;
+            row[l] = (cz[l] - z0) * 32 - x0;
+        }
         // eight lanes a thread are enough to interleave without unrolling
         // the steps (unrolled, the 16-byte slots spill)
 #pragma unroll (LPT >= 8 ? 1 : 8)
@@ -215,12 +227,12 @@ __global__ void __launch_bounds__(512) win_kernel(
             for (int l = 0; l < LPT; ++l) {
                 // a lane outside the window reads slot 0 and keeps 0: no
                 // branch around the load
-                const int xl = cx[l] - x0, zrel = cz[l] - z0;
-                const bool in = (unsigned)xl < 32u && (unsigned)zrel < 32u;
-                unsigned x = fold(win[in ? zrel * 32 + xl : 0]);
+                const bool in = z_in[l] && (unsigned)(cx[l] - x0) < 32u;
+                unsigned x = fold(win[in ? row[l] + cx[l] : 0]);
                 x ^= x >> 16;
                 const int s = in ? (int)((x ^ (x >> 8)) & 0xffu) : 0;
-                cx[l] = s == never ? cz[l] : step_mod(cx[l], width);
+                const int next = step_mod(cx[l], width);
+                cx[l] = s == never ? cz[l] : next;
                 acc[l] += (unsigned)s;
             }
         }
