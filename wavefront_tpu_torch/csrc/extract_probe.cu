@@ -71,9 +71,8 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
 // lies in [0, m], the division on a branch of its own for other values
 __device__ __forceinline__ int step_mod(int x, int m) {
     const int n = (int)((unsigned)x + 1u);
-    int r = n == m ? 0 : n;
-    if (__builtin_expect((unsigned)n > (unsigned)m, 0)) r = floor_mod(n, m);
-    return r;
+    if (__builtin_expect((unsigned)n <= (unsigned)m, 1)) return n == m ? 0 : n;
+    return floor_mod(n, m);
 }
 
 template <int LPT>
@@ -105,8 +104,7 @@ __global__ void __launch_bounds__(512) cur_kernel(
                     if (c < nc) s ^= (int)p[c * plane];
                 for (int c = MAX_NC; c < nc; ++c) s ^= (int)p[c * plane];
             }
-            const int next = step_mod(cx[l], gx);
-            cx[l] = s == never ? cz[l] : next;
+            cx[l] = s == never ? cz[l] : step_mod(cx[l], gx);
             acc[l] += (unsigned)s;
         }
     }
@@ -211,11 +209,13 @@ __global__ void __launch_bounds__(512) win_kernel(
         }
 
         // what stays fixed for a lane in a round: whether its z lies in
-        // the window, and its slot less its x (zrel * 32 - x0)
-        bool z_in[LPT];
-        int row[LPT];
+        // the window, and its slot less its x (zrel * 32 - x0); kept in
+        // registers up to 4 lanes a thread, recomputed each step at 8
+        constexpr int HELD = LPT <= 4 ? LPT : 1;
+        bool z_in[HELD];
+        int row[HELD];
 #pragma unroll
-        for (int l = 0; l < LPT; ++l) {
+        for (int l = 0; l < HELD; ++l) {
             z_in[l] = (unsigned)(cz[l] - z0) < 32u;
             row[l] = (cz[l] - z0) * 32 - x0;
         }
@@ -225,14 +225,17 @@ __global__ void __launch_bounds__(512) win_kernel(
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int l = 0; l < LPT; ++l) {
+                const bool zl = LPT <= 4 ? z_in[l % HELD]
+                                         : (unsigned)(cz[l] - z0) < 32u;
+                const int rl = LPT <= 4 ? row[l % HELD]
+                                        : (cz[l] - z0) * 32 - x0;
                 // a lane outside the window reads slot 0 and keeps 0: no
                 // branch around the load
-                const bool in = z_in[l] && (unsigned)(cx[l] - x0) < 32u;
-                unsigned x = fold(win[in ? row[l] + cx[l] : 0]);
+                const bool in = zl && (unsigned)(cx[l] - x0) < 32u;
+                unsigned x = fold(win[in ? rl + cx[l] : 0]);
                 x ^= x >> 16;
                 const int s = in ? (int)((x ^ (x >> 8)) & 0xffu) : 0;
-                const int next = step_mod(cx[l], width);
-                cx[l] = s == never ? cz[l] : next;
+                cx[l] = s == never ? cz[l] : step_mod(cx[l], width);
                 acc[l] += (unsigned)s;
             }
         }
