@@ -75,6 +75,16 @@ __device__ __forceinline__ int step_mod(int x, int m) {
     return floor_mod(n, m);
 }
 
+// the same with the in-range result selected before the branch: the window
+// kernel's steps ran 6% faster so, the scene kernel spilled at two lanes a
+// thread (PERF.md)
+__device__ __forceinline__ int step_mod_select(int x, int m) {
+    const int n = (int)((unsigned)x + 1u);
+    int r = n == m ? 0 : n;
+    if (__builtin_expect((unsigned)n > (unsigned)m, 0)) r = floor_mod(n, m);
+    return r;
+}
+
 template <int LPT>
 __global__ void __launch_bounds__(512) cur_kernel(
     const uint8_t* __restrict__ table, const int* __restrict__ cx0,
@@ -208,34 +218,21 @@ __global__ void __launch_bounds__(512) win_kernel(
             have = true;
         }
 
-        // what stays fixed for a lane in a round: whether its z lies in
-        // the window, and its slot less its x (zrel * 32 - x0); kept in
-        // registers up to 4 lanes a thread, recomputed each step at 8
-        constexpr int HELD = LPT <= 4 ? LPT : 1;
-        bool z_in[HELD];
-        int row[HELD];
-#pragma unroll
-        for (int l = 0; l < HELD; ++l) {
-            z_in[l] = (unsigned)(cz[l] - z0) < 32u;
-            row[l] = (cz[l] - z0) * 32 - x0;
-        }
         // eight lanes a thread are enough to interleave without unrolling
         // the steps (unrolled, the 16-byte slots spill)
 #pragma unroll (LPT >= 8 ? 1 : 8)
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int l = 0; l < LPT; ++l) {
-                const bool zl = LPT <= 4 ? z_in[l % HELD]
-                                         : (unsigned)(cz[l] - z0) < 32u;
-                const int rl = LPT <= 4 ? row[l % HELD]
-                                        : (cz[l] - z0) * 32 - x0;
                 // a lane outside the window reads slot 0 and keeps 0: no
                 // branch around the load
-                const bool in = zl && (unsigned)(cx[l] - x0) < 32u;
-                unsigned x = fold(win[in ? rl + cx[l] : 0]);
+                const int xl = cx[l] - x0, zrel = cz[l] - z0;
+                const bool in = (unsigned)xl < 32u && (unsigned)zrel < 32u;
+                unsigned x = fold(win[in ? zrel * 32 + xl : 0]);
                 x ^= x >> 16;
                 const int s = in ? (int)((x ^ (x >> 8)) & 0xffu) : 0;
-                cx[l] = s == never ? cz[l] : step_mod(cx[l], width);
+                const int next = step_mod_select(cx[l], width);
+                cx[l] = s == never ? cz[l] : next;
                 acc[l] += (unsigned)s;
             }
         }
