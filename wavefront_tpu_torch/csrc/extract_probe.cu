@@ -76,8 +76,8 @@ __device__ __forceinline__ int step_mod(int x, int m) {
 }
 
 // the same with the in-range result selected before the branch: the window
-// kernel's steps ran 6% faster so, the scene kernel spilled at two lanes a
-// thread (PERF.md)
+// kernel's steps ran 6% faster so; the scene kernel at two lanes a thread
+// and the window kernel at eight spilled registers so (PERF.md)
 __device__ __forceinline__ int step_mod_select(int x, int m) {
     const int n = (int)((unsigned)x + 1u);
     int r = n == m ? 0 : n;
@@ -231,8 +231,12 @@ __global__ void __launch_bounds__(512) win_kernel(
                 unsigned x = fold(win[in ? zrel * 32 + xl : 0]);
                 x ^= x >> 16;
                 const int s = in ? (int)((x ^ (x >> 8)) & 0xffu) : 0;
-                const int next = step_mod_select(cx[l], width);
-                cx[l] = s == never ? cz[l] : next;
+                if constexpr (LPT >= 8) {
+                    cx[l] = s == never ? cz[l] : step_mod(cx[l], width);
+                } else {
+                    const int next = step_mod_select(cx[l], width);
+                    cx[l] = s == never ? cz[l] : next;
+                }
                 acc[l] += (unsigned)s;
             }
         }
