@@ -830,11 +830,13 @@ def radix_check(scene, settings, basis) -> dict:
 def probe_check() -> dict:
     """K5, K6 and K7 against their plain versions on the card at small
     iteration counts, for one group and for more groups than the card has
-    SMs; the shared memory a block is granted; and each kernel's time at a
-    shape its lab gives it, beside the plain version's and the kernel's
-    own device time (torch.profiler); for K7 also torch.gather's device
-    time and its launch path taken apart on the host clock
-    (`gpu_probe.launch_split`)."""
+    SMs, and K5's and K6's new designs at their edges; the shared memory a
+    block is granted; and each kernel's time at a shape its lab gives it,
+    beside the plain version's and the kernel's own device time
+    (torch.profiler); for K5 and K6 also the machine code of a loop
+    iteration (`event_lab.probe_loop_sass`) and the shared-memory floor it
+    sets; for K7 torch.gather's device time and its launch path taken
+    apart on the host clock (`gpu_probe.launch_split`)."""
     rng = np.random.default_rng(5)
     out = {"max_abs_err": {"device_probe": 0, "extract_probe": 0,
                            "loop_probe": 0}}

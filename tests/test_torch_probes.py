@@ -523,6 +523,40 @@ def test_march_loop_instructions_counts_the_fine_path(monkeypatch, library):
     assert read == [library or "lib"]
 
 
+# two probe kernels as `cuobjdump -sass` prints them: the second one's loop
+# (0x20-0x90) holds a 16-byte, an 8-byte and a byte shared load, a dp4a,
+# a global and a constant load; the first one's loop must not be read
+FAKE_PROBE_SASS = """
+        Function : _ZN12_GLOBAL__N_111loop_kernelILi1ELi8ELi4EEEvPKi
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/              @P0 BRA 0x0 ;
+        Function : _ZN12_GLOBAL__N_111loop_kernelILi1ELi64ELi4EEEvPKi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   LDS.128 R4, [R2] ;
+        /*0030*/              @!P1 LDS.64 R8, [R3+0x10] ;
+        /*0040*/                   LDS.U8 R9, [R3] ;
+        /*0050*/                   IDP.4A.U8.U8 R9, R4, UR6, R9 ;
+        /*0060*/                   LDG.E.CONSTANT R10, desc[UR8][R12.64] ;
+        /*0070*/                   LDC R11, c[0x0][0x240] ;
+        /*0080*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0090*/              @P0 BRA 0x20 ;
+        /*00a0*/                   EXIT ;
+"""
+
+
+def test_probe_loop_sass_counts_the_loop_of_the_named_kernel(monkeypatch):
+    monkeypatch.setattr(event_lab.subprocess, "run", lambda cmd, **kw:
+                        types.SimpleNamespace(stdout=FAKE_PROBE_SASS))
+    monkeypatch.setattr(event_lab._build, "nvcc_path", lambda: "/cuda/nvcc")
+    monkeypatch.setattr(event_lab._build, "library_path", lambda name: "lib")
+    assert event_lab.probe_loop_sass(
+        "loop_probe", r"loop_kernelILi1ELi64ELi4EE") == {
+        "instructions": 8, "shared_loads": 3, "shared_load_bytes": 25,
+        "shared_bank_bytes": 28, "dp4a": 1, "global_loads": 1,
+        "constant_loads": 1}
+
+
 PTXAS_LOG = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN37_GLOBAL__N__c6aadfbd_15_window_trace_cu_wt_trace12trace_kernelEPKfS1_' for 'sm_90a'
 ptxas info    : Function properties for _ZN37_GLOBAL__N__c6aadfbd_15_window_trace_cu_wt_trace12trace_kernelEPKfS1_

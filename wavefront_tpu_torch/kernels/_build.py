@@ -17,9 +17,11 @@ and shared memory; the report is kept beside the library
 A missing `nvcc` or a failed build raises; nothing falls back.
 
 Every wrapper launches through a `Launcher`: the C function typed and
-bound once, called with the raw handle of PyTorch's current stream.  A
-kernel of a few microseconds costs what its host path costs, so the path
-holds no per-call library lookup and builds no `torch.cuda.Stream`.
+bound once, called on its tensors' device with the raw handle of
+PyTorch's current stream there.  A kernel of a few microseconds costs
+what its host path costs, so the path holds no per-call library lookup,
+builds no `torch.cuda.Stream`, and switches the current device only when
+the tensors lie on another one.
 """
 
 from __future__ import annotations

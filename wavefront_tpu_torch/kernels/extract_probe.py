@@ -17,8 +17,8 @@ one group.  On the card a group is one thread block: rows * 128 must be a
 multiple of 32 up to 512, or 1024, 2048 or 4096 (rows 8, 16, 32).  Tables
 are uint8 (the TPU tool keeps the same integers 0..254 in bf16).
 
-Bound on the card: load latency (see the source note in the .cu file and
-PERF.md).
+What holds each kernel on the card, and how its design answers it, is in
+the source note of the .cu file.
 """
 
 from __future__ import annotations

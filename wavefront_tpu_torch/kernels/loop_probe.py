@@ -23,7 +23,11 @@ after every iteration of onehot and zsel.  States are int32 of shape
 thread block on the card: a multiple of 32 up to 512, or 1024, 2048 or
 4096 lanes.
 
-What bounds each form on the card is in the source note of the .cu file.
+Every onehot form reads the table column-major (a code's rows together)
+in wide chunks; for the global and constant forms the wrapper allocates
+the column-major copy that the launch fills, so their time includes
+making it.  What bounds each form on the card is in the source note of
+the .cu file.
 """
 
 from __future__ import annotations
