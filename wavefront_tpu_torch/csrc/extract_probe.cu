@@ -17,12 +17,15 @@
 // the (rows, 128) tiles are the TPU's means; the integers in `acc` are
 // the semantics.  Tables here are uint8 holding 0..254.
 //
-// What bounds them on this card: the dependent chain of each lane and the
-// instructions on it.  Every lane-iteration reads nc channel bytes of its
-// own voxel, at an address that hangs on the previous iteration's result:
-// `cur` from L2/L1 with ordinary byte loads, `win` from the window staged
-// in shared memory.  The design keeps that chain to the read and little
-// else:
+// What holds them on this card (PERF.md): `cur` L1's sectors, each lane's
+// channel byte its own 32-byte sector of a table spread over the scene;
+// `win` the instructions of its dependent step and its consensus barriers,
+// well above the floor its shared loads set.  Every lane-iteration reads
+// nc channel bytes of its own voxel, at an address that hangs on the
+// previous iteration's result: `cur` from L2/L1 with ordinary byte loads,
+// `win` from the window staged in shared memory (a lane outside the
+// window reads slot 0 and keeps 0, with no branch around the load).  The
+// design keeps that chain to the read and little else:
 //   * the channel loop runs to the compile-time MAX_NC, each step
 //     predicated on the run-time nc, so a lane's nc loads go out together
 //     (looped to nc, each load waited behind the XOR before it); `cur`
@@ -179,7 +182,7 @@ __global__ void __launch_bounds__(512) win_kernel(
         __syncthreads();
         w = consensus[slot];
         if (threadIdx.x == 0) consensus[(round + 2) % 3] = INT_MAX;
-        const int x0 = (w >= 0 ? w / nwz : -((-(w + 1)) / nwz) - 1) * 32;
+        const int x0 = (w >= 0 ? w / nwz : -((-w + nwz - 1) / nwz)) * 32;
         const int z0 = floor_mod(w, nwz) * 32;
         if (!have || w != staged) {
             // stage its block; a window index outside the table reads the
@@ -257,18 +260,30 @@ bool group_shape(int lanes, int* threads, int* lpt) {
 
 }  // namespace
 
-// the kernel (a template of the lanes a thread and then `extra`) launched
-// for the group shape in `lpt`
-#define LAUNCH_BY_LPT(kernel, extra, ...)                                     \
-    switch (lpt) {                                                            \
-    case 1: kernel<1 extra><<<groups, threads, 0, s>>>(__VA_ARGS__); break;   \
-    case 2: kernel<2 extra><<<groups, threads, 0, s>>>(__VA_ARGS__); break;   \
-    case 4: kernel<4 extra><<<groups, threads, 0, s>>>(__VA_ARGS__); break;   \
-    default: kernel<8 extra><<<groups, threads, 0, s>>>(__VA_ARGS__); break;  \
+#define LAUNCH_BY_LPT(kernel, ...)                                        \
+    switch (lpt) {                                                        \
+    case 1: kernel<1><<<groups, threads, 0, s>>>(__VA_ARGS__); break;     \
+    case 2: kernel<2><<<groups, threads, 0, s>>>(__VA_ARGS__); break;     \
+    case 4: kernel<4><<<groups, threads, 0, s>>>(__VA_ARGS__); break;     \
+    default: kernel<8><<<groups, threads, 0, s>>>(__VA_ARGS__); break;    \
     }
-#define NOTHING
-#define SLOT8 , 8
-#define SLOT16 , 16
+
+// the window kernel for a voxel slot of SLOT bytes
+template <int SLOT>
+void launch_win(int lpt, int groups, int threads, cudaStream_t s,
+                const uint8_t* tw, const int* cx, const int* cz, int* out,
+                int nwx, int nwz, int nc, int iters, int lanes)
+{
+#define WIN(LPT) win_kernel<LPT, SLOT><<<groups, threads, 0, s>>>( \
+        tw, cx, cz, out, nwx, nwz, nc, iters, lanes, NEVER)
+    switch (lpt) {
+    case 1: WIN(1); break;
+    case 2: WIN(2); break;
+    case 4: WIN(4); break;
+    default: WIN(8); break;
+    }
+#undef WIN
+}
 
 // table: (nc*gz, gx) uint8; cx, cz, out: (groups, lanes) int32.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for a group size the
@@ -279,13 +294,12 @@ extern "C" int ep_extract_cur(const uint8_t* table, const int* cx,
                               void* stream)
 {
     int threads, lpt;
-    if (!group_shape(lanes, &threads, &lpt) || gx < 1 || gz < 1
-            || nc < 1)
+    if (!group_shape(lanes, &threads, &lpt) || gx < 1 || gz < 1 || nc < 1)
         return (int)cudaErrorInvalidValue;
     if (groups <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
-    LAUNCH_BY_LPT(cur_kernel, NOTHING, table, cx, cz, out, gx, gz, nc, iters,
-                  lanes, NEVER)
+    LAUNCH_BY_LPT(cur_kernel, table, cx, cz, out, gx, gz, nc, iters, lanes,
+                  NEVER)
     return (int)cudaGetLastError();
 }
 
@@ -297,19 +311,17 @@ extern "C" int ep_extract_win(const uint8_t* tw, const int* cx,
                               void* stream)
 {
     int threads, lpt;
-    if (!group_shape(lanes, &threads, &lpt)
-            || nwx < 1 || nwz < 1 || nc < 1
+    if (!group_shape(lanes, &threads, &lpt) || nwx < 1 || nwz < 1 || nc < 1
             || nc > MAX_NC || (reinterpret_cast<uintptr_t>(tw) & 15u) != 0)
         return (int)cudaErrorInvalidValue;
     if (groups <= 0) return 0;
     cudaStream_t s = (cudaStream_t)stream;
     // a voxel's channels in an 8-byte slot up to 8 channels, else 16 bytes
-    if (nc <= 8) {
-        LAUNCH_BY_LPT(win_kernel, SLOT8, tw, cx, cz, out, nwx, nwz, nc, iters,
-                      lanes, NEVER)
-    } else {
-        LAUNCH_BY_LPT(win_kernel, SLOT16, tw, cx, cz, out, nwx, nwz, nc,
-                      iters, lanes, NEVER)
-    }
+    if (nc <= 8)
+        launch_win<8>(lpt, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc,
+                      iters, lanes);
+    else
+        launch_win<16>(lpt, groups, threads, s, tw, cx, cz, out, nwx, nwz, nc,
+                       iters, lanes);
     return (int)cudaGetLastError();
 }

@@ -51,17 +51,17 @@
 // 4*(~code & 1) + c in the second; lane l reads copy (code ^ (l >> 2)) & 1
 // and at step k chunk (k + l) & 3, so it meets group
 // 4*((l >> 2) & 1) + ((k + l) & 3): distinct for the 8 lanes of a
-// quarter-warp.  The 8-row table is one column-major copy: sixteen copies
-// shifted so that a half-warp's 8-byte loads fall in distinct groups
-// measured slower, the 8-row form being held by its instructions, not by
-// its loads (PERF.md).
-// (16.1 KB or 1 KB of shared memory, staged once a launch).  The
-// global (__ldg) and constant forms read a column-major copy that the
-// launch makes first (one small transposing kernel; one copy, chunks in
-// the same staggered order): they differ from the shared form in where
-// the table lives, and in the copies, which only shared memory's banks
-// ask for.  Every iteration still reads all NR bytes of its code's
-// column; nothing is hoisted out of the dependent loop.
+// quarter-warp (16.1 KB of shared memory, staged once a launch).  The
+// 8-row table is one column-major copy (1 KB): sixteen copies shifted so
+// that a half-warp's 8-byte loads fall in distinct groups measured slower,
+// the 8-row form being held by its instructions, not by its loads
+// (PERF.md).  The global (__ldg) and constant forms read a column-major
+// copy that the launch makes first (one small transposing kernel; one
+// copy, chunks in the same staggered order): they differ from the shared
+// form in where the table lives, and in the copies, which only shared
+// memory's banks ask for.  Every iteration still reads all NR bytes of
+// its code's column; nothing is hoisted out of the dependent loop.  The
+// 64-row shared form runs at 90% of its shared-memory floor.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -340,8 +340,8 @@ __global__ void lane_roll_kernel(const float* __restrict__ a,
 
 // code, acc, code_out, acc_out: (groups, lanes) int32 (acc and acc_out
 // unused by `issue`); table: (nr, 128) uint8 with nr 8 or 64 (onehot);
-// cols: nr * 128 bytes of scratch, 16-byte aligned, for
-// the column-major copy of the global and constant forms (else unused);
+// cols: nr * 128 bytes of scratch, 16-byte aligned, for the column-major
+// copy of the global and constant forms (else unused);
 // offsets: (8, 8) int32 (zsel).  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a variant, nr, alignment or group size it
 // does not take.
