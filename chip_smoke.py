@@ -878,8 +878,8 @@ def probe_check() -> dict:
     # the same floor with the bank conflicts of these lanes: one wavefront
     # a clock on each SM
     ex["shared_wavefronts"] = win_wavefronts(cx, cz, iters, 5, 5)
-    ex["smem_conflict_floor_ms"] = (ex["shared_wavefronts"] / 132 / 1.98e9
-                                    * 1e3)
+    ex["smem_conflict_floor_ms"] = (ex["shared_wavefronts"] * 128
+                                    / SMEM_BYTES_PER_S * 1e3)
     ex["bound_ms"], ex["bound_by"] = max_bound(
         tw.numel() + 3 * 4 * lanes, lanes * iters * (8 + EXTRACT_OPS_PER_ITER))
     table = u8((6, 160, 160))

@@ -59,7 +59,6 @@ import time
 
 KERNELS = ("trace", "shade", "texel", "loop_probe", "extract_cur",
            "extract_win", "row_gather")
-PROBE_GROUPS = 264
 GATHER_ROWS = 4096
 GATHER_CALLS = 1000
 
@@ -205,7 +204,7 @@ def probe_row(kernel: str, reps: int) -> dict:
     import torch
 
     from wavefront_tpu_torch.kernels import extract_probe, loop_probe
-    from wavefront_tpu_torch.tools._timing import time_ms
+    from wavefront_tpu_torch.tools._timing import FILL_GROUPS, time_ms
 
     rng = np.random.default_rng(5)
 
@@ -216,9 +215,9 @@ def probe_row(kernel: str, reps: int) -> dict:
         return torch.as_tensor(rng.integers(0, 255, shape).astype(np.uint8),
                                device="cuda")
 
-    row = {"kernel": kernel, "groups": PROBE_GROUPS, "reps": reps}
+    row = {"kernel": kernel, "groups": FILL_GROUPS, "reps": reps}
     if kernel == "loop_probe":
-        shape = (PROBE_GROUPS, 16, 128)
+        shape = (FILL_GROUPS, 16, 128)
         state = (i32(rng.integers(0, 100, shape)),
                  torch.zeros(shape, dtype=torch.int32, device="cuda"))
         row["rows"] = 16
@@ -230,7 +229,7 @@ def probe_row(kernel: str, reps: int) -> dict:
                         f"onehot_{where}", state, table, iters), reps)
             row[f"iters_{nr}"] = iters
     else:
-        shape = (PROBE_GROUPS, 8, 128)
+        shape = (FILL_GROUPS, 8, 128)
         row.update(rows=8, iters=256)
         if kernel == "extract_cur":
             table = u8((6, 160, 160))
@@ -239,8 +238,8 @@ def probe_row(kernel: str, reps: int) -> dict:
                 table, cx, cz, 256), reps)
         else:
             tw = u8((25, 64, 128))
-            bx = rng.integers(0, 128, (PROBE_GROUPS, 1, 1))
-            bz = rng.integers(0, 128, (PROBE_GROUPS, 1, 1))
+            bx = rng.integers(0, 128, (FILL_GROUPS, 1, 1))
+            bz = rng.integers(0, 128, (FILL_GROUPS, 1, 1))
             cx = i32(bx + rng.integers(0, 32, shape))
             cz = i32(bz + rng.integers(0, 32, shape))
             row["ms"] = time_ms(lambda: extract_probe.extract_win(
