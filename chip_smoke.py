@@ -685,11 +685,18 @@ def full_frame(what: str, scene, settings, basis, prefs, name: str,
 # the bound stays a lower bound):
 # a key's digit (shift, mask) and its count
 HIST_OPS_PER_KEY = 3
-# beside the channel reads' XORs: the window test, the add into acc, the
+# beside a voxel's channel reads: the window test, the add into acc, the
 # compare and select of the next cx and its modulo
 EXTRACT_OPS_PER_ITER = 6
-# beside the table rows' adds: the low bit, the code update and its mask
+# the window form reads a voxel's 8 channel bytes as one 8-byte slot and
+# folds them to one byte: an XOR of the two words, then two shifts and two
+# XORs, the mask taken into the last
+EXTRACT_WIN_FOLD_OPS = 5
+# beside the column's sum: the low bit, the code update and its mask
 LOOP_OPS_PER_ITER = 3
+# a code's column of NR table bytes is summed four bytes an instruction
+# (unsigned __dp4a): NR / 4 operations a lane-iteration
+LOOP_BYTES_PER_OP = 4
 # the card's shared memory serves one 128-byte row of its 32 banks a clock
 # on each SM; a load of fewer than 4 bytes still takes a bank's slot
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
@@ -706,36 +713,6 @@ def smem_floor_ms(lane_iters: int, sass: dict, per_pass: int) -> float:
 
 def per_lane_iter(sass: dict, per_pass: int) -> dict:
     return {k: v / per_pass for k, v in sass.items()}
-
-
-def win_wavefronts(cx, cz, iters: int, nwx: int, nwz: int) -> int:
-    """Shared-memory wavefronts the window kernel's 8-byte slot loads need
-    on these lanes (extract_win's walk, nc <= 8): a half-warp's load takes
-    as many as the most distinct slots that fall in one of the 16 bank
-    pairs; a lane outside the window reads slot 0.  Lanes sit in threads
-    as the kernel holds them: lane l * threads + t of a group in thread
-    t."""
-    groups, rows, _ = cx.shape
-    lanes = rows * 128
-    threads = min(lanes, 512)
-    cx, cz = cx.reshape(groups, lanes).clone(), cz.reshape(groups, lanes)
-    total = torch.zeros((), dtype=torch.int64, device=cx.device)
-    for _ in range(0, iters, 8):
-        w = ((cx >> 5) * nwz + (cz >> 5)).amin(dim=1, keepdim=True)
-        x0 = torch.div(w, nwz, rounding_mode="floor") * 32
-        z0 = torch.remainder(w, nwz) * 32
-        for _ in range(8):
-            xl, zrel = cx - x0, cz - z0
-            inw = (xl >= 0) & (xl < 32) & (zrel >= 0) & (zrel < 32)
-            slot = torch.where(inw, zrel * 32 + xl, torch.zeros_like(xl))
-            half = slot.reshape(groups, -1, 16).sort(dim=-1).values
-            new = torch.ones_like(half, dtype=torch.int32)
-            new[..., 1:] = (half[..., 1:] != half[..., :-1]).to(torch.int32)
-            per_pair = torch.zeros_like(new).scatter_add_(-1, half & 15, new)
-            total += per_pair.amax(dim=-1).sum()
-            # no XOR of bytes equals the kernel's `never`: x steps by one
-            cx = torch.remainder(cx + 1, nwx * 32)
-    return int(total)
 
 
 def exact(got, want, what: str) -> int:
@@ -875,13 +852,9 @@ def probe_check() -> dict:
           # stage included
           "smem_floor_ms": smem_floor_ms(lanes * iters, win_sass, 16),
           "sass_per_lane_iter": per_lane_iter(win_sass, 16)}
-    # the same floor with the bank conflicts of these lanes: one wavefront
-    # a clock on each SM
-    ex["shared_wavefronts"] = win_wavefronts(cx, cz, iters, 5, 5)
-    ex["smem_conflict_floor_ms"] = (ex["shared_wavefronts"] * 128
-                                    / SMEM_BYTES_PER_S * 1e3)
     ex["bound_ms"], ex["bound_by"] = max_bound(
-        tw.numel() + 3 * 4 * lanes, lanes * iters * (8 + EXTRACT_OPS_PER_ITER))
+        tw.numel() + 3 * 4 * lanes,
+        lanes * iters * (EXTRACT_WIN_FOLD_OPS + EXTRACT_OPS_PER_ITER))
     table = u8((6, 160, 160))
     ux, uz = roofline._lanes(rng, groups, 8, 160, 160)
     cur = {"channels": 6, "table": [160, 160],
@@ -918,7 +891,8 @@ def probe_check() -> dict:
     lo["smem_floor_ms"] = smem_floor_ms(lanes * iters, sass, 4)
     lo["sass_per_lane_iter"] = per_lane_iter(sass, 4)
     lo["bound_ms"], lo["bound_by"] = max_bound(
-        table.numel() + 4 * 4 * lanes, lanes * iters * (64 + LOOP_OPS_PER_ITER))
+        table.numel() + 4 * 4 * lanes,
+        lanes * iters * (64 // LOOP_BYTES_PER_OP + LOOP_OPS_PER_ITER))
     table8 = u8((8, 128))
     sass8 = event_lab.probe_loop_sass("loop_probe",
                                       r"loop_kernelILi1ELi8ELi4EE")
@@ -1308,6 +1282,7 @@ def main() -> int:
             "library_ms": k.get("library_ms"),
             "device_ms": k.get("device_ms"),
             "library_device_ms": k.get("library_device_ms"),
+            "smem_floor_ms": k.get("smem_floor_ms"),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{name}, {limit}", flush=True)

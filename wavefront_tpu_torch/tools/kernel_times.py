@@ -204,6 +204,7 @@ def probe_row(kernel: str, reps: int) -> dict:
     import torch
 
     from wavefront_tpu_torch.kernels import extract_probe, loop_probe
+    from wavefront_tpu_torch.tools import roofline
     from wavefront_tpu_torch.tools._timing import FILL_GROUPS, time_ms
 
     rng = np.random.default_rng(5)
@@ -229,19 +230,18 @@ def probe_row(kernel: str, reps: int) -> dict:
                         f"onehot_{where}", state, table, iters), reps)
             row[f"iters_{nr}"] = iters
     else:
-        shape = (FILL_GROUPS, 8, 128)
+        # the lanes of roofline's rows: uniform over the scene, or each
+        # group within 32 voxels of its own base
         row.update(rows=8, iters=256)
         if kernel == "extract_cur":
             table = u8((6, 160, 160))
-            cx, cz = (i32(rng.integers(0, 160, shape)) for _ in range(2))
+            cx, cz = roofline._lanes(rng, FILL_GROUPS, 8, 160, 160)
             row["ms"] = time_ms(lambda: extract_probe.extract_cur(
                 table, cx, cz, 256), reps)
         else:
             tw = u8((25, 64, 128))
-            bx = rng.integers(0, 128, (FILL_GROUPS, 1, 1))
-            bz = rng.integers(0, 128, (FILL_GROUPS, 1, 1))
-            cx = i32(bx + rng.integers(0, 32, shape))
-            cz = i32(bz + rng.integers(0, 32, shape))
+            cx, cz = roofline._lanes(rng, FILL_GROUPS, 8, 160, 160,
+                                     roofline.SPREAD)
             row["ms"] = time_ms(lambda: extract_probe.extract_win(
                 tw, cx, cz, 256, 5, 5), reps)
     return row
