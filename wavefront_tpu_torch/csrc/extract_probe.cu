@@ -47,6 +47,10 @@
 //     therefore time that saving too.  A stage reads the window's rows as
 //     4-byte words, each thread four voxels, and transposes them in
 //     registers (__byte_perm) into the slots; a second barrier follows it.
+//     Copying the next round's window ahead by cp.async into a second
+//     buffer (predicted from the lanes 8 steps on) and transposing it from
+//     there measured 6% slower: the stages are a few percent of the time,
+//     and the prediction costs every round a second reduction.
 // A group of lanes is one thread block (the TPU kernel's whole tile: the
 // consensus minimum is a block reduction), each thread keeping LPT lanes
 // in registers; many groups in one launch fill the card.
@@ -54,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "device_scope.h"
 
 namespace {
 
@@ -288,11 +294,13 @@ void launch_win(int lpt, int groups, int threads, cudaStream_t s,
 // table: (nc*gz, gx) uint8; cx, cz, out: (groups, lanes) int32.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for a group size the
 // kernel does not take).
-extern "C" int ep_extract_cur(const uint8_t* table, const int* cx,
-                              const int* cz, int* out, int gx, int gz,
-                              int nc, int iters, int groups, int lanes,
-                              void* stream)
+extern "C" int ep_extract_cur(int device, const uint8_t* table,
+                              const int* cx, const int* cz, int* out,
+                              int gx, int gz, int nc, int iters, int groups,
+                              int lanes, void* stream)
 {
+    DeviceScope scope(device);
+    if (scope.err != cudaSuccess) return (int)scope.err;
     int threads, lpt;
     if (!group_shape(lanes, &threads, &lpt) || gx < 1 || gz < 1 || nc < 1)
         return (int)cudaErrorInvalidValue;
@@ -305,11 +313,13 @@ extern "C" int ep_extract_cur(const uint8_t* table, const int* cx,
 
 // tw: (nwx*nwz, nc*8, 128) uint8, 16-byte aligned; cx, cz, out:
 // (groups, lanes) int32.  iters rounds up to a multiple of 8.
-extern "C" int ep_extract_win(const uint8_t* tw, const int* cx,
-                              const int* cz, int* out, int nwx, int nwz,
-                              int nc, int iters, int groups, int lanes,
-                              void* stream)
+extern "C" int ep_extract_win(int device, const uint8_t* tw,
+                              const int* cx, const int* cz, int* out,
+                              int nwx, int nwz, int nc, int iters,
+                              int groups, int lanes, void* stream)
 {
+    DeviceScope scope(device);
+    if (scope.err != cudaSuccess) return (int)scope.err;
     int threads, lpt;
     if (!group_shape(lanes, &threads, &lpt) || nwx < 1 || nwz < 1 || nc < 1
             || nc > MAX_NC || (reinterpret_cast<uintptr_t>(tw) & 15u) != 0)
