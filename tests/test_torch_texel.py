@@ -155,8 +155,8 @@ def _c_signatures():
 
 def test_launchers_match_their_c_functions():
     """Every wrapper's Launcher names a C function of its library and
-    types each of its parameters as the source declares it, the device
-    first and the stream last; building the modules loads no library."""
+    types each of its parameters as the source declares it, the stream
+    last; building the modules loads no library."""
     sigs = _c_signatures()
     seen = []
     for name in _build.SOURCES:
@@ -164,65 +164,54 @@ def test_launchers_match_their_c_functions():
         for launcher in vars(mod).values():
             if isinstance(launcher, _build.Launcher):
                 assert launcher.lib == name
-                assert sigs[launcher.fn] == "i" + launcher.signature + "p"
+                assert sigs[launcher.fn] == launcher.signature + "p"
                 assert launcher._call is None
                 seen.append(launcher.fn)
     assert sorted(seen) == sorted(sigs)
 
 
-def _fake_launcher(result=0):
-    """A Launcher whose typed function and stream are fakes that log what
-    they are asked; the log returned beside it."""
-    log = []
+def _fake_launcher(result=0, current=0):
+    """A Launcher whose typed function, stream and device calls are fakes
+    that log what they are asked; the log and the device state returned
+    beside it."""
+    log, state = [], {"device": current}
     launcher = _build.Launcher("texel", "texel_launch", "pi", "fake")
 
     def call(*args):
-        log.append(("launch", args))
+        log.append(("launch", state["device"], args))
         if isinstance(result, Exception):
             raise result
         return result
 
+    def set_device(d):
+        log.append(("set", d))
+        state["device"] = d
+
     launcher._call = call
     launcher._stream = lambda d: 1000 + d
-    return launcher, log
+    launcher._get_device = lambda: state["device"]
+    launcher._set_device = set_device
+    return launcher, log, state
 
 
 def test_launcher_switches_device_only_when_it_differs():
-    """A launch hands the C function its tensors' device first and that
-    device's stream last, and switches no device in Python: the C entry
-    point's DeviceScope makes the device current only when it differs
-    (`csrc/device_scope.h`).  An error the launcher does not return
-    raises; one it returns comes back."""
-    launcher, log = _fake_launcher()
+    """On the current device a launch switches nothing; on another it
+    makes that device current for the launch, with that device's stream,
+    and restores the old one after it, also when the launch fails or
+    raises."""
+    launcher, log, state = _fake_launcher()
     assert launcher(0, 7, 3) == 0
+    assert log == [("launch", 0, (7, 3, 1000))]
+    log.clear()
     assert launcher(2, 7, 3) == 0
-    assert log == [("launch", (0, 7, 3, 1000)), ("launch", (2, 7, 3, 1002))]
+    assert log == [("set", 2), ("launch", 2, (7, 3, 1002)), ("set", 0)]
+    assert state["device"] == 0
     for result in (700, RuntimeError("lost")):
-        launcher, log = _fake_launcher(result)
+        launcher, log, state = _fake_launcher(result, current=1)
         with pytest.raises(RuntimeError):
             launcher(3, 7, 3)
-        assert log == [("launch", (3, 7, 3, 1003))]
-    launcher, log = _fake_launcher(9)
-    launcher.returned = (9,)
-    assert launcher(1, 7, 3) == 9
-
-
-def test_c_entry_points_open_the_device_scope_first():
-    """Every C entry point of the port takes its device first and opens a
-    DeviceScope on it before anything else, so every path out of it,
-    early returns included, restores the caller's device (the probes that
-    time the scope open theirs in a loop)."""
-    seen = 0
-    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
-        with open(path) as f:
-            src = f.read()
-        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)\s*\{\s*'
-                             r'([^;]*;)', src):
-            assert m.group(2).split(",")[0].split() == ["int", "device"]
-            if not m.group(1).startswith("dp_device_scopes"):
-                assert m.group(3) == "DeviceScope scope(device);", m.group(1)
-            seen += 1
-    assert seen == len(_c_signatures())
+        assert log == [("set", 3), ("launch", 3, (7, 3, 1003)), ("set", 1)]
+        assert state["device"] == 1
 
 
 def test_launcher_refuses_an_unknown_parameter_type():

@@ -28,8 +28,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "device_scope.h"
-
 namespace {
 
 __global__ void __launch_bounds__(256) loop_add_kernel(
@@ -77,11 +75,9 @@ __global__ void __launch_bounds__(1024) smem_copy_kernel(
 }  // namespace
 
 // out[i] = x[i] added to 0.0f `iters` times.  Returns cudaGetLastError().
-extern "C" int dp_loop_add(int device, const float* x, float* out, int n,
-                           int iters, void* stream)
+extern "C" int dp_loop_add(const float* x, float* out, int n, int iters,
+                           void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     if (n <= 0) return 0;
     loop_add_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
         x, out, n, iters);
@@ -90,12 +86,9 @@ extern "C" int dp_loop_add(int device, const float* x, float* out, int n,
 
 // table, idx, out: (rows, 128) int32.
 // out[i, l] = sum over k < reps of table[(idx[i, l] + k) mod rows, l].
-extern "C" int dp_row_gather_sum(int device, const int* table,
-                                 const int* idx, int* out, int rows,
-                                 int reps, void* stream)
+extern "C" int dp_row_gather_sum(const int* table, const int* idx, int* out,
+                                 int rows, int reps, void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     if (rows <= 0) return 0;
     const int n = rows * 128;
     row_gather_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
@@ -106,11 +99,9 @@ extern "C" int dp_row_gather_sum(int device, const int* table,
 // Copy n <= 1024 floats through the last n floats of `bytes` of dynamic
 // shared memory.  Returns the error of cudaFuncSetAttribute or of the
 // launch (0 when both were accepted); a refusal leaves no error pending.
-extern "C" int dp_smem_copy(int device, const float* in, float* out,
-                            int n, int bytes, void* stream)
+extern "C" int dp_smem_copy(const float* in, float* out, int n, int bytes,
+                            void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     if (n < 1 || n > 1024 || bytes < n * 4) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         smem_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -121,23 +112,4 @@ extern "C" int dp_smem_copy(int device, const float* in, float* out,
     smem_copy_kernel<<<1, 1024, bytes, (cudaStream_t)stream>>>(
         in, out, n, bytes / 4 - n);
     return (int)cudaGetLastError();
-}
-
-// The launch path's probes of the device guard (gpu_probe.launch_split):
-// each opens and closes `scopes` DeviceScopes on `device` one after
-// another and returns, with scopes 0 a C call that does nothing; the
-// second takes one int more, to time its conversion.
-extern "C" int dp_device_scopes(int device, int scopes, void* stream)
-{
-    for (int k = 0; k < scopes; ++k) {
-        DeviceScope scope(device);
-        if (scope.err != cudaSuccess) return (int)scope.err;
-    }
-    return 0;
-}
-
-extern "C" int dp_device_scopes_int(int device, int scopes, int unused,
-                                    void* stream)
-{
-    return dp_device_scopes(device, scopes, stream);
 }

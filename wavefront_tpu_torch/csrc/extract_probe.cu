@@ -47,6 +47,10 @@
 //     therefore time that saving too.  A stage reads the window's rows as
 //     4-byte words, each thread four voxels, and transposes them in
 //     registers (__byte_perm) into the slots; a second barrier follows it.
+//     Copying the next round's window ahead by cp.async into a second
+//     buffer (predicted from the lanes 8 steps on) and transposing it from
+//     there measured 6% slower: the stages are a few percent of the time,
+//     and the prediction costs every round a second reduction.
 // A group of lanes is one thread block (the TPU kernel's whole tile: the
 // consensus minimum is a block reduction), each thread keeping LPT lanes
 // in registers; many groups in one launch fill the card.
@@ -54,8 +58,6 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
-
-#include "device_scope.h"
 
 namespace {
 
@@ -144,23 +146,6 @@ __device__ __forceinline__ uint32_t byte_column(uint32_t a, uint32_t b,
     return __byte_perm(__byte_perm(a, b, sel), __byte_perm(c, d, sel), 0x5410);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(dst), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// VARIANT: the next round's window, predicted from the lanes' positions 8
-// steps on (cx + 8 wrapped), is copied raw by cp.async into a second
-// buffer while this round steps; a round whose consensus is the
-// prefetched window transposes it from shared memory, any other stages
-// from global memory as before
 template <int LPT, int SLOT>
 __global__ void __launch_bounds__(512) win_kernel(
     const uint8_t* __restrict__ tw, const int* __restrict__ cx0,
@@ -169,10 +154,8 @@ __global__ void __launch_bounds__(512) win_kernel(
 {
     using Slot = typename SlotOf<SLOT>::T;
     constexpr int WORDS = SLOT / 4;
-    constexpr int NONE = INT_MIN;
     __shared__ Slot win[1024];      // voxel zrel * 32 + xl
-    __shared__ __align__(16) uint8_t raw[SLOT * 1024];
-    __shared__ int consensus[3][2];
+    __shared__ int consensus[3];
 
     const size_t base = (size_t)blockIdx.x * lanes + threadIdx.x;
     int cx[LPT], cz[LPT];
@@ -183,45 +166,35 @@ __global__ void __launch_bounds__(512) win_kernel(
         cz[l] = cz0[base + l * blockDim.x];
         acc[l] = 0;
     }
-    if (threadIdx.x < 6) consensus[threadIdx.x >> 1][threadIdx.x & 1] = INT_MAX;
+    if (threadIdx.x < 3) consensus[threadIdx.x] = INT_MAX;
     __syncthreads();
     const int width = nwx * 32;
     const int block_bytes = nc * 1024;
     bool have = false;
-    int staged = 0, pending = NONE;
+    int staged = 0;
 
 #pragma unroll 1
     for (int i = 0, round = 0; i < iters; i += 8, ++round) {
-        int w = INT_MAX, p = INT_MAX;
+        // the window all lanes of the group agree on
+        int w = INT_MAX;
 #pragma unroll
-        for (int l = 0; l < LPT; ++l) {
+        for (int l = 0; l < LPT; ++l)
             w = min(w, (cx[l] >> 5) * nwz + (cz[l] >> 5));
-            int nx = cx[l] + 8;
-            nx = nx >= width ? nx - width : nx;
-            p = min(p, (nx >> 5) * nwz + (cz[l] >> 5));
-        }
         w = __reduce_min_sync(0xffffffffu, w);
-        p = __reduce_min_sync(0xffffffffu, p);
         const int slot = round % 3;
-        if ((threadIdx.x & 31) == 0) {
-            atomicMin(&consensus[slot][0], w);
-            atomicMin(&consensus[slot][1], p);
-        }
+        if ((threadIdx.x & 31) == 0) atomicMin(&consensus[slot], w);
         __syncthreads();
-        w = consensus[slot][0];
-        p = consensus[slot][1];
-        if (threadIdx.x < 2) consensus[(round + 2) % 3][threadIdx.x] = INT_MAX;
+        w = consensus[slot];
+        if (threadIdx.x == 0) consensus[(round + 2) % 3] = INT_MAX;
         const int x0 = (w >= 0 ? w / nwz : -((-w + nwz - 1) / nwz)) * 32;
         const int z0 = floor_mod(w, nwz) * 32;
         if (!have || w != staged) {
-            const bool from_raw = w == pending;
-            if (from_raw) {
-                cp_async_wait_all();
-                __syncthreads();
-                pending = NONE;
-            }
+            // stage its block; a window index outside the table reads the
+            // nearest block (an in-range index is the caller's to give)
             const int wc = min(max(w, 0), nwx * nwz - 1);
-            const uint8_t* src = from_raw ? raw : tw + (size_t)wc * block_bytes;
+            const uint8_t* src = tw + (size_t)wc * block_bytes;
+            // thread k: voxels xl = 4 * (k & 7) + 0..3 of row zrel = k >> 3,
+            // a 4-byte word of each channel's row c * 8 + (zrel & 7)
             for (int k = threadIdx.x; k < 256; k += blockDim.x) {
                 const int zrel = k >> 3;
                 const uint8_t* row = src + (zrel & 7) * 128
@@ -251,21 +224,15 @@ __global__ void __launch_bounds__(512) win_kernel(
             staged = w;
             have = true;
         }
-        if (p != w && p != pending && i + 8 < iters) {
-            // an unused earlier copy must land before raw is written again
-            cp_async_wait_all();
-            const uint8_t* src = tw + (size_t)min(max(p, 0), nwx * nwz - 1)
-                * block_bytes;
-            for (int k = threadIdx.x; k < nc * 64; k += blockDim.x)
-                cp_async16(raw + k * 16, src + k * 16);
-            cp_async_commit();
-            pending = p;
-        }
 
+        // eight lanes a thread are enough to interleave without unrolling
+        // the steps (unrolled, the 16-byte slots spill)
 #pragma unroll (LPT >= 8 ? 1 : 8)
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
             for (int l = 0; l < LPT; ++l) {
+                // a lane outside the window reads slot 0 and keeps 0: no
+                // branch around the load
                 const int xl = cx[l] - x0, zrel = cz[l] - z0;
                 const bool in = (unsigned)xl < 32u && (unsigned)zrel < 32u;
                 unsigned x = fold(win[in ? zrel * 32 + xl : 0]);
@@ -281,7 +248,6 @@ __global__ void __launch_bounds__(512) win_kernel(
             }
         }
     }
-    cp_async_wait_all();
 #pragma unroll
     for (int l = 0; l < LPT; ++l) out[base + l * blockDim.x] = (int)acc[l];
 }
@@ -326,13 +292,11 @@ void launch_win(int lpt, int groups, int threads, cudaStream_t s,
 // table: (nc*gz, gx) uint8; cx, cz, out: (groups, lanes) int32.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for a group size the
 // kernel does not take).
-extern "C" int ep_extract_cur(int device, const uint8_t* table,
-                              const int* cx, const int* cz, int* out,
-                              int gx, int gz, int nc, int iters, int groups,
-                              int lanes, void* stream)
+extern "C" int ep_extract_cur(const uint8_t* table, const int* cx,
+                              const int* cz, int* out, int gx, int gz,
+                              int nc, int iters, int groups, int lanes,
+                              void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     int threads, lpt;
     if (!group_shape(lanes, &threads, &lpt) || gx < 1 || gz < 1 || nc < 1)
         return (int)cudaErrorInvalidValue;
@@ -345,13 +309,11 @@ extern "C" int ep_extract_cur(int device, const uint8_t* table,
 
 // tw: (nwx*nwz, nc*8, 128) uint8, 16-byte aligned; cx, cz, out:
 // (groups, lanes) int32.  iters rounds up to a multiple of 8.
-extern "C" int ep_extract_win(int device, const uint8_t* tw,
-                              const int* cx, const int* cz, int* out,
-                              int nwx, int nwz, int nc, int iters,
-                              int groups, int lanes, void* stream)
+extern "C" int ep_extract_win(const uint8_t* tw, const int* cx,
+                              const int* cz, int* out, int nwx, int nwz,
+                              int nc, int iters, int groups, int lanes,
+                              void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     int threads, lpt;
     if (!group_shape(lanes, &threads, &lpt) || nwx < 1 || nwz < 1 || nc < 1
             || nc > MAX_NC || (reinterpret_cast<uintptr_t>(tw) & 15u) != 0)

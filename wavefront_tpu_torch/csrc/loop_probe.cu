@@ -67,8 +67,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "device_scope.h"
-
 namespace {
 
 enum Variant {
@@ -347,13 +345,11 @@ __global__ void lane_roll_kernel(const float* __restrict__ a,
 // offsets: (8, 8) int32 (zsel).  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a variant, nr, alignment or group size it
 // does not take.
-extern "C" int lp_loop(int device, int variant, int nr, const int* code,
-                       const int* acc, const uint8_t* table, uint8_t* cols,
+extern "C" int lp_loop(int variant, int nr, const int* code, const int* acc,
+                       const uint8_t* table, uint8_t* cols,
                        const int* offsets, int* code_out, int* acc_out,
                        int iters, int groups, int lanes, void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     int threads, lpt;
     if (!group_shape(lanes, &threads, &lpt)) return (int)cudaErrorInvalidValue;
     if (groups <= 0) return 0;
@@ -390,11 +386,9 @@ extern "C" int lp_loop(int device, int variant, int nr, const int* code,
 // which: 0 int16 compare, 1 int8 compare, 2 bf16 square (a, out:
 // (128, 128) int32); 3 row pick (a: (8, 128) float32, b: (8, 128) int32
 // indices, out: (8, 128) int32); 4 lane roll (a: (8, 128) float32).
-extern "C" int lp_primitive(int device, int which, const void* a,
-                            const void* b, int* out, void* stream)
+extern "C" int lp_primitive(int which, const void* a, const void* b,
+                            int* out, void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     cudaStream_t s = (cudaStream_t)stream;
     switch (which) {
     case 0: narrow_cmp_kernel<int16_t><<<128, 128, 0, s>>>((const int*)a, out); break;

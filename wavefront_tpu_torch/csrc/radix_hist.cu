@@ -24,8 +24,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "device_scope.h"
-
 namespace {
 
 constexpr int BLOCK = 256;
@@ -86,11 +84,9 @@ int grid_for(int n) {
 
 // keys: (n,) 32-bit keys; out: (256,) int32, zeroed by the caller; counts
 // of digit (key >> shift) & 255.  Returns cudaGetLastError().
-extern "C" int rh_digit_histogram(int device, const uint32_t* keys, int n,
-                                  int shift, int* out, void* stream)
+extern "C" int rh_digit_histogram(const uint32_t* keys, int n, int shift,
+                                  int* out, void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     if (shift < 0 || shift > 24) return (int)cudaErrorInvalidValue;
     if (n <= 0) return 0;
     hist_kernel<1><<<grid_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
@@ -100,11 +96,9 @@ extern "C" int rh_digit_histogram(int device, const uint32_t* keys, int n,
 
 // All four digits in one read of the keys; out: (4, 256) int32, zeroed by
 // the caller, row d counting digit (key >> 8 d) & 255.
-extern "C" int rh_digit_histograms4(int device, const uint32_t* keys,
-                                    int n, int* out, void* stream)
+extern "C" int rh_digit_histograms4(const uint32_t* keys, int n, int* out,
+                                    void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     if (n <= 0) return 0;
     hist_kernel<4><<<grid_for(n), BLOCK, 0, (cudaStream_t)stream>>>(
         keys, n, 0, out);

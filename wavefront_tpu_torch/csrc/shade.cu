@@ -48,8 +48,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "device_scope.h"
-
 namespace {
 
 constexpr float EPS_BLOCK = 1e-3f;
@@ -469,9 +467,9 @@ int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
         if (e != cudaSuccess) return (int)e;
     }
     // as many blocks as are resident at once, each looping over rays; the
-    // count is read for the device that launches (shade_launch's
-    // DeviceScope makes it current) and kept per device with its
-    // shared-memory size
+    // count is read for the device that launches (the caller makes it
+    // current: _build.Launcher) and kept per device with its shared-memory
+    // size
     constexpr int MAX_DEVICES = 64;
     static int resident[MAX_DEVICES] = {};
     static size_t resident_smem[MAX_DEVICES] = {};
@@ -516,7 +514,6 @@ int launch_p(const ShadeIn& in, const TriIn* tri, const ShadeOut& out,
 // nodes on the prims' paths and their siblings (prep_shade_tables).
 // Returns cudaGetLastError().
 extern "C" int shade_launch(
-    int device,
     void* const* ins, void* const* outs, void* const* tris, int n,
     const float* atlas, int size, int n_tex,
     const float* nodes, const int* parent, int m_nodes,
@@ -525,8 +522,6 @@ extern "C" int shade_launch(
     int bounce,
     int nee_type, void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     if (n <= 0) return 0;
     ShadeIn in{(const float*)ins[0], (const float*)ins[1], (const float*)ins[2],
                (const float*)ins[3], (const float*)ins[4], (const float*)ins[5],

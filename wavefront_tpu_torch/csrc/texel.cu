@@ -26,8 +26,6 @@
 
 #include <cuda_runtime.h>
 
-#include "device_scope.h"
-
 namespace {
 
 constexpr int MAX_CHANNELS = 12;
@@ -60,13 +58,10 @@ __global__ void __launch_bounds__(256) texel_kernel(
 // channels: nch indices into a texel row, each in [0, row).  Returns
 // cudaGetLastError() (cudaErrorInvalidValue for a bad channel list).
 extern "C" int texel_launch(
-    int device,
     const float* atlas, int n_tex, int size, int row, const int* tex,
     const float* u, const float* v, float* out, int n,
     const int* channels, int nch, void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     if (nch < 1 || nch > MAX_CHANNELS || n_tex < 1 || size < 1)
         return (int)cudaErrorInvalidValue;
     Channels ch;

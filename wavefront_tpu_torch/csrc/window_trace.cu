@@ -37,8 +37,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "device_scope.h"
-
 #define INF_T 3.0e38f
 #define NUDGE 1e-4f
 #define SKIP_NUDGE 1e-4f
@@ -223,15 +221,12 @@ __global__ void __launch_bounds__(256) trace_kernel(
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `aux` is
 // the (gx, gy, gz) uint8 aux grid of render/intersect.py::make_aux_grid.
 extern "C" int wt_trace(
-    int device,
     const float* ox, const float* oy, const float* oz,
     const float* dx, const float* dy, const float* dz,
     const uint8_t* grid, const uint8_t* aux, int gx, int gy, int gz,
     float gox, float goy, float goz, int n, int max_events,
     float t_min, float t_max, int* pa, int* pb, float* t, void* stream)
 {
-    DeviceScope scope(device);
-    if (scope.err != cudaSuccess) return (int)scope.err;
     if (n <= 0) return 0;
     const int block = 256;
     const int blocks = (n + block - 1) / block;

@@ -17,20 +17,16 @@ and shared memory; the report is kept beside the library
 A missing `nvcc` or a failed build raises; nothing falls back.
 
 Every wrapper launches through a `Launcher`: the C function typed and
-bound once, called with its tensors' device and the raw handle of
-PyTorch's current stream there.  Each C entry point makes that device
-current for the call, only when another one is, and restores the old one
-before it returns (`csrc/device_scope.h`).  A kernel of a few
-microseconds costs what its host path costs, so the path holds no
-per-call library lookup, builds no `torch.cuda.Stream`, and asks Python
-for no device: one int more through ctypes and a `cudaGetDevice` in C cost
-less than `torch._C._cuda_getDevice` (`gpu_probe.launch_split`).
+bound once, called on its tensors' device with the raw handle of
+PyTorch's current stream there.  A kernel of a few microseconds costs
+what its host path costs, so the path holds no per-call library lookup,
+builds no `torch.cuda.Stream`, and switches the current device only when
+the tensors lie on another one.
 """
 
 from __future__ import annotations
 
 import ctypes
-import glob
 import hashlib
 import os
 import re
@@ -73,13 +69,8 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    """The library's file, named by a hash of its source, the headers of
-    `csrc/` and the flags."""
-    src = b""
-    for path in [os.path.join(CSRC, name + ".cu"), *sorted(
-            glob.glob(os.path.join(CSRC, "*.h")))]:
-        with open(path, "rb") as f:
-            src += f.read()
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        src = f.read()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{h}.so")
 
@@ -174,19 +165,24 @@ class Launcher:
     """The C launch function `fn` of `csrc/<lib>.cu`, called on the
     caller's current CUDA stream.
 
-    `signature` names the function's parameters between its first, the
-    device, and its last, the stream, one letter each (ARG_TYPES: p a
-    pointer, passed as an int, None or a ctypes array, i an int, u an
-    unsigned int, f a float).  The library is built and the function
+    `signature` names the function's parameters before its last, one
+    letter each (ARG_TYPES: p a pointer, passed as an int, None or a
+    ctypes array, i an int, u an unsigned int, f a float); the last
+    parameter is the stream.  The library is built and the function
     typed on the first call; later calls go straight to it.
 
-    `launcher(device, *args)` calls `fn(device, *args, stream)`, with the
-    handle of PyTorch's current stream on CUDA device index `device`, read
-    by `torch._C._cuda_getCurrentRawStream` (the call PyTorch's own
+    `launcher(device, *args)` calls `fn(*args, stream)` on CUDA device
+    index `device`, with the handle of PyTorch's current stream there,
+    read by `torch._C._cuda_getCurrentRawStream` (the call PyTorch's own
     generated code makes) without building a `torch.cuda.Stream`, and
     returns the function's `cudaError`: 0, or one listed in `returned`;
-    any other raises.  The function launches on `device`: its
-    DeviceScope makes it current for the call when another one is."""
+    any other raises.  The launch goes to `device`: when another device
+    is current, `device` is made current for the call and the old one
+    restored after it; when it is current already, nothing switches (one
+    compare of device indices, `torch._C._cuda_getDevice`).  A guard in
+    C, a device argument that each entry point makes current, measured no
+    cheaper: ctypes takes as long to pass the int as Python takes to ask
+    for the device (PERF.md)."""
 
     def __init__(self, lib: str, fn: str, signature: str, what: str,
                  returned: tuple = ()):
@@ -196,22 +192,33 @@ class Launcher:
         self.lib, self.fn, self.signature = lib, fn, signature
         self.what, self.returned = what, tuple(returned)
         self._call = self._stream = None
+        self._get_device = self._set_device = None
 
     def bind(self):
         """Build and load the library and type the function; returns the
         typed function."""
         if self._call is None:
             f = getattr(load(self.lib), self.fn)
-            f.argtypes = [ctypes.c_int] + [
-                ARG_TYPES[c] for c in self.signature] + [ctypes.c_void_p]
+            f.argtypes = [ARG_TYPES[c] for c in self.signature] + [
+                ctypes.c_void_p]
             f.restype = ctypes.c_int
             self._stream = torch._C._cuda_getCurrentRawStream
+            self._get_device = torch._C._cuda_getDevice
+            self._set_device = torch._C._cuda_setDevice
             self._call = f
         return self._call
 
     def __call__(self, device: int, *args) -> int:
         call = self._call or self.bind()
-        err = call(device, *args, self._stream(device))
+        current = self._get_device()
+        if current == device:
+            err = call(*args, self._stream(device))
+        else:
+            self._set_device(device)
+            try:
+                err = call(*args, self._stream(device))
+            finally:
+                self._set_device(current)
         if err and err not in self.returned:
             raise RuntimeError(
                 f"{self.what}: CUDA launch failed (cudaError {err})")

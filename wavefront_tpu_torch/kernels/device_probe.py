@@ -34,12 +34,6 @@ _ROW_GATHER = _build.Launcher("device_probe", "dp_row_gather_sum", "pppii",
 # a refused shared-memory size is this probe's measurement: returned
 _SMEM_COPY = _build.Launcher("device_probe", "dp_smem_copy", "ppii",
                              "smem_copy", returned=SMEM_REFUSALS)
-# the device guard alone, and a call of one int more, for the launch
-# path's timing
-_DEVICE_SCOPES = _build.Launcher("device_probe", "dp_device_scopes", "i",
-                                 "device_scopes")
-_DEVICE_SCOPES_INT = _build.Launcher("device_probe", "dp_device_scopes_int",
-                                     "ii", "device_scopes_int")
 _I32 = torch.int32
 
 

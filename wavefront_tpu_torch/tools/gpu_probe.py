@@ -64,37 +64,23 @@ def launch_split(table, idx, calls: int = 10_000) -> dict:
       data_ptrs       the three tensors' data pointers
       raw_stream      the current stream's handle as the wrapper reads it
                       (`torch._C._cuda_getCurrentRawStream`)
-      device_guard    the device guard as Python would make it: the
-                      current device compared with the tensors'
-                      (`torch._C._cuda_getDevice` and a compare)
-      stream_object   the stream's handle through a `torch.cuda.Stream`
+      device_guard    the launcher's check that the tensors' device is the
+                      current one (`torch._C._cuda_getDevice` and a compare)
+      stream_object   the same handle through a `torch.cuda.Stream`
                       (`torch.cuda.current_stream(device).cuda_stream`)
       library_lookup  the library and its function looked up by name
                       (`_build.load` and a `getattr`)
       ctypes_call     the typed C function with R = 0, which returns
-                      before it launches: ctypes and the device guard
+                      before it launches: ctypes alone
       ctypes_launch   the typed C function launching the kernel: ctypes,
                       `cudaLaunchKernel` and `cudaGetLastError`
-      c_call          a typed C function of three parameters that does
-                      nothing (`dp_device_scopes` with 0 scopes)
-      c_call_int      the same with one int parameter more
-                      (`dp_device_scopes_int`): less `c_call`, what the
-                      device argument costs a call
-      c_device_scope  `c_call` opening one DeviceScope, the guard every C
-                      entry point makes (`cudaGetDevice` and a compare):
-                      less `c_call`, what the scope costs.  The guard in C
-                      costs both differences; the guard in Python
-                      `device_guard` less `loop`
       wrapper         `row_gather_sum(table, idx, 1)` whole
       torch_gather    `torch.gather(table, 0, idx as int64)`
 
     The wrapper reads the stream and binds the function the lean way;
-    `stream_object` and `library_lookup` are what each call paid before,
-    `device_guard` what a guard made in Python would pay."""
+    `stream_object` and `library_lookup` are what each call paid before."""
     dev = table.get_device()
     fn = device_probe._ROW_GATHER.bind()
-    scopes = device_probe._DEVICE_SCOPES.bind()
-    scopes_int = device_probe._DEVICE_SCOPES_INT.bind()
     stream = torch._C._cuda_getCurrentRawStream(dev)
     out = torch.empty_like(table)
     tp, ip, op, rows = (table.data_ptr(), idx.data_ptr(), out.data_ptr(),
@@ -115,11 +101,8 @@ def launch_split(table, idx, calls: int = 10_000) -> dict:
             table.device).cuda_stream,
         "library_lookup": lambda: _build.load(
             "device_probe").dp_row_gather_sum,
-        "ctypes_call": lambda: fn(dev, tp, ip, op, 0, 1, stream),
-        "ctypes_launch": lambda: fn(dev, tp, ip, op, rows, 1, stream),
-        "c_call": lambda: scopes(dev, 0, stream),
-        "c_call_int": lambda: scopes_int(dev, 0, 0, stream),
-        "c_device_scope": lambda: scopes(dev, 1, stream),
+        "ctypes_call": lambda: fn(tp, ip, op, 0, 1, stream),
+        "ctypes_launch": lambda: fn(tp, ip, op, rows, 1, stream),
         "wrapper": lambda: row_gather_sum(table, idx, 1),
         "torch_gather": lambda: torch.gather(table, 0, i64),
     }
