@@ -214,6 +214,20 @@ def test_launcher_switches_device_only_when_it_differs():
         assert state["device"] == 1
 
 
+def test_launcher_asks_for_no_device_with_one_card():
+    """With one card visible the launcher neither asks for the current
+    device nor switches it: that card is current."""
+    launcher, log, state = _fake_launcher()
+
+    def no_query():
+        raise AssertionError("asked for the current device")
+
+    launcher._get_device = no_query
+    launcher._one_card = True
+    assert launcher(0, 7, 3) == 0
+    assert log == [("launch", 0, (7, 3, 1000))]
+
+
 def test_launcher_refuses_an_unknown_parameter_type():
     with pytest.raises(ValueError):
         _build.Launcher("texel", "texel_launch", "pix", "texel_fetch")

@@ -179,10 +179,11 @@ class Launcher:
     any other raises.  The launch goes to `device`: when another device
     is current, `device` is made current for the call and the old one
     restored after it; when it is current already, nothing switches (one
-    compare of device indices, `torch._C._cuda_getDevice`).  A guard in
-    C, a device argument that each entry point makes current, measured no
-    cheaper: ctypes takes as long to pass the int as Python takes to ask
-    for the device (PERF.md)."""
+    compare of device indices, `torch._C._cuda_getDevice`).  With one
+    card visible its device is the current one, and nothing is asked.  A
+    guard in C, a device argument that each entry point makes current,
+    measured no cheaper: ctypes takes as long to pass the int as Python
+    takes to ask for the device (PERF.md)."""
 
     def __init__(self, lib: str, fn: str, signature: str, what: str,
                  returned: tuple = ()):
@@ -193,6 +194,7 @@ class Launcher:
         self.what, self.returned = what, tuple(returned)
         self._call = self._stream = None
         self._get_device = self._set_device = None
+        self._one_card = False
 
     def bind(self):
         """Build and load the library and type the function; returns the
@@ -205,12 +207,13 @@ class Launcher:
             self._stream = torch._C._cuda_getCurrentRawStream
             self._get_device = torch._C._cuda_getDevice
             self._set_device = torch._C._cuda_setDevice
+            self._one_card = torch.cuda.device_count() == 1
             self._call = f
         return self._call
 
     def __call__(self, device: int, *args) -> int:
         call = self._call or self.bind()
-        current = self._get_device()
+        current = device if self._one_card else self._get_device()
         if current == device:
             err = call(*args, self._stream(device))
         else:

@@ -64,8 +64,11 @@ def launch_split(table, idx, calls: int = 10_000) -> dict:
       data_ptrs       the three tensors' data pointers
       raw_stream      the current stream's handle as the wrapper reads it
                       (`torch._C._cuda_getCurrentRawStream`)
-      device_guard    the launcher's check that the tensors' device is the
-                      current one (`torch._C._cuda_getDevice` and a compare)
+      device_guard    the check that the tensors' device is the current
+                      one (`torch._C._cuda_getDevice` and a compare), which
+                      the launcher makes when more than one card is visible
+      launcher_guard  the check as the launcher makes it on this machine:
+                      with one card visible, no question asked
       stream_object   the same handle through a `torch.cuda.Stream`
                       (`torch.cuda.current_stream(device).cuda_stream`)
       library_lookup  the library and its function looked up by name
@@ -97,6 +100,9 @@ def launch_split(table, idx, calls: int = 10_000) -> dict:
                               out.data_ptr()),
         "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev),
         "device_guard": lambda: torch._C._cuda_getDevice() == dev,
+        "launcher_guard": lambda: (
+            dev if device_probe._ROW_GATHER._one_card
+            else torch._C._cuda_getDevice()) == dev,
         "stream_object": lambda: torch.cuda.current_stream(
             table.device).cuda_stream,
         "library_lookup": lambda: _build.load(
