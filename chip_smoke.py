@@ -14,7 +14,8 @@ through their entry points, checking which kernels each launched:
 
   * the headline frame (1920x1080, 4 bounces, NEE, compaction; bench.py's
     headline_setup) through `Renderer.render`: the tracer and the fused
-    shade;
+    shade; then the same frame with shade_bf16 (`headline_bf16`): the
+    tracer and the fused shade's bf16 color build;
   * the general frame (`headline.general_setup`: the same frame with a
     sparse light set of lamp voxels and a cube entity, shade_fused=False):
     the tracer and the texel fetch, and never the fused shade;
@@ -40,7 +41,12 @@ Tolerances:
            edge);
   shade:   every output within max |diff| 1e-3 and RMS 1e-5 of the plain
            version (the bounds of tests/test_shade_fused.py), with and
-           without the entity attribute stream;
+           without the entity attribute stream; in the bf16 color build
+           (shade_bf16) tp (bfloat16) within 1 bfloat16 ulp and radiance
+           within 1 bfloat16 ulp of its bfloat16 term tp * emission, the
+           rest as above (a float32 value that cos, sin, log or exp round
+           an ulp apart in CUDA and PyTorch may cross a bfloat16 rounding
+           boundary; expected: equal);
   texel:   max |diff| 0 against the plain version (a fetch copies float32
            values), non-finite and out-of-range inputs included;
   images:  divergent pixels (max-channel |diff| > 1e-3) under 0.5% and
@@ -145,6 +151,12 @@ SHADE_OPS_PER_NODE = 52
 SHADE_OPS_PER_PICK_PRIM = 5
 SHADE_OPS_PER_PDF_PRIM = 40
 SHADE_OPS_PER_PICKED = 45
+# the bf16 color build, beside that: 23 roundings of a color to bf16
+# (3 reflectivity, cos_in, 9 in the emission, 3 lambertian reflectivity,
+# the MIS weight, 3 radiance terms, 3 throughput factors), each a narrowing
+# and a widening, and the throughput's 3 loads widened and 3 stores
+# narrowed
+SHADE_BF16_OPS_PER_RAY = 23 * 2 + 6
 # the texel fetch of one ray: two multiplies and the float side of two
 # saturating conversions and clamps
 TEXEL_OPS_PER_RAY = 8
@@ -152,6 +164,9 @@ TEXEL_OPS_PER_RAY = 8
 TRACE_MISMATCH_FRACTION = 1e-5
 SHADE_MAX_ABS = 1e-3
 SHADE_RMS = 1e-5
+# K2's bf16 build: bfloat16 values within this many bfloat16 ulps of the
+# plain version's (see the module note)
+SHADE_BF16_ULPS = 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -191,15 +206,18 @@ def trace_bound_ms(scene, n: int, fine: int, skips: int) -> tuple:
 
 
 def shade_bound_ms(tables, n: int, n_alive: int, n_hit: int,
-                   nee: bool, n_entity=None) -> tuple:
-    """(bound_ms, bound_by) of the shade: 16 words in and 12 out per ray,
-    the atlas and light tables read once; or its float32 operations.
-    With the entity stream (n_entity: the lanes an entity wins) the flag
-    word is read on every ray and the other 11 words on those lanes."""
+                   nee: bool, n_entity=None, bf16: bool = False) -> tuple:
+    """(bound_ms, bound_by) of the shade: 16 words in and 12 out per ray
+    (bf16: 100 bytes, the throughput 2 bytes a component each way), the
+    atlas and light tables read once; or its float32 operations (bf16:
+    and its conversions).  With the entity stream (n_entity: the lanes an
+    entity wins) the flag word is read on every ray and the other 11
+    words on those lanes."""
     stream = 0 if n_entity is None else n * 4 + n_entity * 44
-    nbytes = (n * 112 + stream + tables.atlas.numel() * 4
+    nbytes = (n * (100 if bf16 else 112) + stream + tables.atlas.numel() * 4
               + tables.nodes.numel() * 4 + tables.prims.numel() * 4)
-    ops = n_alive * SHADE_OPS_PER_RAY
+    ops = n_alive * (SHADE_OPS_PER_RAY
+                     + (SHADE_BF16_OPS_PER_RAY if bf16 else 0))
     if nee:
         # every hit ray counted as an NEE ray (mirror and glass hits take
         # none; the headline's are few)
@@ -223,6 +241,42 @@ def max_bound(nbytes: int, ops: int) -> tuple:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / UNFUSED_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().double())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+
+
+def shade_errors(got, want, rad, what: str) -> tuple:
+    """K2's outputs against its plain version's on the same inputs (rad:
+    the radiance in): (max |diff|, RMS) over every output, held under
+    SHADE_MAX_ABS and SHADE_RMS; a bfloat16 tp (the bf16 build) is held
+    within SHADE_BF16_ULPS bfloat16 ulps instead, and radiance within that
+    many ulps of its bfloat16 term tp * emission (plus a float32 ulp)."""
+    bf16 = want[2].x.dtype == torch.bfloat16
+    s_max, s_rms = 0.0, 0.0
+    for k, (kv, pv) in enumerate(zip(got, want)):
+        for c, (kc, pc) in enumerate(zip(kv, pv)):
+            check(kc.dtype == pc.dtype, f"{what}: output {k} is {kc.dtype}")
+            check(bool(torch.isfinite(kc).all()), f"{what}: NaN/Inf")
+            df = (kc.double() - pc.double()).abs()
+            s_max = max(s_max, float(df.max()))
+            s_rms = max(s_rms, float(df.pow(2).mean().sqrt()))
+            if bf16 and k == 2:
+                check(bool((df <= SHADE_BF16_ULPS * bf16_ulp(pc)).all()),
+                      f"{what}: tp[{c}] off by {float(df.max())}")
+            elif bf16 and k == 3:
+                term = pc - rad[c]
+                check(bool((df <= SHADE_BF16_ULPS * bf16_ulp(term)
+                            + 1.2e-7 * pc.abs().clamp_min(1.0)).all()),
+                      f"{what}: radiance[{c}] off by {float(df.max())}")
+            else:
+                check(float(df.max()) < SHADE_MAX_ABS
+                      and float(df.pow(2).mean().sqrt()) < SHADE_RMS,
+                      f"{what}: output {k}[{c}] max {float(df.max())}")
+    return s_max, s_rms
 
 
 def trace_check(arrays, o: V3, d: V3, events: int, what: str) -> dict:
@@ -266,7 +320,8 @@ def trace_check(arrays, o: V3, d: V3, events: int, what: str) -> dict:
 def kernel_check(scene, settings, basis) -> dict:
     """K1 and K2 against their plain versions on the card, on the
     headline's bounce-0 rays and on the bounce-1 rays the plain shade makes
-    from them, each sorted by the coherence key as the renderer sorts."""
+    from them, each sorted by the coherence key as the renderer sorts;
+    K2's bf16 color build too, on the same rays with tp in bfloat16."""
     arrays = scene.get_arrays()
     tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
     w, h = settings.render_width, settings.render_height
@@ -289,15 +344,16 @@ def kernel_check(scene, settings, basis) -> dict:
         got = shade_pass(*args, nee_type=1)
         want = shade_plain(*args, nee_type=1)
         sync()
-        s_max, s_rms = 0.0, 0.0
-        for kv, pv in zip(got, want):
-            for kc, pc in zip(kv, pv):
-                df = (kc - pc).abs()
-                check(bool(torch.isfinite(kc).all()), f"shade bounce {b}: NaN/Inf")
-                s_max = max(s_max, float(df.max()))
-                s_rms = max(s_rms, float(df.pow(2).mean().sqrt()))
-        check(s_max < SHADE_MAX_ABS and s_rms < SHADE_RMS,
-              f"shade bounce {b}: max {s_max} rms {s_rms}")
+        s_max, s_rms = shade_errors(got, want, rad, f"shade bounce {b}")
+        # the bf16 build on the same rays, tp rounded to bfloat16
+        args16 = args[:7] + (tp.map(lambda c: c.to(torch.bfloat16)),) \
+            + args[8:]
+        got16 = shade_pass(*args16, nee_type=1, color_bf16=True)
+        want16 = shade_plain(*args16, nee_type=1, color_bf16=True)
+        sync()
+        b_max, b_rms = shade_errors(got16, want16, rad,
+                                    f"shade bf16 bounce {b}")
+        tp_equal = all(torch.equal(x, y) for x, y in zip(got16[2], want16[2]))
 
         alive = int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum())
         hits = int(((qa & 1) != 0).sum())
@@ -315,11 +371,21 @@ def kernel_check(scene, settings, basis) -> dict:
                           lambda: shade_pass(*args, nee_type=1),
                           "shade_kernel", 10),
                       "plain_ms": time_ms(lambda: shade_plain(*args, nee_type=1), 1)},
+            "shade_bf16": {
+                "max_abs_err": b_max, "rms": b_rms, "tp_equal": tp_equal,
+                "ms": time_ms(lambda: shade_pass(
+                    *args16, nee_type=1, color_bf16=True), 10),
+                "device_ms": device_ms(lambda: shade_pass(
+                    *args16, nee_type=1, color_bf16=True), "shade_kernel", 10),
+                "plain_ms": time_ms(lambda: shade_plain(
+                    *args16, nee_type=1, color_bf16=True), 1)},
         }
         rec["trace"]["bound_ms"], rec["trace"]["bound_by"] = trace_bound_ms(
             arrays, n, steps["fine"], steps["skips"])
         rec["shade"]["bound_ms"], rec["shade"]["bound_by"] = shade_bound_ms(
             tables, n, alive, hits, True)
+        rec["shade_bf16"]["bound_ms"], rec["shade_bf16"]["bound_by"] = \
+            shade_bound_ms(tables, n, alive, hits, True, bf16=True)
         out["bounces"].append(rec)
         o, d, tp, rad = (V3(*(c.contiguous() for c in v)) for v in want)
     return out
@@ -434,15 +500,7 @@ def shade_tri_check() -> dict:
     want = shade_plain(*args, nee_type=1, tri_attrs=tri_attrs)
     bare = shade_pass(*args, nee_type=1)
     sync()
-    s_max, s_rms = 0.0, 0.0
-    for kv, pv in zip(got, want):
-        for kc, pc in zip(kv, pv):
-            df = (kc - pc).abs()
-            check(bool(torch.isfinite(kc).all()), "shade with entities: NaN/Inf")
-            s_max = max(s_max, float(df.max()))
-            s_rms = max(s_rms, float(df.pow(2).mean().sqrt()))
-    check(s_max < SHADE_MAX_ABS and s_rms < SHADE_RMS,
-          f"shade with entities: max {s_max} rms {s_rms}")
+    s_max, s_rms = shade_errors(got, want, rad, "shade with entities")
     check(not torch.equal(got[1].x, bare[1].x),
           "the entity stream changed nothing")
     hits = int((((pa & 1) != 0) | (((tri_attrs[11] >> 16) & 1) != 0)).sum())
@@ -459,9 +517,10 @@ def shade_tri_check() -> dict:
 
 def general_check() -> dict:
     """Reduced frames (480x270, 4 bounces) under the golden gate: the
-    general frame through the kernels against the plain versions, and the
-    headline scene with the ego cube on the fused path (K2 with the entity
-    stream) against the general path (K3)."""
+    general frame through the kernels against the plain versions, in
+    float32 and with shade_bf16, and the headline scene with the ego cube
+    on the fused path (K2 with the entity stream) against the general path
+    (K3)."""
     def plain_frame(scene, settings, basis, prefs):
         img, aux = render_frame(
             scene.get_arrays(), basis.eye, basis.front, basis.right,
@@ -470,15 +529,17 @@ def general_check() -> dict:
             texel=texel_plain)
         return img.cpu().numpy(), aux
 
+    out = {"width": 480, "height": 270, "bounces": 4}
     scene, settings, basis, prefs = general_setup(480, 270, 4, device="cuda")
-    got, aux = Renderer(settings).render(scene, basis, prefs, frame_count=1,
-                                         with_aux=True)
-    want, aux_plain = plain_frame(scene, settings, basis, prefs)
-    check(aux == aux_plain == {"truncated": 0, "nee_overflow": 0},
-          f"general 480x270 audit {aux} / {aux_plain}")
-    out = {"width": 480, "height": 270, "bounces": 4,
-           "general_kernels_vs_plain": golden_gate(
-               got, want, "general frame kernels vs plain")}
+    for key, s in (("general_kernels_vs_plain", settings),
+                   ("general_bf16_kernels_vs_plain",
+                    settings.replace(shade_bf16=True))):
+        got, aux = Renderer(s).render(scene, basis, prefs, frame_count=1,
+                                      with_aux=True)
+        want, aux_plain = plain_frame(scene, s, basis, prefs)
+        check(aux == aux_plain == {"truncated": 0, "nee_overflow": 0},
+              f"{key} 480x270 audit {aux} / {aux_plain}")
+        out[key] = golden_gate(got, want, key)
 
     scene, settings, basis, prefs = headline_setup(480, 270, 4, device="cuda")
     add_ego_cube(scene, basis)
@@ -509,14 +570,25 @@ def golden(registry) -> dict:
 
 
 def frame_check() -> dict:
+    """The headline scene at 480x270, 4 bounces, through the kernels
+    against the plain versions under the golden gate, in float32 and
+    with shade_bf16 (K2's bf16 build)."""
     scene, settings, basis, prefs = headline_setup(480, 270, 4, device="cuda")
-    got = Renderer(settings).render(scene, basis, prefs, frame_count=1)
-    want, _ = render_frame(
-        scene.get_arrays(), basis.eye, basis.front, basis.right, basis.up, 1,
-        settings=settings, nee_type=prefs.nee_type, sort_type=prefs.sort_type,
-        trace=trace_plain, shade=shade_plain)
-    return {"width": 480, "height": 270, "bounces": 4,
-            **golden_gate(got, want.cpu().numpy(), "frame kernels vs plain")}
+    out = {"width": 480, "height": 270, "bounces": 4}
+    for key, s in (("float32", settings),
+                   ("bf16", settings.replace(shade_bf16=True))):
+        got = Renderer(s).render(scene, basis, prefs, frame_count=1)
+        want, _ = render_frame(
+            scene.get_arrays(), basis.eye, basis.front, basis.right,
+            basis.up, 1, settings=s, nee_type=prefs.nee_type,
+            sort_type=prefs.sort_type, trace=trace_plain, shade=shade_plain)
+        gate = golden_gate(got, want.cpu().numpy(),
+                           f"{key} frame kernels vs plain")
+        if key == "float32":
+            out.update(gate)
+        else:
+            out[key] = gate
+    return out
 
 
 def timed_frame(scene, settings, basis, prefs, frame: int) -> dict:
@@ -1071,6 +1143,21 @@ def labs() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def image_rel(scene, settings, settings16, basis, prefs) -> dict:
+    """Frame 0 with shade_bf16 against the float32 frame 0, relative to
+    1 + |pixel| (tests/test_shade_fused.py's unit): reported, not held to
+    a bound (the bf16 frame is another rounding of the same estimator)."""
+    a = Renderer(settings).render(scene, basis, prefs, frame_count=0,
+                                  as_numpy=False)
+    b = Renderer(settings16).render(scene, basis, prefs, frame_count=0,
+                                    as_numpy=False)
+    rel = (b - a).abs() / (1.0 + a.abs())
+    return {"rel_max": float(rel.max()),
+            "rel_rms": float(rel.pow(2).mean().sqrt()),
+            "mean_float32": float(a.mean()), "mean_bf16": float(b.mean()),
+            "pixels_equal": float((a == b).all(dim=-1).float().mean())}
+
+
 def image_close(got, want, what: str) -> dict:
     """A cached frame against the uncached frame of its seed: max |diff|
     under 1e-3 and RMS under 1e-5 (0 is expected: no per-ray result
@@ -1218,6 +1305,14 @@ def main() -> int:
         "shade": b0["shade"]["plain_ms"]})
     emit("profile", **profile_frames(scene, settings, basis, prefs,
                                      hl["frame_ms"]))
+    s16 = settings.replace(shade_bf16=True)
+    hb = full_frame("headline_bf16", scene, s16, basis, prefs, name, limit,
+                    ("window_trace", "shade"), frames=5)
+    prof16 = profile_frames(scene, s16, basis, prefs, hb["frame_ms"])
+    emit("headline_bf16", **hb, **{k: prof16[k] for k in (
+        "device_busy_ms", "device_idle_share", "device_events_per_frame",
+        "device_ms_by_op")}, uncached_float32_frame_ms=hl["frame_ms"],
+         vs_float32=image_rel(scene, settings, s16, basis, prefs))
     lights = gen[0].get_arrays().lights
     gf = full_frame("general", *gen, name, limit, ("window_trace", "texel"),
                     frames=3)
@@ -1254,6 +1349,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": path["launches"][kname],
             "launches_by_path": {"headline": hl["launches"][kname],
+                                 "headline_bf16": hb["launches"][kname],
                                  "general": gf["launches"][kname],
                                  "batch": bt["launches"][kname]},
             "max_abs_err": k.get("max_abs_err_t", k.get("max_abs_err")),
@@ -1263,6 +1359,11 @@ def main() -> int:
             "device_ms": k.get("device_ms"),
             "library_device_ms": k.get("library_device_ms"),
         })
+    # K2's bf16 color build beside its float32 one (bounce 0)
+    kernels[1]["bf16"] = {
+        key: b0["shade_bf16"][key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")}
     for kname, k, err, replaces in (
         ("radix_hist", rc, rc["max_abs_err"], "tools/radix_lab.py:109"),
         ("device_probe", pc["device_probe"],

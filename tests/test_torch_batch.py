@@ -8,8 +8,9 @@
   * the invariants of tests/test_batch.py inside the port, on both shade
     paths: k batched frames equal k single frames of a renderer with the
     same settings bit for bit (without the cache, with it, across a second
-    batch on the held cache, and with sort and compaction on), and the
-    accumulated image is their mean within 2e-6;
+    batch on the held cache, with sort and compaction on, and with the
+    bf16 color pipeline), and the accumulated image is their mean within
+    2e-6;
   * a cached frame against the uncached frame of the same seed within
     max 1e-3 / RMS 1e-5 (0 is what comes out: per-ray arithmetic does not
     depend on ray order);
@@ -102,6 +103,25 @@ def test_batch_matches_singles(scenes, fused):
     singles = _singles(_renderer(fused), scene, range(7, 10))
     np.testing.assert_array_equal(batch, singles)
     assert not np.array_equal(batch[0], batch[1])
+
+
+@PATHS
+def test_bf16_batch_matches_singles(scenes, fused):
+    """shade_bf16 with the primary cache and sort and compaction on: the
+    batched frames equal single frames bit for bit, and the bf16 frames
+    are not the float32 ones."""
+    scene = scenes[0]
+    prefs = RenderingPreferences(nee_type=1, sort_type=1)
+    kw = dict(shade_bf16=True, cache_primary=True, compaction=True)
+    rb = _renderer(fused, **kw)
+    batch = rb.render_batch(scene, config1_pose(), prefs, frame_count=4,
+                            k=3)
+    assert rb._primary is not None
+    np.testing.assert_array_equal(
+        batch, _singles(_renderer(fused, **kw), scene, range(4, 7), prefs))
+    assert not np.array_equal(batch, _singles(
+        _renderer(fused, cache_primary=True, compaction=True), scene,
+        range(4, 7), prefs))
 
 
 @PATHS

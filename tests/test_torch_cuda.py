@@ -10,10 +10,13 @@ Run them on the GPU machine with:
 machine need not have; this file imports none of it.)  The tolerances are
 those of chip_smoke.py: the tracer's words may differ on at most 1e-5 of
 the rays (coplanar ties), every shade output within max |diff| 1e-3 and
-RMS 1e-5 (with and without the entity stream), the texel fetch bit-exact,
-frames under the golden gate; the histogram and the probe kernels compute
-integers (and sums in one fixed order), so they equal their plain versions
-bit for bit; batched frames equal single frames bit for bit.
+RMS 1e-5 (with and without the entity stream; K2's float32 light pick
+and pdf bit for bit at every prim bucket), K2's bf16 color build's
+bfloat16 values within 1 bfloat16 ulp (stated at its test), the texel
+fetch bit-exact, frames under the golden gate; the histogram and the
+probe kernels compute integers (and sums in one fixed order), so they
+equal their plain versions bit for bit; batched frames equal single
+frames bit for bit.
 """
 
 import numpy as np
@@ -195,9 +198,14 @@ def test_trace_kernel_skips_match_plain(scene, case):
     assert not bool(((got[0] >> 22) & 1).any())
 
 
-def _lamp_arrays(n_lamps):
+# lamp voxels of `_lamp_arrays` for each prim bucket P of the kernel
+LAMPS_FOR_P = {8: 1, 16: 2, 32: 4, 64: 8, 128: 20, 256: 25}
+
+
+def _lamp_arrays(n_lamps, cube=False):
     """The golden grid with its lamp block replaced by `n_lamps` lamp
-    voxels hung in the air (six prims each), as scene arrays on the card."""
+    voxels hung in the air (six prims each; up to 25), as scene arrays on
+    the card; `cube` adds a 4x3x4 cuboid entity over the lamps' row."""
     reg = BlockRegistry.load("assets")
     grid = config1_grid(reg)
     grid[6:9, 5:8, 6:9] = reg.air
@@ -205,16 +213,22 @@ def _lamp_arrays(n_lamps):
              for z in range(1, 15, 3)][:n_lamps]
     for c in cells:
         grid[c] = reg.block_idx("lamp")
-    return VoxelScene(reg, grid, (0, 0, 0), max_light_prims=256,
-                      device="cuda").get_arrays()
+    scene = VoxelScene(reg, grid, (0, 0, 0), max_light_prims=256,
+                       device="cuda")
+    if cube:
+        scene.add_object("box", *meshes.cuboid((8.0, 6.5, 8.0),
+                                               (4.0, 3.0, 4.0)))
+    return scene.get_arrays()
 
 
-@pytest.mark.parametrize("light_set", ["headline", "lamps_64", "lamps_128"])
+@pytest.mark.parametrize("light_set", ["headline", "lamps_16", "lamps_32",
+                                       "lamps_64", "lamps_128", "lamps_256"])
 def test_shade_kernel_pick_and_pdf_bit_equal(light_set):
     """K2's once-per-ray node table gives the plain version's light pick
-    and NEE pdf bit for bit at the headline's 6 prims, at 64 prims and at
-    128 prims (256 nodes: a 1 KB table a ray, in local memory):
-    every output equal, on the NEE and the lambertian bounce alike."""
+    and NEE pdf bit for bit at the headline's 6 prims and at every larger
+    prim bucket up to 256 (512 nodes: a 2 KB table a ray, in local
+    memory): every output equal, on the NEE and the lambertian bounce
+    alike."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     if light_set == "headline":
@@ -222,11 +236,12 @@ def test_shade_kernel_pick_and_pdf_bit_equal(light_set):
         arrays = scene.get_arrays()
         o, d, rid = raygen_soa(basis.eye, basis.front, basis.right,
                                basis.up, 160, 90, device="cuda")
+        want_p = 8
     else:
-        arrays = _lamp_arrays(8 if light_set == "lamps_64" else 20)
+        want_p = int(light_set.split("_")[1])
+        arrays = _lamp_arrays(LAMPS_FOR_P[want_p])
         o, d, rid = _rays(64)
     tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
-    want_p = {"headline": 8, "lamps_64": 64, "lamps_128": 128}[light_set]
     assert tables.p_prims == want_p and tables.dense
     n = o.x.shape[0]
     pa, pb, t = trace_plain(arrays, o, d, auto_events(*arrays.grid.shape))
@@ -242,6 +257,69 @@ def test_shade_kernel_pick_and_pdf_bit_equal(light_set):
         for gv, wv in zip(got, want):
             for gc, wc in zip(gv, wv):
                 assert torch.equal(gc, wc)
+
+
+def _bf16_ulp(x):
+    """The spacing of bfloat16 values at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().double())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+
+
+@pytest.mark.parametrize("tri", [False, True], ids=["voxels", "entity"])
+@pytest.mark.parametrize("p_prims", sorted(LAMPS_FOR_P))
+def test_shade_kernel_bf16_matches_plain(p_prims, tri):
+    """K2's bf16 color build against shade_plain's bf16 path at every prim
+    bucket P and with and without the entity stream, on the NEE bounce
+    and the one after: tp (bfloat16 in and out) within 1 bfloat16 ulp,
+    radiance within 1 bfloat16 ulp of its bfloat16 term tp * emission,
+    origin and direction within the float32 bounds.  Both round each
+    color where the reference does, from the same float32 values, so
+    they are expected equal; an ulp is allowed because a float32 input
+    to a rounding point that comes from cos, sin, log or exp may round an
+    ulp apart in CUDA and PyTorch and cross a bfloat16 boundary."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    arrays = _lamp_arrays(LAMPS_FOR_P[p_prims], cube=tri)
+    tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
+    assert tables.p_prims == p_prims and tables.dense
+    o, d, rid = _rays(64)
+    n = o.x.shape[0]
+    pa, pb, t = trace_plain(arrays, o, d, auto_events(*arrays.grid.shape))
+    tri_attrs = None
+    if tri:
+        t, tri_attrs = entity_attrs(arrays, o, d, pa, t)
+        assert int(((tri_attrs[11] >> 16) & 1).sum()) > n // 100
+    g = torch.Generator(device="cpu").manual_seed(p_prims)
+    tp = V3(*(torch.rand(n, generator=g).cuda().to(torch.bfloat16)
+              for _ in range(3)))
+    rad = V3(*(torch.rand(n, generator=g).cuda() for _ in range(3)))
+    for bounce in (0, 1):
+        args = (tables, arrays.grid_origin, o, d, pa, pb, t, tp, rad, rid,
+                7 + bounce, bounce, arrays.lights.num_prims)
+        before = shade_pass.launches
+        got = shade_pass(*args, nee_type=1, tri_attrs=tri_attrs,
+                         color_bf16=True)
+        assert shade_pass.launches == before + 1
+        want = shade_plain(*args, nee_type=1, tri_attrs=tri_attrs,
+                           color_bf16=True)
+        torch.cuda.synchronize()
+        for gv, wv in zip(got[:2], want[:2]):
+            for gc, wc in zip(gv, wv):
+                diff = (gc - wc).abs()
+                assert float(diff.max()) < 1e-3
+                assert float(diff.pow(2).mean().sqrt()) < 1e-5
+        for gc, wc, r in zip(got[2], want[2], rad):
+            assert gc.dtype == wc.dtype == torch.bfloat16
+            assert bool(torch.isfinite(gc).all())
+            assert bool(((gc.double() - wc.double()).abs()
+                         <= _bf16_ulp(wc.float())).all())
+        for gc, wc, r in zip(got[3], want[3], rad):
+            assert gc.dtype == torch.float32
+            assert bool(((gc.double() - wc.double()).abs()
+                         <= _bf16_ulp(wc - r) + 1.2e-7 * wc.abs().clamp_min(1)
+                         ).all())
+    with pytest.raises(ValueError):
+        shade_pass(*args, nee_type=1, tri_attrs=tri_attrs)
 
 
 @pytest.mark.parametrize("nee_type", [0, 1, 2])
@@ -735,6 +813,45 @@ def test_loop_probe_primitives_match_plain(card):
 
 
 # ---- batched frames ----
+
+
+@pytest.mark.parametrize("fused", [None, False], ids=["fused", "general"])
+def test_bf16_frames_on_the_card(cube_scene, fused):
+    """shade_bf16 on the card: the frame through the kernels against the
+    plain versions' under the golden gate (the fused path launches K2's
+    bf16 build once a bounce, the general path K3 and never K2), and
+    batched frames with the primary cache equal single frames bit for
+    bit."""
+    settings = RenderSettings(width=96, height=64, num_bounces=3,
+                              compaction=True, trace_audit=True,
+                              shade_fused=fused, shade_bf16=True,
+                              cache_primary=True)
+    prefs = RenderingPreferences(nee_type=1, sort_type=1)
+    basis = config1_pose()
+    before = (shade_pass.launches, texel_fetch.launches)
+    got, aux = Renderer(settings).render(cube_scene, basis, prefs,
+                                         frame_count=2, with_aux=True)
+    launched = (shade_pass.launches - before[0],
+                texel_fetch.launches - before[1])
+    assert launched == ((3, 0) if fused is None else (0, 3))
+    assert aux["truncated"] == 0 and aux["nee_overflow"] == 0
+    want, _ = render_frame(
+        cube_scene.get_arrays(), basis.eye, basis.front, basis.right,
+        basis.up, 2, settings=settings, nee_type=1, sort_type=1,
+        trace=trace_plain, shade=shade_plain, texel=texel_plain)
+    want = want.cpu().numpy()
+    diff = np.abs(got - want).max(axis=-1)
+    agree = diff < 1e-3
+    assert 1.0 - agree.mean() < 0.005
+    assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3
+    single = Renderer(settings)
+    singles = torch.stack([single.render(cube_scene, basis, prefs,
+                                         frame_count=f, as_numpy=False)
+                           for f in range(3)])
+    stack = Renderer(settings).render_batch(cube_scene, basis, prefs,
+                                            frame_count=0, k=3,
+                                            as_numpy=False)
+    assert torch.equal(stack, singles)
 
 
 @pytest.mark.parametrize("fused", [None, False], ids=["fused", "general"])

@@ -17,7 +17,10 @@ the kernels' plain versions.  It is held to:
   * on the general (non-fused) shade path, the JAX `Renderer` with
     shade_fused=False: with and without NEE, with a cube entity, with a
     sparse light set, with debug_view=1 and under each debug_stage; and
-    the port's own fused frame with an entity.
+    the port's own fused frame with an entity;
+  * with shade_bf16 (the bf16 color pipeline), the JAX `Renderer` on both
+    paths under tests/test_shade_fused.py's relative bounds between its
+    two bf16 paths (max 3e-2, RMS 2e-3 relative to 1 + |pixel|).
 
 Images compare in pixel order: radiance does not depend on ray order.
 Where a frame's decisions can flip on an ulp (a stochastic BVH descent, a
@@ -52,6 +55,7 @@ from wavefront_tpu_torch.headline import (
     general_setup,
     headline_setup,
 )
+from wavefront_tpu_torch.kernels.shade import shade_pass
 from wavefront_tpu_torch.kernels.texel import texel_fetch
 from wavefront_tpu_torch.render.renderer import Renderer
 from wavefront_tpu_torch.render.scene import VoxelScene, scene_arrays_from_numpy
@@ -237,17 +241,6 @@ def test_scene_arrays_from_numpy_round_trip(config1):
         np.testing.assert_array_equal(
             a, d["lights"][f].astype(a.dtype), err_msg=f)
     assert carried.lights.dense and own.lights.dense
-
-
-@pytest.mark.parametrize("settings_kw,prefs_kw", [
-    (dict(shade_bf16=True), {}),
-])
-def test_unported_paths_raise(config1, settings_kw, prefs_kw):
-    port_scene, _, _ = config1
-    r = Renderer(RenderSettings(width=8, height=8, num_bounces=1,
-                                **settings_kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        r.render(port_scene, config1_pose(), RenderingPreferences(**prefs_kw))
 
 
 def test_render_batch_and_entities_raise(config1):
@@ -463,6 +456,108 @@ def test_debug_stage_matches_jax(config1, stage):
     if stage == "freetrace":
         # the fused path takes the same synthetic hits
         close(_port(port_scene, basis, 1, **kw), got)
+
+
+# ---- the bf16 color pipeline (shade_bf16) ----
+
+
+def rel_close(got, want):
+    """tests/test_shade_fused.py's bounds between the JAX package's two
+    bf16 paths: relative to 1 + |pixel| (lamp pixels reach the hundreds),
+    max < 3e-2 and RMS < 2e-3.  Each package rounds its bf16 ops at its
+    own places (XLA on the CPU may keep float32 across fused ops, the port
+    rounds after each); no draw compares against a bf16 color (alpha and
+    metal stay float32), so no ray takes another path."""
+    assert np.all(np.isfinite(got))
+    rel = np.abs(got - want) / (1.0 + np.abs(want))
+    assert rel.max() < 3e-2, rel.max()
+    assert np.sqrt((rel ** 2).mean()) < 2e-3
+
+
+@pytest.mark.parametrize("fused,entity", [(True, False), (False, False),
+                                          (False, True)],
+                         ids=["fused", "general", "general-entity"])
+def test_bf16_frame_matches_jax(config1, config1_cube, fused, entity):
+    """A 2-bounce shade_bf16 frame against the JAX `Renderer`'s, on the
+    fused and the general path; the float32 frame differs from it."""
+    port_scene, jax_scene = config1_cube if entity else config1[:2]
+    basis = config1_pose()
+    kw = dict(FRAME, shade_bf16=True)
+    port, jax = (_port, _jax) if fused else (_port_general, _jax_general)
+    got = port(port_scene, basis, 1, **kw)
+    assert got.mean() > 1e-3
+    rel_close(got, jax(jax_scene, basis, 1, **kw))
+    assert not np.array_equal(got, port(port_scene, basis, 1, **FRAME))
+
+
+@pytest.mark.parametrize("stage", ["freetrace", "notex", "nonee_pdf"])
+def test_bf16_debug_stages(config1, stage):
+    """Each stage-isolation variant with shade_bf16: "notex" and
+    "nonee_pdf" against the JAX `Renderer` under the bf16 bounds (notex
+    comes out equal); "freetrace" (every ray alive on synthetic hits, a
+    black frame here) on the fused path against the general one, bit for
+    bit."""
+    port_scene, jax_scene, _ = config1
+    basis = config1_pose()
+    kw = dict(FRAME, debug_stage=stage, shade_bf16=True)
+    got = _port_general(port_scene, basis, 1, **kw)
+    if stage == "freetrace":
+        assert np.all(np.isfinite(got))
+        np.testing.assert_array_equal(
+            _port(port_scene, basis, 1, **kw), got)
+    else:
+        assert got.mean() > 1e-3
+        rel_close(got, _jax_general(jax_scene, basis, 1, **kw))
+
+
+@pytest.mark.parametrize("fused", [None, False], ids=["fused", "general"])
+def test_bf16_throughput_keeps_its_dtype(config1_cube, fused, monkeypatch):
+    """tp is bfloat16 through every bounce's sort, compaction bucket and
+    shade, and radiance float32, with an entity in view; the fused path's
+    bf16 frame agrees with the general path's as the JAX package's two
+    bf16 paths do."""
+    from wavefront_tpu_torch.render import renderer as port_renderer
+
+    sorts, shades = [], []
+    sort = port_renderer.coherence_sort
+
+    def sort_spy(scene, o, d, tp, rad, rid, *riders):
+        out = sort(scene, o, d, tp, rad, rid, *riders)
+        sorts.append(({c.dtype for c in (*tp, *out[2])},
+                      {c.dtype for c in (*rad, *out[3])}))
+        return out
+
+    def shade_spy(*a, **kw):
+        out = shade_pass(*a, **kw)
+        shades.append((a[2].x.shape[0], {c.dtype for c in (*a[7], *out[2])},
+                       {c.dtype for c in (*a[8], *out[3])}))
+        return out
+
+    monkeypatch.setattr(port_renderer, "coherence_sort", sort_spy)
+    port_scene, _ = config1_cube
+    basis = config1_pose()
+    settings = RenderSettings(width=32, height=32, num_bounces=3,
+                              compaction=True, shade_fused=fused,
+                              shade_bf16=True)
+    img, _ = port_renderer.render_frame(
+        port_scene.get_arrays(), basis.eye, basis.front, basis.right,
+        basis.up, 3, settings=settings, nee_type=1, sort_type=0,
+        shade=shade_spy)
+    assert img.dtype == torch.float32
+    assert len(sorts) == 3
+    assert all(d == ({torch.bfloat16}, {torch.float32}) for d in sorts)
+    if fused is None:
+        # a bucket below n shades the compacted head; the tail is joined
+        assert len(shades) == 3 and min(m for m, _, _ in shades) < 32 * 32
+        assert all(t == {torch.bfloat16} and r == {torch.float32}
+                   for _, t, r in shades)
+        general = port_renderer.render_frame(
+            port_scene.get_arrays(), basis.eye, basis.front, basis.right,
+            basis.up, 3, settings=settings.replace(shade_fused=False),
+            nee_type=1, sort_type=0)[0]
+        rel_close(img.numpy(), general.numpy())
+    else:
+        assert shades == []
 
 
 def test_general_frame_uses_the_texel_wrapper(config1, monkeypatch):

@@ -21,6 +21,9 @@ The same comparison runs with the entity attribute stream (`tri_attrs`):
 a cube's closest-hit merge, made once by the port's `entity_attrs`, goes
 into both kernels as the same arrays.
 
+The bf16 color build (`color_bf16`) runs against the JAX kernel's under
+the bounds stated at its test.
+
 The dense light pick and the dense NEE pdf sweep are also compared on
 their own against their JAX twins.
 """
@@ -138,7 +141,8 @@ def _tv3(a):
                 for i in range(3)))
 
 
-def _both_shades(scenes, r, nee_type, bounce, t=None, tri_attrs=None):
+def _both_shades(scenes, r, nee_type, bounce, t=None, tri_attrs=None,
+                 color_bf16=False):
     """(port outputs, JAX outputs) of one shade step on the rays `r`."""
     ja, ta = scenes
     inv_seed = 7 + bounce
@@ -149,7 +153,7 @@ def _both_shades(scenes, r, nee_type, bounce, t=None, tri_attrs=None):
         jnp.asarray(r["pb"]), jnp.asarray(t), _jv3(r["tp"]),
         _jv3(r["rad"]), jnp.asarray(r["rid"]), jnp.uint32(inv_seed),
         jnp.int32(bounce), ja.lights.num_prims, nee_type=nee_type,
-        tile=2048, interpret=True,
+        tile=2048, interpret=True, color_bf16=color_bf16,
         tri_attrs=None if tri_attrs is None else tuple(
             jnp.asarray(a) for a in tri_attrs))
     got = shade_pass(
@@ -158,6 +162,7 @@ def _both_shades(scenes, r, nee_type, bounce, t=None, tri_attrs=None):
         torch.as_tensor(r["pb"]), torch.as_tensor(t), _tv3(r["tp"]),
         _tv3(r["rad"]), torch.as_tensor(r["rid"].astype(np.int32)),
         inv_seed, bounce, ta.lights.num_prims, nee_type=nee_type,
+        color_bf16=color_bf16,
         tri_attrs=None if tri_attrs is None else tuple(
             torch.as_tensor(a) for a in tri_attrs))
     return got, want
@@ -193,12 +198,9 @@ def test_shade_tables_node_table_rows(request, which):
     assert tables.live <= top + 2
 
 
-@pytest.mark.parametrize("nee_type", [0, 1])
-def test_shade_with_tri_attrs_matches_jax(scenes, rays, nee_type):
-    """A 4x3x4 cuboid over the lamp, in front of the camera: its hits
-    reach both kernels as the same merged t and attribute stream."""
-    _, ta = scenes
-    r = rays
+def _cube_stream(ta, r):
+    """The merged t and entity attribute stream (numpy) of a 4x3x4 cuboid
+    over the lamp, in front of the camera, for the rays `r`."""
     verts = np.zeros((64, 3, 3), np.float32)
     uv = np.zeros((64, 3, 2), np.float32)
     tex = np.zeros(64, np.int32)
@@ -211,13 +213,22 @@ def test_shade_with_tri_attrs_matches_jax(scenes, rays, nee_type):
     t, tri_attrs = entity_attrs(
         scene, _tv3(r["o"]), _tv3(r["d"]), torch.as_tensor(r["pa"]),
         torch.as_tensor(r["t"]))
-    tri_attrs = tuple(a.numpy() for a in tri_attrs)
+    return t.numpy(), tuple(a.numpy() for a in tri_attrs)
+
+
+@pytest.mark.parametrize("nee_type", [0, 1])
+def test_shade_with_tri_attrs_matches_jax(scenes, rays, nee_type):
+    """A 4x3x4 cuboid over the lamp, in front of the camera: its hits
+    reach both kernels as the same merged t and attribute stream."""
+    _, ta = scenes
+    r = rays
+    t, tri_attrs = _cube_stream(ta, r)
     use_tri = (tri_attrs[11] >> 16) & 1
     assert 50 < use_tri.sum() < N // 2
     assert not use_tri[(r["d"] == 0).all(-1)].any()
     # entity hits also cover rays the voxel tracer missed
     assert (use_tri & ((r["pa"] & 1) == 0)).sum() > 10
-    got, want = _both_shades(scenes, r, nee_type, 0, t=t.numpy(),
+    got, want = _both_shades(scenes, r, nee_type, 0, t=t,
                              tri_attrs=tri_attrs)
     _assert_shades_agree(got, want, nee_type)
     plain, _ = _both_shades(scenes, r, nee_type, 0)
@@ -239,6 +250,50 @@ def _assert_shades_agree(got, want, nee_type):
             else:
                 assert diff.max() < 1e-3, (msg, diff.max())
                 assert np.sqrt((diff ** 2).mean()) < 1e-5, msg
+
+
+def _bf16_ulp(x):
+    """The spacing of bfloat16 values at |x| (8 significant bits)."""
+    _, e = np.frexp(np.abs(x).astype(np.float64))
+    return np.ldexp(1.0, e - 8)
+
+
+@pytest.mark.parametrize("nee_type,bounce,entity", [
+    (0, 0, False), (1, 0, False), (2, 1, False), (1, 0, True)])
+def test_shade_bf16_matches_jax(scenes, rays, nee_type, bounce, entity):
+    """The bf16 color build (`color_bf16=True`) against the JAX kernel's.
+
+    Bounds, with their reasons:
+      * origin and direction (float32): the float32 bounds above;
+      * tp (bfloat16 in and out, both): within 2 bfloat16 ulps of the JAX
+        value (what comes out: equal);
+      * radiance (float32): rad + tp * emission adds a bfloat16 product;
+        XLA on the CPU may keep float32 across the fused emission product
+        (EMISSION_SCALE * e * cos) where the port rounds after each op, as
+        the kernel's per-op bfloat16 semantics do, so the added term may
+        land an ulp of bfloat16 apart: within 2 bfloat16 ulps of the term,
+        plus a float32 ulp of the sum."""
+    _, ta = scenes
+    r = rays
+    t, tri_attrs = _cube_stream(ta, r) if entity else (None, None)
+    got, want = _both_shades(scenes, r, nee_type, bounce, t=t,
+                             tri_attrs=tri_attrs, color_bf16=True)
+    _assert_shades_agree(got[:2], want[:2], nee_type)
+    for c in range(3):
+        g, w = got[2][c], want[2][c]
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
+        g, w = g.float().numpy(), np.asarray(w.astype(jnp.float32))
+        assert np.all(np.isfinite(g))
+        assert np.all(np.abs(g - w) <= 2 * _bf16_ulp(w)), c
+        g, w = got[3][c].numpy(), np.asarray(want[3][c])
+        assert got[3][c].dtype == torch.float32
+        term = w - r["rad"][:, c]
+        assert np.all(np.abs(g - w) <= 2 * _bf16_ulp(term)
+                      + 1.2e-7 * np.maximum(1.0, np.abs(w))), c
+    # the build is not the float32 one: tp rounds to bfloat16
+    f32, _ = _both_shades(scenes, r, nee_type, bounce, t=t,
+                          tri_attrs=tri_attrs)
+    assert not torch.equal(got[2].x.float(), f32[2].x)
 
 
 def _shading_points(n, seed):
@@ -311,8 +366,8 @@ def test_dense_nee_pdf_sweep_matches_jax(scenes):
 
 def test_shade_caps_raise(scenes):
     """Past the kernel's light-table caps the shade raises (no fallback),
-    as it does for a malformed entity stream; the bf16 color pipeline is
-    not ported yet."""
+    as it does for a malformed entity stream; the bf16 color build runs
+    and returns tp in bfloat16."""
     _, ta = scenes
     tables = prep_shade_tables(ta.atlas_packed, ta.lights)
     big = tables._replace(nodes=torch.zeros((2 * MAX_NODES, 8)))
@@ -325,5 +380,5 @@ def test_shade_caps_raise(scenes):
         shade_pass(tables._replace(dense=False), *args, nee_type=1)
     with pytest.raises(ValueError):
         shade_pass(tables, *args, nee_type=0, tri_attrs=())
-    with pytest.raises(NotImplementedError):
-        shade_pass(tables, *args, nee_type=0, color_bf16=True)
+    tp = shade_pass(tables, *args, nee_type=0, color_bf16=True)[2]
+    assert all(c.dtype == torch.bfloat16 for c in tp)

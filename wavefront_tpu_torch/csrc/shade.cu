@@ -44,7 +44,20 @@
 // Arithmetic mirrors kernels/shade.py::shade_plain operation for operation
 // (build with -fmad=false), so the two differ only where CUDA's and
 // PyTorch's cos/sin/log/exp round differently.
+//
+// The bf16 color build (BF16, the reference kernel's color_bf16) reads and
+// writes the throughput tp as __nv_bfloat16: 6 bytes in and 6 out a ray
+// instead of 12 and 12, so the byte count falls to 100 a ray.  Its colors
+// are computed in float32 and rounded to bf16 (to nearest even) at each
+// point where the reference holds a bf16 value: the reflectivity and
+// emission texels, cos_in, each product of the emission and of the
+// throughput fold, and the MIS weight, taken in float32 and rounded once.
+// A product of two bf16 values is exact in float32, so one rounding after
+// it is the bf16 product PyTorch computes.  Alpha, metal, geometry and the
+// radiance sum stay float32.  With BF16 false every rounding is the
+// identity and each instantiation is the float32 kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,6 +77,7 @@ constexpr float INV_PI = (float)(1.0 / 3.14159265358979323846);
 constexpr int NCH = 8;
 __constant__ int CHANNELS[NCH] = {0, 1, 2, 3, 4, 5, 6, 8};
 
+// tpx, tpy, tpz (in and out) hold __nv_bfloat16 in the BF16 build
 struct ShadeIn {
     const float *ox, *oy, *oz, *dx, *dy, *dz;
     const int *pa, *pb;
@@ -94,6 +108,31 @@ struct Tables {
     int live;               // node-table rows: 1..live-1 in sibling pairs
     float g0, g1, g2;       // grid origin
 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A color value as the BF16 build holds it: rounded to bf16 and widened
+// back.  A conditional on the template flag, not a function call: the
+// compiler folds it to the bare expression in the float32 build, which
+// then compiles to the code it had before the bf16 build (a call in a
+// conditional operator changed the order of its selects).
+#define COLOR(x) (BF16 ? bf16_round(x) : (x))
+
+template <bool BF16>
+__device__ __forceinline__ float load_tp(const float* p, int i) {
+    if constexpr (BF16)
+        return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i]);
+    else return p[i];
+}
+
+template <bool BF16>
+__device__ __forceinline__ void store_tp(float* p, int i, float x) {
+    if constexpr (BF16)
+        reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
+    else p[i] = x;
+}
 
 __device__ __forceinline__ uint32_t m3_combine(uint32_t h, uint32_t k) {
     h ^= k * 0x1B873593u;
@@ -146,7 +185,7 @@ struct LightSmem {
     const int* leaf;
 };
 
-template <int P, bool TRI>
+template <int P, bool TRI, bool BF16>
 __device__ __forceinline__ void shade_ray(
     int i, const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
     const Tables& tb, const LightSmem& ls, uint32_t inv_seed, int bounce,
@@ -161,7 +200,8 @@ __device__ __forceinline__ void shade_ray(
 
     const float ox = in.ox[i], oy = in.oy[i], oz = in.oz[i];
     const float dx = in.dx[i], dy = in.dy[i], dz = in.dz[i];
-    const float tpx = in.tpx[i], tpy = in.tpy[i], tpz = in.tpz[i];
+    const float tpx = load_tp<BF16>(in.tpx, i), tpy = load_tp<BF16>(in.tpy, i),
+                tpz = load_tp<BF16>(in.tpz, i);
     const float rax = in.rax[i], ray_ = in.ray[i], raz = in.raz[i];
     const bool alive = dx != 0.0f || dy != 0.0f || dz != 0.0f;
     if (!alive) {
@@ -169,8 +209,9 @@ __device__ __forceinline__ void shade_ray(
         // direction stays zero, and the throughput factor is 0
         out.ox[i] = ox; out.oy[i] = oy; out.oz[i] = oz;
         out.dx[i] = 0.0f; out.dy[i] = 0.0f; out.dz[i] = 0.0f;
-        out.tpx[i] = tpx * 0.0f; out.tpy[i] = tpy * 0.0f;
-        out.tpz[i] = tpz * 0.0f;
+        store_tp<BF16>(out.tpx, i, tpx * 0.0f);
+        store_tp<BF16>(out.tpy, i, tpy * 0.0f);
+        store_tp<BF16>(out.tpz, i, tpz * 0.0f);
         out.rax[i] = rax + tpx * 0.0f; out.ray[i] = ray_ + tpy * 0.0f;
         out.raz[i] = raz + tpz * 0.0f;
         return;
@@ -235,10 +276,16 @@ __device__ __forceinline__ void shade_ray(
 #pragma unroll
         for (int c = 0; c < NCH; ++c) ch[c] = 0.0f;
     }
-    const float cos_in = -((dx * n_x + dy * n_y) + dz * n_z);
-    const float emx = EMISSION_SCALE * ch[4] * cos_in;
-    const float emy = EMISSION_SCALE * ch[5] * cos_in;
-    const float emz = EMISSION_SCALE * ch[6] * cos_in;
+    // colors: reflectivity (ch 0-2) and emission in the color type
+#pragma unroll
+    for (int c = 0; c < 3; ++c) ch[c] = COLOR(ch[c]);
+    const float cos_in = COLOR(-((dx * n_x + dy * n_y) + dz * n_z));
+    const float emx =
+        COLOR(COLOR(EMISSION_SCALE * COLOR(ch[4])) * cos_in);
+    const float emy =
+        COLOR(COLOR(EMISSION_SCALE * COLOR(ch[5])) * cos_in);
+    const float emz =
+        COLOR(COLOR(EMISSION_SCALE * COLOR(ch[6])) * cos_in);
     const float alpha = ch[3], metal = ch[7];
 
     // ---- scatter decision (raytrace.rs:588-603) ----
@@ -353,9 +400,9 @@ __device__ __forceinline__ void shade_ray(
     float ndx = is_mirror ? dx - k2 * n_x : (is_trans ? dx : lamdx);
     float ndy = is_mirror ? dy - k2 * n_y : (is_trans ? dy : lamdy);
     float ndz = is_mirror ? dz - k2 * n_z : (is_trans ? dz : lamdz);
-    float orx = is_mirror ? ch[0] : (is_trans ? 1.0f : ch[0] * INV_PI);
-    float ory = is_mirror ? ch[1] : (is_trans ? 1.0f : ch[1] * INV_PI);
-    float orz = is_mirror ? ch[2] : (is_trans ? 1.0f : ch[2] * INV_PI);
+    float orx = is_mirror ? ch[0] : (is_trans ? 1.0f : COLOR(ch[0] * INV_PI));
+    float ory = is_mirror ? ch[1] : (is_trans ? 1.0f : COLOR(ch[1] * INV_PI));
+    float orz = is_mirror ? ch[2] : (is_trans ? 1.0f : COLOR(ch[2] * INV_PI));
     float bsdf = is_lamb ? lam_bsdf : 1.0f;
     float mis_o = is_lamb ? mis : 0.0f;
     float ex = emx, ey = emy, ez = emz;
@@ -407,20 +454,20 @@ __device__ __forceinline__ void shade_ray(
     const float valid = (ndx != 0.0f || ndy != 0.0f || ndz != 0.0f) ? 1.0f : 0.0f;
     const float qq = pdf * mis_o + (1.0f - mis_o) * bsdf;
     const float w = qq > 0.0f ? bsdf / fmaxf(qq, 1e-35f) : 0.0f;
-    const float wv = w * valid;
+    const float wv = COLOR(w * valid);
     out.ox[i] = nox; out.oy[i] = noy; out.oz[i] = noz;
     out.dx[i] = ndx; out.dy[i] = ndy; out.dz[i] = ndz;
-    out.rax[i] = rax + tpx * ex;
-    out.ray[i] = ray_ + tpy * ey;
-    out.raz[i] = raz + tpz * ez;
-    out.tpx[i] = tpx * (orx * wv);
-    out.tpy[i] = tpy * (ory * wv);
-    out.tpz[i] = tpz * (orz * wv);
+    out.rax[i] = rax + COLOR(tpx * ex);
+    out.ray[i] = ray_ + COLOR(tpy * ey);
+    out.raz[i] = raz + COLOR(tpz * ez);
+    store_tp<BF16>(out.tpx, i, tpx * COLOR(orx * wv));
+    store_tp<BF16>(out.tpy, i, tpy * COLOR(ory * wv));
+    store_tp<BF16>(out.tpz, i, tpz * COLOR(orz * wv));
 }
 
 constexpr int BLOCK = 128;
 
-template <int P, bool TRI>
+template <int P, bool TRI, bool BF16>
 __global__ void __launch_bounds__(BLOCK) shade_kernel(
     ShadeIn in, TriIn tri, ShadeOut out, Tables tb, int n, uint32_t inv_seed,
     int bounce, int nee_type)
@@ -446,11 +493,11 @@ __global__ void __launch_bounds__(BLOCK) shade_kernel(
     }
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += gridDim.x * blockDim.x)
-        shade_ray<P, TRI>(i, in, tri, out, tb, ls, inv_seed, bounce,
-                          nee_type);
+        shade_ray<P, TRI, BF16>(i, in, tri, out, tb, ls, inv_seed, bounce,
+                                nee_type);
 }
 
-template <int P, bool TRI>
+template <int P, bool TRI, bool BF16>
 int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
            const Tables& tb, int n, uint32_t inv_seed, int bounce,
            int nee_type, cudaStream_t stream)
@@ -462,7 +509,8 @@ int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
     cudaError_t e;
     if (smem > 48 * 1024) {
         e = cudaFuncSetAttribute(
-            shade_kernel<P, TRI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            shade_kernel<P, TRI, BF16>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
@@ -482,27 +530,40 @@ int launch(const ShadeIn& in, const TriIn& tri, const ShadeOut& out,
                                         dev)) != cudaSuccess)
             return (int)e;
         if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &per_sm, shade_kernel<P, TRI>, BLOCK, smem)) != cudaSuccess)
+                 &per_sm, shade_kernel<P, TRI, BF16>, BLOCK, smem))
+            != cudaSuccess)
             return (int)e;
         resident[dev] = max(sms * per_sm, 1);
         resident_smem[dev] = smem;
     }
     const int blocks = min((n + BLOCK - 1) / BLOCK, resident[dev]);
-    shade_kernel<P, TRI><<<blocks, BLOCK, smem, stream>>>(
+    shade_kernel<P, TRI, BF16><<<blocks, BLOCK, smem, stream>>>(
         in, tri, out, tb, n, inv_seed, bounce, nee_type);
     return (int)cudaGetLastError();
+}
+
+template <int P, bool BF16>
+int launch_t(const ShadeIn& in, const TriIn* tri, const ShadeOut& out,
+             const Tables& tb, int n, uint32_t inv_seed, int bounce,
+             int nee_type, cudaStream_t stream)
+{
+    if (tri)
+        return launch<P, true, BF16>(in, *tri, out, tb, n, inv_seed, bounce,
+                                     nee_type, stream);
+    return launch<P, false, BF16>(in, TriIn{}, out, tb, n, inv_seed, bounce,
+                                  nee_type, stream);
 }
 
 template <int P>
 int launch_p(const ShadeIn& in, const TriIn* tri, const ShadeOut& out,
              const Tables& tb, int n, uint32_t inv_seed, int bounce,
-             int nee_type, cudaStream_t stream)
+             int nee_type, bool bf16, cudaStream_t stream)
 {
-    if (tri)
-        return launch<P, true>(in, *tri, out, tb, n, inv_seed, bounce,
-                               nee_type, stream);
-    return launch<P, false>(in, TriIn{}, out, tb, n, inv_seed, bounce,
-                            nee_type, stream);
+    if (bf16)
+        return launch_t<P, true>(in, tri, out, tb, n, inv_seed, bounce,
+                                 nee_type, stream);
+    return launch_t<P, false>(in, tri, out, tb, n, inv_seed, bounce,
+                              nee_type, stream);
 }
 
 }  // namespace
@@ -512,6 +573,7 @@ int launch_p(const ShadeIn& in, const TriIn* tri, const ShadeOut& out,
 // 12 (normal xyz, tangent xyz, bitangent xyz, u, v, tf).  p_prims must be
 // one of 8..256 (powers of two); live_nodes (at most 2 p_prims) bounds the
 // nodes on the prims' paths and their siblings (prep_shade_tables).
+// color_bf16: tpx tpy tpz in and out are __nv_bfloat16 (the BF16 build).
 // Returns cudaGetLastError().
 extern "C" int shade_launch(
     void* const* ins, void* const* outs, void* const* tris, int n,
@@ -520,7 +582,7 @@ extern "C" int shade_launch(
     const float* prims, const int* leaf, int p_prims, int num_prims,
     int live_nodes, float g0, float g1, float g2, unsigned int inv_seed,
     int bounce,
-    int nee_type, void* stream)
+    int nee_type, int color_bf16, void* stream)
 {
     if (n <= 0) return 0;
     ShadeIn in{(const float*)ins[0], (const float*)ins[1], (const float*)ins[2],
@@ -544,13 +606,14 @@ extern "C" int shade_launch(
             (const float*)tris[9], (const float*)tris[10], (const int*)tris[11]};
     const TriIn* tri = tris ? &tri_in : nullptr;
     cudaStream_t s = (cudaStream_t)stream;
+    const bool bf16 = color_bf16 != 0;
     switch (p_prims) {
-        case 8: return launch_p<8>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 16: return launch_p<16>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 32: return launch_p<32>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 64: return launch_p<64>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 128: return launch_p<128>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
-        case 256: return launch_p<256>(in, tri, out, tb, n, inv_seed, bounce, nee_type, s);
+        case 8: return launch_p<8>(in, tri, out, tb, n, inv_seed, bounce, nee_type, bf16, s);
+        case 16: return launch_p<16>(in, tri, out, tb, n, inv_seed, bounce, nee_type, bf16, s);
+        case 32: return launch_p<32>(in, tri, out, tb, n, inv_seed, bounce, nee_type, bf16, s);
+        case 64: return launch_p<64>(in, tri, out, tb, n, inv_seed, bounce, nee_type, bf16, s);
+        case 128: return launch_p<128>(in, tri, out, tb, n, inv_seed, bounce, nee_type, bf16, s);
+        case 256: return launch_p<256>(in, tri, out, tb, n, inv_seed, bounce, nee_type, bf16, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

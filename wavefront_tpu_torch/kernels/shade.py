@@ -8,19 +8,26 @@ dense light-BVH pick, the dense NEE pdf sweep and the throughput/radiance
 fold, in one pass that reads each ray's state once and writes it once.
 
 Bound on the card: 112 bytes per ray cross device memory (16 input and 12
-output words; with the entity stream `tri_attrs` 4 more for the flag word,
-and 44 more on each lane an entity wins); the atlas stays in L2 and the
-light tables in shared memory, staged once per resident block.  A ray that
-takes NEE also evaluates the light BVH once (a table of every live node's
-log branch probability, then each prim's path sum) and sweeps the prims'
-planes; that work grows with the light set (see the source note in the .cu
-file and PERF.md).
+output words; 100 in the bf16 color build, whose throughput is 2 bytes a
+component in and out; with the entity stream `tri_attrs` 4 more for the
+flag word, and 44 more on each lane an entity wins); the atlas stays in
+L2 and the light tables in shared memory, staged once per resident block.
+A ray that takes NEE also evaluates the light BVH once (a table of every
+live node's log branch probability, then each prim's path sum) and sweeps
+the prims' planes; that work grows with the light set (see the source
+note in the .cu file and PERF.md).
 
 `shade_plain` is the renderer's shade (`render/shading.py`) with the dense
 light pick and pdf sweep in the kernel's order (each node's log branch
 probability once, each prim's sum along its path leaf first, sums in prim
 order), so on the card the two differ only by the rounding of
 cos/sin/log/exp.
+
+`color_bf16` (settings.shade_bf16) is the reference's bf16 color build:
+the throughput carry in and out is bfloat16, and reflectivity, emission,
+the sky and the throughput factor are rounded to bfloat16 where the
+reference rounds them (`shading.shade_rays`); the MIS weight is taken in
+float32 and rounded once, and radiance accumulates in float32.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from wavefront_tpu_torch.render.intersect import unpack_hits
 from wavefront_tpu_torch.render.shading import (
     CHANNELS,
     EntityHit,
+    color_dtype,
     shade_rays,
     throughput_factor,
 )
@@ -233,13 +241,17 @@ class _PrimGeometry(NamedTuple):
 
 def shade_plain(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
                 pa, pb, t, tp: V3, rad: V3, rid, inv_seed: int, bounce: int,
-                num_prims: int, *, nee_type: int, tri_attrs=None):
+                num_prims: int, *, nee_type: int, tri_attrs=None,
+                color_bf16: bool = False):
     """Plain PyTorch version of the shade kernel (same arguments as
     shade_pass); returns (origin', direction', tp', rad') as V3s.
 
     The shade itself is the renderer's (`shading.shade_rays` on
     `texel_plain`); only the dense light pick and pdf sweep are written
-    out here, in the kernel's order."""
+    out here, in the kernel's order.  tp is taken in the color dtype, as
+    the reference casts it."""
+    cdt = color_dtype(color_bf16)
+    tp = tp.map(lambda c: c.to(cdt))
     vox = unpack_hits(pa, pb, t)
     entity = None
     if tri_attrs is not None:
@@ -260,17 +272,18 @@ def shade_plain(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
     (new_o, new_d, normal, emis, refl, mis, bsdf_pdf, probs) = shade_rays(
         grid_origin, geometry, nee_type, bounce, origin,
         direction, rng.combine(inv_seed, rid), vox, entity, fetch,
-        _pick_kernel_order(tables, num_prims))
+        _pick_kernel_order(tables, num_prims), color_bf16=color_bf16)
     if nee_type == 0:
         nee_pdf = torch.zeros_like(mis)
     else:
         nee_pdf = _pdf_kernel_order(tables, num_prims, probs, new_o, normal,
                                     new_d, mis)
     factor = throughput_factor(new_d, refl, mis, bsdf_pdf, nee_pdf)
+    # tp * emis is a product in the color dtype; float32 radiance widens it
     return new_o, new_d, tp * factor, rad + tp * emis
 
 
-_LAUNCH = _build.Launcher("shade", "shade_launch", "pppipiippippiiifffuii",
+_LAUNCH = _build.Launcher("shade", "shade_launch", "pppipiippippiiifffuiii",
                          "shade_pass")
 
 
@@ -280,9 +293,11 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
                color_bf16: bool = False):
     """One fused shade step.  Returns (origin', direction', tp', rad').
 
-    origin/direction/tp/rad: V3 of (N,) float32; pa/pb: packed int32 hit
-    words, t: float32 hit parameter (window_trace); rid: (N,) int32 pixel
-    ids; inv_seed: frame * bounces + bounce.
+    origin/direction/rad: V3 of (N,) float32; tp: V3 of (N,) tensors of
+    the color dtype, float32 or, with color_bf16, bfloat16 (so is tp');
+    pa/pb: packed int32 hit words, t: float32 hit parameter
+    (window_trace); rid: (N,) int32 pixel ids; inv_seed: frame * bounces
+    + bounce.
 
     tri_attrs: when the scene holds dynamic entities, the winning entity
     triangle's attributes per ray as 12 (N,) tensors: normal xyz, tangent
@@ -291,10 +306,11 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
     (`render.renderer.entity_attrs` makes both).  Lanes with bit 16 set
     shade as entity hits (reference raytrace.rs:541-566).
 
+    color_bf16: the bf16 color pipeline (settings.shade_bf16; see the
+    module note).
+
     CPU tensors take `shade_plain`; CUDA tensors launch the kernel or
     raise."""
-    if color_bf16:
-        raise NotImplementedError("the bf16 color pipeline is not ported yet")
     if nee_type not in (0, 1, 2):
         raise ValueError(f"nee_type {nee_type} is not one of 0, 1, 2")
     if nee_type != 0:
@@ -313,11 +329,12 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
         return shade_plain(tables, grid_origin, origin, direction, pa, pb, t,
                            tp, rad, rid, inv_seed, int(bounce),
                            int(num_prims), nee_type=nee_type,
-                           tri_attrs=tri_attrs)
+                           tri_attrs=tri_attrs, color_bf16=color_bf16)
     dev = origin.x.device
     n = origin.x.shape[0]
-    want = [torch.float32] * 6 + [torch.int32, torch.int32] + \
-        [torch.float32] * 7 + [torch.int32]
+    cdt = color_dtype(color_bf16)
+    want = [_F32] * 6 + [torch.int32, torch.int32, _F32] + [cdt] * 3 + \
+        [_F32] * 3 + [torch.int32]
     tri = tuple(tri_attrs) if tri_attrs is not None else ()
     if tri:
         want = want + [torch.float32] * 11 + [torch.int32]
@@ -337,7 +354,8 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
             raise ValueError("shade_pass: tables must be contiguous tensors "
                              "of prep_shade_tables' layout on the rays' "
                              "device")
-    outs = [torch.empty(n, dtype=_F32, device=dev) for _ in range(12)]
+    outs = [torch.empty(n, dtype=cdt if 6 <= k < 9 else _F32, device=dev)
+            for k in range(12)]
     in_ptrs = (ctypes.c_void_p * 16)(*(x.data_ptr() for x in ins))
     out_ptrs = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in outs))
     tri_ptrs = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in tri)) \
@@ -348,7 +366,7 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
             tables.nodes.data_ptr(), tables.parent.data_ptr(), tables.m_nodes,
             tables.prims.data_ptr(), tables.leaf.data_ptr(), tables.p_prims,
             int(num_prims), tables.live, g[0], g[1], g[2], inv_seed,
-            int(bounce), nee_type)
+            int(bounce), nee_type, int(bool(color_bf16)))
     shade_pass.launches += 1
     return (V3(*outs[0:3]), V3(*outs[3:6]), V3(*outs[6:9]), V3(*outs[9:12]))
 

@@ -32,9 +32,14 @@ since intersections do not depend on the frame's seed.
 `render_frame_batch` renders consecutive frames that way and returns
 their mean or their stack; `Renderer` holds the cache between calls.
 
-Not ported yet (raises NotImplementedError): shade_bf16.  The reference's
-TPU tracer schedule settings (trace_tile, trace_phases*, trace_windows*,
-sort_bounces, ...) are accepted and change nothing.
+With `shade_bf16` the color pipeline is bfloat16 on both paths, as in the
+reference: the throughput carry, reflectivity, emission, the sky and the
+throughput factor (`shading.shade_rays`); geometry, alpha, metallicity,
+the MIS weight and the radiance accumulation stay float32.  The sort,
+the compaction and the pixel restore keep each tensor's dtype.
+
+The reference's TPU tracer schedule settings (trace_tile, trace_phases*,
+trace_windows*, sort_bounces, ...) are accepted and change nothing.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from wavefront_tpu_torch.render.scene import SceneArrays, VoxelScene
 from wavefront_tpu_torch.render.shading import (
     CHANNELS,
     EntityHit,
+    color_dtype,
     shade_rays,
     throughput_factor,
 )
@@ -92,8 +98,6 @@ _I32 = torch.int32
 
 def _check_supported(settings: RenderSettings, nee_type: int,
                      sort_type: int) -> None:
-    if settings.shade_bf16:
-        raise NotImplementedError("shade_bf16 is not ported yet")
     if settings.debug_stage not in ("", "freetrace", "notex", "nonee_pdf"):
         raise ValueError(f"debug_stage {settings.debug_stage!r}")
     if nee_type not in (0, 1, 2) or sort_type not in (0, 1):
@@ -208,8 +212,9 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
     sweep.  `tri`: the block's entity hits when the caller holds them (the
     primary cache), else the triangle sweep runs here.
 
-    Returns the next ray, the block's emission, its throughput factor
-    (`shading.throughput_factor`), the count of rays whose light
+    Returns the next ray, the block's emission and its throughput factor
+    (`shading.throughput_factor`), both in the color dtype
+    (settings.shade_bf16), the count of rays whose light
     crossings overflowed the sparse sweep's slots (0 unless
     settings.trace_audit) and the entity hits used (None without
     entities)."""
@@ -248,7 +253,8 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
      dense_probs) = shade_rays(scene.grid_origin, lights, nee_type, bounce,
                                origin, direction,
                                rng.combine(inv_seed, rid), vox, entity,
-                               fetch, pick)
+                               fetch, pick,
+                               color_bf16=settings.shade_bf16)
     overflow = 0
     if nee_type == 0:
         nee_pdf = torch.zeros_like(mis)
@@ -320,7 +326,9 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     o, d, rid = raygen_soa(eye, front, right, up, w, h,
                            jitter=settings.jitter, seed=frame_count,
                            device=dev)
-    tp = V3(*(torch.ones(n, dtype=_F32, device=dev) for _ in range(3)))
+    # path throughput in the color dtype, radiance in float32
+    tp = V3(*(torch.ones(n, dtype=color_dtype(settings.shade_bf16),
+                         device=dev) for _ in range(3)))
     rad = V3(*(torch.zeros(n, dtype=_F32, device=dev) for _ in range(3)))
     # the debug buffer rides the sort only when it is shown
     dbg = V3(*(torch.zeros(n, dtype=_F32, device=dev) for _ in range(3))) \
@@ -373,7 +381,7 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
             no, nd, ntp, nrad = shade(
                 tables, go, bo, bd, pa, pb, t, btp, brad, brid, inv_seed, b,
                 scene.lights.num_prims, nee_type=nee_type,
-                tri_attrs=tri_attrs)
+                tri_attrs=tri_attrs, color_bf16=settings.shade_bf16)
         else:
             tri = None
             if cached is not None:

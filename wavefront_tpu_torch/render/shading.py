@@ -42,6 +42,12 @@ _EPS15 = float(np.float32(EPSILON_BLOCK * 1.5))
 CHANNELS = (0, 1, 2, 3, 4, 5, 6, 8)
 
 
+def color_dtype(bf16: bool) -> torch.dtype:
+    """The dtype of the throughput and the shade's colors: bfloat16 in
+    the bf16 color pipeline (settings.shade_bf16), else float32."""
+    return torch.bfloat16 if bf16 else _F32
+
+
 class EntityHit(NamedTuple):
     """Per ray, the winning entity triangle's shading attributes, taken
     over the voxel face's where `use` is set."""
@@ -56,7 +62,8 @@ class EntityHit(NamedTuple):
 
 
 def shade_rays(grid_origin, lights, nee_type: int, bounce: int, origin: V3,
-               direction: V3, seed, vox: VoxelHit, entity, fetch, pick):
+               direction: V3, seed, vox: VoxelHit, entity, fetch, pick,
+               color_bf16: bool = False):
     """Shade and sample every ray (reference raytrace.rs:467-694).
 
     vox: the closest hits, entity hits merged in (`hit` set and `t` the
@@ -66,6 +73,12 @@ def shade_rays(grid_origin, lights, nee_type: int, bounce: int, origin: V3,
     id).  fetch(tex, u, v): the 8 `CHANNELS` of each ray's texel.
     pick(point, normal, seed, active): (BvhSample, dense prim
     probabilities or None), called when nee_type is not 0.
+    color_bf16: the bf16 color pipeline (settings.shade_bf16):
+    reflectivity, emission and the sky are bfloat16, rounded where the
+    reference rounds them (the texels after the fetch, cos_in before the
+    emission product, each product in bfloat16); alpha and metallicity
+    (they gate the murmur3 comparisons), geometry, the MIS weight and the
+    bsdf pdf stay float32.
 
     Returns (new origin V3, new direction V3, normal V3, emissivity V3,
     reflectivity V3, MIS weight, bsdf pdf, what `pick` gave second)."""
@@ -114,12 +127,13 @@ def shade_rays(grid_origin, lights, nee_type: int, bounce: int, origin: V3,
 
     # ---- texels: the 8 consumed channels of the packed atlas ----
     ch = fetch(tex, u, v)
-    reflectivity = V3(ch[0], ch[1], ch[2])
+    cdt = color_dtype(color_bf16)
+    reflectivity = V3(ch[0].to(cdt), ch[1].to(cdt), ch[2].to(cdt))
     alpha, metallicity = ch[3], ch[7]
-    cos_in = -vec3.dot(direction, normal)
-    emissivity = V3(EMISSION_SCALE * ch[4] * cos_in,
-                    EMISSION_SCALE * ch[5] * cos_in,
-                    EMISSION_SCALE * ch[6] * cos_in)
+    cos_c = (-vec3.dot(direction, normal)).to(cdt)
+    emissivity = V3(EMISSION_SCALE * ch[4].to(cdt) * cos_c,
+                    EMISSION_SCALE * ch[5].to(cdt) * cos_c,
+                    EMISSION_SCALE * ch[6].to(cdt) * cos_c)
 
     # ---- scatter decision (reference raytrace.rs:588-603) ----
     scatter_rand = rng.finalizef(rng.combine(seed, 0))
@@ -171,9 +185,13 @@ def shade_rays(grid_origin, lights, nee_type: int, bounce: int, origin: V3,
     new_direction = vec3.where(
         is_mirror, reflect(direction, normal),
         vec3.where(is_transmissive, direction, lam_dir))
+    # colors stay in the color dtype: a select between it and float32
+    # would widen them.  (The float32 1/pi rounds every normal bfloat16
+    # reflectivity as the reference's bfloat16 1/pi does.)
+    zero_c, one_c = zero.to(cdt), one.to(cdt)
     out_reflect = vec3.where(
         is_mirror, reflectivity,
-        vec3.where(is_transmissive, V3(one, one, one),
+        vec3.where(is_transmissive, V3(one_c, one_c, one_c),
                    reflectivity * _INV_PI))
     out_bsdf_pdf = torch.where(is_lambertian, lam_bsdf_pdf, one)
     out_mis = torch.where(is_lambertian, mis_weight, zero)
@@ -181,14 +199,15 @@ def shade_rays(grid_origin, lights, nee_type: int, bounce: int, origin: V3,
 
     # ---- miss: directional sky (reference raytrace.rs:528-538) ----
     miss = alive & ~hit_any
-    sky = torch.where(direction.y > SKY_COS_CUTOFF, SKY_EMISSION, 0.0).to(_F32)
+    sky = torch.where(direction.y > SKY_COS_CUTOFF, SKY_EMISSION, 0.0).to(cdt)
     zero3 = V3(zero, zero, zero)
+    zero3c = V3(zero_c, zero_c, zero_c)
     new_origin = vec3.where(miss, origin + direction * MISS_DISTANCE,
                             new_origin)
     new_direction = vec3.where(miss, zero3, new_direction)
     normal = vec3.where(miss, zero3, normal)
     out_emis = vec3.where(miss, V3(sky, sky, sky), out_emis)
-    out_reflect = vec3.where(miss, zero3, out_reflect)
+    out_reflect = vec3.where(miss, zero3c, out_reflect)
     out_mis = torch.where(miss, zero, out_mis)
     out_bsdf_pdf = torch.where(miss, one, out_bsdf_pdf)
 
@@ -197,8 +216,8 @@ def shade_rays(grid_origin, lights, nee_type: int, bounce: int, origin: V3,
     new_origin = vec3.where(dead, origin, new_origin)
     new_direction = vec3.where(dead, zero3, new_direction)
     normal = vec3.where(dead, zero3, normal)
-    out_emis = vec3.where(dead, zero3, out_emis)
-    out_reflect = vec3.where(dead, zero3, out_reflect)
+    out_emis = vec3.where(dead, zero3c, out_emis)
+    out_reflect = vec3.where(dead, zero3c, out_reflect)
     out_mis = torch.where(dead, zero, out_mis)
     out_bsdf_pdf = torch.where(dead, one, out_bsdf_pdf)
     return (new_origin, new_direction, normal, out_emis, out_reflect,
@@ -209,10 +228,11 @@ def throughput_factor(new_direction: V3, reflectivity: V3, mis, bsdf_pdf,
                       nee_pdf) -> V3:
     """refl * (p/q) * valid: the one-sample-MIS reweighting of the
     reference's backward recurrence (outgoing_radiance.rs:77-87), folded
-    forward into the throughput."""
+    forward into the throughput.  p/q is taken in float32 and rounded
+    once to the reflectivity's (color) dtype."""
     valid = vec3.any_nonzero(new_direction)
     q = nee_pdf * mis + (1.0 - mis) * bsdf_pdf
     # a zero-probability sample contributes nothing beyond its emission
     w = torch.where(q > 0.0, bsdf_pdf / q.clamp_min(1e-35),
                     torch.zeros_like(q))
-    return reflectivity * (w * valid.to(_F32))
+    return reflectivity * (w * valid.to(_F32)).to(reflectivity.x.dtype)

@@ -3,7 +3,7 @@ gather, and the headline frame's device time, to compare two trees of the
 port on one card.
 
     python wavefront_tpu_torch/tools/kernel_times.py [--root DIR]
-        [--kernels K [K ...]] [--frames F] [--lamps L] [--reps N]
+        [--kernels K [K ...]] [--frames F] [--lamps L] [--reps N] [--sass]
 
 DIR is a checkout whose `wavefront_tpu_torch` package is timed (default:
 the one this file belongs to); it builds its own kernels under DIR.  Run
@@ -21,6 +21,8 @@ back to back between CUDA events:
                 voxels of the general frame's lattice (six light prims
                 each; up to 41 keep the set dense), to time the shade at
                 a larger light set.
+  shade_bf16    the fused shade's bf16 color build on the same rays, tp in
+                bfloat16 (a tree that has the build).
   texel         the texel fetch (K3) on the (tex, u, v) that the general
                 frame's (`headline.general_setup`) first bounce hands it,
                 `reps` launches.
@@ -44,6 +46,11 @@ back to back between CUDA events:
 frames (host clock, ending in a synchronize) and, over F more frames
 under torch.profiler, the device's busy ms a frame and idle share.
 
+`--sass` adds one line for the fused shade's machine code (`cuobjdump
+-sass` of the tree's build): per kernel instantiation, named with its
+template arguments, the count of instructions and a hash of their text,
+so two trees' builds of one instantiation can be told equal or not.
+
 Every line is one JSON object with the card's name and power limit and
 the tree's root.  Compare two trees within one machine, in turns (A, B,
 B, A).
@@ -57,8 +64,8 @@ import os
 import sys
 import time
 
-KERNELS = ("trace", "shade", "texel", "loop_probe", "extract_cur",
-           "extract_win", "row_gather")
+KERNELS = ("trace", "shade", "shade_bf16", "texel", "loop_probe",
+           "extract_cur", "extract_win", "row_gather")
 GATHER_ROWS = 4096
 GATHER_CALLS = 1000
 
@@ -75,6 +82,8 @@ def parse(argv=None):
     ap.add_argument("--lamps", type=int, default=0,
                     help="lamp voxels of the lattice added to the scene")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--sass", action="store_true",
+                    help="hash the fused shade's machine code")
     return ap.parse_args(argv)
 
 
@@ -99,7 +108,7 @@ def main(argv=None) -> int:
         print(json.dumps({"root": root, **row, "card": name,
                           "power_limit": limit}), flush=True)
 
-    if {"trace", "shade"} & set(args.kernels):
+    if {"trace", "shade", "shade_bf16"} & set(args.kernels):
         for row in trace_shade_rows(args):
             emit(row)
     if "texel" in args.kernels:
@@ -111,6 +120,8 @@ def main(argv=None) -> int:
         emit(gather_row())
     if args.frames:
         emit(frame_row(args.frames))
+    if args.sass:
+        emit(shade_sass_row())
     return 0
 
 
@@ -169,9 +180,50 @@ def trace_shade_rows(args):
         if "shade" in args.kernels:
             row["shade_ms"] = time_ms(
                 lambda: shade_pass(*args_, nee_type=1), args.reps)
+        if "shade_bf16" in args.kernels:
+            args16 = args_[:7] + (tp.map(lambda c: c.to(torch.bfloat16)),) \
+                + args_[8:]
+            row["shade_bf16_ms"] = time_ms(
+                lambda: shade_pass(*args16, nee_type=1, color_bf16=True),
+                args.reps)
         yield row
         o, d, tp, rad = (V3(*(c.contiguous() for c in v))
                          for v in shade_pass(*args_, nee_type=1))
+
+
+def shade_sass_row() -> dict:
+    """The fused shade's machine code per kernel instantiation of the
+    tree's build: {"shade_kernel<P,TRI[,BF16]>": {"instructions", "sha256"
+    (the first 16 hex digits, of the instructions' text without their
+    addresses and encodings)}}."""
+    import hashlib
+    import re
+    import subprocess
+
+    from wavefront_tpu_torch.kernels import _build
+
+    lib = _build.library_path("shade")
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    code, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?shade_kernelI((?:L[a-z]-?\d+E)+)E",
+                      line)
+        if m:
+            args = re.findall(r"L[a-z](-?\d+)E", m.group(1))
+            cur = f"shade_kernel<{','.join(args)}>"
+            code[cur] = []
+            continue
+        if "Function :" in line:
+            cur = None
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if cur and m:
+            code[cur].append(m.group(1).strip())
+    return {"kernel": "shade_sass", "library": os.path.basename(lib),
+            "functions": {k: {"instructions": len(v), "sha256": hashlib.sha256(
+                "\n".join(v).encode()).hexdigest()[:16]}
+                for k, v in sorted(code.items())}}
 
 
 def texel_row(reps: int) -> dict:
