@@ -823,10 +823,33 @@ def device_ms(fn, kernel: str, reps: int):
     return sum(spent) / 1e3 / (len(spent) if kernel else reps)
 
 
+def device_events(fn, reps: int):
+    """Device operations (kernels, fills, copies) per call of `fn`, from
+    torch.profiler over `reps` calls; None when the profiler kept fewer
+    than half of them (see device_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return None if n * 2 <= reps else n / reps
+
+
 def radix_check(scene, settings, basis) -> dict:
-    """K4 against its plain version at the headline's ray count: on seeded
-    keys and on the headline frame's own bounce-0 coherence keys (their
-    low 32 bits), every shift, and the one-read form."""
+    """K4 against its plain versions at the headline's ray count: on
+    seeded keys and on the headline frame's own bounce-0 coherence keys
+    (their low 32 bits), every shift, the one-read form and both forms of
+    `radix_hist` (the spine).  Per call of one digit, of one read and of
+    `radix_hist` (one read; and in four passes): ms (CUDA events, back to
+    back), the device ms of every device operation the call makes
+    (`device_ms_all*`) and their number (`device_ops*`), and the kernel's
+    own device ms (`device_ms_<keys>`, `device_ms_one_read_<keys>`)."""
     n = HEADLINE_RAYS
     rng = np.random.default_rng(radix_lab.SEED)
     seeded = torch.as_tensor(
@@ -842,26 +865,49 @@ def radix_check(scene, settings, basis) -> dict:
         d.x, d.y, d.z, *arrays.grid.shape))
     check(frame.shape[0] == n, f"the frame has {frame.shape[0]} keys")
     out = {"keys": n, "max_abs_err": 0}
+
+    def hold(got, want, what):
+        out["max_abs_err"] = max(out["max_abs_err"], exact(got, want, what))
+
     for name, keys in (("seeded", seeded), ("frame", frame)):
         for shift in (0, 8, 16, 24):
             got = rh.digit_histogram(keys, shift)
-            out["max_abs_err"] = max(out["max_abs_err"], exact(
-                got, rh.hist_plain(keys, shift), f"radix {name} shift {shift}"))
+            hold(got, rh.hist_plain(keys, shift),
+                 f"radix {name} shift {shift}")
             check(int(got.sum()) == n, f"radix {name} shift {shift}: the "
                   f"counts sum to {int(got.sum())}")
         four = rh.digit_histograms4(keys)
-        exact(four, torch.stack([rh.hist_plain(keys, 8 * p)
-                                 for p in range(4)]), f"radix {name} one read")
+        hold(four, torch.stack([rh.hist_plain(keys, 8 * p)
+                                for p in range(4)]), f"radix {name} one read")
+        spine = rh.radix_hist_plain(keys)
+        hold(rh.radix_hist(keys, one_read=True), spine,
+             f"radix_hist {name} one read")
+        hold(rh.radix_hist(keys), spine, f"radix_hist {name} four passes")
         out[f"distinct_digits_{name}"] = [int((row != 0).sum())
                                           for row in four]
-        out[f"ms_{name}"] = time_ms(lambda: rh.digit_histogram(keys, 0), 20)
-        out[f"ms_one_read_{name}"] = time_ms(
-            lambda: rh.digit_histograms4(keys), 20)
+        for call, fn in (
+                ("", lambda: rh.digit_histogram(keys, 0)),
+                ("_one_read", lambda: rh.digit_histograms4(keys)),
+                ("_radix_hist", lambda: rh.radix_hist(keys, one_read=True)),
+                ("_radix_hist_4pass", lambda: rh.radix_hist(keys))):
+            out[f"ms{call}_{name}"] = time_ms(fn, 20)
+            out[f"device_ms_all{call}_{name}"] = device_ms(fn, "", 20)
+            out[f"device_ops{call}_{name}"] = device_events(fn, 20)
         out[f"device_ms_{name}"] = device_ms(
             lambda: rh.digit_histogram(keys, 0), "hist_kernel", 20)
         out[f"device_ms_one_read_{name}"] = device_ms(
             lambda: rh.digit_histograms4(keys), "hist_kernel", 20)
-    out["ms"], out["device_ms"] = out["ms_seeded"], out["device_ms_seeded"]
+    ops = [out[f"device_ops{call}_{name}"]
+           for call in ("", "_one_read", "_radix_hist")
+           for name in ("seeded", "frame")]
+    check(all(v is not None for v in ops), f"radix: the profiler lost "
+          f"launches: {ops}")
+    out["device_ops_per_call"] = max(ops)
+    check(out["device_ops_per_call"] <= 2, f"radix: a call makes "
+          f"{out['device_ops_per_call']} device operations")
+    out["ms"] = out["ms_seeded"]
+    out["device_ms"] = out["device_ms_all_seeded"]
+    out["device_ms_one_read"] = out["device_ms_all_one_read_seeded"]
     out["plain_ms"] = time_ms(lambda: rh.hist_plain(seeded, 0), 5)
     out["library_ms"] = time_ms(lambda: torch.bincount(
         ((seeded.to(torch.int64) & 0xFFFFFFFF) >> 0) & 255, minlength=256), 5)
@@ -873,6 +919,8 @@ def radix_check(scene, settings, basis) -> dict:
         lambda: torch.bincount(digits, minlength=256), 5)
     out["bound_ms"], out["bound_by"] = max_bound(
         4 * n + 4 * 256, n * HIST_OPS_PER_KEY)
+    out["bound_ms_one_read"], out["bound_by_one_read"] = max_bound(
+        4 * n + 4 * 4 * 256, n * 4 * HIST_OPS_PER_KEY)
     return out
 
 
@@ -1385,6 +1433,10 @@ def main() -> int:
             "library_device_ms": k.get("library_device_ms"),
             "smem_floor_ms": k.get("smem_floor_ms"),
         })
+    # K4's one-read form and its operations a call beside its one digit
+    next(k for k in kernels if k["name"] == "radix_hist").update(
+        {key: rc[key] for key in ("device_ops_per_call", "device_ms_one_read",
+                                  "bound_ms_one_read")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{name}, {limit}", flush=True)
     print(json.dumps({"ok": True, "device": {

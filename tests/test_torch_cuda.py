@@ -590,29 +590,111 @@ def _i32(a):
                            device="cuda")
 
 
-@pytest.mark.parametrize("n", [1, 1000, 100_003])
+# K4 launches one block per 4096 keys (1024 threads, one 16-byte load
+# each), up to the blocks the card holds at once: two a SM for one digit,
+# one for four (RADIX_EDGES names those counts, resolved on the card)
+RADIX_BLOCK_KEYS = 4 * 1024
+RADIX_EDGES = {"block-1": (0, -1), "block+1": (0, 1),
+               "cap1-1": (2, -1), "cap1+1": (2, 1),
+               "cap4-1": (1, -1), "cap4+1": (1, 1)}
+
+
+def _radix_n(n):
+    if isinstance(n, int):
+        return n
+    per_sm, off = RADIX_EDGES[n]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return RADIX_BLOCK_KEYS * (per_sm * sms or 1) + off
+
+
+def _radix_agrees(k):
+    """Every form of K4 on keys k equals its plain version."""
+    before = rh.digit_histogram.launches
+    for shift in (0, 8, 16, 24, 3):
+        got = rh.digit_histogram(k, shift)
+        assert torch.equal(got, rh.hist_plain(k, shift))
+        assert int(got.sum()) == k.shape[0]
+    assert rh.digit_histogram.launches == before + 5
+    four = rh.digit_histograms4(k)
+    assert torch.equal(four, torch.stack(
+        [rh.hist_plain(k, 8 * d) for d in range(4)]))
+    want = rh.radix_hist_plain(k)
+    assert torch.equal(rh.radix_hist(k), want)
+    assert torch.equal(rh.radix_hist(k, one_read=True), want)
+    assert torch.equal(rh.digit_histograms4(k, spine=True), want)
+    assert torch.equal(rh.radix_hist(k).cpu(), rh.radix_hist(k.cpu()))
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 1000, "block-1", "block+1",
+                               "cap4-1", "cap4+1", "cap1-1", "cap1+1",
+                               100_003])
 def test_radix_hist_kernel_matches_plain(card, n):
+    n = _radix_n(n)
     keys = torch.as_tensor(
-        card.integers(0, 2 ** 32, n, dtype=np.uint32).view(np.int32),
+        card.integers(0, 2 ** 32, n + 3, dtype=np.uint32).view(np.int32),
         device="cuda")
     # coherence-key-like: few distinct low digits, so warps contend
     skew = (keys & 0x7FC000E0).contiguous()
-    for k in (keys, skew, keys[1:].clone(), keys[1:]):
-        before = rh.digit_histogram.launches
-        for shift in (0, 8, 16, 24, 3):
-            got = rh.digit_histogram(k, shift)
-            assert torch.equal(got, rh.hist_plain(k, shift))
-            assert int(got.sum()) == k.shape[0]
-        assert rh.digit_histogram.launches == before + 5
-        four = rh.digit_histograms4(k)
-        assert torch.equal(four, torch.stack(
-            [rh.hist_plain(k, 8 * d) for d in range(4)]))
-        assert torch.equal(rh.radix_hist(k), rh.radix_hist(k, one_read=True))
-        assert torch.equal(rh.radix_hist(k).cpu(), rh.radix_hist(k.cpu()))
+    # misaligned by one, two and three keys: a head before the first
+    # 16-byte boundary
+    for k in (keys[:n], skew[:n], keys[1:n + 1].clone(), keys[1:n + 1],
+              keys[2:n + 2], keys[3:n + 3]):
+        _radix_agrees(k)
     with pytest.raises(ValueError):
         rh.digit_histogram(keys.to(torch.int64), 0)
     with pytest.raises(ValueError):
         rh.digit_histogram(keys, 25)
+
+
+def test_radix_hist_kernel_one_digit_value(card):
+    """Every key with the same digits: one bin holds every count, and the
+    lanes of a warp all count into one bin."""
+    for n in (5, 4096 * 300 + 7):
+        k = torch.full((n,), -0x3F2E1D0C, dtype=torch.int32, device="cuda")
+        _radix_agrees(k)
+        assert int(rh.digit_histogram(k, 0).max()) == n
+
+
+def test_radix_hist_workspace_across_calls_and_streams(card):
+    """64 calls back to back with no sync between them, and calls on two
+    streams at once: each stream's kept workspace (accumulator and
+    ticket) is left zero by every launch and shared by no other stream,
+    so every result equals its plain version."""
+    keys = [torch.as_tensor(card.integers(0, 2 ** 32, n, dtype=np.uint32)
+                            .view(np.int32), device="cuda")
+            for n in (1, 4097, 300_001, 2_073_600)]
+    got = []
+    for i in range(64):
+        k = keys[i % len(keys)]
+        got.append((k, i % 4, rh.digit_histogram(k, 8 * (i % 4)),
+                    rh.radix_hist(k, one_read=bool(i & 1))))
+    for k, p, hist, spine in got:
+        assert torch.equal(hist, rh.hist_plain(k, 8 * p))
+        assert torch.equal(spine, rh.radix_hist_plain(k))
+
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = ([], [])
+    for rep in range(8):
+        for s, out in zip(streams, outs):
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(1_000_000)
+                for k in keys:
+                    out.append((k, rh.radix_hist(k, one_read=True),
+                                rh.radix_hist(k)))
+    for s in streams:
+        s.synchronize()
+    for out in outs:
+        for k, one, four in out:
+            want = rh.radix_hist_plain(k)
+            assert torch.equal(one, want) and torch.equal(four, want)
+    dev = keys[0].get_device()
+    assert all((dev, s.cuda_stream) in rh._work for s in streams)
+    # left zero but for the flag (word 2), which holds the stream's last
+    # generation
+    for w, gen in rh._work.values():
+        assert int(w[2]) == gen
+        assert int(w[:2].abs().sum()) == int(w[3:].abs().sum()) == 0
 
 
 def test_device_probe_kernels_match_plain(card):

@@ -4,10 +4,14 @@ its plain PyTorch version `hist_plain`.
 Replaces the TPU kernel `tools/radix_lab.py::hist_kernel` (called by
 `hist_pass()`): the 256-bin histogram of one 8-bit digit of 32-bit keys,
 the upsweep of an LSD radix sort, and `radix_hist`, the four passes with
-their prefix-sum spine.  The TPU kernel counts in float32 through a
-one-hot matrix product over zero-padded 2048-key tiles; the port counts
-the keys it is given, in int32, with no padding (so its bin 0 lacks the
-pad keys the TPU kernel adds there).
+their prefix-sum spine (plain version `radix_hist_plain`).  The TPU
+kernel counts in float32 through a one-hot matrix product over
+zero-padded 2048-key tiles; the port counts the keys it is given, in
+int32, with no padding (so its bin 0 lacks the pad keys the TPU kernel
+adds there).  On the card the kernel also takes the spine, and a call is
+one device operation: the kernel keeps a small workspace for each device
+and stream, zeroed once and left zero by every launch (see the source
+note), so nothing is filled before it.
 
 Keys are unsigned 32-bit values carried bit for bit in an `int32` tensor
 (PyTorch has no arithmetic on uint32); `as_key_bits` makes that form from
@@ -55,25 +59,65 @@ def hist_plain(keys, shift: int):
     return torch.bincount(digit, minlength=256).to(torch.int32)
 
 
-_HIST = _build.Launcher("radix_hist", "rh_digit_histogram", "piip",
+def radix_hist_plain(keys):
+    """Plain PyTorch version of `radix_hist`: the inclusive prefix sums of
+    four `hist_plain` rows, (4, 256) int32."""
+    return torch.cumsum(torch.stack([hist_plain(keys, 8 * p)
+                                     for p in range(4)]), 1).to(torch.int32)
+
+
+_HIST = _build.Launcher("radix_hist", "rh_digit_histogram", "piiippii",
                        "digit_histogram")
-_HIST4 = _build.Launcher("radix_hist", "rh_digit_histograms4", "pip",
+_HIST4 = _build.Launcher("radix_hist", "rh_digit_histograms4", "piippii",
                         "digit_histograms4")
+_DESIGN = _build.Launcher("radix_hist", "rh_hist_design", "piiiiippii",
+                          "design_histogram")
+
+# int32 words of a workspace (WORK_WORDS in csrc/radix_hist.cu): the
+# kernel's start and end tickets, its flag and copies of an accumulator
+WORK_WORDS = 3 + 16 * 4 * 256
+# (device, raw stream handle) -> [workspace, generation of its last call]
+_work: dict = {}
+
+
+def _launch(launcher, keys, *args, out, fresh: bool = False):
+    """Launch `launcher(keys, n, *args, out, work, fresh, gen)` with the
+    workspace of the current stream of the keys' device.  A stream's
+    workspace is made on its first launch and zeroed by that launch (the
+    C function's `fresh`); the kernel leaves it zero but for its flag,
+    which holds the generation `gen` of the stream's last call, so later
+    launches on the stream need no fill, and launches on two streams never
+    share one.  It is kept only once a launch has gone through.  `fresh`
+    zeroes it on every launch (a measurement of the fill the kept
+    workspace saves)."""
+    dev = keys.get_device()
+    key = (dev, torch._C._cuda_getCurrentRawStream(dev))
+    kept = _work.get(key)
+    first = kept is None
+    if first:
+        kept = [torch.empty(WORK_WORDS, dtype=torch.int32,
+                            device=keys.device), 0]
+    gen = kept[1] % 0x7FFFFFFF + 1
+    launcher(dev, keys.data_ptr(), keys.shape[0], *args, out.data_ptr(),
+             kept[0].data_ptr(), int(first or fresh), gen)
+    kept[1] = gen
+    if first:
+        _work[key] = kept
+    return out
 
 
 def digit_histogram(keys, shift: int):
     """(N,) int32 key bits -> (256,) int32 counts of the digit
     `(key >> shift) & 255` (logical shift, 0 <= shift <= 24).
 
-    CPU tensors take `hist_plain`; CUDA tensors launch the kernel or
-    raise."""
+    CPU tensors take `hist_plain`; CUDA tensors launch the kernel (one
+    device operation) or raise."""
     _check_keys(keys, "digit_histogram")
     _check_shift(shift)
     if keys.device.type == "cpu":
         return hist_plain(keys, shift)
-    out = torch.zeros(256, dtype=torch.int32, device=keys.device)
-    _HIST(keys.get_device(), keys.data_ptr(), keys.shape[0], int(shift),
-          out.data_ptr())
+    out = torch.empty(256, dtype=torch.int32, device=keys.device)
+    _launch(_HIST, keys, int(shift), 0, out=out)
     digit_histogram.launches += 1
     return out
 
@@ -81,16 +125,18 @@ def digit_histogram(keys, shift: int):
 digit_histogram.launches = 0
 
 
-def digit_histograms4(keys):
+def digit_histograms4(keys, spine: bool = False):
     """(N,) int32 key bits -> (4, 256) int32: row d counts the digit
-    `(key >> 8 d) & 255`, all four in one read of the keys.  CPU tensors
-    take four `hist_plain` passes; CUDA tensors launch the kernel or
-    raise."""
+    `(key >> 8 d) & 255`, all four in one read of the keys; with `spine`
+    each row's inclusive prefix sums instead.  CPU tensors take four
+    `hist_plain` passes; CUDA tensors launch the kernel (one device
+    operation) or raise."""
     _check_keys(keys, "digit_histograms4")
     if keys.device.type == "cpu":
-        return torch.stack([hist_plain(keys, 8 * d) for d in range(4)])
-    out = torch.zeros((4, 256), dtype=torch.int32, device=keys.device)
-    _HIST4(keys.get_device(), keys.data_ptr(), keys.shape[0], out.data_ptr())
+        counts = torch.stack([hist_plain(keys, 8 * d) for d in range(4)])
+        return torch.cumsum(counts, 1).to(torch.int32) if spine else counts
+    out = torch.empty((4, 256), dtype=torch.int32, device=keys.device)
+    _launch(_HIST4, keys, int(bool(spine)), out=out)
     digit_histograms4.launches += 1
     return out
 
@@ -101,9 +147,36 @@ digit_histograms4.launches = 0
 def radix_hist(keys, one_read: bool = False):
     """The histogram and spine stages of a 4-pass LSD radix sort: (4, 256)
     int32, row p the inclusive prefix sum of the counts of digit p (the
-    form of `tools/radix_lab.py::radix_hist`).  Four `digit_histogram`
-    passes, or with `one_read` the single `digit_histograms4` pass; the
-    spine is `torch.cumsum`."""
-    counts = digit_histograms4(keys) if one_read else torch.stack(
-        [digit_histogram(keys, 8 * p) for p in range(4)])
-    return torch.cumsum(counts, dim=1).to(torch.int32)
+    form of `tools/radix_lab.py::radix_hist`).  On the card the kernel
+    takes the spine: four passes of one digit each, every pass writing its
+    row (four device operations), or with `one_read` one pass over all
+    four digits (one device operation).  CPU tensors take
+    `radix_hist_plain`."""
+    _check_keys(keys, "radix_hist")
+    if keys.device.type == "cpu":
+        return radix_hist_plain(keys)
+    if one_read:
+        return digit_histograms4(keys, spine=True)
+    out = torch.empty((4, 256), dtype=torch.int32, device=keys.device)
+    for p in range(4):
+        _launch(_HIST, keys, 8 * p, 1, out=out[p])
+        digit_histogram.launches += 1
+    return out
+
+
+def design_histogram(keys, shift: int, nd: int, design: int,
+                     spine: bool = False, fresh: bool = False):
+    """A measured design of the kernel (`rh_hist_design` in the source:
+    0 lane columns, the one `digit_histogram` launches; 1 one histogram a
+    warp; 2 the same with `__match_any_sync`; 3 lane columns in clusters
+    of 8; 4 one histogram a warp at 256 threads; 5 the same with
+    `__match_any_sync`) over `nd` 1 or 4 digits, (nd * 256,) int32.  With
+    `fresh` the launch zeroes its workspace first, as a design without a
+    kept workspace would.  CUDA tensors only: it times the card."""
+    _check_keys(keys, "design_histogram")
+    _check_shift(shift)
+    if keys.device.type != "cuda":
+        raise ValueError("design_histogram: keys must lie on the card")
+    out = torch.empty(nd * 256, dtype=torch.int32, device=keys.device)
+    return _launch(_DESIGN, keys, int(shift), int(nd), int(design),
+                   int(bool(spine)), out=out, fresh=fresh)

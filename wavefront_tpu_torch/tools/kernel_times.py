@@ -41,6 +41,22 @@ back to back between CUDA events:
                 GATHER_CALLS calls, beside `torch.gather` on the same
                 table and indices; also the host clock's microseconds a
                 call of each.
+  radix         K4 at the headline's 2,073,600 keys, seeded (uniform
+                over all 32 bits) and the headline frame's bounce-0
+                coherence keys (their low 32 bits): one digit
+                (`digit_histogram`, shift 0), one read of four
+                (`digit_histograms4`), and `radix_hist` with `one_read`
+                and in four passes; per call the wall ms (CUDA events
+                over `reps` calls back to back, so the host's path
+                counts where it is the longer), the device ms of every
+                device operation the call makes (`torch.profiler`), and
+                their number.  Every call is one the parent trees have
+                too, so a tree and its parent can be timed in turns.
+  radix_designs K4's measured designs (`radix_hist.design_histogram`, a
+                tree that has them) on the same keys, one digit and four:
+                each checked equal to its plain version, then its device
+                ms and operations a call; design 0 also with its
+                workspace zeroed by a memset every call.
 
 `--frames F` adds one line for the headline frame: `frame_ms` over F
 frames (host clock, ending in a synchronize) and, over F more frames
@@ -65,7 +81,10 @@ import sys
 import time
 
 KERNELS = ("trace", "shade", "shade_bf16", "texel", "loop_probe",
-           "extract_cur", "extract_win", "row_gather")
+           "extract_cur", "extract_win", "row_gather", "radix",
+           "radix_designs")
+RADIX_SEED = 0xDEADBEEF
+RADIX_DESIGNS = 14
 GATHER_ROWS = 4096
 GATHER_CALLS = 1000
 
@@ -118,6 +137,12 @@ def main(argv=None) -> int:
             emit(probe_row(kernel, args.reps))
     if "row_gather" in args.kernels:
         emit(gather_row())
+    if "radix" in args.kernels:
+        for row in radix_rows(args.reps):
+            emit(row)
+    if "radix_designs" in args.kernels:
+        for row in radix_design_rows(args.reps):
+            emit(row)
     if args.frames:
         emit(frame_row(args.frames))
     if args.sass:
@@ -335,6 +360,97 @@ def gather_row() -> dict:
             "torch_gather_ms": time_ms(lib, GATHER_CALLS),
             "row_gather_host_us": _host_us(k7, GATHER_CALLS),
             "torch_gather_host_us": _host_us(lib, GATHER_CALLS)}
+
+
+def device_per_call(fn, reps: int, kernel: str = "") -> tuple:
+    """(device ms, device operations) a call of `fn`: every device
+    operation (kernels, fills, copies) that `torch.profiler` records over
+    `reps` calls, after one warm-up call; with `kernel` only those whose
+    name holds it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and kernel in e.name]
+    return sum(e.device_time for e in dev) / 1e3 / reps, len(dev) / reps
+
+
+def radix_keys() -> dict:
+    """The headline's count of keys, seeded and the headline frame's
+    bounce-0 coherence keys, as int32 key bits on the card."""
+    import numpy as np
+    import torch
+
+    from wavefront_tpu_torch.headline import HEADLINE_RAYS, headline_setup
+    from wavefront_tpu_torch.kernels.radix_hist import as_key_bits
+    from wavefront_tpu_torch.kernels.window_trace import coherence_key
+    from wavefront_tpu_torch.render.wavefront import raygen_soa
+
+    rng = np.random.default_rng(RADIX_SEED)
+    seeded = torch.as_tensor(rng.integers(0, 2 ** 32, HEADLINE_RAYS,
+                                          dtype=np.uint32).view(np.int32),
+                             device="cuda")
+    scene, settings, basis, _ = headline_setup(1920, 1080, 4, device="cuda")
+    arrays = scene.get_arrays()
+    o, d, _ = raygen_soa(basis.eye, basis.front, basis.right, basis.up,
+                         settings.render_width, settings.render_height,
+                         device="cuda")
+    go = arrays.grid_origin
+    frame = as_key_bits(coherence_key(
+        o.x - float(go[0]), o.y - float(go[1]), o.z - float(go[2]),
+        d.x, d.y, d.z, *arrays.grid.shape))
+    return {"seeded": seeded, "frame": frame}
+
+
+def radix_rows(reps: int):
+    from wavefront_tpu_torch.kernels import radix_hist as rh
+    from wavefront_tpu_torch.tools._timing import time_ms
+
+    calls = {"one_digit": lambda k: rh.digit_histogram(k, 0),
+             "one_read": rh.digit_histograms4,
+             "radix_hist_1read": lambda k: rh.radix_hist(k, one_read=True),
+             "radix_hist_4pass": rh.radix_hist}
+    for name, keys in radix_keys().items():
+        row = {"kernel": "radix", "keys": name, "n": int(keys.shape[0]),
+               "reps": reps}
+        for call, fn in calls.items():
+            row[f"{call}_ms"] = time_ms(lambda: fn(keys), reps)
+            row[f"{call}_device_ms"], row[f"{call}_device_ops"] = \
+                device_per_call(lambda: fn(keys), reps)
+            row[f"{call}_kernel_ms"] = device_per_call(
+                lambda: fn(keys), reps, "hist_kernel")[0]
+        yield row
+
+
+def radix_design_rows(reps: int):
+    import torch
+
+    from wavefront_tpu_torch.kernels import radix_hist as rh
+
+    for name, keys in radix_keys().items():
+        for nd in (1, 4):
+            want = torch.cat([rh.hist_plain(keys, 8 * d) for d in range(nd)])
+            for design, fresh in ((0, True),) + tuple(
+                    (d, False) for d in range(RADIX_DESIGNS)):
+                def fn():
+                    return rh.design_histogram(keys, 0, nd, design,
+                                               fresh=fresh)
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"design {design} nd {nd} on "
+                                         f"{name} keys differs")
+                ms, ops = device_per_call(fn, reps)
+                yield {"kernel": "radix_design", "keys": name, "nd": nd,
+                       "design": design, "memset_each_call": fresh,
+                       "device_ms": ms, "device_ops": ops,
+                       "kernel_ms": device_per_call(fn, reps, "_kernel")[0]}
 
 
 def frame_row(frames: int) -> dict:
