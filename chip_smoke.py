@@ -110,6 +110,7 @@ from wavefront_tpu_torch.render.renderer import (
 from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.render.wavefront import raygen_soa
 from wavefront_tpu_torch.tools import event_lab, gpu_probe, radix_lab, roofline
+from wavefront_tpu_torch.tools.kernel_times import radix_device
 from wavefront_tpu_torch.tools._timing import FILL_GROUPS, card, time_ms
 from wavefront_tpu_torch.tools._timing import emit as emit_rows
 from wavefront_tpu_torch.tools.event_lab import dda_steps
@@ -823,24 +824,6 @@ def device_ms(fn, kernel: str, reps: int):
     return sum(spent) / 1e3 / (len(spent) if kernel else reps)
 
 
-def device_events(fn, reps: int):
-    """Device operations (kernels, fills, copies) per call of `fn`, from
-    torch.profiler over `reps` calls; None when the profiler kept fewer
-    than half of them (see device_ms)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return None if n * 2 <= reps else n / reps
-
-
 def radix_check(scene, settings, basis) -> dict:
     """K4 against its plain versions at the headline's ray count: on
     seeded keys and on the headline frame's own bounce-0 coherence keys
@@ -849,7 +832,7 @@ def radix_check(scene, settings, basis) -> dict:
     `radix_hist` (one read; and in four passes): ms (CUDA events, back to
     back), the device ms of every device operation the call makes
     (`device_ms_all*`) and their number (`device_ops*`), and the kernel's
-    own device ms (`device_ms_<keys>`, `device_ms_one_read_<keys>`)."""
+    own device ms (`device_ms*`), by `kernel_times.radix_device`."""
     n = HEADLINE_RAYS
     rng = np.random.default_rng(radix_lab.SEED)
     seeded = torch.as_tensor(
@@ -891,12 +874,9 @@ def radix_check(scene, settings, basis) -> dict:
                 ("_radix_hist", lambda: rh.radix_hist(keys, one_read=True)),
                 ("_radix_hist_4pass", lambda: rh.radix_hist(keys))):
             out[f"ms{call}_{name}"] = time_ms(fn, 20)
-            out[f"device_ms_all{call}_{name}"] = device_ms(fn, "", 20)
-            out[f"device_ops{call}_{name}"] = device_events(fn, 20)
-        out[f"device_ms_{name}"] = device_ms(
-            lambda: rh.digit_histogram(keys, 0), "hist_kernel", 20)
-        out[f"device_ms_one_read_{name}"] = device_ms(
-            lambda: rh.digit_histograms4(keys), "hist_kernel", 20)
+            (out[f"device_ms_all{call}_{name}"],
+             out[f"device_ops{call}_{name}"],
+             out[f"device_ms{call}_{name}"]) = radix_device(fn, 20)
     ops = [out[f"device_ops{call}_{name}"]
            for call in ("", "_one_read", "_radix_hist")
            for name in ("seeded", "frame")]

@@ -105,6 +105,31 @@ def test_hist_plain_matches_tpu_one_hot_product(shift):
     assert got.sum() == len(keys) and got.dtype == np.int32
 
 
+@pytest.mark.parametrize("keys_kind", ["uniform", "coherent"])
+def test_radix_hist_spine_matches_tpu_one_hot_product(keys_kind):
+    """Both forms of the spine (four passes and one read) and its plain
+    version against `tools/radix_lab.py::radix_hist`'s restatement: the
+    TPU kernel's histogram of each digit, pad keys off bin 0, then
+    np.cumsum."""
+    keys = np.random.default_rng(6).integers(0, 2 ** 32, 4099,
+                                             dtype=np.uint32)
+    if keys_kind == "coherent":
+        keys &= 0x7FC000E0
+    want = []
+    for p in range(4):
+        h, pad = _tpu_hist(keys, 8 * p)
+        h[0] -= pad
+        want.append(np.cumsum(h))
+    want = np.stack(want)
+    bits = _t(keys.view(np.int32))
+    for got in (rh.radix_hist_plain(bits), rh.radix_hist(bits),
+                rh.radix_hist(bits, one_read=True),
+                rh.digit_histograms4(bits, spine=True)):
+        assert got.dtype == torch.int32 and tuple(got.shape) == (4, 256)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:, -1] == len(keys)).all()
+
+
 def test_radix_hist_spine_and_key_bits():
     rng = np.random.default_rng(4)
     k64 = rng.integers(0, 2 ** 32, 3000, dtype=np.int64)

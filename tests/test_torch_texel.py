@@ -240,6 +240,13 @@ def test_kernel_times_takes_the_probe_kernels():
     assert args.root == "build/parent"
 
 
+def test_kernel_times_takes_the_histogram():
+    args = kernel_times.parse(["--kernels", "radix", "--root",
+                               "build/parent", "--reps", "50"])
+    assert args.kernels == ["radix"] and args.reps == 50
+    assert "radix" in kernel_times.KERNELS
+
+
 def test_kernel_times_options_parse_with_no_card(capsys):
     args = kernel_times.parse(["--kernels", "texel", "row_gather",
                                "--frames", "3", "--root", "build/parent"])

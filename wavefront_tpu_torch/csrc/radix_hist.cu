@@ -13,175 +13,101 @@
 //
 // What bounds it on this card: bytes.  Each key is read once (4 B) and
 // 256 counts (1,024 in one read) are written; at 2,073,600 keys that is
-// 8.3 MB, 0.0025 ms at the card's memory rate.  What the design does:
+// 8.3 MB, 0.0025 ms at the card's memory rate.  What holds it (PERF.md,
+// measured on an H100): the shared-memory atomics, one a key and digit,
+// and the global atomics that add the blocks' totals, which queue on the
+// output's words.  The design:
 //
-//  * Counting.  A block of 1024 threads keeps one histogram in shared
-//    memory as 32 lane columns: lane l of every warp counts digit value b
-//    of digit d at word (d * 256 + b) * 32 + l, so the 32 lanes of a warp
-//    always hit 32 distinct banks, whatever their digits.  With one copy a
-//    warp (the first design), lanes whose digits differ collide in banks,
-//    and keys whose digits spread over all 256 values took 2.4x as long as
-//    keys of one digit value.  A block sums its 32 columns in a rotated
-//    order that keeps the reads conflict-free too.
-//  * Fewer, larger blocks: only as many blocks as the card holds at once
-//    (2 a SM for one digit, 1 for four: the columns take 32 KB a digit),
-//    each looping over its keys four 16-byte loads at a time, so that a
-//    call adds 264 (132) partial histograms to the total, not 507.
-//  * One device operation a call.  Each block adds its non-zero bins into
-//    an accumulator with global atomics (integer adds: the order in which
-//    blocks finish cannot change the result), then takes a ticket
-//    (atomicInc, which wraps back to 0 at the grid's size).  The block
-//    that takes the last ticket reads the totals, writes the counts or
-//    their inclusive prefix sums to the output, and zeroes the
-//    accumulator again.  The accumulator and the ticket (WORK_WORDS int32)
-//    therefore outlive a call: the caller keeps one such workspace for
-//    each device and stream (kernels/radix_hist.py), so that two launches
-//    never share one at once, and has it zeroed once, by the memset that
-//    `fresh` asks for on its first launch.  A launch that is refused never
-//    touches it.  Without that state a call needs a fill of the output (or
-//    of scratch) before the kernel, one more device operation and one more
-//    dispatch.
+//  * Lane columns.  A block of 1024 threads counts into one histogram in
+//    shared memory held as 32 lane columns: lane l of every warp counts
+//    bin b (d * 256 + digit value) at word b * 32 + l, so a warp's 32
+//    atomics always hit 32 banks, whatever its digits.  With one copy a
+//    warp, lanes of different values collide in banks: the same time for
+//    one digit, 1.17x for four.  The block sums each bin's 32 columns in a
+//    rotated order that keeps those reads conflict-free too.
+//  * One block a SM (the four-digit columns take 128 KB): 132 blocks add
+//    their totals into the output, not the 507 of the first design.  Each
+//    of those global atomics queues at its word in L2, and with all 256
+//    values present in every block their number, not the bank conflicts,
+//    made spread keys cost 2.4x coherent ones in the first design.
+//  * One device operation a call, with nothing filled before it.  The
+//    block that takes the first start ticket (atomicInc, which wraps back
+//    to 0 at the grid's size) zeroes the output and raises a flag to the
+//    call's generation; every block waits for the flag before it adds its
+//    totals, by then long raised.  Waiting only on a block that has
+//    started cannot deadlock.  For the spine, the block that takes the
+//    last end ticket turns the counts into prefix sums in place.  The
+//    tickets and the flag (WORK_WORDS int32) outlive a call: the caller
+//    keeps them for each device and stream (kernels/radix_hist.py), so
+//    that two launches never share them at once, zeroes them once, by the
+//    memset that `fresh` asks for on a stream's first launch, and gives
+//    each launch a generation other than the last one's.  A launch that is
+//    refused never touches them.  A memset of the output before the kernel
+//    measured 1.0-1.1 us more a call, and a last block that sums copies of
+//    a kept accumulator 0.9-2.5 us more.
 //
 // Keys are read 16 bytes a thread from the first 16-byte boundary on, with
-// the (at most 3) keys before it and the tail read one at a time.
+// the (at most 3) keys before it and the tail read one at a time.  Integer
+// adds keep the result independent of the order in which blocks finish.
 
-#include <cooperative_groups.h>
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-// the workspace: the start ticket, the end ticket, the flag, then (for
-// the measured LAST designs) MAX_COPIES copies of a (4, 256) accumulator
+constexpr int BLOCK = 1024;
+constexpr int WARPS = BLOCK / 32;
+// the workspace: the start ticket, the end ticket and the flag
 constexpr int START = 0;
 constexpr int TICKET = 1;
 constexpr int FLAG = 2;
-constexpr int ACC = 3;
-constexpr int ACC_WORDS = 4 * 256;
-constexpr int MAX_COPIES = 16;
-constexpr int WORK_WORDS = ACC + MAX_COPIES * ACC_WORDS;
+constexpr int WORK_WORDS = 3;
 constexpr int MAX_DEVICES = 64;
 
-// Where a block counts (the designs measured for PERF.md):
-//   LANE   one histogram a block as 32 lane columns, word (bin * 32 + lane)
-//   WARP   one histogram a warp, word (warp * bins + bin)
-enum Layout { LANE = 0, WARP = 1 };
-// How a thread counts a key's digit:
-//   PLAIN  one shared atomic increment
-//   MATCH  the lanes of a warp with one digit value by one atomic of their
-//          number (__match_any_sync)
-//   UNI    a warp whose lanes share the value by one atomic of its leader
-//          (a shuffle and a vote), the others as PLAIN
-//   RLE    a run of equal values in registers, added when it ends
-enum Count { PLAIN = 0, MATCH = 1, UNI = 2, RLE = 3 };
-// How the blocks' totals become the result:
-//   FIRST   the block that takes the first start ticket zeroes the output
-//           and raises the flag to the call's generation; the others add
-//           their totals into the output once they see it
-//   MEMSET  the same adds into an output zeroed by a memset first
-//   LAST    adds into K copies of a kept accumulator (block b into copy
-//           b % K), then an end ticket: the block that takes the last one
-//           writes the result and zeroes the copies
-enum Tail { FIRST = 0, MEMSET = 1, LAST = 2 };
-
-template <int ND, int LAYOUT, int NT>
-__host__ __device__ constexpr int smem_words() {
-    return LAYOUT == LANE ? ND * 256 * 32 : (NT / 32) * ND * 256;
+// ND digits a key: digit d is (key >> (shift + 8 d)) & 255 and counts into
+// bin d * 256 + digit, in lane `lane`'s column
+template <int ND>
+__device__ __forceinline__ void count_key(int* cols, uint32_t k, int shift,
+                                          int lane) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+        atomicAdd(&cols[((d * 256 + ((k >> (shift + 8 * d)) & 255u)) << 5)
+                        | lane], 1);
 }
 
-template <int ND, int LAYOUT, int COUNT>
-struct Counter {
-    int* h;
-    int lane, shift;
-    int bin[ND], run[ND];
-
-    __device__ __forceinline__ int* word(int b) {
-        return LAYOUT == LANE ? &h[(b << 5) | lane] : &h[b];
-    }
-
-    __device__ __forceinline__ void key(uint32_t k) {
-#pragma unroll
-        for (int d = 0; d < ND; ++d) {
-            const int b = d * 256 + ((k >> (shift + 8 * d)) & 255u);
-            if (COUNT == PLAIN) {
-                atomicAdd(word(b), 1);
-            } else if (COUNT == MATCH) {
-                const unsigned peers = __match_any_sync(__activemask(), b);
-                if ((peers & ((1u << lane) - 1u)) == 0)
-                    atomicAdd(word(b), __popc(peers));
-            } else if (COUNT == UNI) {
-                const unsigned mask = __activemask();
-                const int leader = __ffs(mask) - 1;
-                if (__all_sync(mask, b == __shfl_sync(mask, b, leader))) {
-                    if (lane == leader) atomicAdd(word(b), __popc(mask));
-                } else {
-                    atomicAdd(word(b), 1);
-                }
-            } else if (b == bin[d]) {
-                ++run[d];
-            } else {
-                if (run[d]) atomicAdd(word(bin[d]), run[d]);
-                bin[d] = b;
-                run[d] = 1;
-            }
-        }
-    }
-
-    __device__ __forceinline__ void flush() {
-        if (COUNT == RLE) {
-#pragma unroll
-            for (int d = 0; d < ND; ++d)
-                if (run[d]) atomicAdd(word(bin[d]), run[d]);
-        }
-    }
-};
-
-// NT threads a block; CL blocks a cluster (1: none), whose blocks add
-// their totals across the cluster in shared memory first (block r of the
-// cluster slice r of the bins); K copies of the accumulator (LAST)
-template <int ND, int LAYOUT, int NT, int COUNT, int TAIL, int CL, int K>
-__global__ void __launch_bounds__(NT) hist_kernel(
+template <int ND>
+__global__ void __launch_bounds__(BLOCK) hist_kernel(
     const uint32_t* __restrict__ keys, int n, int shift, int spine,
     int* __restrict__ work, int gen, int* __restrict__ out)
 {
-    constexpr int WARPS = NT / 32;
     constexpr int BINS = ND * 256;
-    constexpr int PER = (BINS + NT - 1) / NT;
-    extern __shared__ int4 smem4[];
-    int* cols = reinterpret_cast<int*>(smem4);
+    extern __shared__ int4 cols4[];                  // BINS * 32 columns
+    int* cols = reinterpret_cast<int*>(cols4);
     __shared__ int warp_sum[WARPS];
-    __shared__ int tot[CL > 1 ? BINS : 1];
     __shared__ bool chosen;
     const int lane = threadIdx.x & 31;
-    Counter<ND, LAYOUT, COUNT> counter{
-        LAYOUT == LANE ? cols : cols + (threadIdx.x >> 5) * BINS, lane, shift,
-        {}, {}};
-    int* sink = TAIL == LAST ? work + ACC + blockIdx.x / CL % K * ACC_WORDS
-                             : out;
 
     // the keys before the first 16-byte boundary, the 16-byte body, the tail
     const int head = min(n, (int)(((16u - ((uintptr_t)keys & 15u)) & 15u)
                                   >> 2));
     const int n4 = (n - head) >> 2;
     const uint4* keys4 = reinterpret_cast<const uint4*>(keys + head);
-    const int tid = blockIdx.x * NT + threadIdx.x;
-    const int stride = gridDim.x * NT;
+    const int tid = blockIdx.x * BLOCK + threadIdx.x;
+    const int stride = gridDim.x * BLOCK;
 
-    // a thread's first load and the start ticket go out before the
-    // histogram is zeroed; the block that takes the first ticket zeroes
-    // the output and raises the flag to this call's generation
+    // a thread's first load and the start ticket go out before the columns
+    // are zeroed; the block that takes the first ticket zeroes the output
+    // and raises the flag to this call's generation
     uint4 v = tid < n4 ? __ldg(keys4 + tid) : uint4{};
-    if (TAIL == FIRST && threadIdx.x == 0)
+    if (threadIdx.x == 0)
         chosen = atomicInc(reinterpret_cast<unsigned*>(work + START),
                            gridDim.x - 1) == 0;
-    for (int k = threadIdx.x; k < smem_words<ND, LAYOUT, NT>() / 4; k += NT)
-        smem4[k] = make_int4(0, 0, 0, 0);
+    for (int k = threadIdx.x; k < BINS * 32 / 4; k += BLOCK)
+        cols4[k] = make_int4(0, 0, 0, 0);
     __syncthreads();
-    if (TAIL == FIRST && chosen) {
-        for (int b = threadIdx.x; b < BINS; b += NT) out[b] = 0;
+    if (chosen) {
+        for (int b = threadIdx.x; b < BINS; b += BLOCK) out[b] = 0;
         __syncthreads();
         if (threadIdx.x == 0)
             cuda::atomic_ref<int, cuda::thread_scope_device>(work[FLAG])
@@ -189,64 +115,40 @@ __global__ void __launch_bounds__(NT) hist_kernel(
     }
 
     for (int i = tid; i < n4; i += stride) {
-        counter.key(v.x);
-        counter.key(v.y);
-        counter.key(v.z);
-        counter.key(v.w);
+        count_key<ND>(cols, v.x, shift, lane);
+        count_key<ND>(cols, v.y, shift, lane);
+        count_key<ND>(cols, v.z, shift, lane);
+        count_key<ND>(cols, v.w, shift, lane);
         if (i + stride < n4) v = __ldg(keys4 + i + stride);
     }
-    if (tid < head) counter.key(keys[tid]);
+    if (tid < head) count_key<ND>(cols, keys[tid], shift, lane);
     for (int i = head + 4 * n4 + tid; i < n; i += stride)
-        counter.key(keys[i]);
-    counter.flush();
+        count_key<ND>(cols, keys[i], shift, lane);
 
     // the output is zeroed once the flag holds this call's generation: the
     // block's last thread waits for it, and the barrier orders every
     // thread's adds after the wait
-    if (TAIL == FIRST && threadIdx.x == NT - 1) {
+    if (threadIdx.x == BLOCK - 1) {
         cuda::atomic_ref<int, cuda::thread_scope_device> f(work[FLAG]);
         while (f.load(cuda::memory_order_acquire) != gen) {
         }
     }
     __syncthreads();
 
-    // the block's totals (LANE: bin b's 32 columns read from column b + k,
-    // so that a warp's 32 bins read 32 banks), added into the output
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-        const int b = threadIdx.x + j * NT;
-        if (b >= BINS) break;
+    // the block's totals, bin b's 32 columns read from column b + k so that
+    // a warp's 32 bins read 32 banks, added into the output
+    for (int b = threadIdx.x; b < BINS; b += BLOCK) {
         int s = 0;
-        if (LAYOUT == LANE) {
 #pragma unroll 8
-            for (int k = 0; k < 32; ++k) s += cols[(b << 5) | ((b + k) & 31)];
-        } else {
-#pragma unroll 8
-            for (int w = 0; w < WARPS; ++w) s += cols[w * BINS + b];
-        }
-        if (CL > 1) tot[b] = s;
-        else if (s != 0) atomicAdd(&sink[b], s);
+        for (int k = 0; k < 32; ++k) s += cols[(b << 5) | ((b + k) & 31)];
+        if (s != 0) atomicAdd(&out[b], s);
     }
-    if (CL > 1) {
-        cg::cluster_group cluster = cg::this_cluster();
-        cluster.sync();
-        constexpr int SLICE = BINS / CL;
-        const int r = (int)cluster.block_rank();
-        for (int b = r * SLICE + threadIdx.x; b < (r + 1) * SLICE; b += NT) {
-            int s = 0;
-#pragma unroll
-            for (int q = 0; q < CL; ++q) s += cluster.map_shared_rank(tot, q)[b];
-            if (s != 0) atomicAdd(&sink[b], s);
-        }
-        cluster.sync();
-    }
-    if (TAIL != LAST && !spine) return;
+    if (!spine) return;
 
-    // the last block to take the end ticket writes the result (LAST: the
-    // copies' sums, zeroing them; with `spine` the prefix sums).  The
-    // barrier orders the block's adds before thread 0's release; its
-    // acquire, and the barrier, order the last block's reads after every
-    // other block's adds.
+    // the spine: the last block to take the end ticket turns the counts
+    // into their prefix sums.  The barrier orders the block's adds before
+    // thread 0's release; its acquire, and the barrier, order the last
+    // block's reads after every other block's adds.
     __syncthreads();
     if (threadIdx.x == 0) {
         cuda::atomic_ref<int, cuda::thread_scope_device> t(work[TICKET]);
@@ -256,197 +158,56 @@ __global__ void __launch_bounds__(NT) hist_kernel(
     }
     __syncthreads();
     if (!chosen) return;
-    for (int base = 0; base < BINS; base += NT) {
+    for (int base = 0; base < BINS; base += BLOCK) {
         const int b = base + threadIdx.x;
-        int c = 0;
-        if (b < BINS) {
-            if (TAIL == LAST) {
+        int c = b < BINS ? __ldcg(&out[b]) : 0;
+        // inclusive scan of each 256-bin row: within the warp, then the
+        // sums of the row's earlier warps (8 warps a row)
 #pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    c += __ldcg(&work[ACC + k * ACC_WORDS + b]);
-                    work[ACC + k * ACC_WORDS + b] = 0;
-                }
-            } else {
-                c = __ldcg(&out[b]);
-            }
+        for (int o = 1; o < 32; o <<= 1) {
+            const int up = __shfl_up_sync(0xffffffffu, c, o);
+            if (lane >= o) c += up;
         }
-        if (spine) {
-            // inclusive scan of each 256-bin row: within the warp, then the
-            // sums of the row's earlier warps (8 warps a row)
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const int up = __shfl_up_sync(0xffffffffu, c, o);
-                if (lane >= o) c += up;
-            }
-            const int warp = threadIdx.x >> 5;
-            if (lane == 31) warp_sum[warp] = c;
-            __syncthreads();
-            for (int w = warp & ~7; w < warp; ++w) c += warp_sum[w];
-            __syncthreads();
-        }
+        const int warp = threadIdx.x >> 5;
+        if (lane == 31) warp_sum[warp] = c;
+        __syncthreads();
+        for (int w = warp & ~7; w < warp; ++w) c += warp_sum[w];
+        __syncthreads();
         if (b < BINS) out[b] = c;
     }
 }
 
-// the first design's kernel as it was, for its time beside the others
 template <int ND>
-__global__ void __launch_bounds__(256) first_kernel(
-    const uint32_t* __restrict__ keys, int n, int shift,
-    int* __restrict__ out)
-{
-    constexpr int WARPS = 8;
-    __shared__ int hist[WARPS][ND * 256];
-    for (int k = threadIdx.x; k < WARPS * ND * 256; k += 256)
-        (&hist[0][0])[k] = 0;
-    __syncthreads();
-    int* h = hist[threadIdx.x >> 5];
-    const int tid = blockIdx.x * 256 + threadIdx.x;
-    const int nthreads = gridDim.x * 256;
-    const bool aligned = (reinterpret_cast<uintptr_t>(keys) & 15u) == 0;
-    const int n4 = aligned ? n / 4 : 0;
-    const uint4* keys4 = reinterpret_cast<const uint4*>(keys);
-    Counter<ND, WARP, PLAIN> counter{h, 0, shift, {}, {}};
-    for (int i = tid; i < n4; i += nthreads) {
-        const uint4 k = keys4[i];
-        counter.key(k.x);
-        counter.key(k.y);
-        counter.key(k.z);
-        counter.key(k.w);
-    }
-    for (int i = n4 * 4 + tid; i < n; i += nthreads) counter.key(keys[i]);
-    __syncthreads();
-    for (int b = threadIdx.x; b < ND * 256; b += 256) {
-        int sum = 0;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) sum += hist[w][b];
-        if (sum != 0) atomicAdd(&out[b], sum);
-    }
-}
-
-template <int ND>
-int launch_first(const uint32_t* keys, int n, int shift, int* out,
-                 int* work, int fresh, cudaStream_t stream)
-{
-    cudaError_t e;
-    if ((fresh && (e = cudaMemsetAsync(work, 0, WORK_WORDS * sizeof(int),
-                                       stream)) != cudaSuccess)
-        || (e = cudaMemsetAsync(out, 0, ND * 256 * sizeof(int), stream))
-               != cudaSuccess)
-        return (int)e;
-    const int want = (n + 256 * 16 - 1) / (256 * 16);
-    first_kernel<ND><<<want < 1 ? 1 : (want > 1056 ? 1056 : want), 256, 0,
-                       stream>>>(keys, n, shift, out);
-    return (int)cudaGetLastError();
-}
-
-// KPT: the fewest keys a thread before a block more is launched; BPS: the
-// most blocks a SM
-template <int ND, int LAYOUT, int NT, int COUNT, int TAIL, int CL, int K,
-          int KPT, int BPS>
 int launch(const uint32_t* keys, int n, int shift, int spine, int* out,
            int* work, int fresh, int gen, cudaStream_t stream)
 {
-    if (n < 0 || (TAIL == MEMSET && spine)) return (int)cudaErrorInvalidValue;
-    auto kernel = hist_kernel<ND, LAYOUT, NT, COUNT, TAIL, CL, K>;
-    const int smem = smem_words<ND, LAYOUT, NT>() * (int)sizeof(int);
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = CL;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.blockDim = dim3(NT);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = &attr;
-    cfg.numAttrs = CL > 1 ? 1 : 0;
-    // as many blocks (clusters) as the card holds at once, read once per
-    // device (the caller makes the tensors' device current: _build.Launcher)
-    static int resident[MAX_DEVICES] = {};
+    if (n < 0) return (int)cudaErrorInvalidValue;
+    constexpr int SMEM = ND * 256 * 32 * (int)sizeof(int);
+    // one block a SM, the SMs read once per device (the caller makes the
+    // tensors' device current: _build.Launcher), when the shared memory
+    // past 48 KB is asked for
+    static int sms[MAX_DEVICES] = {};
     cudaError_t e;
     int dev = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
     if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (resident[dev] == 0) {
-        int sms = 0, per_sm = 0;
-        if ((e = cudaFuncSetAttribute(
-                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
-            != cudaSuccess
+    if (sms[dev] == 0
+        && ((e = cudaFuncSetAttribute(
+                 hist_kernel<ND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                 SMEM)) != cudaSuccess
             || (e = cudaDeviceGetAttribute(
-                    &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-            return (int)e;
-        if (CL > 1) {
-            cfg.gridDim = dim3(CL);
-            e = cudaOccupancyMaxActiveClusters(&per_sm, kernel, &cfg);
-            per_sm = min(per_sm * CL, sms * BPS) / CL;
-            sms = CL;
-        } else {
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, kernel, NT, smem);
-            per_sm = min(per_sm, BPS);
-        }
-        if (e != cudaSuccess) return (int)e;
-        if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-        resident[dev] = sms * per_sm;
-    }
-    const int want = (int)(((long long)n + KPT * NT - 1) / (KPT * NT));
-    const int blocks = (max(1, min(want, resident[dev])) + CL - 1) / CL * CL;
+                    &sms[dev], cudaDevAttrMultiProcessorCount, dev))
+                   != cudaSuccess))
+        return (int)e;
+    // at least one 16-byte load a thread; one block when there are no keys
+    const int want = (int)(((long long)n + 4 * BLOCK - 1) / (4 * BLOCK));
+    const int blocks = max(1, min(want, sms[dev]));
     if (fresh && (e = cudaMemsetAsync(work, 0, WORK_WORDS * sizeof(int),
                                       stream)) != cudaSuccess)
         return (int)e;
-    if (TAIL == MEMSET && (e = cudaMemsetAsync(
-                               out, 0, ND * 256 * sizeof(int), stream))
-                              != cudaSuccess)
-        return (int)e;
-    cfg.gridDim = dim3(blocks);
-    if ((e = cudaLaunchKernelEx(&cfg, kernel, keys, n, shift, spine, work,
-                                gen, out)) != cudaSuccess)
-        return (int)e;
+    hist_kernel<ND><<<blocks, BLOCK, SMEM, stream>>>(keys, n, shift, spine,
+                                                      work, gen, out);
     return (int)cudaGetLastError();
-}
-
-// the design the entry points launch
-template <int ND>
-int launch_entry(const uint32_t* keys, int n, int shift, int spine,
-                 int* out, int* work, int fresh, int gen, cudaStream_t s) {
-    return launch<ND, LANE, 1024, PLAIN, FIRST, 1, 1, 4, 1>(
-        keys, n, shift, spine, out, work, fresh, gen, s);
-}
-
-// The measured designs.  0 is the entry points' design; 1-3 are the
-// issue's other candidates (one histogram a warp: in the fewer, larger
-// blocks, with __match_any_sync; clusters of 2 and 8); 4-6 the flushes
-// (memset, kept copies and a last block); 7-8 other countings; 9-10 the
-// first design's counting and grid (WARP, 256 threads, 16 keys a thread)
-// with the new flush; 11 the first design's kernel.
-template <int ND>
-int launch_design(int design, const uint32_t* keys, int n, int shift,
-                  int spine, int* out, int* work, int fresh, int gen,
-                  cudaStream_t s) {
-#define RH_DESIGN(NUM, LAYOUT, NT, COUNT, TAIL, CL, K, KPT, BPS)            \
-    case NUM:                                                               \
-        return launch<ND, LAYOUT, NT, COUNT, TAIL, CL, K, KPT, BPS>(        \
-            keys, n, shift, spine, out, work, fresh, gen, s);
-    switch (design) {
-    RH_DESIGN(0, LANE, 1024, PLAIN, FIRST, 1, 1, 4, 1)
-    RH_DESIGN(1, WARP, 1024, PLAIN, FIRST, 1, 1, 4, 1)
-    RH_DESIGN(2, WARP, 1024, MATCH, FIRST, 1, 1, 4, 1)
-    RH_DESIGN(3, LANE, 1024, PLAIN, FIRST, 2, 1, 4, 1)
-    RH_DESIGN(4, LANE, 1024, PLAIN, FIRST, 8, 1, 4, 1)
-    RH_DESIGN(5, LANE, 1024, PLAIN, MEMSET, 1, 1, 4, 1)
-    RH_DESIGN(6, LANE, 1024, PLAIN, LAST, 1, 16, 4, 1)
-    RH_DESIGN(7, LANE, 1024, UNI, FIRST, 1, 1, 4, 1)
-    RH_DESIGN(8, LANE, 1024, RLE, FIRST, 1, 1, 4, 1)
-    RH_DESIGN(9, WARP, 256, PLAIN, LAST, 1, 1, 16, 8)
-    RH_DESIGN(10, WARP, 256, PLAIN, LAST, 1, 16, 16, 8)
-    case 11:
-        if (spine) return (int)cudaErrorInvalidValue;
-        return launch_first<ND>(keys, n, shift, out, work, fresh, s);
-    RH_DESIGN(12, LANE, 1024, PLAIN, FIRST, 1, 1, 4, 2)
-    RH_DESIGN(13, WARP, 256, PLAIN, FIRST, 1, 1, 16, 8)
-    }
-#undef RH_DESIGN
-    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -456,15 +217,14 @@ int launch_design(int design, const uint32_t* keys, int n, int shift,
 // work: WORK_WORDS int32 that only launches on this stream use, zero
 // unless `fresh` (then zeroed here first) but for the flag, which holds
 // the generation of the stream's last launch; gen: this launch's, never
-// the last one's.
-// Returns cudaGetLastError() or the error of the set-up.
+// the last one's.  Returns cudaGetLastError() or the error of the set-up.
 extern "C" int rh_digit_histogram(const uint32_t* keys, int n, int shift,
                                   int spine, int* out, int* work, int fresh,
                                   int gen, void* stream)
 {
     if (shift < 0 || shift > 24) return (int)cudaErrorInvalidValue;
-    return launch_entry<1>(keys, n, shift, spine, out, work, fresh, gen,
-                           (cudaStream_t)stream);
+    return launch<1>(keys, n, shift, spine, out, work, fresh, gen,
+                     (cudaStream_t)stream);
 }
 
 // All four digits in one read of the keys; out: (4, 256) int32, row d
@@ -473,22 +233,6 @@ extern "C" int rh_digit_histograms4(const uint32_t* keys, int n, int spine,
                                     int* out, int* work, int fresh, int gen,
                                     void* stream)
 {
-    return launch_entry<4>(keys, n, 0, spine, out, work, fresh, gen,
-                           (cudaStream_t)stream);
-}
-
-// The designs measured for PERF.md, by number (launch_design), for nd 1
-// (digit (key >> shift) & 255) or 4 (the four digits), otherwise as
-// above.
-extern "C" int rh_hist_design(const uint32_t* keys, int n, int shift, int nd,
-                              int design, int spine, int* out, int* work,
-                              int fresh, int gen, void* stream)
-{
-    if (shift < 0 || shift > 24 || (nd != 1 && nd != 4))
-        return (int)cudaErrorInvalidValue;
-    if (nd == 1)
-        return launch_design<1>(design, keys, n, shift, spine, out, work,
-                                fresh, gen, (cudaStream_t)stream);
-    return launch_design<4>(design, keys, n, 0, spine, out, work, fresh, gen,
-                            (cudaStream_t)stream);
+    return launch<4>(keys, n, 0, spine, out, work, fresh, gen,
+                     (cudaStream_t)stream);
 }

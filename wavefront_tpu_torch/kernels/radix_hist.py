@@ -70,26 +70,22 @@ _HIST = _build.Launcher("radix_hist", "rh_digit_histogram", "piiippii",
                        "digit_histogram")
 _HIST4 = _build.Launcher("radix_hist", "rh_digit_histograms4", "piippii",
                         "digit_histograms4")
-_DESIGN = _build.Launcher("radix_hist", "rh_hist_design", "piiiiippii",
-                          "design_histogram")
 
 # int32 words of a workspace (WORK_WORDS in csrc/radix_hist.cu): the
-# kernel's start and end tickets, its flag and copies of an accumulator
-WORK_WORDS = 3 + 16 * 4 * 256
+# kernel's start and end tickets and its flag
+WORK_WORDS = 3
 # (device, raw stream handle) -> [workspace, generation of its last call]
 _work: dict = {}
 
 
-def _launch(launcher, keys, *args, out, fresh: bool = False):
+def _launch(launcher, keys, *args, out):
     """Launch `launcher(keys, n, *args, out, work, fresh, gen)` with the
     workspace of the current stream of the keys' device.  A stream's
     workspace is made on its first launch and zeroed by that launch (the
     C function's `fresh`); the kernel leaves it zero but for its flag,
     which holds the generation `gen` of the stream's last call, so later
     launches on the stream need no fill, and launches on two streams never
-    share one.  It is kept only once a launch has gone through.  `fresh`
-    zeroes it on every launch (a measurement of the fill the kept
-    workspace saves)."""
+    share one.  It is kept only once a launch has gone through."""
     dev = keys.get_device()
     key = (dev, torch._C._cuda_getCurrentRawStream(dev))
     kept = _work.get(key)
@@ -99,7 +95,7 @@ def _launch(launcher, keys, *args, out, fresh: bool = False):
                             device=keys.device), 0]
     gen = kept[1] % 0x7FFFFFFF + 1
     launcher(dev, keys.data_ptr(), keys.shape[0], *args, out.data_ptr(),
-             kept[0].data_ptr(), int(first or fresh), gen)
+             kept[0].data_ptr(), int(first), gen)
     kept[1] = gen
     if first:
         _work[key] = kept
@@ -133,8 +129,8 @@ def digit_histograms4(keys, spine: bool = False):
     operation) or raise."""
     _check_keys(keys, "digit_histograms4")
     if keys.device.type == "cpu":
-        counts = torch.stack([hist_plain(keys, 8 * d) for d in range(4)])
-        return torch.cumsum(counts, 1).to(torch.int32) if spine else counts
+        return radix_hist_plain(keys) if spine else torch.stack(
+            [hist_plain(keys, 8 * d) for d in range(4)])
     out = torch.empty((4, 256), dtype=torch.int32, device=keys.device)
     _launch(_HIST4, keys, int(bool(spine)), out=out)
     digit_histograms4.launches += 1
@@ -162,21 +158,3 @@ def radix_hist(keys, one_read: bool = False):
         _launch(_HIST, keys, 8 * p, 1, out=out[p])
         digit_histogram.launches += 1
     return out
-
-
-def design_histogram(keys, shift: int, nd: int, design: int,
-                     spine: bool = False, fresh: bool = False):
-    """A measured design of the kernel (`rh_hist_design` in the source:
-    0 lane columns, the one `digit_histogram` launches; 1 one histogram a
-    warp; 2 the same with `__match_any_sync`; 3 lane columns in clusters
-    of 8; 4 one histogram a warp at 256 threads; 5 the same with
-    `__match_any_sync`) over `nd` 1 or 4 digits, (nd * 256,) int32.  With
-    `fresh` the launch zeroes its workspace first, as a design without a
-    kept workspace would.  CUDA tensors only: it times the card."""
-    _check_keys(keys, "design_histogram")
-    _check_shift(shift)
-    if keys.device.type != "cuda":
-        raise ValueError("design_histogram: keys must lie on the card")
-    out = torch.empty(nd * 256, dtype=torch.int32, device=keys.device)
-    return _launch(_DESIGN, keys, int(shift), int(nd), int(design),
-                   int(bool(spine)), out=out, fresh=fresh)

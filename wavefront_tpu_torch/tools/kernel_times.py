@@ -1,6 +1,6 @@
-"""Per-launch times of the port's render-path kernels and of the K7 row
-gather, and the headline frame's device time, to compare two trees of the
-port on one card.
+"""Per-launch times of the port's render-path kernels, of the K7 row
+gather and of the K4 histogram's calls, and the headline frame's device
+time, to compare two trees of the port on one card.
 
     python wavefront_tpu_torch/tools/kernel_times.py [--root DIR]
         [--kernels K [K ...]] [--frames F] [--lamps L] [--reps N] [--sass]
@@ -49,14 +49,11 @@ back to back between CUDA events:
                 and in four passes; per call the wall ms (CUDA events
                 over `reps` calls back to back, so the host's path
                 counts where it is the longer), the device ms of every
-                device operation the call makes (`torch.profiler`), and
-                their number.  Every call is one the parent trees have
-                too, so a tree and its parent can be timed in turns.
-  radix_designs K4's measured designs (`radix_hist.design_histogram`, a
-                tree that has them) on the same keys, one digit and four:
-                each checked equal to its plain version, then its device
-                ms and operations a call; design 0 also with its
-                workspace zeroed by a memset every call.
+                device operation the call makes (`torch.profiler`),
+                their number, and the device ms of the histogram kernel
+                alone (`*_kernel_ms`).  Every call is one that earlier
+                trees of the port have too, so a tree and its parent can
+                be timed in turns.
 
 `--frames F` adds one line for the headline frame: `frame_ms` over F
 frames (host clock, ending in a synchronize) and, over F more frames
@@ -81,10 +78,8 @@ import sys
 import time
 
 KERNELS = ("trace", "shade", "shade_bf16", "texel", "loop_probe",
-           "extract_cur", "extract_win", "row_gather", "radix",
-           "radix_designs")
+           "extract_cur", "extract_win", "row_gather", "radix")
 RADIX_SEED = 0xDEADBEEF
-RADIX_DESIGNS = 14
 GATHER_ROWS = 4096
 GATHER_CALLS = 1000
 
@@ -139,9 +134,6 @@ def main(argv=None) -> int:
         emit(gather_row())
     if "radix" in args.kernels:
         for row in radix_rows(args.reps):
-            emit(row)
-    if "radix_designs" in args.kernels:
-        for row in radix_design_rows(args.reps):
             emit(row)
     if args.frames:
         emit(frame_row(args.frames))
@@ -362,25 +354,39 @@ def gather_row() -> dict:
             "torch_gather_host_us": _host_us(lib, GATHER_CALLS)}
 
 
-def device_per_call(fn, reps: int, kernel: str = "") -> tuple:
-    """(device ms, device operations) a call of `fn`: every device
-    operation (kernels, fills, copies) that `torch.profiler` records over
-    `reps` calls, after one warm-up call; with `kernel` only those whose
-    name holds it."""
+def radix_device(fn, reps: int) -> tuple:
+    """(device ms, device operations, device ms of the histogram kernel)
+    a call of `fn`, which calls K4's wrappers: every device operation
+    (kernels, fills) that `torch.profiler` records over `reps` calls,
+    after one warm-up call, per call whose histogram kernels it kept (the
+    wrappers' launch counters say how many a call launches).  A profiler
+    that has run long in a process may drop a share of the device events;
+    (None, None, None) when it kept fewer than half of the calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from wavefront_tpu_torch.kernels import radix_hist as rh
+
+    def launches():
+        return rh.digit_histogram.launches + rh.digit_histograms4.launches
+
     fn()
     torch.cuda.synchronize()
+    before = launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    per_call = (launches() - before) / reps
     dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and kernel in e.name]
-    return sum(e.device_time for e in dev) / 1e3 / reps, len(dev) / reps
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e.device_time for e in dev if "hist_kernel" in e.name]
+    calls = len(kern) / per_call
+    if calls * 2 <= reps:
+        return None, None, None
+    return (sum(e.device_time for e in dev) / 1e3 / calls, len(dev) / calls,
+            sum(kern) / 1e3 / calls)
 
 
 def radix_keys() -> dict:
@@ -423,34 +429,9 @@ def radix_rows(reps: int):
                "reps": reps}
         for call, fn in calls.items():
             row[f"{call}_ms"] = time_ms(lambda: fn(keys), reps)
-            row[f"{call}_device_ms"], row[f"{call}_device_ops"] = \
-                device_per_call(lambda: fn(keys), reps)
-            row[f"{call}_kernel_ms"] = device_per_call(
-                lambda: fn(keys), reps, "hist_kernel")[0]
+            (row[f"{call}_device_ms"], row[f"{call}_device_ops"],
+             row[f"{call}_kernel_ms"]) = radix_device(lambda: fn(keys), reps)
         yield row
-
-
-def radix_design_rows(reps: int):
-    import torch
-
-    from wavefront_tpu_torch.kernels import radix_hist as rh
-
-    for name, keys in radix_keys().items():
-        for nd in (1, 4):
-            want = torch.cat([rh.hist_plain(keys, 8 * d) for d in range(nd)])
-            for design, fresh in ((0, True),) + tuple(
-                    (d, False) for d in range(RADIX_DESIGNS)):
-                def fn():
-                    return rh.design_histogram(keys, 0, nd, design,
-                                               fresh=fresh)
-                if not torch.equal(fn(), want):
-                    raise AssertionError(f"design {design} nd {nd} on "
-                                         f"{name} keys differs")
-                ms, ops = device_per_call(fn, reps)
-                yield {"kernel": "radix_design", "keys": name, "nd": nd,
-                       "design": design, "memset_each_call": fresh,
-                       "device_ms": ms, "device_ops": ops,
-                       "kernel_ms": device_per_call(fn, reps, "_kernel")[0]}
 
 
 def frame_row(frames: int) -> dict:
