@@ -95,11 +95,7 @@ from wavefront_tpu_torch.kernels.texel import (
     texel_index,
     texel_plain,
 )
-from wavefront_tpu_torch.kernels.window_trace import (
-    auto_events,
-    coherence_key,
-    window_trace,
-)
+from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
 from wavefront_tpu_torch.render.intersect import trace_plain
 from wavefront_tpu_torch.render.renderer import (
     Renderer,
@@ -110,7 +106,7 @@ from wavefront_tpu_torch.render.renderer import (
 from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.render.wavefront import raygen_soa
 from wavefront_tpu_torch.tools import event_lab, gpu_probe, radix_lab, roofline
-from wavefront_tpu_torch.tools.kernel_times import radix_device
+from wavefront_tpu_torch.tools.kernel_times import radix_device, radix_keys
 from wavefront_tpu_torch.tools._timing import FILL_GROUPS, card, time_ms
 from wavefront_tpu_torch.tools._timing import emit as emit_rows
 from wavefront_tpu_torch.tools.event_lab import dda_steps
@@ -834,25 +830,16 @@ def radix_check(scene, settings, basis) -> dict:
     (`device_ms_all*`) and their number (`device_ops*`), and the kernel's
     own device ms (`device_ms*`), by `kernel_times.radix_device`."""
     n = HEADLINE_RAYS
-    rng = np.random.default_rng(radix_lab.SEED)
-    seeded = torch.as_tensor(
-        rng.integers(0, 2 ** 32, n, dtype=np.uint32).view(np.int32),
-        device="cuda")
-    arrays = scene.get_arrays()
-    o, d, _ = raygen_soa(basis.eye, basis.front, basis.right, basis.up,
-                         settings.render_width, settings.render_height,
-                         device="cuda")
-    go = arrays.grid_origin
-    frame = rh.as_key_bits(coherence_key(
-        o.x - float(go[0]), o.y - float(go[1]), o.z - float(go[2]),
-        d.x, d.y, d.z, *arrays.grid.shape))
-    check(frame.shape[0] == n, f"the frame has {frame.shape[0]} keys")
+    keys_by_kind = radix_keys(scene, settings, basis)
+    seeded = keys_by_kind["seeded"]
+    check(keys_by_kind["frame"].shape[0] == n,
+          f"the frame has {keys_by_kind['frame'].shape[0]} keys")
     out = {"keys": n, "max_abs_err": 0}
 
     def hold(got, want, what):
         out["max_abs_err"] = max(out["max_abs_err"], exact(got, want, what))
 
-    for name, keys in (("seeded", seeded), ("frame", frame)):
+    for name, keys in keys_by_kind.items():
         for shift in (0, 8, 16, 24):
             got = rh.digit_histogram(keys, shift)
             hold(got, rh.hist_plain(keys, shift),

@@ -123,8 +123,7 @@ def test_radix_hist_spine_matches_tpu_one_hot_product(keys_kind):
     want = np.stack(want)
     bits = _t(keys.view(np.int32))
     for got in (rh.radix_hist_plain(bits), rh.radix_hist(bits),
-                rh.radix_hist(bits, one_read=True),
-                rh.digit_histograms4(bits, spine=True)):
+                rh.radix_hist(bits, one_read=True)):
         assert got.dtype == torch.int32 and tuple(got.shape) == (4, 256)
         np.testing.assert_array_equal(got.numpy(), want)
     assert (want[:, -1] == len(keys)).all()

@@ -24,6 +24,8 @@ and PERF.md).
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from wavefront_tpu_torch.kernels import _build
@@ -74,7 +76,8 @@ _HIST4 = _build.Launcher("radix_hist", "rh_digit_histograms4", "piippii",
 # int32 words of a workspace (WORK_WORDS in csrc/radix_hist.cu): the
 # kernel's start and end tickets and its flag
 WORK_WORDS = 3
-# (device, raw stream handle) -> [workspace, generation of its last call]
+# (device, raw stream handle) -> [workspace, its generations (a counter
+# that threads share safely), the generation of its last launch]
 _work: dict = {}
 
 
@@ -92,11 +95,11 @@ def _launch(launcher, keys, *args, out):
     first = kept is None
     if first:
         kept = [torch.empty(WORK_WORDS, dtype=torch.int32,
-                            device=keys.device), 0]
-    gen = kept[1] % 0x7FFFFFFF + 1
+                            device=keys.device), itertools.count(), 0]
+    gen = next(kept[1]) % 0x7FFFFFFF + 1
     launcher(dev, keys.data_ptr(), keys.shape[0], *args, out.data_ptr(),
              kept[0].data_ptr(), int(first), gen)
-    kept[1] = gen
+    kept[2] = gen
     if first:
         _work[key] = kept
     return out
@@ -121,18 +124,16 @@ def digit_histogram(keys, shift: int):
 digit_histogram.launches = 0
 
 
-def digit_histograms4(keys, spine: bool = False):
+def digit_histograms4(keys):
     """(N,) int32 key bits -> (4, 256) int32: row d counts the digit
-    `(key >> 8 d) & 255`, all four in one read of the keys; with `spine`
-    each row's inclusive prefix sums instead.  CPU tensors take four
-    `hist_plain` passes; CUDA tensors launch the kernel (one device
-    operation) or raise."""
+    `(key >> 8 d) & 255`, all four in one read of the keys.  CPU tensors
+    take four `hist_plain` passes; CUDA tensors launch the kernel (one
+    device operation) or raise."""
     _check_keys(keys, "digit_histograms4")
     if keys.device.type == "cpu":
-        return radix_hist_plain(keys) if spine else torch.stack(
-            [hist_plain(keys, 8 * d) for d in range(4)])
+        return torch.stack([hist_plain(keys, 8 * d) for d in range(4)])
     out = torch.empty((4, 256), dtype=torch.int32, device=keys.device)
-    _launch(_HIST4, keys, int(bool(spine)), out=out)
+    _launch(_HIST4, keys, 0, out=out)
     digit_histograms4.launches += 1
     return out
 
@@ -151,9 +152,11 @@ def radix_hist(keys, one_read: bool = False):
     _check_keys(keys, "radix_hist")
     if keys.device.type == "cpu":
         return radix_hist_plain(keys)
-    if one_read:
-        return digit_histograms4(keys, spine=True)
     out = torch.empty((4, 256), dtype=torch.int32, device=keys.device)
+    if one_read:
+        _launch(_HIST4, keys, 1, out=out)
+        digit_histograms4.launches += 1
+        return out
     for p in range(4):
         _launch(_HIST, keys, 8 * p, 1, out=out[p])
         digit_histogram.launches += 1

@@ -79,7 +79,6 @@ import time
 
 KERNELS = ("trace", "shade", "shade_bf16", "texel", "loop_probe",
            "extract_cur", "extract_win", "row_gather", "radix")
-RADIX_SEED = 0xDEADBEEF
 GATHER_ROWS = 4096
 GATHER_CALLS = 1000
 
@@ -389,22 +388,24 @@ def radix_device(fn, reps: int) -> tuple:
             sum(kern) / 1e3 / calls)
 
 
-def radix_keys() -> dict:
-    """The headline's count of keys, seeded and the headline frame's
-    bounce-0 coherence keys, as int32 key bits on the card."""
+def radix_keys(scene, settings, basis) -> dict:
+    """The headline's count of keys as int32 key bits on the card: seeded
+    (`radix_lab.SEED`) and the low 32 bits of the coherence keys of the
+    frame's bounce-0 rays (`scene`, `settings`, `basis` from
+    `headline.headline_setup`)."""
     import numpy as np
     import torch
 
-    from wavefront_tpu_torch.headline import HEADLINE_RAYS, headline_setup
+    from wavefront_tpu_torch.headline import HEADLINE_RAYS
     from wavefront_tpu_torch.kernels.radix_hist import as_key_bits
     from wavefront_tpu_torch.kernels.window_trace import coherence_key
     from wavefront_tpu_torch.render.wavefront import raygen_soa
+    from wavefront_tpu_torch.tools.radix_lab import SEED
 
-    rng = np.random.default_rng(RADIX_SEED)
+    rng = np.random.default_rng(SEED)
     seeded = torch.as_tensor(rng.integers(0, 2 ** 32, HEADLINE_RAYS,
                                           dtype=np.uint32).view(np.int32),
                              device="cuda")
-    scene, settings, basis, _ = headline_setup(1920, 1080, 4, device="cuda")
     arrays = scene.get_arrays()
     o, d, _ = raygen_soa(basis.eye, basis.front, basis.right, basis.up,
                          settings.render_width, settings.render_height,
@@ -417,6 +418,7 @@ def radix_keys() -> dict:
 
 
 def radix_rows(reps: int):
+    from wavefront_tpu_torch.headline import headline_setup
     from wavefront_tpu_torch.kernels import radix_hist as rh
     from wavefront_tpu_torch.tools._timing import time_ms
 
@@ -424,7 +426,8 @@ def radix_rows(reps: int):
              "one_read": rh.digit_histograms4,
              "radix_hist_1read": lambda k: rh.radix_hist(k, one_read=True),
              "radix_hist_4pass": rh.radix_hist}
-    for name, keys in radix_keys().items():
+    scene, settings, basis, _ = headline_setup(1920, 1080, 4, device="cuda")
+    for name, keys in radix_keys(scene, settings, basis).items():
         row = {"kernel": "radix", "keys": name, "n": int(keys.shape[0]),
                "reps": reps}
         for call, fn in calls.items():
