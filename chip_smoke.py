@@ -25,9 +25,21 @@ through their entry points, checking which kernels each launched:
   * the batched frame: the headline scene with `cache_primary`, through
     `Renderer.render_batch(k=4)` as a stack and as a mean, held bit for
     bit against four `render` calls; a frame that fills the primary cache
-    launches the tracer once per bounce, a cached frame once less.
+    launches the tracer once per bounce, a cached frame once less;
+  * the scene edits and the game layer (tools/bench_ladder.py configs 4
+    and 6-8): the headline frame with a block edit before each frame
+    (`edit`); the streamed window of `headline.streamed_setup` (load
+    radius 6, 416x96x416) at 1920x1080 (`streamed`), with an edit a frame
+    through the chunk manager (`streamed_edit`), and at 1024x1024 with 6
+    bounces and a recenter adopted from the background rebuild
+    (`streamed_1024x6`); and `GameWorld.step` at 1920x1080 with a block
+    placed, a block broken through the mouse ray and a recenter (`game`).
+    Each holds its device grid and aux grid equal to `make_aux_grid` of
+    its host grid (and a window assembled from scratch) and its last
+    frame equal bit for bit to the frame of a scene built afresh.
 
-Each phase prints one JSON line; the line before the last lists every
+Each phase prints one JSON line with the seconds it took, then a line of
+the seconds by phase and in total; the line before the last lists every
 kernel with its launches, error, times and bound; the last line is
 {"ok": true, "device": {...}}.  Any failed check raises, and the script
 exits nonzero without printing that last line; it also exits nonzero when
@@ -55,7 +67,10 @@ Tolerances:
            results; the float32 add chain runs in one fixed order);
   batch:   the batched frames equal the single frames bit for bit, their
            mean within 2e-6 (tests/test_batch.py), a cached frame within
-           max |diff| 1e-3 and RMS 1e-5 of the uncached frame of its seed.
+           max |diff| 1e-3 and RMS 1e-5 of the uncached frame of its seed;
+  edits:   grid and aux grid exactly equal; a frame after edits or a
+           recenter equal bit for bit to a fresh scene's (no per-ray
+           result depends on how the scene arrays were built).
 """
 
 from __future__ import annotations
@@ -77,6 +92,7 @@ from wavefront_tpu_torch.headline import (
     config1_pose,
     general_setup,
     headline_setup,
+    streamed_setup,
 )
 from wavefront_tpu_torch.kernels import (
     _build,
@@ -96,7 +112,7 @@ from wavefront_tpu_torch.kernels.texel import (
     texel_plain,
 )
 from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
-from wavefront_tpu_torch.render.intersect import trace_plain
+from wavefront_tpu_torch.render.intersect import make_aux_grid, trace_plain
 from wavefront_tpu_torch.render.renderer import (
     Renderer,
     coherence_sort,
@@ -110,7 +126,17 @@ from wavefront_tpu_torch.tools.kernel_times import radix_device, radix_keys
 from wavefront_tpu_torch.tools._timing import FILL_GROUPS, card, time_ms
 from wavefront_tpu_torch.tools._timing import emit as emit_rows
 from wavefront_tpu_torch.tools.event_lab import dda_steps
+from wavefront_tpu_torch.world import meshes
 from wavefront_tpu_torch.world.blocks import BlockRegistry
+from wavefront_tpu_torch.world.game_world import (
+    EntityCreationData,
+    EntityPhysicsData,
+    GameWorld,
+    Mesh,
+    WorldSetBlock,
+    translation,
+)
+from wavefront_tpu_torch.world.input import Event
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "config1_256.npz")
@@ -158,16 +184,16 @@ SHADE_BF16_OPS_PER_RAY = 23 * 2 + 6
 # saturating conversions and clamps
 TEXEL_OPS_PER_RAY = 8
 
+# the wrappers of the kernels a frame may launch, by name
+FRAME_KERNELS = {"window_trace": window_trace, "shade": shade_pass,
+                 "texel": texel_fetch}
+
 TRACE_MISMATCH_FRACTION = 1e-5
 SHADE_MAX_ABS = 1e-3
 SHADE_RMS = 1e-5
 # K2's bf16 build: bfloat16 values within this many bfloat16 ulps of the
 # plain version's (see the module note)
 SHADE_BF16_ULPS = 1
-
-
-def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -673,31 +699,51 @@ def profile_frames(scene, settings, basis, prefs, frame_ms: float,
     torch.profiler; device time per frame by PyTorch op (the two kernels'
     launches appear under their own names) and the device's idle share
     of the unprofiled frame time."""
+    r = Renderer(settings)
+    return profile_steps(
+        lambda f: r.render(scene, basis, prefs, frame_count=100 + f,
+                           as_numpy=False), frame_ms, frames)
+
+
+def profile_steps(step, step_ms: float, steps: int = 3) -> dict:
+    """`step(i)` for i < `steps` under torch.profiler: device busy ms a
+    step, by PyTorch op (the kernels under their own names), the device
+    events a step, and the idle share of `step_ms`, the unprofiled time
+    of a step."""
     from torch.profiler import ProfilerActivity, profile
 
-    r = Renderer(settings)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for f in range(frames):
-            r.render(scene, basis, prefs, frame_count=100 + f, as_numpy=False)
+        for i in range(steps):
+            step(i)
         sync()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time for e in dev) / 1e3 / frames
+    busy_ms = sum(e.device_time for e in dev) / 1e3 / steps
     check(busy_ms > 0.0, "the profiler saw no device time")
     ours = {"window_trace": "trace_kernel", "shade": "shade_kernel",
             "texel": "texel_kernel"}
-    by_op = {k: sum(e.device_time for e in dev if v in e.name) / 1e3 / frames
+    by_op = {k: sum(e.device_time for e in dev if v in e.name) / 1e3 / steps
              for k, v in ours.items()}
     for row in prof.key_averages():
-        t = row.self_device_time_total / 1e3 / frames
+        t = row.self_device_time_total / 1e3 / steps
         if row.key.startswith("aten::") and t > 0.0:
             by_op[row.key] = t
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
-    return {"frames": frames, "device_busy_ms": busy_ms,
-            "device_idle_share": max(0.0, 1.0 - busy_ms / frame_ms),
-            "device_events_per_frame": len(dev) / frames,
+    return {"frames": steps, "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+            "device_events_per_frame": len(dev) / steps,
             "device_ms_by_op": dict(top)}
+
+
+def zero_launches() -> None:
+    """Every frame kernel's launch counter to 0."""
+    for fn in FRAME_KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in FRAME_KERNELS.items()}
 
 
 def full_frame(what: str, scene, settings, basis, prefs, name: str,
@@ -707,15 +753,12 @@ def full_frame(what: str, scene, settings, basis, prefs, name: str,
     `kernels` once per bounce and no other; then `frames` timed frames and
     one with CUDA events around each launch."""
     r = Renderer(settings)
-    wrappers = {"window_trace": window_trace, "shade": shade_pass,
-                "texel": texel_fetch}
-    for fn in wrappers.values():
-        fn.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     img, aux = r.render(scene, basis, prefs, frame_count=0, as_numpy=False,
                         with_aux=True)
     sync()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_launches()
     check(tuple(img.shape) == (settings.height, settings.width, 3),
           f"{what} image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), f"{what} image has NaN/Inf")
@@ -724,7 +767,7 @@ def full_frame(what: str, scene, settings, basis, prefs, name: str,
     audit = {"truncated": 0, "nee_overflow": 0}
     check(aux == audit, f"{what} audit {aux}")
     nb = settings.num_bounces
-    want = {k: nb if k in kernels else 0 for k in wrappers}
+    want = {k: nb if k in kernels else 0 for k in FRAME_KERNELS}
     check(launches == want, f"{what} launches {launches}, want {want}")
 
     sync()
@@ -1192,22 +1235,14 @@ def batch(what: str, scene, settings, basis, prefs, kernels: tuple,
     tracer launches on every bounce) and whose others reuse it (once
     less).  `timed` cached frames give `cached_frame_ms`."""
     cached = settings.replace(cache_primary=True)
-    wrappers = {"window_trace": window_trace, "shade": shade_pass,
-                "texel": texel_fetch}
     nb = settings.num_bounces
-
-    def reset():
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def read():
-        return {name: fn.launches for name, fn in wrappers.items()}
+    reset, read = zero_launches, read_launches
 
     def want(frames_filling, frames_cached):
         frames = frames_filling + frames_cached
         return {name: 0 if name not in kernels else
                 (nb * frames - frames_cached if name == "window_trace"
-                 else nb * frames) for name in wrappers}
+                 else nb * frames) for name in FRAME_KERNELS}
 
     single = Renderer(cached)
     singles, per_frame, trunc = [], [], 0
@@ -1271,6 +1306,413 @@ def batch(what: str, scene, settings, basis, prefs, kernels: tuple,
     return out
 
 
+def hold_scene(scene, what: str, window=None) -> dict:
+    """The scene's device grid and aux grid against its host grid and
+    `make_aux_grid` of it, exactly; the host aux too; and, when given,
+    `window` (a window assembled from scratch) against the host grid."""
+    arrays = scene.get_arrays()
+    grid = arrays.grid.cpu().numpy()
+    aux = arrays.aux_grid.cpu().numpy()
+    want = make_aux_grid(scene.grid, scene._transparent, scene._translucent)
+    check(np.array_equal(grid, scene.grid),
+          f"{what}: the device grid differs from the host grid")
+    check(np.array_equal(scene._aux, want),
+          f"{what}: the host aux grid differs from a fresh build")
+    check(np.array_equal(aux, want),
+          f"{what}: the device aux grid differs from a fresh build")
+    if window is not None:
+        check(np.array_equal(scene.grid, window),
+              f"{what}: the grid differs from a window built from scratch")
+    check(tuple(arrays.grid_origin) == tuple(scene.grid_origin),
+          f"{what}: device origin {arrays.grid_origin}")
+    return {"grid": list(grid.shape), "origin": list(scene.grid_origin),
+            "grid_equal": True, "aux_equal": True,
+            "window_equal": window is not None}
+
+
+def hold_fresh(img, scene, settings, basis, prefs, frame: int,
+               what: str) -> dict:
+    """A frame of an edited or recentered scene against the same frame
+    rendered by a new Renderer on a new VoxelScene built from the scene's
+    host grid, origin and entities: equal bit for bit."""
+    fresh = VoxelScene(scene.registry, scene.grid.copy(), scene.grid_origin,
+                       max_light_prims=scene.max_light_prims,
+                       max_entity_tris=scene.max_entity_tris,
+                       device=scene.device)
+    for key, (v, u, t, m) in scene._entities.items():
+        fresh.add_object(key, v, u, t, transform=m)
+    want = Renderer(settings).render(fresh, basis, prefs, frame_count=frame,
+                                     as_numpy=False)
+    sync()
+    img = torch.as_tensor(img, device=want.device)
+    check(torch.equal(img, want),
+          f"{what}: the frame differs from the fresh scene's by "
+          f"{float((img - want).abs().max())}")
+    return {"fresh_scene_equal": True}
+
+
+def edited_frames(what: str, scene, settings, basis, prefs, edit,
+                  window=None, frames: int = 5) -> dict:
+    """`frames` frames, each after one `edit(f)` and each synced (ladder
+    configs 4 and 7), after a frame that settles the renderer, with the
+    launch counters at 0 just before the first edit: the tracer and the
+    fused shade once a bounce, every frame's audit, `edit_ms` (an edit,
+    host to device) and `frame_ms`.  Then the scene is held
+    (`hold_scene`, against `window()` when given), the last frame to a
+    fresh scene's, and three more edited frames are profiled."""
+    nb = settings.num_bounces
+    r = Renderer(settings)
+    r.render(scene, basis, prefs, frame_count=0, as_numpy=False)
+    edit_ms, frame_ms = [], []
+    zero_launches()
+    for f in range(1, frames + 1):
+        sync()
+        t0 = time.perf_counter()
+        edit(f)
+        sync()
+        t1 = time.perf_counter()
+        img, aux = r.render(scene, basis, prefs, frame_count=f,
+                            as_numpy=False, with_aux=True)
+        sync()
+        t2 = time.perf_counter()
+        check(aux == {"truncated": 0, "nee_overflow": 0},
+              f"{what} frame {f} audit {aux}")
+        edit_ms.append((t1 - t0) * 1e3)
+        frame_ms.append((t2 - t1) * 1e3)
+    launches = read_launches()
+    want = {"window_trace": nb * frames, "shade": nb * frames, "texel": 0}
+    check(launches == want, f"{what} launches {launches}, want {want}")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
+          f"{what}: image not finite or black")
+    out = {"width": settings.width, "height": settings.height,
+           "bounces": nb, "frames": frames, "launches": launches,
+           "truncated": 0, "nee_overflow": 0,
+           "edit_ms": float(np.mean(edit_ms)), "edit_ms_each": edit_ms,
+           "frame_ms": float(np.mean(frame_ms)), "frame_ms_each": frame_ms,
+           **hold_scene(scene, what, None if window is None else window()),
+           **hold_fresh(img, scene, settings, basis, prefs, frames, what)}
+    out["profile"] = profile_steps(
+        lambda i: (edit(frames + 1 + i), r.render(
+            scene, basis, prefs, frame_count=frames + 1 + i,
+            as_numpy=False)), out["edit_ms"] + out["frame_ms"])
+    return out
+
+
+def edit_path(name: str, limit: str) -> dict:
+    """Ladder config 4: the headline frame with one block edit before each
+    of 5 frames, stone and air in turn at (8 + f % 16, 20, 3)."""
+    scene, settings, basis, prefs = headline_setup(1920, 1080, 4,
+                                                   device="cuda")
+    reg = scene.registry
+    stone = reg.block_idx("stone")
+
+    def edit(f):
+        scene.set_block((8 + f % 16, 20, 3), stone if f % 2 else reg.air)
+
+    return {"card": name, "power_limit": limit,
+            **edited_frames("edit", scene, settings, basis, prefs, edit)}
+
+
+def streamed_path(name: str, limit: str, scene, cm, settings, basis,
+                  prefs) -> dict:
+    """Ladder config 6 (`streamed_setup(1920, 1080, 4)`: the 416x96x416
+    window at load radius 6): the frame through `full_frame`, K1 against
+    its plain version on its bounce-0 rays, a 480x270 frame through the
+    kernels against the plain versions, the scene held against a window
+    assembled from scratch and a frame against a fresh scene's."""
+    t0 = time.perf_counter()
+    lights = scene.get_arrays().lights
+    sync()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    out = full_frame("streamed", scene, settings, basis, prefs, name, limit,
+                     ("window_trace", "shade"), frames=5)
+    out["scene_build_ms"] = build_ms
+    out["light_set"] = {"num_prims": lights.num_prims, "dense": lights.dense}
+    out["profile"] = profile_frames(scene, settings, basis, prefs,
+                                    out["frame_ms"])
+    out["trace_check"] = streamed_trace_check(scene, settings, basis)
+    out["frame_check"] = streamed_frame_check(scene, settings, basis, prefs)
+    out.update(hold_scene(scene, "streamed", assembled(cm)))
+    img = Renderer(settings).render(scene, basis, prefs, frame_count=6,
+                                    as_numpy=False)
+    out.update(hold_fresh(img, scene, settings, basis, prefs, 6, "streamed"))
+    return out
+
+
+def streamed_edit_path(name: str, limit: str, scene, cm, settings, basis,
+                       prefs) -> dict:
+    """Ladder config 7: the streamed window with one block edit a frame
+    through the chunk manager, stone and air in turn at
+    (8 + f % 16, 30, 3)."""
+    reg = scene.registry
+    stone = reg.block_idx("stone")
+
+    def edit(f):
+        cm.set_block((8 + f % 16, 30, 3), stone if f % 2 else reg.air)
+
+    return {"card": name, "power_limit": limit, **edited_frames(
+        "streamed_edit", scene, settings, basis, prefs, edit,
+        lambda: assembled(cm))}
+
+
+def assembled(cm) -> np.ndarray:
+    """The chunk manager's window assembled from scratch from its chunks."""
+    return cm._assemble(cm.chunks, cm.center_chunk, set())[0]
+
+
+def streamed_trace_check(scene, settings, basis) -> dict:
+    """K1 against its plain version on the streamed window's bounce-0 rays,
+    sorted as the renderer sorts them (`trace_check`), with its time, its
+    plain version's and its bound."""
+    arrays = scene.get_arrays()
+    dev = arrays.grid.device
+    w, h = settings.render_width, settings.render_height
+    n = w * h
+    o, d, rid = raygen_soa(basis.eye, basis.front, basis.right, basis.up,
+                           w, h, device=dev)
+    tp = V3(*(torch.ones(n, device=dev) for _ in range(3)))
+    rad = V3(*(torch.zeros(n, device=dev) for _ in range(3)))
+    o, d, tp, rad, rid = coherence_sort(arrays, o, d, tp, rad, rid)
+    events = auto_events(*arrays.grid.shape)
+    tr = trace_check(arrays, o, d, events, "streamed bounce 0")
+    tr.pop("plain")
+    steps = tr.pop("steps")
+    out = {"rays": n, "events": events, **tr, "steps": steps,
+           "ms": time_ms(lambda: window_trace(arrays, o, d, events), 10),
+           "plain_ms": time_ms(lambda: trace_plain(arrays, o, d, events), 1)}
+    out["bound_ms"], out["bound_by"] = trace_bound_ms(
+        arrays, n, steps["fine"], steps["skips"])
+    return out
+
+
+def streamed_frame_check(scene, settings, basis, prefs) -> dict:
+    """The streamed window at 480x270, 4 bounces, through the kernels
+    against the plain versions under the golden gate."""
+    s = settings.replace(width=480, height=270)
+    got = Renderer(s).render(scene, basis, prefs, frame_count=1)
+    want, _ = render_frame(
+        scene.get_arrays(), basis.eye, basis.front, basis.right, basis.up,
+        1, settings=s, nee_type=prefs.nee_type, sort_type=prefs.sort_type,
+        trace=trace_plain, shade=shade_plain)
+    return {"width": 480, "height": 270,
+            **golden_gate(got, want.cpu().numpy(),
+                          "streamed frame kernels vs plain")}
+
+
+def recenter_path(name: str, limit: str) -> dict:
+    """Ladder config 8 (`streamed_setup(1024, 1024, 6)`) and its recenter
+    row (tools/bench_ladder.py): the centre moves one chunk along +x, the
+    background rebuild runs while frames are served on the old window,
+    then the adoption (`adopt_ms`: `update_grid`, host to device) and the
+    first frame on the new window.  The recenter's launches, with the
+    counters at 0 just before the rebuild starts, count the frames served
+    and the adoption frame."""
+    scene, cm, settings, basis, prefs = streamed_setup(1024, 1024, 6,
+                                                       device="cuda")
+    out = full_frame("streamed_1024x6", scene, settings, basis, prefs, name,
+                     limit, ("window_trace", "shade"), frames=3)
+    out["profile"] = profile_frames(scene, settings, basis, prefs,
+                                    out["frame_ms"])
+    r = Renderer(settings)
+    r.render(scene, basis, prefs, frame_count=0, as_numpy=False)
+    sync()
+    origin0 = tuple(scene.grid_origin)
+    cx, cy, cz = cm.center_chunk
+    cm.center_chunk = (cx + 1, cy, cz)
+    t0 = time.perf_counter()
+    for key in cm._window_keys(cm.center_chunk):
+        cm._request_chunk(key)
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    cm._window_dirty = True
+    cm._async_rebuild_opt = True
+    audits, served = [], []
+    zero_launches()
+    t0 = time.perf_counter()
+    cm._submit_rebuild()
+    while not cm._rebuild_job.done():
+        tf = time.perf_counter()
+        _, aux = r.render(scene, basis, prefs, frame_count=90 + len(served),
+                          as_numpy=False, with_aux=True)
+        sync()
+        served.append((time.perf_counter() - tf) * 1e3)
+        audits.append(aux)
+    ta = time.perf_counter()
+    cm._adopt_rebuild()
+    sync()
+    tb = time.perf_counter()
+    img, aux = r.render(scene, basis, prefs, frame_count=89, as_numpy=False,
+                        with_aux=True)
+    sync()
+    tc = time.perf_counter()
+    audits.append(aux)
+    launches = read_launches()
+    nb = settings.num_bounces
+    frames = len(served) + 1
+    want = {"window_trace": nb * frames, "shade": nb * frames, "texel": 0}
+    check(launches == want, f"recenter launches {launches}, want {want}")
+    check(all(a == {"truncated": 0, "nee_overflow": 0} for a in audits),
+          f"recenter audits {audits}")
+    check(tuple(scene.grid_origin) == (origin0[0] + 32, *origin0[1:]),
+          f"recenter: origin {scene.grid_origin} from {origin0}")
+    out.update(hold_scene(scene, "recenter", assembled(cm)))
+    out.update(hold_fresh(img, scene, settings, basis, prefs, 89,
+                          "recenter"))
+    out["recenter"] = {
+        "chunk_gen_ms": gen_ms, "launches": launches,
+        "frames_served": len(served), "served_frame_ms": served,
+        "rebuild_ms": (ta - t0) * 1e3, "adopt_ms": (tb - ta) * 1e3,
+        "adopt_frame_ms": (tc - ta) * 1e3, "total_ms": (tc - t0) * 1e3}
+    return out
+
+
+def ego_spot(world, reg) -> np.ndarray:
+    """Where to put the game's ego for its mouse ray, inside chunk
+    (0, 0, 0): the first column (x, *, z), z then x from (8, *, 0), whose
+    highest solid below y = 29 has 8 voxels of air above it and from 1.5
+    above which the camera's centre ray meets a block within the ray's
+    reach (the terrain is 3-D noise, so a fixed spot may sit inside it)."""
+    q, cam = world.chunk_querier, world.camera
+    solid = np.asarray(reg.solid, bool)
+    for z, x in ((z, x) for z in range(32) for x in range(8, 32)):
+        for y in range(28, -3, -1):
+            ids = q.get_blocks(np.array([(x, y + k, z) for k in range(9)]))
+            s = (ids >= 0) & solid[np.clip(ids, 0, len(solid) - 1)]
+            if s[0] and not s[1:].any():
+                pos = np.array([x + 0.5, y + 2.5, z + 0.5])
+                cam.set_root_position(pos)
+                basis = cam.eye_front_right_up()
+                if q.trace_to_solid(basis.eye, basis.front, 10.0):
+                    return pos
+                break
+    raise AssertionError("game: no spot where the mouse ray meets a block")
+
+
+def game_path(name: str, limit: str) -> dict:
+    """The game layer at the reference's scale: `GameWorld` with the
+    load-radius window (13x3x13 chunks of 32^3), 1920x1080, 4 bounces,
+    NEE on, a dynamic ego cube; one loading step, then 10 `step()` calls
+    with the launch counters at 0 just before them: a `WorldSetBlock`
+    (step 2), a block broken through the mouse ray (asked in step 4,
+    applied in step 5; the ego is moved where that ray meets a block in
+    step 3), and the ego moved across a chunk border (step 7), which
+    recenters the window.  Chunks are generated on the calling
+    thread and the window rebuilt there, so the run is the same every
+    time (the background rebuild is `recenter_path`'s)."""
+    reg = BlockRegistry.load(os.path.join(HERE, "assets"))
+    settings = RenderSettings(width=1920, height=1080, num_bounces=4,
+                              max_trace_steps=192, trace_audit=True,
+                              compaction=True)
+    world = GameWorld(reg, settings=settings, window_chunks=None,
+                      headless=False)
+    cm, pm, ego = world.managers[0], world.managers[1], world.managers[2]
+    cm.synchronous = True
+    world.camera.set_rendering_preferences(RenderingPreferences(nee_type=1))
+    world.camera.pitch = -0.8
+    verts, uv, tex = meshes.unitcube()
+    lo, hi = meshes.mesh_aabb(verts)
+    world.add_entity(0, EntityCreationData(
+        mesh=Mesh(verts, uv, tex), isometry=translation(8.0, 6.0, 0.5),
+        physics=EntityPhysicsData(
+            rigid_body_type="dynamic", half_extents=(hi - lo) / 2,
+            linvel=np.zeros(3), angvel=np.zeros(3), controlled=True)))
+    # the step's render with its audit kept, and its block edits timed
+    audits, edits = [], []
+    render, set_block = world.renderer.render, world.scene.set_block
+
+    def audited(*a, **kw):
+        img, aux = render(*a, **kw, with_aux=True)
+        audits.append(aux)
+        return img
+
+    def timed_set_block(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        set_block(*a, **kw)
+        sync()
+        edits.append((time.perf_counter() - t0) * 1e3)
+
+    world.renderer.render = audited
+    world.scene.set_block = timed_set_block
+
+    t0 = time.perf_counter()
+    world.step()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    origin0 = tuple(world.scene.grid_origin)
+    stone = reg.block_idx("stone")
+    placed = (5, 20, 5)
+    target = None
+    steps_ms = []
+    zero_launches()
+    for i in range(1, 11):
+        if i == 2:
+            world.changes_since_last_step.append(
+                WorldSetBlock(np.array(placed), stone))
+        if i == 3:
+            spot = ego_spot(world, reg)
+            world.entities[0].isometry = translation(*spot)
+            pm.bodies[0].pos = spot
+            pm.bodies[0].linvel[:] = 0.0
+        if i == 4:
+            # the ego manager's mouse ray at the screen centre this step:
+            # the camera's front from the pose the ego holds now
+            cam = world.camera
+            cam.set_root_position(world.entities[0].isometry[:, 3])
+            basis = cam.eye_front_right_up()
+            hit = world.chunk_querier.trace_to_solid(basis.eye, basis.front,
+                                                     10.0)
+            check(hit is not None,
+                  f"game: the mouse ray from {basis.eye} hits no block")
+            target = hit[0]
+            ego.last_broke -= 1.0
+            world.handle_window_event(Event(
+                "mouse_move", x=settings.width / 2, y=settings.height / 2))
+            world.handle_window_event(Event("mouse_down", button="left"))
+        if i == 5:
+            world.handle_window_event(Event("mouse_up", button="left"))
+        if i == 7:
+            world.entities[0].isometry = translation(40.5, 6.0, 0.5)
+            pm.bodies[0].pos = np.array([40.5, 6.0, 0.5])
+            pm.bodies[0].linvel[:] = 0.0
+        t0 = time.perf_counter()
+        world.step()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    nb = settings.num_bounces
+    want = {"window_trace": nb * 10, "shade": nb * 10, "texel": 0}
+    check(launches == want, f"game launches {launches}, want {want}")
+    check(len(audits) == 11 and all(
+        a == {"truncated": 0, "nee_overflow": 0} for a in audits),
+          f"game audits {audits}")
+    check(world.chunk_querier.get_block(np.array(placed)) == stone
+          and world.scene.get_block(placed) == stone,
+          "game: the WorldSetBlock did not land")
+    check(world.chunk_querier.get_block(np.array(target)) == reg.air
+          and world.scene.get_block(target) == reg.air,
+          f"game: the block {target} under the mouse ray was not broken")
+    check(tuple(world.scene.grid_origin) == (origin0[0] + 32, *origin0[1:]),
+          f"game: the window did not recenter: {world.scene.grid_origin}")
+    check(len(edits) == 2, f"game: {len(edits)} scene edits, want 2")
+    img = world.last_image
+    check(img.shape == (settings.height, settings.width, 3)
+          and bool(np.all(np.isfinite(img))) and float(img.mean()) > 0.0,
+          "game: the last image is not finite or black")
+    out = {"card": name, "power_limit": limit, "width": settings.width,
+           "height": settings.height, "bounces": nb, "steps": 10,
+           "launches": launches, "truncated": 0, "nee_overflow": 0,
+           "load_step_ms": load_ms, "steps_ms": steps_ms,
+           "step_ms": float(np.median(steps_ms)),
+           "recenter_step_ms": steps_ms[6], "edit_ms": float(np.mean(edits)),
+           "edit_ms_each": edits, "broken": list(target),
+           "placed": list(placed), "chunks": len(cm.chunks),
+           **hold_scene(world.scene, "game", assembled(cm))}
+    out.update(hold_fresh(img, world.scene, settings,
+                          world.camera.eye_front_right_up(),
+                          world.camera.rendering_preferences(),
+                          world.frame_count - 1, "game"))
+    out["profile"] = profile_steps(lambda i: world.step(), out["step_ms"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1280,6 +1722,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name, limit = card()
     t0 = time.perf_counter()
+    seconds = {}
+
+    def emit(phase: str, **fields) -> None:
+        """The phase's line, with the seconds since the last one."""
+        now = time.perf_counter()
+        seconds[phase] = now - sum(seconds.values()) - t0
+        print(json.dumps({"phase": phase, **fields,
+                          "seconds": seconds[phase]}), flush=True)
+
     _build.build_all()
     ptxas = {k: _build.resource_usage(k) for k in (
         "window_trace", "shade", "texel", "extract_probe", "loop_probe")}
@@ -1349,6 +1800,20 @@ def main() -> int:
     emit("batch_general", **batch(
         "batch_general", *general_setup(480, 270, 4, device="cuda"),
         ("window_trace", "texel")))
+    paths = {"headline": hl, "headline_bf16": hb, "general": gf,
+             "batch": bt}
+    paths["edit"] = edit_path(name, limit)
+    emit("edit", **paths["edit"])
+    streamed = streamed_setup(1920, 1080, 4, device="cuda")
+    paths["streamed"] = streamed_path(name, limit, *streamed)
+    emit("streamed", **paths["streamed"])
+    paths["streamed_edit"] = streamed_edit_path(name, limit, *streamed)
+    emit("streamed_edit", **paths["streamed_edit"])
+    paths["streamed_1024x6"] = recenter_path(name, limit)
+    emit("streamed_1024x6", **paths["streamed_1024x6"])
+    paths["game"] = game_path(name, limit)
+    emit("game", **paths["game"])
+    emit("seconds", total=time.perf_counter() - t0, by_phase=seconds)
 
     kernels = []
     for kname, k, src, replaces, path in (
@@ -1363,10 +1828,8 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": path["launches"][kname],
-            "launches_by_path": {"headline": hl["launches"][kname],
-                                 "headline_bf16": hb["launches"][kname],
-                                 "general": gf["launches"][kname],
-                                 "batch": bt["launches"][kname]},
+            "launches_by_path": {p: v["launches"][kname]
+                                 for p, v in paths.items()},
             "max_abs_err": k.get("max_abs_err_t", k.get("max_abs_err")),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],

@@ -966,3 +966,77 @@ def test_batch_matches_singles_on_the_card(cube_scene, fused):
     diff = (singles[1] - uncached).abs()
     assert float(diff.max()) < 1e-3
     assert float(diff.pow(2).mean().sqrt()) < 1e-5
+
+
+@pytest.fixture
+def edited(scene):
+    """The golden scene on the card after three edits on live arrays: a
+    glass block, a lamp (the light set is built again) and a lamp voxel
+    broken; its device grid and aux equal its host ones after each."""
+    reg = scene.registry
+    s = VoxelScene(reg, config1_grid(reg), (0, 0, 0), max_light_prims=256,
+                   device="cuda")
+    s.get_arrays()
+    for pos, name in (((10, 5, 8), "glass"), ((4, 5, 10), "lamp"),
+                      ((8, 7, 8), "air")):
+        s.set_block(pos, reg.block_idx(name))
+        a = s.get_arrays()
+        assert a.grid.is_cuda and a.aux_grid.is_cuda
+        np.testing.assert_array_equal(a.grid.cpu().numpy(), s.grid)
+        np.testing.assert_array_equal(a.aux_grid.cpu().numpy(), s._aux)
+        np.testing.assert_array_equal(
+            s._aux, make_aux_grid(s.grid, s._transparent, s._translucent))
+    return s
+
+
+def test_update_grid_keeps_the_device_grid(edited):
+    """A window of a larger grid moved three times by update_grid (the
+    device roll and the refreshed boxes): the device grid and aux equal
+    the host ones and make_aux_grid of the window."""
+    reg = edited.registry
+    rs = np.random.RandomState(0)
+    world = np.full((112, 40, 112), reg.air, np.uint8)
+    ids = [reg.block_idx(n) for n in ("stone", "glass")]
+    solid = rs.rand(*world.shape) < 0.04
+    world[solid] = rs.choice(ids, int(solid.sum()))
+    world[50:53, 12:14, 50:53] = reg.block_idx("lamp")
+
+    def window(o):
+        return world[o[0]:o[0] + 48, o[1]:o[1] + 24, o[2]:o[2] + 48]
+
+    s = VoxelScene(reg, window((32, 8, 32)), (32, 8, 32),
+                   max_light_prims=1024, device="cuda")
+    s.get_arrays()
+    for o in ((40, 8, 27), (27, 16, 45), (60, 0, 60)):
+        s.update_grid(window(o).copy(), o)
+        a = s.get_arrays()
+        assert a.grid_origin == o
+        np.testing.assert_array_equal(a.grid.cpu().numpy(), window(o))
+        np.testing.assert_array_equal(a.aux_grid.cpu().numpy(), s._aux)
+        np.testing.assert_array_equal(
+            s._aux, make_aux_grid(window(o), s._transparent,
+                                  s._translucent))
+
+
+def test_edited_frame_kernels_match_plain(edited):
+    """A frame of the edited scene through the tracer and the fused shade
+    against the plain versions' under the golden gate."""
+    settings = RenderSettings(width=64, height=64, num_bounces=3,
+                              compaction=True, trace_audit=True)
+    prefs = RenderingPreferences(nee_type=1)
+    basis = config1_pose()
+    before = (window_trace.launches, shade_pass.launches)
+    got, aux = Renderer(settings).render(edited, basis, prefs, frame_count=2,
+                                         with_aux=True)
+    assert (window_trace.launches, shade_pass.launches) == (
+        before[0] + 3, before[1] + 3)
+    assert aux["truncated"] == 0 and aux["nee_overflow"] == 0
+    want, _ = render_frame(
+        edited.get_arrays(), basis.eye, basis.front, basis.right, basis.up,
+        2, settings=settings, nee_type=1, sort_type=0, trace=trace_plain,
+        shade=shade_plain)
+    want = want.cpu().numpy()
+    diff = np.abs(got - want).max(axis=-1)
+    agree = diff < 1e-3
+    assert 1.0 - agree.mean() < 0.005
+    assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3

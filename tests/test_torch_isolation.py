@@ -7,6 +7,7 @@ The import check runs in a subprocess because tests/conftest.py imports
 JAX into this one.
 """
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -15,8 +16,12 @@ import sys
 import pytest
 import torch
 
-from wavefront_tpu_torch.core.config import RenderSettings
+from wavefront_tpu_torch.core.config import RenderSettings, WorldSettings
+from wavefront_tpu_torch.headline import headline_setup, streamed_setup
 from wavefront_tpu_torch.render.renderer import Renderer
+from wavefront_tpu_torch.render.scene import VoxelScene
+from wavefront_tpu_torch.world.blocks import BlockRegistry
+from wavefront_tpu_torch.world.game_world import GameWorld
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -66,7 +71,7 @@ def test_port_imports_no_jax():
                        timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 34, r.stdout
+    assert n_modules >= 43, r.stdout
 
 
 def test_renderer_defaults_to_the_card():
@@ -79,6 +84,23 @@ def test_renderer_defaults_to_the_card():
         with pytest.raises(RuntimeError):
             Renderer(settings)
     assert Renderer(settings, device="cpu").device.type == "cpu"
+
+
+def test_entry_points_default_to_the_card():
+    """VoxelScene, GameWorld and streamed_setup take device="cuda" unless
+    told otherwise; a rendering GameWorld without a card raises."""
+    for fn in (VoxelScene, GameWorld, streamed_setup, headline_setup):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    registry = BlockRegistry.load(os.path.join(REPO, "assets"))
+    small = dict(settings=RenderSettings(width=8, height=8, num_bounces=1),
+                 world_settings=WorldSettings(chunk_size=8, load_radius=1),
+                 window_chunks=1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            GameWorld(registry, **small)
+    world = GameWorld(registry, device="cpu", **small)
+    assert world.renderer.device.type == "cpu"
+    assert world.scene.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card():

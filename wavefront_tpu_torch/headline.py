@@ -1,14 +1,15 @@
-"""The port's workloads: the headline frame, the general frame and the
-golden config-1 scene.
+"""The port's workloads: the headline frame, the general frame, the
+streamed window and the golden config-1 scene.
 
 `build_scene` and `headline_setup` build the same scene, camera pose,
 preferences and settings as the JAX package's `bench.py` (the 5x1x5-chunk
 worldgen scene, 1920x1080, 4 bounces, NEE on, compaction and the trace
 audit on), from the port's own modules.  `general_setup` is that frame
 with a sparse light set (a lattice of lamp voxels) and a cube entity, on
-the general (non-fused) shade path.  `config1_grid` and `config1_pose`
-are the golden-image scene and camera of the reference's tests
-(tests/test_golden.py).
+the general (non-fused) shade path.  `streamed_setup` is the game layer's
+streamed window of `tools/bench_ladder.py` (configs 6-8).  `config1_grid`
+and `config1_pose` are the golden-image scene and camera of the
+reference's tests (tests/test_golden.py).
 """
 
 from __future__ import annotations
@@ -144,6 +145,40 @@ def general_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
             f"general_setup: {lights.num_prims} light prims make a dense "
             "light set; the lattice must yield more than 256")
     return scene, settings, basis, prefs
+
+
+def streamed_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
+                   device="cuda"):
+    """The game layer's streamed window at the reference's scale (ladder
+    configs 6-8): (scene, chunk manager, settings, camera basis, prefs).
+
+    A ChunkManager at load radius 6 (13x3x13 chunks of 32^3: a
+    416x96x416 window around chunk (0, 0, 0)), its chunks generated
+    synchronously and assembled once, the same pose and settings as
+    `tools/bench_ladder.py::streamed_setup`, and NEE on.  The TPU schedule
+    settings it sets are accepted and change nothing here."""
+    from wavefront_tpu_torch.world.chunk_manager import ChunkManager
+
+    registry = BlockRegistry.load(ASSETS)
+    scene = VoxelScene(registry, np.zeros((1, 1, 1), np.uint8), (0, 0, 0),
+                       max_light_prims=1024, device=device)
+    cm = ChunkManager(WorldSettings(load_radius=6, evict_radius=8), registry,
+                      scene, window_chunks=None, synchronous=True)
+    for key in cm._window_keys((0, 0, 0)):
+        cm._request_chunk(key)
+    cm._rebuild_window()
+    settings = RenderSettings(
+        width=width, height=height, num_bounces=bounces,
+        max_trace_steps=192, trace_audit=True, compaction=True,
+        trace_unroll=4, trace_tile=1024, trace_skip_stride=2,
+        trace_phases=2, trace_phase_events=16, trace_phases_at=(1, 2, 3, 4))
+    cam = SphericalCamera()
+    cam.set_root_position([0.0, 14.0, 0.0])
+    cam.offset = 26.0
+    cam.yaw = 0.35
+    cam.pitch = -0.55
+    return scene, cm, settings, cam.eye_front_right_up(), \
+        RenderingPreferences(nee_type=1)
 
 
 def config1_grid(registry: BlockRegistry, size: int = 16) -> np.ndarray:

@@ -68,23 +68,27 @@ class VoxelHit(NamedTuple):
     entered: torch.Tensor   # bool: True = front face (ray enters owner)
 
 
-def make_aux_grid(grid, transparent, translucent) -> np.ndarray:
+def make_aux_grid(grid, transparent, translucent,
+                  max_skip: int = MAX_SKIP) -> np.ndarray:
     """The tracer's aux grid of a (gx, gy, gz) uint8 block grid, as uint8:
     bits 0-1 the voxel's class (CLASS_TRANSPARENT | CLASS_TRANSLUCENT),
     bits 2-6 its Chebyshev distance to the nearest voxel that is not
-    completely transparent, clamped to MAX_SKIP.
+    completely transparent, clamped to `max_skip` (at most MAX_SKIP).
 
     The JAX package's `render.intersect.make_aux_grid` (which returns the
     same values as int32): the distance grows by one per 3^3 dilation of
-    the solid mask, separable per axis.  Built once per grid; a grid edit
-    needs it again around the edit."""
+    the solid mask, separable per axis.  Built once per grid; an edit
+    refreshes it around the edit (`update_aux_region`, `refresh_aux_box`)."""
+    if not 0 <= max_skip <= MAX_SKIP:
+        raise ValueError(f"make_aux_grid: max_skip {max_skip} does not fit "
+                         f"the aux grid's bits (0..{MAX_SKIP})")
     grid = np.asarray(grid)
     transparent = np.asarray(transparent, bool)
     translucent = np.asarray(translucent, bool)
     cls = (transparent[grid].astype(np.uint8) * CLASS_TRANSPARENT
            + translucent[grid].astype(np.uint8) * CLASS_TRANSLUCENT)
     reach = ~transparent[grid]
-    dist = np.full(grid.shape, MAX_SKIP, np.uint8)
+    dist = np.full(grid.shape, max_skip, np.uint8)
     dist[reach] = 0
 
     def dilate(m):
@@ -99,12 +103,69 @@ def make_aux_grid(grid, transparent, translucent) -> np.ndarray:
         r[:, :, :-1] |= m[:, :, 1:]
         return r
 
-    for d in range(1, MAX_SKIP):
+    for d in range(1, max_skip):
         if reach.all():
             break
         reach = dilate(reach)
-        dist[reach & (dist == MAX_SKIP)] = d
+        dist[reach & (dist == max_skip)] = d
     return cls | (dist << 2)
+
+
+def refresh_aux_box(grid, aux, transparent, translucent, lo, hi,
+                    max_skip: int = MAX_SKIP, in_place: bool = False):
+    """The aux grid recomputed exactly over the box [lo, hi) of `grid`
+    (grid-local corners); returns the result, a copy of `aux` unless
+    `in_place`, when `aux` itself is written and returned.
+
+    A voxel's distance depends only on the solids within `max_skip` of
+    it, so make_aux_grid of the box padded by `max_skip`, written back
+    over the box alone, is exact (the JAX package's
+    `render.intersect.refresh_aux_box`).  The streamed window's shift
+    refreshes its entered slabs this way (`scene.shift_refresh_aux`)."""
+    grid = np.asarray(grid)
+    lo = np.asarray(lo, np.int64)
+    hi = np.asarray(hi, np.int64)
+    plo = np.maximum(lo - max_skip, 0)
+    phi = np.minimum(hi + max_skip, np.array(grid.shape))
+    sub = make_aux_grid(grid[plo[0]:phi[0], plo[1]:phi[1], plo[2]:phi[2]],
+                        transparent, translucent, max_skip)
+    out = aux if in_place else np.array(aux)
+    out[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = sub[
+        tuple(slice(int(a - p), int(b - p)) for a, b, p in zip(lo, hi, plo))]
+    return out
+
+
+def update_aux_region(grid, aux, transparent, translucent, pos,
+                      max_skip: int = MAX_SKIP):
+    """The aux grid after a one-voxel edit of `grid` at grid-local `pos`:
+    a copy of `aux` with the cube of radius `max_skip` around `pos`
+    recomputed from the cube of radius 2 * max_skip + 1 around it (every
+    solid that reaches a voxel of the inner cube lies in the outer one),
+    so equal to make_aux_grid of the edited grid (the JAX package's
+    `render.intersect.update_aux_region`).  `aux_box(pos, shape)` gives
+    the inner cube, the part that may change."""
+    grid = np.asarray(grid)
+    pos = np.asarray(pos, np.int64)
+    shape = np.array(grid.shape)
+    r = 2 * max_skip + 1
+    lo = np.maximum(pos - r, 0)
+    hi = np.minimum(pos + r + 1, shape)
+    sub = make_aux_grid(grid[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]],
+                        transparent, translucent, max_skip)
+    ilo, ihi = aux_box(pos, shape, max_skip)
+    out = np.array(aux)
+    out[ilo[0]:ihi[0], ilo[1]:ihi[1], ilo[2]:ihi[2]] = sub[
+        tuple(slice(int(a - l), int(b - l)) for a, b, l in zip(ilo, ihi, lo))]
+    return out
+
+
+def aux_box(pos, shape, max_skip: int = MAX_SKIP):
+    """(lo, hi) grid-local corners of the part of the aux grid that a
+    one-voxel edit at `pos` can change: the cube of radius `max_skip`
+    around it, clipped to a grid of `shape`."""
+    pos = np.asarray(pos, np.int64)
+    return (np.maximum(pos - max_skip, 0),
+            np.minimum(pos + max_skip + 1, np.asarray(shape, np.int64)))
 
 
 def pack_hits(vox: VoxelHit):

@@ -468,7 +468,8 @@ class Renderer:
 
     With settings.cache_primary (and no jitter) the renderer keeps the
     bounce-0 intersections of the last pose it rendered and reuses them
-    while the scene arrays, the camera basis and the mode stay the same."""
+    while the scene arrays, the camera basis and the mode stay the same
+    (every edit of a VoxelScene gives new arrays)."""
 
     def __init__(self, settings: RenderSettings, device="cuda"):
         device = torch.device(device)
@@ -481,7 +482,7 @@ class Renderer:
                 device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.settings = settings
-        self._tables = None     # (scene arrays, shade tables)
+        self._tables = None     # (atlas, lights, shade tables)
         self._primary = None    # (scene arrays, pose and mode, hits)
 
     def _arrays(self, scene) -> SceneArrays:
@@ -497,14 +498,18 @@ class Renderer:
         None, the cached primary hits or None) of one call."""
         prefs = prefs or RenderingPreferences()
         arrays = self._arrays(scene)
-        if self._tables is None or self._tables[0] is not arrays:
+        # the shade tables depend on the atlas and the lights alone, which
+        # a block edit or an entity move keeps in its new arrays
+        kept = self._tables
+        if kept is None or kept[0] is not arrays.atlas_packed \
+                or kept[1] is not arrays.lights:
             self._tables = (
-                arrays,
+                arrays.atlas_packed, arrays.lights,
                 prep_shade_tables(arrays.atlas_packed, arrays.lights))
         mode = (int(prefs.nee_type), int(prefs.sort_type),
                 int(prefs.debug_view))
         kw = dict(settings=self.settings, nee_type=mode[0], sort_type=mode[1],
-                  debug_view=mode[2], tables=self._tables[1],
+                  debug_view=mode[2], tables=self._tables[2],
                   cache_primary=self.settings.cache_primary)
         pkey = primary = None
         if self.settings.cache_primary and self.settings.jitter == 0.0:

@@ -70,3 +70,10 @@ def unitcube(tex_offset: int = 6):
     reference (utils.rs:175-177: centered at origin)."""
     return cuboid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), tex_offset)
 
+
+
+def mesh_aabb(verts: np.ndarray):
+    """Half-extents AABB of a mesh (reference utils.rs:179-209)."""
+    lo = verts.reshape(-1, 3).min(axis=0)
+    hi = verts.reshape(-1, 3).max(axis=0)
+    return lo, hi
