@@ -36,7 +36,22 @@ through their entry points, checking which kernels each launched:
     placed, a block broken through the mouse ray and a recenter (`game`).
     Each holds its device grid and aux grid equal to `make_aux_grid` of
     its host grid (and a window assembled from scratch) and its last
-    frame equal bit for bit to the frame of a scene built afresh.
+    frame equal bit for bit to the frame of a scene built afresh;
+  * the last modules: the app (`app.main.main` at its defaults,
+    1024x1024, 6 bounces, `--window-chunks 2`, 20 frames with a
+    screenshot every 10, then 8 frames of `--accumulate --hold`, each
+    frame after the first reusing the primary hits) and its `viewer`
+    (the frame's PNG, `GET /frame` and `POST /input` over loopback); a
+    checkpoint of the app's world loaded into a new one (`persistence`:
+    grids and a frame equal); the headline frame over pixel ranges
+    (`distributed`: `DistributedRenderer` over two ranges on the card and
+    over `make_mesh()`, equal bit for bit to `Renderer.render`); the sort
+    utilities on 2,073,600 keys against numpy (`sort`); the NaN checks of
+    the validation layer on K3, a tensor op and a 480x270 frame
+    (`validation`); `device_trace` around a headline frame, its K1 and K2
+    events counted (`profiling`, run right after the build, in the
+    process's first profiler session); and the native chunk generator
+    against its NumPy version (`worldgen`).
 
 Each phase prints one JSON line with the seconds it took, then a line of
 the seconds by phase and in total; the line before the last lists every
@@ -70,13 +85,16 @@ Tolerances:
            max |diff| 1e-3 and RMS 1e-5 of the uncached frame of its seed;
   edits:   grid and aux grid exactly equal; a frame after edits or a
            recenter equal bit for bit to a fresh scene's (no per-ray
-           result depends on how the scene arrays were built).
+           result depends on how the scene arrays were built);
+  ranges, checkpoints, sort, worldgen: equal bit for bit (no ray reads
+           another ray; the rest is integer or host code).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -1713,6 +1731,537 @@ def game_path(name: str, limit: str) -> dict:
     return out
 
 
+# ---- the last modules: the app and its viewer, checkpoints, pixel
+# ranges, the sort utilities, the validation layer, the device trace and
+# the native chunk generator ----
+
+
+def app_run(argv, prepare=None) -> tuple:
+    """`app.main.main(argv)` with its world captured as tests/test_app.py
+    captures it (`prepare(world)` runs on it before the loop) and each
+    step timed on the host clock (a rendered step ends in the image's
+    copy to the host), with the frame kernels' launches of the step and
+    whether it rendered other scene arrays than the step before.
+    Returns (world, its parsed args, the steps)."""
+    import wavefront_tpu_torch.app.main as app
+
+    build = app.build_world
+    held, steps = {}, []
+
+    def capture(args):
+        world = build(args)
+        if prepare is not None:
+            prepare(world)
+        step = world.step
+
+        def timed_step():
+            before = read_launches()
+            t0 = time.perf_counter()
+            step()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = read_launches()
+            arrays = world.scene.get_arrays()
+            steps.append({"ms": ms, "arrays_changed":
+                          held.get("arrays") is not arrays,
+                          "launches": {k: after[k] - before[k]
+                                       for k in after}})
+            held["arrays"] = arrays
+
+        world.step = timed_step
+        held["world"], held["args"] = world, args
+        return world
+
+    app.build_world = capture
+    try:
+        app.main(argv)
+    finally:
+        app.build_world = build
+    return held["world"], held["args"], steps
+
+
+def app_path(name: str, limit: str, tmp: str, extra=()) -> tuple:
+    """The app at its defaults (1024x1024, 6 bounces, 192 steps,
+    `--window-chunks 2`, the scripted fly-through, chunks streamed by the
+    worker pool and the background rebuild) for 20 frames with a
+    screenshot every 10, the launch counters at 0 just before it; then 8
+    frames of `--accumulate --hold` in a new world whose chunks load on the
+    frame thread.  `extra`: flags added
+    to both runs (a CPU rehearsal's `--device cpu` and sizes).  Returns
+    (the phase's fields, the first run's world and args)."""
+    from wavefront_tpu_torch.render.renderer import use_fused
+    from wavefront_tpu_torch.render.screenshot import read_png
+    from wavefront_tpu_torch.world.worldgen import native_chunk
+
+    shots = os.path.join(tmp, "screenshots")
+    frames = 20
+    zero_launches()
+    native0 = native_chunk.launches
+    world, args, steps = app_run(
+        ["--frames", str(frames), "--screenshot-every", "10", *extra],
+        prepare=lambda w: setattr(w, "screenshot_dir", shots))
+    launches = read_launches()
+    settings, cm = world.settings, world.managers[0]
+    nb = settings.num_bounces
+    arrays = world.scene.get_arrays()
+    prefs = world.camera.rendering_preferences()
+    kinds = []
+    for s in steps:
+        per = s["launches"]
+        kind = ("fused" if per["shade"] == nb and per["texel"] == 0 else
+                "general" if per["texel"] == nb and per["shade"] == 0 else
+                f"other {per}")
+        check(per["window_trace"] == nb and not kind.startswith("other"),
+              f"app: a step launched {per}, want K1 {nb} and K2 or K3 {nb}")
+        kinds.append(kind)
+    check(len(steps) == frames, f"app: {len(steps)} steps, want {frames}")
+    img = world.last_image
+    check(img.shape == (settings.height, settings.width, 3)
+          and bool(np.all(np.isfinite(img))) and float(img.mean()) > 0.0,
+          f"app: the last image {img.shape} is not finite or black")
+    files = sorted(os.listdir(shots))
+    check(files == ["0.png", "1.png"], f"app: screenshots {files}")
+    for f in files:
+        with open(os.path.join(shots, f), "rb") as fh:
+            shape = read_png(fh.read()).shape
+        check(shape == (settings.height, settings.width, 3),
+              f"app: screenshot {f} is {shape}")
+    audited = Renderer(settings.replace(trace_audit=True),
+                       device=world.scene.device)
+    _, aux = audited.render(world.scene, world.camera.eye_front_right_up(),
+                            prefs, frame_count=world.frame_count,
+                            with_aux=True)
+    check(aux == {"truncated": 0, "nee_overflow": 0}, f"app: audit {aux}")
+    step_ms = [s["ms"] for s in steps]
+    out = {
+        "card": name, "power_limit": limit, "width": settings.width,
+        "height": settings.height, "bounces": nb,
+        "max_steps": settings.max_trace_steps, "frames": frames,
+        "launches": launches, "paths": {k: kinds.count(k) for k in
+                                        set(kinds)},
+        "final_path": "fused" if use_fused(arrays, settings,
+                                           prefs.nee_type) else "general",
+        "truncated": 0, "nee_overflow": 0,
+        "first_step_ms": step_ms[0],
+        "step_ms": float(np.median(step_ms[1:])), "steps_ms": step_ms,
+        "screenshots": files, "native_chunks": native_chunk.launches
+        - native0, "chunks": len(cm.chunks),
+        "window_rebuilds_in_flight": int(cm._rebuild_job is not None),
+        "arrays_changed_steps": sum(s["arrays_changed"] for s in steps),
+        "light_set": {"num_prims": arrays.lights.num_prims,
+                      "dense": arrays.lights.dense},
+    }
+    check(out["native_chunks"] > 0, "app: no chunk came from the native "
+          "generator")
+    out["profile"] = profile_steps(lambda i: world.step(), out["step_ms"])
+
+    # accumulation while the camera holds, its chunks generated on the
+    # frame thread (as `game`), so the first step loads the whole window:
+    # every later frame renders the same arrays and reuses the first
+    # frame's primary hits, one K1 launch fewer
+    acc_world, _, acc = app_run(
+        ["--frames", "8", "--accumulate", "--hold", *extra],
+        prepare=lambda w: setattr(w.managers[0], "synchronous", True))
+    ks = []
+    for i, s in enumerate(acc):
+        reuse = i > 0 and not s["arrays_changed"]
+        ks.append(s["launches"]["window_trace"])
+        check(ks[-1] == nb - int(reuse),
+              f"accumulate: step {i} launched K1 {ks[-1]} times "
+              f"(arrays changed: {s['arrays_changed']})")
+    reused = sum(k == nb - 1 for k in ks)
+    check(reused == 7, f"accumulate: {reused} of the 7 frames after the "
+          f"first reused the primary hits ({ks})")
+    img = acc_world.last_image
+    check(bool(np.all(np.isfinite(img))) and float(img.mean()) > 0.0,
+          "accumulate: the image is not finite or black")
+    out["accumulate"] = {
+        "frames": 8, "k1_launches_by_step": ks, "frames_reusing": reused,
+        "steps_ms": [s["ms"] for s in acc],
+        "step_ms": float(np.median([s["ms"] for s in acc][1:]))}
+    return out, world, args
+
+
+def viewer_path(name: str, limit: str, img: np.ndarray) -> dict:
+    """The app's last frame through the viewer: the PNG encode timed (5
+    times), `publish`, then over loopback `GET /frame` (a PNG equal to the
+    frame's bytes) and a `POST /input` batch that `drain_events` returns.
+    A loopback connection the machine refuses is reported, not held (the
+    CPU test holds the round trip)."""
+    import socket
+    import urllib.request
+
+    from wavefront_tpu_torch.app.viewer import Viewer
+    from wavefront_tpu_torch.render.screenshot import (
+        png_bytes,
+        read_png,
+        to_srgb_bytes,
+    )
+
+    rgb = to_srgb_bytes(img)
+    encode_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        data = png_bytes(to_srgb_bytes(img))
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+    check(np.array_equal(read_png(data), rgb), "viewer: the PNG does not "
+          "decode to the frame")
+    out = {"card": name, "power_limit": limit, "image": list(img.shape),
+           "png_bytes": len(data), "encode_ms": float(np.median(encode_ms)),
+           "encode_ms_each": encode_ms}
+    v = Viewer(port=0)
+    try:
+        t0 = time.perf_counter()
+        v.publish(img)
+        out["publish_ms"] = (time.perf_counter() - t0) * 1e3
+        try:
+            socket.create_connection(("127.0.0.1", v.port), timeout=10).close()
+        except OSError as e:
+            out["loopback"] = f"refused: {e!r}"
+            return out
+        base = f"http://127.0.0.1:{v.port}"
+        t0 = time.perf_counter()
+        r = urllib.request.urlopen(base + "/frame", timeout=60)
+        body = r.read()
+        out["get_frame_ms"] = (time.perf_counter() - t0) * 1e3
+        check(r.headers["Content-Type"] == "image/png"
+              and np.array_equal(read_png(body), rgb),
+              "viewer: /frame is not the frame's PNG")
+        batch = [{"kind": "key_down", "key": "w"},
+                 {"kind": "mouse_move", "x": 12.5, "y": 7.0},
+                 {"kind": "wheel", "dy": 1.0}]
+        t0 = time.perf_counter()
+        r = urllib.request.urlopen(urllib.request.Request(
+            base + "/input", data=json.dumps(batch).encode(),
+            method="POST"), timeout=60)
+        out["post_input_ms"] = (time.perf_counter() - t0) * 1e3
+        evs = v.drain_events()
+        check(r.status == 204 and [e.kind for e in evs] == [
+            "key_down", "mouse_move", "wheel"] and evs[1].x == 12.5,
+              f"viewer: /input gave {r.status}, events {evs}")
+        out["loopback"] = "ok"
+    finally:
+        v.close()
+    return out
+
+
+def settle(world) -> None:
+    """Finish the world's chunk loading on the frame thread: wait for the
+    pool's chunks and the rebuild in flight, adopt them, and generate and
+    rebuild synchronously from then on."""
+    cm = world.managers[0]
+    for f in list(cm._pending.values()):
+        f.result()
+    cm._drain_pending()
+    cm.flush_rebuild()
+    cm.synchronous = True
+    cm._async_rebuild_opt = False
+
+
+def persistence_path(name: str, limit: str, world, args, tmp: str) -> dict:
+    """A checkpoint of the app's world: the fly-through's key released
+    and the loading finished, two steps, a stone placed by a
+    `WorldSetBlock` beside the ego, `save_world`; then a new world of the
+    same arguments on the card, `load_world`, one step.  Holds its device
+    grid and aux grid equal to the saved world's exactly, and a frame of
+    each scene by `Renderer.render` at the saved world's pose and one
+    frame count equal bit for bit."""
+    import wavefront_tpu_torch.app.main as app
+    from wavefront_tpu_torch.utils.persistence import load_world, save_world
+
+    world.handle_window_event(Event("key_up", key="w"))
+    settle(world)
+    world.step()
+    world.step()
+    reg = world.registry
+    stone = reg.block_idx("stone")
+    spot = np.floor(world.entities[0].isometry[:, 3]).astype(np.int64) \
+        + np.array([2, -1, 2])
+    world.changes_since_last_step.append(WorldSetBlock(spot, stone))
+    world.step()
+    check(world.scene.get_block(tuple(spot)) == stone,
+          f"persistence: the edit at {spot} did not land")
+    path = os.path.join(tmp, "world.npz")
+    t0 = time.perf_counter()
+    save_world(world, path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = app.build_world(args)
+    t0 = time.perf_counter()
+    load_world(fresh, path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    fresh.managers[0].synchronous = True
+    t0 = time.perf_counter()
+    fresh.step()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    a, b = world.scene.get_arrays(), fresh.scene.get_arrays()
+    check(tuple(a.grid_origin) == tuple(b.grid_origin)
+          and torch.equal(a.grid, b.grid)
+          and torch.equal(a.aux_grid, b.aux_grid),
+          "persistence: the loaded world's device grid or aux grid differs")
+    check(fresh.scene.get_block(tuple(spot)) == stone,
+          "persistence: the loaded world lost the edit")
+    basis = world.camera.eye_front_right_up()
+    prefs = world.camera.rendering_preferences()
+    frames = [Renderer(world.settings, device=s.device).render(
+        s, basis, prefs, frame_count=world.frame_count, as_numpy=False)
+        for s in (world.scene, fresh.scene)]
+    check(torch.equal(*frames), "persistence: the loaded scene's frame "
+          "differs by "
+          f"{float((frames[0] - frames[1]).abs().max())}")
+    return {"card": name, "power_limit": limit, "edit": spot.tolist(),
+            "file_bytes": os.path.getsize(path), "save_ms": save_ms,
+            "load_ms": load_ms, "load_step_ms": step_ms,
+            "edited_chunks": len(world.managers[0].edited),
+            "grid": list(a.grid.shape), "grid_equal": True,
+            "aux_equal": True, "frame_equal": True}
+
+
+def distributed_path(name: str, limit: str, device: str = "cuda",
+                     size=(1920, 1080)) -> dict:
+    """The headline frame through `DistributedRenderer` over two pixel
+    ranges on one card and over `make_mesh()` (every visible card): its
+    `frame_ms` against `Renderer.render`'s (both with the image's copy
+    to the host), device busy ms, the launches of one frame with the
+    counters at 0 just before it (each range launches K1 and K2 once a
+    bounce), each image against the single renderer's, and
+    `render_batch(k=4)` over two ranges against four `render` calls."""
+    from wavefront_tpu_torch.parallel.mesh import DistributedRenderer, make_mesh
+
+    scene, settings, basis, prefs = headline_setup(*size, 4, device=device)
+    nb = settings.num_bounces
+    single = Renderer(settings, device=device)
+
+    def frame_ms(render) -> float:
+        render(90)
+        sync()
+        t0 = time.perf_counter()
+        for f in range(5):
+            render(91 + f)
+        return (time.perf_counter() - t0) * 1e3 / 5
+
+    want = single.render(scene, basis, prefs, frame_count=3)
+    out = {"card": name, "power_limit": limit, "width": settings.width,
+           "height": settings.height, "bounces": nb,
+           "single_frame_ms": frame_ms(
+               lambda f: single.render(scene, basis, prefs, frame_count=f))}
+    meshes = {"two_ranges": make_mesh(devices=[device] * 2)}
+    if device == "cuda":
+        meshes["make_mesh"] = make_mesh()
+    for key, mesh in meshes.items():
+        dr = DistributedRenderer(settings, mesh)
+        zero_launches()
+        got = dr.render(scene, basis, prefs, frame_count=3)
+        launches = read_launches()
+        k = len(mesh)
+        wl = {"window_trace": nb * k, "shade": nb * k, "texel": 0}
+        check(launches == wl, f"{key}: launches {launches}, want {wl}")
+        row = {"ranges": [list(r) for r in dr.ranges()],
+               "devices": [str(d) for d in mesh], "launches": launches,
+               "bit_equal": bool(np.array_equal(got, want))}
+        if not row["bit_equal"]:
+            row.update(golden_gate(got, want, f"{key} vs single"))
+            check(row["max_abs"] <= 1e-5, f"{key}: max |diff| "
+                  f"{row['max_abs']}")
+        row["frame_ms"] = frame_ms(
+            lambda f: dr.render(scene, basis, prefs, frame_count=f))
+        row["profile"] = profile_steps(
+            lambda i: dr.render(scene, basis, prefs, frame_count=100 + i),
+            row["frame_ms"])
+        out[key] = row
+    out["launches"] = out["two_ranges"]["launches"]
+    dr = DistributedRenderer(settings, meshes["two_ranges"])
+    stack = dr.render_batch(scene, basis, prefs, frame_count=10, k=4)
+    singles = np.stack([dr.render(scene, basis, prefs, frame_count=10 + i)
+                        for i in range(4)])
+    check(np.array_equal(stack, singles),
+          "distributed: render_batch(k=4) differs from four render calls")
+    out["batch_equal"] = True
+    return out
+
+
+def sort_path(name: str, limit: str, device: str = "cuda",
+              n: int = HEADLINE_RAYS) -> dict:
+    """The six sort utilities on `n` seeded uint32 keys (int64 on the
+    card), each held exactly against numpy (a stable argsort, cumsum, a
+    per-partition bincount) and timed (CUDA events, 10 calls)."""
+    from wavefront_tpu_torch.kernels import sort
+
+    rs = np.random.RandomState(0x5EED)
+    keys_np = rs.randint(0, 2 ** 32, size=n, dtype=np.uint64).astype(
+        np.uint32)
+    keys = torch.as_tensor(keys_np.astype(np.int64), device=device)
+    vals = torch.arange(n, dtype=torch.int32, device=device)
+    small = torch.as_tensor((keys_np & 0xFF).astype(np.int32), device=device)
+    order = np.argsort(keys_np, kind="stable")
+    part = 1024
+    digits = (keys_np >> 8) & 0xFF
+    rows = np.arange(n) // part
+    want_hist = np.bincount(rows * 256 + digits, minlength=(n // part) * 256
+                            ).reshape(n // part, 256).astype(np.int32)
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    perm = torch.as_tensor(order, device=device)
+    small_np = (keys_np & 0xFF).astype(np.int32)
+    calls = {
+        "sort_keys": (lambda: sort.sort_keys(keys), np.sort(keys_np)),
+        "sort_key_value": (lambda: sort.sort_key_value(keys, vals),
+                           (keys_np[order], order.astype(np.int32))),
+        "sort_permutation": (lambda: sort.sort_permutation(keys), order),
+        "invert_permutation": (lambda: sort.invert_permutation(perm), inv),
+        "exclusive_scan": (lambda: sort.exclusive_scan(small),
+                           np.cumsum(small_np, dtype=np.int32) - small_np),
+        "segmented_histogram": (lambda: sort.segmented_histogram(
+            keys, part, 8, 8), want_hist),
+    }
+    out = {"card": name, "power_limit": limit, "keys": n, "ms": {}}
+    for key, (fn, want) in calls.items():
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            check(np.array_equal(g.cpu().numpy().astype(np.int64),
+                                 np.asarray(w).astype(np.int64)),
+                  f"sort: {key} differs from numpy")
+        out["ms"][key] = time_ms(fn, 10) if device == "cuda" else None
+    return out
+
+
+def nan_outcome(fn) -> str:
+    """'passes', or 'raises: <message>' when `fn` raises
+    FloatingPointError under the validation layer's NaN checks."""
+    from wavefront_tpu_torch.utils.validation import validation_layer
+
+    try:
+        with validation_layer():
+            fn()
+    except FloatingPointError as e:
+        return f"raises: {e}"
+    return "passes"
+
+
+def validation_path(name: str, limit: str, device: str = "cuda",
+                    big=(1920, 1080), small=(480, 270)) -> dict:
+    """The validation layer on the card, the launch counters at 0 just
+    before it: a NaN planted in one atlas texel and fetched by K3 raises
+    naming the texel kernel; a NaN made by a tensor op raises naming the
+    op; `check_image` passes on the headline frame; a 480x270 headline
+    frame under the NaN checks passes, as the port's 16x16 CPU frame does
+    (tests/test_torch_utils.py), and how much the checks slow it."""
+    from wavefront_tpu_torch.utils.validation import check_image
+
+    zero_launches()
+    scene, settings, basis, prefs = headline_setup(*small, 4, device=device)
+    arrays = scene.get_arrays()
+    atlas = arrays.atlas_packed.clone()
+    atlas[5, 3, 7, 0] = float("nan")
+    n = 4096
+    tex = torch.full((n,), 5, dtype=torch.int32, device=device)
+    tex[::2] = 4
+    size = atlas.shape[1]
+    u = torch.full((n,), 7.5 / size, device=device)
+    v = torch.full((n,), 3.5 / size, device=device)
+    texel = nan_outcome(lambda: texel_fetch(atlas, tex, u, v))
+    check(texel == "raises: invalid value (nan) encountered in texel_fetch",
+          f"validation: the NaN texel {texel}")
+    clean = nan_outcome(lambda: texel_fetch(arrays.atlas_packed, tex, u, v))
+    check(clean == "passes", f"validation: a clean fetch {clean}")
+    op = nan_outcome(lambda: torch.zeros(8, device=device) / 0.0)
+    check(op.startswith("raises: invalid value (nan) encountered in "
+                        "aten.div"), f"validation: 0/0 {op}")
+    hscene, hsettings, hbasis, hprefs = headline_setup(*big, 4,
+                                                       device=device)
+    img = Renderer(hsettings, device=device).render(hscene, hbasis, hprefs,
+                                                    frame_count=1)
+    check_image(img, "the headline frame")
+    r = Renderer(settings, device=device)
+    r.render(scene, basis, prefs, frame_count=1)
+    times = {}
+    for key, wrap in (("off", lambda fn: fn()), ("on", nan_outcome),
+                      ("off_again", lambda fn: fn())):
+        t0 = time.perf_counter()
+        outcome = wrap(lambda: r.render(scene, basis, prefs, frame_count=2))
+        times[key] = (time.perf_counter() - t0) * 1e3
+        if key == "on":
+            frame = outcome
+    check(frame == "passes", f"validation: the {small} frame {frame}, the "
+          "CPU test's 16x16 frame passes")
+    off = min(times["off"], times["off_again"])
+    return {"card": name, "power_limit": limit, "texel_nan": texel,
+            "op_nan": op, "check_image": "passes",
+            "frame": {"width": small[0], "height": small[1], "bounces": 4,
+                      "outcome": frame, "ms_off": off, "ms_on": times["on"],
+                      "slowdown": times["on"] / off},
+            "launches": read_launches()}
+
+
+def profiling_path(name: str, limit: str, tmp: str,
+                   device: str = "cuda", size=(1920, 1080)) -> dict:
+    """`device_trace` around one headline frame, the launch counters at 0
+    just before it: the Chrome trace is written and its K1 and K2 kernel
+    events, found by name, are as many as the counters' launches; then
+    `FrameTimer` over 5 frames."""
+    from wavefront_tpu_torch.utils.profiling import FrameTimer, device_trace
+
+    scene, settings, basis, prefs = headline_setup(*size, 4, device=device)
+    r = Renderer(settings, device=device)
+    r.render(scene, basis, prefs, frame_count=1)
+    zero_launches()
+    with device_trace(os.path.join(tmp, "trace")) as log_dir:
+        r.render(scene, basis, prefs, frame_count=2)
+    launches = read_launches()
+    path = os.path.join(log_dir, "trace.json")
+    check(os.path.exists(path), f"profiling: no trace at {path}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {"window_trace": "trace_kernel", "shade": "shade_kernel",
+             "texel": "texel_kernel"}
+    counted = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                      and v in e.get("name", "")) for k, v in names.items()}
+    if device == "cuda":
+        check(counted == launches and launches["window_trace"] == 4,
+              f"profiling: trace kernels {counted}, launches {launches}")
+    timer = FrameTimer(rays_per_frame=settings.n_rays)
+    for f in range(5):
+        with timer.frame():
+            r.render(scene, basis, prefs, frame_count=3 + f)
+    s = timer.stats
+    return {"card": name, "power_limit": limit, "trace_bytes":
+            os.path.getsize(path), "trace_kernel_events": counted,
+            "launches": launches, "frame_timer": {
+                "frames": 5, "frame_ms": s.frame_ms, "fps": s.fps,
+                "mrays_per_sec": s.mrays_per_sec}}
+
+
+def worldgen_path(name: str, limit: str) -> dict:
+    """The headline scene's 5x1x5 chunks (32^3) from the native generator
+    (`csrc/worldgen.cpp`, built by the host compiler) and from its NumPy
+    version, held equal exactly and each timed; fails unless the native
+    library was built and made every chunk."""
+    from wavefront_tpu_torch.core.config import WorldSettings
+    from wavefront_tpu_torch.world.worldgen import WorldGenerator, native_chunk
+
+    gen = WorldGenerator(WorldSettings(),
+                         BlockRegistry.load(os.path.join(HERE, "assets")))
+    keys = [(cx, 0, cz) for cx in range(-2, 3) for cz in range(-2, 3)]
+    before = native_chunk.launches
+    t0 = time.perf_counter()
+    native = [gen.generate_chunk(k) for k in keys]
+    native_ms = (time.perf_counter() - t0) * 1e3
+    made = native_chunk.launches - before
+    t0 = time.perf_counter()
+    plain = [gen._generate_chunk_numpy(k) for k in keys]
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    lib = _build._lib_path("worldgen", ".cpp", _build.HOST_FLAGS)
+    check(made == len(keys) and os.path.exists(lib),
+          f"worldgen: the native generator made {made} of {len(keys)} "
+          f"chunks (library {lib})")
+    check(all(np.array_equal(a, b) for a, b in zip(native, plain)),
+          "worldgen: a native chunk differs from the NumPy one")
+    return {"card": name, "power_limit": limit, "chunks": len(keys),
+            "chunk_size": 32, "native_ms_per_chunk": native_ms / len(keys),
+            "numpy_ms_per_chunk": numpy_ms / len(keys),
+            "library": os.path.relpath(lib, HERE), "equal": True}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1752,6 +2301,14 @@ def main() -> int:
             k.get("stack") == k.get("spill_stores") == k.get("spill_loads")
             == 0 for k in kerns), f"{src} kernels use local memory: {kerns}")
 
+    # what the last modules write (a trace, screenshots, a checkpoint)
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # the trace's kernel events are counted against the launch counters
+    # in the process's first profiler session: after many sessions and
+    # launches torch.profiler has been seen to drop a kernel event
+    emit("profiling", **profiling_path(name, limit, out_dir))
     scene, settings, basis, prefs = headline_setup(1920, 1080, 4,
                                                    device="cuda")
     kc = kernel_check(scene, settings, basis)
@@ -1813,6 +2370,17 @@ def main() -> int:
     emit("streamed_1024x6", **paths["streamed_1024x6"])
     paths["game"] = game_path(name, limit)
     emit("game", **paths["game"])
+    paths["app"], app_world, app_args = app_path(name, limit, out_dir)
+    emit("app", **paths["app"])
+    emit("viewer", **viewer_path(name, limit, app_world.last_image))
+    emit("persistence", **persistence_path(name, limit, app_world, app_args,
+                                           out_dir))
+    paths["distributed"] = distributed_path(name, limit)
+    emit("distributed", **paths["distributed"])
+    emit("sort", **sort_path(name, limit))
+    paths["validation"] = validation_path(name, limit)
+    emit("validation", **paths["validation"])
+    emit("worldgen", **worldgen_path(name, limit))
     emit("seconds", total=time.perf_counter() - t0, by_phase=seconds)
 
     kernels = []

@@ -1040,3 +1040,76 @@ def test_edited_frame_kernels_match_plain(edited):
     agree = diff < 1e-3
     assert 1.0 - agree.mean() < 0.005
     assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3
+
+
+# ---- pixel ranges and the NaN checks ----
+
+
+@pytest.mark.parametrize("fused", [None, False], ids=["fused", "general"])
+def test_distributed_frames_equal_single_on_the_card(cube_scene, fused):
+    """DistributedRenderer over 1, 2 and 3 ranges on cuda:0 renders the
+    single renderer's frame bit for bit, launching the tracer once a
+    bounce for every range; its batches equal its single frames.  (Two
+    ranges on one card exercise the ranges, not a second card's device
+    guard.)"""
+    from wavefront_tpu_torch.parallel.mesh import DistributedRenderer, make_mesh
+
+    settings = RenderSettings(width=96, height=64, num_bounces=3,
+                              compaction=True, shade_fused=fused)
+    prefs = RenderingPreferences(nee_type=1, sort_type=1)
+    basis = config1_pose()
+    want = Renderer(settings).render(cube_scene, basis, prefs, frame_count=4)
+    assert set(make_mesh()) == {torch.device("cuda", i) for i in
+                                range(torch.cuda.device_count())}
+    for k in (1, 2, 3):
+        dr = DistributedRenderer(settings, make_mesh(devices=["cuda:0"] * k))
+        before = window_trace.launches
+        got = dr.render(cube_scene, basis, prefs, frame_count=4)
+        assert window_trace.launches - before == 3 * k
+        np.testing.assert_array_equal(got, want, err_msg=f"{k} ranges")
+    stack = dr.render_batch(cube_scene, basis, prefs, frame_count=4, k=2)
+    np.testing.assert_array_equal(stack[0], want)
+    np.testing.assert_array_equal(
+        stack[1], dr.render(cube_scene, basis, prefs, frame_count=5))
+
+
+def test_nan_checks_on_the_kernels(scene, monkeypatch):
+    """Under validation_layer the wrappers check their kernels' outputs:
+    a NaN texel fetched by K3 and a NaN radiance carried through K2 raise
+    naming the kernel; K1 turns NaN rays into misses (t 3e38, as its
+    plain version does), and its check runs and passes."""
+    from wavefront_tpu_torch.kernels import _build
+    from wavefront_tpu_torch.utils.validation import validation_layer
+
+    arrays = scene.get_arrays()
+    o, d, rid = _rays(16)
+    n = o.x.shape[0]
+    o = V3(torch.where(torch.arange(n, device="cuda") % 5 == 0,
+                       float("nan"), o.x).contiguous(), o.y, o.z)
+    checked = []
+    check = _build.check_outputs
+    monkeypatch.setattr(_build, "check_outputs",
+                        lambda what, out: (checked.append(what),
+                                           check(what, out)))
+    with validation_layer():
+        pa, pb, t = window_trace(arrays, o, d, 256)
+    assert checked == ["window_trace"] and bool(torch.isfinite(t).all())
+    atlas = arrays.atlas_packed.clone()
+    atlas[3, 4, 5, :] = float("nan")
+    tex = torch.full((64,), 3, dtype=torch.int32, device="cuda")
+    u = torch.full((64,), 5.5 / atlas.shape[1], device="cuda")
+    v = torch.full((64,), 4.5 / atlas.shape[1], device="cuda")
+    with pytest.raises(FloatingPointError, match="texel_fetch"):
+        with validation_layer():
+            texel_fetch(atlas, tex, u, v)
+    tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
+    pa, pb, t = window_trace(arrays, *_rays(16)[:2], 256)
+    o, d, rid = _rays(16)
+    ones = V3(*(torch.ones(n, device="cuda") for _ in range(3)))
+    rad = V3(*(torch.zeros(n, device="cuda") for _ in range(3)))
+    rad = V3(torch.where(torch.arange(n, device="cuda") == 7, float("nan"),
+                         rad.x).contiguous(), rad.y, rad.z)
+    with pytest.raises(FloatingPointError, match="shade_pass"):
+        with validation_layer():
+            shade_pass(tables, arrays.grid_origin, o, d, pa, pb, t, ones, rad,
+                       rid, 3, 0, arrays.lights.num_prims, nee_type=1)

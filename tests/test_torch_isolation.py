@@ -1,7 +1,8 @@
 """The port stands alone: `wavefront_tpu_torch` and `chip_smoke.py` import
-neither JAX nor anything of the JAX package, its entry points run on the
-card unless the caller asks for the CPU, and `chip_smoke.py` fails without
-a card or without the rest of the repository.
+neither JAX nor anything of the JAX package, its entry points (the
+renderer, the scene, the game world, the pixel-range mesh and the app)
+run on the card unless the caller asks for the CPU, and `chip_smoke.py`
+fails without a card or without the rest of the repository.
 
 The import check runs in a subprocess because tests/conftest.py imports
 JAX into this one.
@@ -16,8 +17,10 @@ import sys
 import pytest
 import torch
 
+import wavefront_tpu_torch.app.main as app_main
 from wavefront_tpu_torch.core.config import RenderSettings, WorldSettings
 from wavefront_tpu_torch.headline import headline_setup, streamed_setup
+from wavefront_tpu_torch.parallel.mesh import DistributedRenderer, make_mesh
 from wavefront_tpu_torch.render.renderer import Renderer
 from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.world.blocks import BlockRegistry
@@ -71,7 +74,7 @@ def test_port_imports_no_jax():
                        timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 43, r.stdout
+    assert n_modules >= 55, r.stdout
 
 
 def test_renderer_defaults_to_the_card():
@@ -101,6 +104,29 @@ def test_entry_points_default_to_the_card():
     world = GameWorld(registry, device="cpu", **small)
     assert world.renderer.device.type == "cpu"
     assert world.scene.device.type == "cpu"
+
+
+def test_new_entry_points_default_to_the_card():
+    """make_mesh() takes every visible card, DistributedRenderer renders
+    on its mesh's devices and the app on --device cuda: each raises
+    without a card unless the caller asks for the CPU."""
+    settings = RenderSettings(width=8, height=8, num_bounces=1)
+    tiny = ["--frames", "1", "--width", "8", "--height", "8",
+            "--window-chunks", "0", "--headless"]
+    if torch.cuda.is_available():
+        assert {d.type for d in make_mesh()} == {"cuda"}
+        assert DistributedRenderer(settings, ["cuda"]).mesh[0].index \
+            is not None
+    else:
+        with pytest.raises(RuntimeError):
+            make_mesh()
+        with pytest.raises(RuntimeError):
+            DistributedRenderer(settings, ["cuda"])
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            app_main.main(tiny)
+    assert DistributedRenderer(settings, make_mesh(
+        devices=["cpu"])).mesh == (torch.device("cpu"),)
+    app_main.main(tiny + ["--device", "cpu"])
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -247,6 +247,12 @@ def test_kernel_times_takes_the_histogram():
     assert "radix" in kernel_times.KERNELS
 
 
+def test_kernel_times_takes_frame_blocks():
+    args = kernel_times.parse(["--frames", "25", "--blocks", "12"])
+    assert (args.frames, args.blocks) == (25, 12)
+    assert kernel_times.parse([]).blocks == 1
+
+
 def test_kernel_times_options_parse_with_no_card(capsys):
     args = kernel_times.parse(["--kernels", "texel", "row_gather",
                                "--frames", "3", "--root", "build/parent"])

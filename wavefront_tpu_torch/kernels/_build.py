@@ -16,6 +16,20 @@ and shared memory; the report is kept beside the library
 
 A missing `nvcc` or a failed build raises; nothing falls back.
 
+`load_host` builds a plain C++ source of `csrc/` (the native worldgen)
+with the host compiler the same way: `-O3 -std=c++17`, no
+`-march=native` (the library must not depend on the machine that built
+it) and `-ffp-contract=off` (its float64 arithmetic stays the NumPy
+version's, operation for operation).
+
+`validation_layer(nan_checks=True)` (`utils/validation.py`) sees every
+tensor op through a dispatch mode, but no `ctypes` launch, so each
+wrapper hands its outputs to `check_outputs` after its launch, and runs
+a kernel's plain version (CPU tensors) through `plain`, which the mode
+sees as one op, as it sees the kernel on the card.  With no such context
+open both cost one read of a module flag.  Wrappers whose outputs are
+integers (K4, K5, K6, K7's row gather) have nothing to check.
+
 Every wrapper launches through a `Launcher`: the C function typed and
 bound once, called on its tensors' device with the raw handle of
 PyTorch's current stream there.  A kernel of a few microseconds costs
@@ -41,6 +55,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "wavefront_tpu_torch")
 SOURCES = ("window_trace", "shade", "texel", "radix_hist", "device_probe",
            "extract_probe", "loop_probe")
+HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
@@ -68,10 +83,10 @@ def nvcc_path() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+def _lib_path(name: str, ext: str = ".cu", flags=NVCC_FLAGS) -> str:
+    with open(os.path.join(CSRC, name + ext), "rb") as f:
         src = f.read()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{h}.so")
 
 
@@ -103,6 +118,38 @@ def build_all() -> None:
             raise RuntimeError("\n".join(errors))
         for n in todo:
             _libs[n] = ctypes.CDLL(_lib_path(n))
+
+
+def host_compiler() -> str:
+    """The host C++ compiler: $CXX, then c++ and g++ on PATH."""
+    for c in (os.environ.get("CXX"), "c++", "g++"):
+        found = shutil.which(c) if c else None
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler ($CXX, c++ or g++ on PATH); "
+                       "the native worldgen cannot be built")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source `csrc/<name>.cpp`, built
+    with the host compiler on first use."""
+    with _lock:
+        if name not in _libs:
+            out = _lib_path(name, ".cpp", HOST_FLAGS)
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                p = subprocess.run(
+                    [host_compiler(), *HOST_FLAGS, "-o", tmp,
+                     os.path.join(CSRC, name + ".cpp")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                if p.returncode != 0:
+                    raise RuntimeError(f"the host compiler failed for "
+                                       f"{name}.cpp:\n"
+                                       f"{p.stdout.decode(errors='replace')}")
+                os.replace(tmp, out)
+            _libs[name] = ctypes.CDLL(out)
+        return _libs[name]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -226,3 +273,57 @@ class Launcher:
             raise RuntimeError(
                 f"{self.what}: CUDA launch failed (cudaError {err})")
         return err
+
+
+# open validation_layer(nan_checks=True) contexts, and the plain versions
+# running inside one (the mode leaves their ops to `plain`'s check)
+_nan_checks = 0
+_in_plain = 0
+
+
+def set_nan_checks(on: bool) -> None:
+    """Open (True) or close (False) one NaN-checking context."""
+    global _nan_checks
+    _nan_checks += 1 if on else -1
+
+
+def nan_checks_paused() -> bool:
+    """Whether a kernel's plain version is running under `plain`."""
+    return _in_plain > 0
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, (tuple, list)):
+        for x in out:
+            yield from _tensors(x)
+
+
+def check_outputs(what: str, out) -> None:
+    """Raise FloatingPointError when a NaN-checking context is open and
+    a floating tensor of `out` (a tensor, or tuples of them) holds a
+    NaN; `what` names the kernel."""
+    if not _nan_checks:
+        return
+    for t in _tensors(out):
+        if t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(
+                f"invalid value (nan) encountered in {what}")
+
+
+def plain(what: str, fn, *args, **kw):
+    """`fn(*args, **kw)`, a kernel's plain version: with a NaN-checking
+    context open its ops go unchecked and its outputs are checked as the
+    kernel's (`check_outputs`), so the CPU run reports what the card's
+    run reports."""
+    global _in_plain
+    if not _nan_checks:
+        return fn(*args, **kw)
+    _in_plain += 1
+    try:
+        out = fn(*args, **kw)
+    finally:
+        _in_plain -= 1
+    check_outputs(what, out)
+    return out

@@ -326,10 +326,11 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
     if tri_attrs is not None and len(tri_attrs) != 12:
         raise ValueError("shade_pass: tri_attrs must hold 12 tensors")
     if origin.x.device.type == "cpu":
-        return shade_plain(tables, grid_origin, origin, direction, pa, pb, t,
-                           tp, rad, rid, inv_seed, int(bounce),
-                           int(num_prims), nee_type=nee_type,
-                           tri_attrs=tri_attrs, color_bf16=color_bf16)
+        return _build.plain(
+            "shade_pass", shade_plain, tables, grid_origin, origin,
+            direction, pa, pb, t, tp, rad, rid, inv_seed, int(bounce),
+            int(num_prims), nee_type=nee_type, tri_attrs=tri_attrs,
+            color_bf16=color_bf16)
     dev = origin.x.device
     n = origin.x.shape[0]
     cdt = color_dtype(color_bf16)
@@ -368,6 +369,7 @@ def shade_pass(tables: ShadeTables, grid_origin, origin: V3, direction: V3,
             int(num_prims), tables.live, g[0], g[1], g[2], inv_seed,
             int(bounce), nee_type, int(bool(color_bf16)))
     shade_pass.launches += 1
+    _build.check_outputs("shade_pass", outs)
     return (V3(*outs[0:3]), V3(*outs[3:6]), V3(*outs[6:9]), V3(*outs[9:12]))
 
 

@@ -77,7 +77,8 @@ def texel_fetch(atlas_packed, tex, u, v, channels=None):
     non-finite u or v yields is in the module note."""
     chans = _channel_list(atlas_packed, channels)
     if tex.device.type == "cpu":
-        return texel_plain(atlas_packed, tex, u, v, chans)
+        return _build.plain("texel_fetch", texel_plain, atlas_packed, tex,
+                            u, v, chans)
     dev = tex.device
     n = tex.shape[0]
     for x, dt in ((tex, torch.int32), (u, torch.float32), (v, torch.float32)):
@@ -96,6 +97,7 @@ def texel_fetch(atlas_packed, tex, u, v, channels=None):
             tex.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(), n,
             (ctypes.c_int * len(chans))(*chans), len(chans))
     texel_fetch.launches += 1
+    _build.check_outputs("texel_fetch", out)
     return out
 
 

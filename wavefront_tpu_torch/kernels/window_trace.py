@@ -86,7 +86,8 @@ def window_trace(scene, origin: V3, direction: V3, max_events: int):
                          f"exceeds the hit-word limits {MAX_GRID}")
     comps = (*origin, *direction)
     if comps[0].device.type == "cpu":
-        return trace_plain(scene, origin, direction, max_events)
+        return _build.plain("window_trace", trace_plain, scene, origin,
+                            direction, max_events)
     dev = comps[0].device
     n = comps[0].shape[0]
     for c in comps:
@@ -111,6 +112,7 @@ def window_trace(scene, origin: V3, direction: V3, max_events: int):
             float(go[2]), n, int(max_events), EPSILON_BLOCK, T_MAX,
             pa.data_ptr(), pb.data_ptr(), t.data_ptr())
     window_trace.launches += 1
+    _build.check_outputs("window_trace", t)
     return pa, pb, t
 
 

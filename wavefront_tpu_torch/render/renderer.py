@@ -287,10 +287,20 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
                  primary=None, *, settings: RenderSettings, nee_type: int,
                  sort_type: int, debug_view: int = 0,
                  cache_primary: bool = False, tables=None,
-                 trace=window_trace, shade=shade_pass, texel=texel_fetch):
+                 trace=window_trace, shade=shade_pass, texel=texel_fetch,
+                 pixels=None):
     """Render one frame on the scene's device; returns ((H, W, 3) image
     tensor, aux) with aux = {"truncated", "nee_overflow"} as ints (both 0
     unless settings.trace_audit).
+
+    pixels: (lo, hi) renders the pixel ids lo <= id < hi of the render
+    resolution only (id = y * render_width + x), and returns in place of
+    the image that range's (hi - lo, 3) float32 buffer in id order, the
+    one `postprocess` reads (the radiance, or the debug buffer when
+    debug_view is on); the caller assembles the ranges and runs
+    `postprocess` once (`parallel/mesh.py`).  Every draw is seeded by the
+    global id, so a range's pixels equal the whole frame's: only which
+    rays share a sort, a compaction bucket and a launch changes.
 
     cache_primary: run bounce 0 on the raygen rays as they are (no sort,
     no compaction) and add its intersections as aux["primary"]:
@@ -315,7 +325,12 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
         tables = prep_shade_tables(scene.atlas_packed, scene.lights)
     use_entities = bool(scene.tri_active.any())
     w, h = settings.render_width, settings.render_height
-    n = w * h
+    lo, hi = (0, w * h) if pixels is None else (int(pixels[0]),
+                                                int(pixels[1]))
+    if not 0 <= lo < hi <= w * h:
+        raise ValueError(f"render_frame: pixels {pixels} outside "
+                         f"[0, {w * h})")
+    n = hi - lo
     b_total = settings.num_bounces
     gx, gy, gz = scene.grid.shape
     max_events = settings.trace_events or auto_events(gx, gy, gz)
@@ -325,7 +340,7 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
 
     o, d, rid = raygen_soa(eye, front, right, up, w, h,
                            jitter=settings.jitter, seed=frame_count,
-                           device=dev)
+                           device=dev, pixels=(lo, hi))
     # path throughput in the color dtype, radiance in float32
     tp = V3(*(torch.ones(n, dtype=color_dtype(settings.shade_bf16),
                          device=dev) for _ in range(3)))
@@ -411,14 +426,18 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
         if not sort:
             return a
         out = torch.empty_like(a)
-        out[rid.to(torch.int64)] = a
+        slot = rid.to(torch.int64)
+        out[slot - lo if lo else slot] = a
         return out
 
-    img = postprocess(pixel_order(rad), settings.width, settings.height,
-                      settings.scale,
-                      debug=None if dbg is None else pixel_order(dbg),
-                      debug_view=debug_view)
     aux = {"truncated": int(trunc), "nee_overflow": int(overflow)}
+    if pixels is not None:
+        img = pixel_order(rad if dbg is None else dbg)
+    else:
+        img = postprocess(pixel_order(rad), settings.width, settings.height,
+                          settings.scale,
+                          debug=None if dbg is None else pixel_order(dbg),
+                          debug_view=debug_view)
     if cache_primary:
         aux["primary"] = hits0
     return img, aux

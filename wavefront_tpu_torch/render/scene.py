@@ -209,6 +209,27 @@ def shift_refresh_aux(old_aux, grid, transparent, translucent, delta,
     return aux, dirty
 
 
+def window_aux(old_aux, grid, transparent, translucent, delta, changed,
+               new_origin):
+    """`shift_refresh_aux`, or, when its padded boxes would hold more
+    voxels than the window (a first load, where every chunk lands at
+    once: 98 boxes padded to 94^3 in a 160^3 window, 9 s of refresh
+    against 0.1 s of build on the host), the aux grid built afresh
+    (`make_aux_grid`, equal to the refresh) with the whole window as the
+    one dirty box."""
+    shape = np.asarray(grid.shape)
+    volume = 0
+    for s_lo, s_hi in recenter_boxes(delta, shape, changed, new_origin):
+        if np.all(s_lo < s_hi):
+            volume += int(np.prod(np.minimum(s_hi + MAX_SKIP, shape)
+                                  - np.maximum(s_lo - MAX_SKIP, 0)))
+    if volume >= int(np.prod(shape)):
+        return (make_aux_grid(grid, transparent, translucent),
+                [(np.zeros(3, np.int64), shape)])
+    return shift_refresh_aux(old_aux, grid, transparent, translucent, delta,
+                             changed, new_origin)
+
+
 def _box(lo, hi) -> tuple:
     return tuple(slice(int(a), int(b)) for a, b in zip(lo, hi))
 
@@ -280,7 +301,7 @@ class VoxelScene:
         It is used only while "old_origin" is still the current origin.
 
         The host aux grid is shifted and refreshed over the entered slabs
-        (`shift_refresh_aux`); the device grid and aux are rolled by the
+        (`window_aux`); the device grid and aux are rolled by the
         shift and take the refreshed boxes, and the light set is built
         again.  A change of shape or a shift of a whole window or more
         falls back to `set_grid`; the same grid at the same origin changes
@@ -305,7 +326,7 @@ class VoxelScene:
                                    self._grid_origin)):
             aux, dirty = precomputed["aux"], precomputed["dirty"]
         else:
-            aux, dirty = shift_refresh_aux(
+            aux, dirty = window_aux(
                 self._aux, grid, self._transparent, self._translucent,
                 delta, changed, new_origin)
         self._grid = grid
@@ -393,9 +414,15 @@ class VoxelScene:
 
     def update_object(self, key, transform) -> None:
         """Move an entity: only the triangle pool is uploaded again, and
-        the light set is rebuilt when the moved entity emits."""
-        v, u, t, _ = self._entities[key]
-        self._entities[key] = (v, u, t, np.asarray(transform, np.float32))
+        the light set is rebuilt when the moved entity emits.  The same
+        transform again changes nothing and keeps the arrays (physics
+        reports every body each step, a resting one too), so a held
+        camera keeps the renderer's primary-hit cache."""
+        v, u, t, m = self._entities[key]
+        transform = np.asarray(transform, np.float32)
+        if np.array_equal(transform, m):
+            return
+        self._entities[key] = (v, u, t, transform)
         if self._arrays is None:
             return
         verts, uv, tex, active = self._entity_pool()

@@ -3,7 +3,8 @@ game_world.rs:303-339: copy to host, clamp, auto-numbered PNG).
 
 The counterpart of `wavefront_tpu.render.screenshot`.  The PNG is written
 here with zlib and struct (an 8-bit RGB image, one IDAT chunk, filter 0 on
-every row), so the port needs no imaging package.
+every row), so the port needs no imaging package; `read_png` reads such
+a file back.
 """
 
 from __future__ import annotations
@@ -42,6 +43,31 @@ def png_bytes(rgb: np.ndarray) -> bytes:
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))
+
+
+def read_png(data: bytes) -> np.ndarray:
+    """The (H, W, 3) uint8 image of a PNG that `png_bytes` wrote: 8-bit
+    RGB, not interlaced, filter 0 on every row.  Raises ValueError on
+    any other PNG."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("read_png: not a PNG")
+    pos, header, idat = 8, None, []
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None or header[2:] != (8, 2, 0, 0, 0):
+        raise ValueError(f"read_png: header {header} is not 8-bit RGB")
+    w, h = header[:2]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError("read_png: a row uses a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3).copy()
 
 
 def save_png(path: str, img: np.ndarray) -> None:

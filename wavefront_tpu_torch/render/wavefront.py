@@ -71,25 +71,25 @@ class BvhSample(NamedTuple):
 
 
 def raygen_soa(eye, front, right, up, width: int, height: int,
-               jitter: float = 0.0, seed=None, device="cuda"):
-    """Pinhole rays for every pixel: (origin V3, direction V3, ray ids),
-    N = width*height, id = y*width + x (int32)."""
-    y = torch.arange(height, device=device, dtype=torch.int32)[:, None]
-    x = torch.arange(width, device=device, dtype=torch.int32)[None, :]
-    y, x = torch.broadcast_tensors(y, x)
+               jitter: float = 0.0, seed=None, device="cuda", pixels=None):
+    """Pinhole rays: (origin V3, direction V3, ray ids), id = y*width + x
+    (int32), for every pixel or, with `pixels=(lo, hi)`, for the ids
+    lo <= id < hi only, in id order.  A ray's arithmetic and draws depend
+    on its id alone, so a range's rays equal those of the whole image."""
+    lo, hi = (0, width * height) if pixels is None else pixels
+    pid = torch.arange(int(lo), int(hi), device=device, dtype=torch.int32)
+    y = pid // width
+    x = pid - y * width
     # uv = 2*screen/size - 1 (reference raygen.rs:84-86,103)
     u = 2.0 * x.to(_F32) / float(width) - 1.0
     v = 2.0 * y.to(_F32) / float(height) - 1.0
-    pid = (y * width + x).reshape(-1)
     if jitter != 0.0 and seed is not None:
         s = rng.combine(seed, pid)
-        ju = rng.finalizef(rng.combine(s, 0)).reshape(height, width) - 0.5
-        jv = rng.finalizef(rng.combine(s, 1)).reshape(height, width) - 0.5
+        ju = rng.finalizef(rng.combine(s, 0)) - 0.5
+        jv = rng.finalizef(rng.combine(s, 1)) - 0.5
         u = u + jitter * (2.0 / width) * ju
         v = v + jitter * (2.0 / height) * jv
     aspect = float(torch.tensor(width / height, dtype=_F32))
-    u = u.reshape(-1)
-    v = v.reshape(-1)
     f = [float(c) for c in front]
     r = [float(c) for c in right]
     w = [float(c) for c in up]
@@ -100,7 +100,7 @@ def raygen_soa(eye, front, right, up, width: int, height: int,
         u * r[2] * aspect + v * w[2] + f[2],
     )
     d = d / vec3.norm(d)
-    n = width * height
+    n = pid.shape[0]
     e = [float(c) for c in eye]
     origin = V3(
         torch.full((n,), e[0], dtype=_F32, device=device),

@@ -58,6 +58,9 @@ back to back between CUDA events:
 `--frames F` adds one line for the headline frame: `frame_ms` over F
 frames (host clock, ending in a synchronize) and, over F more frames
 under torch.profiler, the device's busy ms a frame and idle share.
+`--blocks B` times B such blocks of F frames, each ending in a
+synchronize: `frame_ms` is then their median and `blocks_ms` each
+block's, which a slow block on a shared host moves less.
 
 `--sass` adds one line for the fused shade's machine code (`cuobjdump
 -sass` of the tree's build): per kernel instantiation, named with its
@@ -74,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -92,6 +96,8 @@ def parse(argv=None):
                     default=["trace", "shade"], help="what to time")
     ap.add_argument("--frames", type=int, default=0,
                     help="headline frames to time and profile (0: none)")
+    ap.add_argument("--blocks", type=int, default=1,
+                    help="blocks of --frames frames timed (median)")
     ap.add_argument("--lamps", type=int, default=0,
                     help="lamp voxels of the lattice added to the scene")
     ap.add_argument("--reps", type=int, default=20)
@@ -135,7 +141,7 @@ def main(argv=None) -> int:
         for row in radix_rows(args.reps):
             emit(row)
     if args.frames:
-        emit(frame_row(args.frames))
+        emit(frame_row(args.frames, args.blocks))
     if args.sass:
         emit(shade_sass_row())
     return 0
@@ -437,7 +443,7 @@ def radix_rows(reps: int):
         yield row
 
 
-def frame_row(frames: int) -> dict:
+def frame_row(frames: int, blocks: int = 1) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -449,11 +455,15 @@ def frame_row(frames: int) -> dict:
     r = Renderer(settings)
     r.render(scene, basis, prefs, frame_count=0, as_numpy=False)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for f in range(1, frames + 1):
-        r.render(scene, basis, prefs, frame_count=f, as_numpy=False)
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) * 1e3 / frames
+    blocks_ms = []
+    for b in range(blocks):
+        t0 = time.perf_counter()
+        for f in range(1, frames + 1):
+            r.render(scene, basis, prefs, frame_count=b * frames + f,
+                     as_numpy=False)
+        torch.cuda.synchronize()
+        blocks_ms.append((time.perf_counter() - t0) * 1e3 / frames)
+    frame_ms = statistics.median(blocks_ms)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for f in range(frames):
@@ -464,6 +474,7 @@ def frame_row(frames: int) -> dict:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in dev) / 1e3 / frames
     return {"frame": "headline", "frames": frames, "frame_ms": frame_ms,
+            "blocks_ms": blocks_ms,
             "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / frame_ms),
             "device_events_per_frame": len(dev) / frames}

@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from wavefront_tpu_torch.core.config import WorldSettings
-from wavefront_tpu_torch.render.scene import VoxelScene, shift_refresh_aux
+from wavefront_tpu_torch.render.scene import VoxelScene, window_aux
 from wavefront_tpu_torch.world import chunk as chunk_mod
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 from wavefront_tpu_torch.world.game_world import Manager, UpdateData, WorldSetBlock
@@ -318,7 +318,7 @@ class ChunkManager(Manager):
                 and old_shape == grid.shape
                 and np.all(np.abs(delta) < np.array(grid.shape))
             ):
-                aux, dirty = shift_refresh_aux(
+                aux, dirty = window_aux(
                     old_aux, grid, transparent, translucent,
                     delta, changed, np.asarray(origin, np.int64),
                 )

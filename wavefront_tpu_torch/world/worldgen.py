@@ -18,34 +18,25 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 
 import numpy as np
 
 from wavefront_tpu_torch.core.config import WorldSettings
+from wavefront_tpu_torch.kernels import _build
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 
 
 @functools.cache
 def _load_native():
-    """Load native/libworldgen.so if built (make -C native); else None.
-    Loaded on the first generated chunk, not at import.
+    """The native generator `csrc/worldgen.cpp`, built with the host C++
+    compiler on the first generated chunk (`kernels/_build.load_host`)
+    and typed once.  A missing compiler or a failed build raises.
 
     The reference runs worldgen on a 15-thread host pool (chunk_manager.rs:
     202-253) — this is the host-side hot path, so a C++ implementation is
-    provided with the NumPy version as fallback/oracle.
+    provided, with the NumPy version as its plain version and oracle.
     """
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "native",
-        "libworldgen.so",
-    )
-    if not os.path.exists(path):
-        return None
-    try:
-        lib = ctypes.CDLL(path)
-    except OSError:
-        return None
+    lib = _build.load_host("worldgen")
     lib.generate_chunk.argtypes = [
         ctypes.POINTER(ctypes.c_int32),
         ctypes.c_int32,
@@ -144,29 +135,12 @@ class WorldGenerator:
     def generate_chunk(self, chunk_pos) -> np.ndarray:
         """Generate one chunk at integer chunk coordinates.
 
-        Returns (S, S, S) uint8 block ids indexed [x, y, z].  Uses the C++
-        implementation (native/worldgen.cpp) when built, NumPy otherwise;
-        both produce identical chunks, and the JAX package's generator the
-        same ones (tests/test_torch_render.py).
-        """
-        s = self.settings
-        cs = s.chunk_size
-        native = _load_native()
-        if native is not None:
-            out = np.empty(cs * cs * cs, np.uint8)
-            perm = np.ascontiguousarray(self.noise._perm[:256], np.int32)
-            native.generate_chunk(
-                perm.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                cs,
-                int(chunk_pos[0]), int(chunk_pos[1]), int(chunk_pos[2]),
-                float(s.noise_scale), float(s.noise_threshold),
-                float(s.depth_gradient),
-                self._air, self._grass, self._stone, self._lamp,
-                1 if s.central_lamp else 0,
-                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            )
-            return out.reshape(cs, cs, cs)
-        return self._generate_chunk_numpy(chunk_pos)
+        Returns (S, S, S) uint8 block ids indexed [x, y, z], from the C++
+        generator (`native_chunk`); `_generate_chunk_numpy` is its plain
+        version, and both produce identical chunks, as do the JAX
+        package's (tests/test_torch_mesher.py)."""
+        return native_chunk(self.settings, self.noise._perm[:256], chunk_pos,
+                            (self._air, self._grass, self._stone, self._lamp))
 
     def _generate_chunk_numpy(self, chunk_pos) -> np.ndarray:
         s = self.settings
@@ -202,3 +176,31 @@ class WorldGenerator:
             blocks[np.broadcast_to(inx & iny & inz, blocks.shape)] = self._lamp
 
         return blocks
+
+
+def native_chunk(settings: WorldSettings, perm256, chunk_pos,
+                 ids) -> np.ndarray:
+    """One chunk from the C++ generator (`csrc/worldgen.cpp`, the port's
+    copy of the JAX package's `native/worldgen.cpp`): `perm256` the
+    noise's permutation, `ids` the (air, grass, stone, lamp) block ids.
+    Counts its calls in `native_chunk.launches`, as a kernel's wrapper
+    counts its launches."""
+    s = settings
+    cs = s.chunk_size
+    out = np.empty(cs * cs * cs, np.uint8)
+    perm = np.ascontiguousarray(perm256, np.int32)
+    _load_native().generate_chunk(
+        perm.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        cs,
+        int(chunk_pos[0]), int(chunk_pos[1]), int(chunk_pos[2]),
+        float(s.noise_scale), float(s.noise_threshold),
+        float(s.depth_gradient),
+        *(int(i) for i in ids),
+        1 if s.central_lamp else 0,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+    )
+    native_chunk.launches += 1
+    return out.reshape(cs, cs, cs)
+
+
+native_chunk.launches = 0
