@@ -40,17 +40,19 @@ through their entry points, checking which kernels each launched:
   * the last modules: the app (`app.main.main` at its defaults,
     1024x1024, 6 bounces, `--window-chunks 2`, 20 frames with a
     screenshot every 10, then 8 frames of `--accumulate --hold`, each
-    frame after the first reusing the primary hits) and its `viewer`
-    (the frame's PNG, `GET /frame` and `POST /input` over loopback); a
+    frame after the first reusing the primary hits; K1 and K2 held
+    against their plain versions on every call of a frame of the app's
+    final scene) and its `viewer` (the frame's PNG, `GET /frame` and
+    `POST /input` over loopback); a
     checkpoint of the app's world loaded into a new one (`persistence`:
     grids and a frame equal); the headline frame over pixel ranges
     (`distributed`: `DistributedRenderer` over two ranges on the card and
     over `make_mesh()`, equal bit for bit to `Renderer.render`); the sort
     utilities on 2,073,600 keys against numpy (`sort`); the NaN checks of
     the validation layer on K3, a tensor op and a 480x270 frame
-    (`validation`); `device_trace` around a headline frame, its K1 and K2
-    events counted (`profiling`, run right after the build, in the
-    process's first profiler session); and the native chunk generator
+    (`validation`); `device_trace` around a headline frame in five
+    sessions, after the script's many others, its K1 and K2 events
+    counted (`profiling`); and the native chunk generator
     against its NumPy version (`worldgen`).
 
 Each phase prints one JSON line with the seconds it took, then a line of
@@ -874,8 +876,9 @@ def device_ms(fn, kernel: str, reps: int):
     spent = [e.device_time for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and kernel in e.name]
-    # the profiler may drop a launch at the edge of its window: average
-    # over the launches it kept
+    # once the process has run large profiler sessions, torch.profiler
+    # drops the first kernel records of each session (`utils/profiling.py`
+    # WARMUP_LAUNCHES): average over the launches it kept
     if len(spent) * 2 <= reps:
         return None
     return sum(spent) / 1e3 / (len(spent) if kernel else reps)
@@ -1853,6 +1856,7 @@ def app_path(name: str, limit: str, tmp: str, extra=()) -> tuple:
     check(out["native_chunks"] > 0, "app: no chunk came from the native "
           "generator")
     out["profile"] = profile_steps(lambda i: world.step(), out["step_ms"])
+    out["kernel_check"] = app_kernel_check(world)
 
     # accumulation while the camera holds, its chunks generated on the
     # frame thread (as `game`), so the first step loads the whole window:
@@ -1881,13 +1885,77 @@ def app_path(name: str, limit: str, tmp: str, extra=()) -> tuple:
     return out, world, args
 
 
+def app_kernel_check(world) -> dict:
+    """K1 and K2 (K3 on the general path) against their plain versions on
+    every call of one frame of the app world's final scene, with the
+    inputs the frame loop hands them: 1024x1024 rays over 6 bounces, the
+    window grid with its own `auto_events` budget, the compaction
+    buckets and the ego cube's entity stream.  Each K1 call is held by
+    `trace_check` (the skipped and the unskipped plain march), each K2
+    call by `shade_errors` against `shade_plain`, each K3 call exactly
+    against `texel_plain`."""
+    scene, settings = world.scene, world.settings
+    prefs = world.camera.rendering_preferences()
+    basis = world.camera.eye_front_right_up()
+    arrays, kw, _, primary = Renderer(settings, device=scene.device
+                                      )._frame_args(scene, basis, prefs)
+    trace, shade, texel = [], [], []
+
+    def trace_spy(scene, o, d, events):
+        tr = trace_check(scene, o, d, events, f"app bounce {len(trace)}")
+        del tr["plain"], tr["steps"]
+        trace.append({"rays": int(o.x.shape[0]), "events": events, **tr})
+        return window_trace(scene, o, d, events)
+
+    def shade_spy(*args, **skw):
+        what = f"app shade bounce {len(shade)}"
+        got = shade_pass(*args, **skw)
+        want = shade_plain(*args, **skw)
+        sync()
+        s_max, s_rms = shade_errors(got, want, args[8], what)
+        tri = skw.get("tri_attrs")
+        shade.append({"rays": int(args[2].x.shape[0]), "max_abs_err": s_max,
+                      "rms": s_rms, "entity_hits": 0 if tri is None else
+                      int(((tri[11] >> 16) & 1).sum())})
+        return got
+
+    def texel_spy(atlas, tex, u, v, channels=None):
+        got = texel_fetch(atlas, tex, u, v, channels=channels)
+        err = float((got - texel_plain(atlas, tex, u, v, channels=channels)
+                     ).abs().max())
+        check(err == 0.0, f"app texel call {len(texel)}: max |diff| {err}")
+        texel.append({"rays": int(tex.shape[0]), "max_abs_err": err})
+        return got
+
+    img, _ = render_frame(arrays, basis.eye, basis.front, basis.right,
+                          basis.up, world.frame_count, primary, **kw,
+                          trace=trace_spy, shade=shade_spy, texel=texel_spy)
+    nb = settings.num_bounces
+    check(len(trace) == nb and len(shade) + len(texel) == nb,
+          f"app check: {len(trace)} K1, {len(shade)} K2 and {len(texel)} "
+          f"K3 calls for {nb} bounces")
+    check(bool(torch.isfinite(img).all()), "app check: the frame is not "
+          "finite")
+    return {"frame_count": world.frame_count,
+            "grid": list(arrays.grid.shape), "trace": trace, "shade": shade,
+            "texel": texel, "max_abs_err": {
+                "window_trace": max(t["max_abs_err_t"] for t in trace),
+                "shade": max((c["max_abs_err"] for c in shade), default=None),
+                "texel": max((c["max_abs_err"] for c in texel),
+                             default=None)}}
+
+
 def viewer_path(name: str, limit: str, img: np.ndarray) -> dict:
-    """The app's last frame through the viewer: the PNG encode timed (5
-    times), `publish`, then over loopback `GET /frame` (a PNG equal to the
-    frame's bytes) and a `POST /input` batch that `drain_events` returns.
-    A loopback connection the machine refuses is reported, not held (the
-    CPU test holds the round trip)."""
+    """The app's last frame through the viewer: its sRGB bytes and their
+    PNG encode timed (at zlib level 1, as the viewer encodes, 5 times, and
+    at level 6, 3 times), `publish`, then over loopback a first request
+    (`GET /stats`), three `GET /frame` (a PNG equal to the frame's bytes:
+    the first encodes the frame, the others are served its bytes) and a
+    `POST /input` batch that
+    `drain_events` returns.  A loopback connection the machine refuses is
+    reported, not held (the CPU test holds the round trip)."""
     import socket
+    import threading
     import urllib.request
 
     from wavefront_tpu_torch.app.viewer import Viewer
@@ -1897,17 +1965,25 @@ def viewer_path(name: str, limit: str, img: np.ndarray) -> dict:
         to_srgb_bytes,
     )
 
-    rgb = to_srgb_bytes(img)
-    encode_ms = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        data = png_bytes(to_srgb_bytes(img))
-        encode_ms.append((time.perf_counter() - t0) * 1e3)
-    check(np.array_equal(read_png(data), rgb), "viewer: the PNG does not "
-          "decode to the frame")
+    def timed(fn, reps):
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return got, ms
+
+    rgb, srgb_ms = timed(lambda: to_srgb_bytes(img), 5)
+    data, encode_ms = timed(lambda: png_bytes(rgb, level=1), 5)
+    data6, encode6_ms = timed(lambda: png_bytes(rgb, level=6), 3)
+    check(np.array_equal(read_png(data), rgb)
+          and np.array_equal(read_png(data6), rgb),
+          "viewer: the PNG does not decode to the frame")
     out = {"card": name, "power_limit": limit, "image": list(img.shape),
-           "png_bytes": len(data), "encode_ms": float(np.median(encode_ms)),
-           "encode_ms_each": encode_ms}
+           "srgb_ms": float(np.median(srgb_ms)), "png_bytes": len(data),
+           "encode_ms": float(np.median(encode_ms)),
+           "encode_ms_each": encode_ms, "png_bytes_level6": len(data6),
+           "encode_ms_level6": float(np.median(encode6_ms))}
     v = Viewer(port=0)
     try:
         t0 = time.perf_counter()
@@ -1919,13 +1995,24 @@ def viewer_path(name: str, limit: str, img: np.ndarray) -> dict:
             out["loopback"] = f"refused: {e!r}"
             return out
         base = f"http://127.0.0.1:{v.port}"
+        # the first request pays the client's and the server's first use
         t0 = time.perf_counter()
-        r = urllib.request.urlopen(base + "/frame", timeout=60)
-        body = r.read()
-        out["get_frame_ms"] = (time.perf_counter() - t0) * 1e3
-        check(r.headers["Content-Type"] == "image/png"
-              and np.array_equal(read_png(body), rgb),
-              "viewer: /frame is not the frame's PNG")
+        urllib.request.urlopen(base + "/stats", timeout=60).read()
+        out["get_stats_ms"] = (time.perf_counter() - t0) * 1e3
+        get_ms, cpu_ms = [], []
+        for _ in range(3):
+            t0, c0 = time.perf_counter(), time.process_time()
+            r = urllib.request.urlopen(base + "/frame", timeout=60)
+            body = r.read()
+            get_ms.append((time.perf_counter() - t0) * 1e3)
+            cpu_ms.append((time.process_time() - c0) * 1e3)
+            check(r.headers["Content-Type"] == "image/png" and body == data,
+                  "viewer: /frame is not the frame's PNG")
+        out["get_frame_ms"] = get_ms
+        # the process's CPU time over each request, every thread's: the
+        # app's chunk threads share the interpreter with the server
+        out["get_frame_process_cpu_ms"] = cpu_ms
+        out["threads"] = sorted(t.name for t in threading.enumerate())
         batch = [{"kind": "key_down", "key": "w"},
                  {"kind": "mouse_move", "x": 12.5, "y": 7.0},
                  {"kind": "wheel", "dy": 1.0}]
@@ -2193,40 +2280,94 @@ def validation_path(name: str, limit: str, device: str = "cuda",
             "launches": read_launches()}
 
 
-def profiling_path(name: str, limit: str, tmp: str,
-                   device: str = "cuda", size=(1920, 1080)) -> dict:
-    """`device_trace` around one headline frame, the launch counters at 0
-    just before it: the Chrome trace is written and its K1 and K2 kernel
-    events, found by name, are as many as the counters' launches; then
-    `FrameTimer` over 5 frames."""
+def trace_counts(path: str) -> dict:
+    """The frame kernels' events in a Chrome trace of `device_trace`,
+    found by name; the launch calls (runtime and driver events) whose
+    correlation id no kernel event carries, inside the trace's warm-up
+    span and after it (the first 10 of those after it with their time
+    from the window's start in ms and the innermost CPU op around them);
+    and the least time from a launch call to its kernel's start (us;
+    below 0 where the host's and the card's clocks disagree)."""
+    from wavefront_tpu_torch.utils.profiling import WARMUP_SPAN
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")
+             and "LaunchKernel" in e.get("name", "")]
+    window = next(e for e in events if e.get("cat") == "Trace")
+    ops = [e for e in events if e.get("cat") in ("cpu_op",
+                                                 "user_annotation")]
+    warm = [(e["ts"], e["ts"] + e["dur"]) for e in ops
+            if e["name"] == WARMUP_SPAN]
+    ids = {e.get("args", {}).get("correlation") for e in kernels}
+    launched = {e["args"]["correlation"]: e["ts"] for e in calls
+                if "correlation" in e.get("args", {})}
+    lags = [e["ts"] - launched[c] for e in kernels
+            if (c := e.get("args", {}).get("correlation")) in launched]
+
+    def around(call):
+        inside = [e for e in ops if e.get("tid") == call.get("tid")
+                  and e["ts"] <= call["ts"] <= e["ts"] + e.get("dur", 0)]
+        return min(inside, key=lambda e: e.get("dur", 0))["name"] \
+            if inside else None
+
+    lost = [e for e in calls
+            if e.get("args", {}).get("correlation") not in ids]
+    region = [e for e in lost
+              if not any(lo <= e["ts"] <= hi for lo, hi in warm)]
+    names = {"window_trace": "trace_kernel", "shade": "shade_kernel",
+             "texel": "texel_kernel"}
+    return {"kernel_events": {k: sum(1 for e in kernels if v in e["name"])
+                              for k, v in names.items()},
+            "launch_calls": len(calls), "warmup_spans": len(warm),
+            "calls_without_kernel_warmup": len(lost) - len(region),
+            "calls_without_kernel": len(region),
+            "lost": [{"from_start_ms": (e["ts"] - window["ts"]) / 1e3,
+                      "op": around(e)} for e in region[:10]],
+            "launch_to_start_us_min": min(lags) if lags else None}
+
+
+def profiling_path(name: str, limit: str, tmp: str, device: str = "cuda",
+                   size=(1920, 1080), sessions: int = 5) -> dict:
+    """`device_trace` around one headline frame, `sessions` times, late
+    in the process after its many profiler sessions, the launch counters
+    at 0 just before each: each Chrome trace is written, its K1 and K2
+    kernel events, found by name, are as many as the counters' launches,
+    and every launch call after the trace's warm-up has its kernel event
+    (the records that torch.profiler drops at a session's start are
+    counted in the warm-up); then `FrameTimer` over 5 frames."""
     from wavefront_tpu_torch.utils.profiling import FrameTimer, device_trace
 
     scene, settings, basis, prefs = headline_setup(*size, 4, device=device)
     r = Renderer(settings, device=device)
     r.render(scene, basis, prefs, frame_count=1)
-    zero_launches()
-    with device_trace(os.path.join(tmp, "trace")) as log_dir:
-        r.render(scene, basis, prefs, frame_count=2)
-    launches = read_launches()
-    path = os.path.join(log_dir, "trace.json")
-    check(os.path.exists(path), f"profiling: no trace at {path}")
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    names = {"window_trace": "trace_kernel", "shade": "shade_kernel",
-             "texel": "texel_kernel"}
-    counted = {k: sum(1 for e in events if e.get("cat") == "kernel"
-                      and v in e.get("name", "")) for k, v in names.items()}
+    runs = []
+    for i in range(sessions):
+        zero_launches()
+        with device_trace(os.path.join(tmp, "trace")) as log_dir:
+            r.render(scene, basis, prefs, frame_count=2 + i)
+        launches = read_launches()
+        path = os.path.join(log_dir, "trace.json")
+        check(os.path.exists(path), f"profiling: no trace at {path}")
+        runs.append({"launches": launches, **trace_counts(path)})
     if device == "cuda":
-        check(counted == launches and launches["window_trace"] == 4,
-              f"profiling: trace kernels {counted}, launches {launches}")
+        for i, run in enumerate(runs):
+            check(run["kernel_events"] == run["launches"]
+                  and run["launches"]["window_trace"] == 4
+                  and run["calls_without_kernel"] == 0
+                  and run["warmup_spans"] == 1,
+                  f"profiling: session {i}: {run}")
     timer = FrameTimer(rays_per_frame=settings.n_rays)
     for f in range(5):
         with timer.frame():
             r.render(scene, basis, prefs, frame_count=3 + f)
     s = timer.stats
     return {"card": name, "power_limit": limit, "trace_bytes":
-            os.path.getsize(path), "trace_kernel_events": counted,
-            "launches": launches, "frame_timer": {
+            os.path.getsize(path), "sessions": runs,
+            "trace_kernel_events": runs[-1]["kernel_events"],
+            "launches": runs[-1]["launches"], "frame_timer": {
                 "frames": 5, "frame_ms": s.frame_ms, "fps": s.fps,
                 "mrays_per_sec": s.mrays_per_sec}}
 
@@ -2305,10 +2446,6 @@ def main() -> int:
     out_dir = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    # the trace's kernel events are counted against the launch counters
-    # in the process's first profiler session: after many sessions and
-    # launches torch.profiler has been seen to drop a kernel event
-    emit("profiling", **profiling_path(name, limit, out_dir))
     scene, settings, basis, prefs = headline_setup(1920, 1080, 4,
                                                    device="cuda")
     kc = kernel_check(scene, settings, basis)
@@ -2380,6 +2517,7 @@ def main() -> int:
     emit("sort", **sort_path(name, limit))
     paths["validation"] = validation_path(name, limit)
     emit("validation", **paths["validation"])
+    emit("profiling", **profiling_path(name, limit, out_dir))
     emit("worldgen", **worldgen_path(name, limit))
     emit("seconds", total=time.perf_counter() - t0, by_phase=seconds)
 
@@ -2405,6 +2543,10 @@ def main() -> int:
             "device_ms": k.get("device_ms"),
             "library_device_ms": k.get("library_device_ms"),
         })
+    # K1-K3 against their plain versions on the app's frame
+    for k in kernels:
+        k["max_abs_err_app"] = paths["app"]["kernel_check"]["max_abs_err"][
+            k["name"]]
     # K2's bf16 color build beside its float32 one (bounce 0)
     kernels[1]["bf16"] = {
         key: b0["shade_bf16"][key] for key in (

@@ -24,7 +24,11 @@ import wavefront_tpu.app.main as jax_app
 import wavefront_tpu_torch.app.main as port_app
 from wavefront_tpu_torch.app.viewer import Viewer
 from wavefront_tpu_torch.core.config import RenderSettings, WorldSettings
-from wavefront_tpu_torch.render.screenshot import read_png, to_srgb_bytes
+from wavefront_tpu_torch.render.screenshot import (
+    png_bytes,
+    read_png,
+    to_srgb_bytes,
+)
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 from wavefront_tpu_torch.world.game_world import GameWorld
 from wavefront_tpu_torch.world.input import Event
@@ -98,6 +102,43 @@ def test_app_needs_the_card_unless_asked():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="--device cpu"):
         port_app.main(["--frames", "1", "--headless"])
+
+
+def test_viewer_encodes_each_frame_once(monkeypatch):
+    """Every GET of one published frame is served the same bytes, encoded
+    once; the next frame is encoded anew."""
+    import wavefront_tpu_torch.app.viewer as viewer_mod
+
+    calls = []
+
+    def counted(rgb, level=6):
+        calls.append(level)
+        return png_bytes(rgb, level=level)
+
+    monkeypatch.setattr(viewer_mod, "png_bytes", counted)
+    v = Viewer(port=0)
+    try:
+        base = f"http://127.0.0.1:{v.port}"
+        imgs = [np.linspace(a, 1.0, 8 * 6 * 3, dtype=np.float32).reshape(
+            6, 8, 3) for a in (0.0, 0.5)]
+        v.publish(imgs[0])
+        got = [urllib.request.urlopen(base + "/frame").read()
+               for _ in range(3)]
+        assert got[0] == got[1] == got[2] and calls == [1]
+        v.publish(imgs[1])
+        np.testing.assert_array_equal(
+            read_png(urllib.request.urlopen(base + "/frame").read()),
+            to_srgb_bytes(imgs[1]))
+        assert calls == [1, 1]
+    finally:
+        v.close()
+
+
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_png_levels_decode_to_the_image(level):
+    rgb = to_srgb_bytes(np.random.default_rng(level).random(
+        (17, 23, 3), dtype=np.float32))
+    np.testing.assert_array_equal(read_png(png_bytes(rgb, level=level)), rgb)
 
 
 def test_viewer_routes_and_input_channel():

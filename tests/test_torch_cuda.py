@@ -1113,3 +1113,37 @@ def test_nan_checks_on_the_kernels(scene, monkeypatch):
         with validation_layer():
             shade_pass(tables, arrays.grid_origin, o, d, pa, pb, t, ones, rad,
                        rid, 3, 0, arrays.lights.num_prims, nee_type=1)
+
+
+def test_device_trace_keeps_the_region_kernels_after_a_large_session(
+        tmp_path):
+    """Each profiler session of tens of thousands of device events whose
+    events are read (`events()`, as `key_averages()` reads them) makes torch.profiler
+    drop one more of the first kernel records of every later session in
+    the process; `device_trace` opens with empty launches that take that
+    loss, so each of the region's launches has its kernel event."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from wavefront_tpu_torch.utils.profiling import device_trace
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the trace's kernel events")
+    x = torch.zeros(1, device="cuda")
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(100000):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+        prof.events()
+    y = torch.ones(4096, device="cuda")
+    with device_trace(str(tmp_path)):
+        for _ in range(20):
+            y.mul_(1.0)
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    muls = [e for e in events if e.get("cat") == "kernel"
+            and "mul" in e["name"].lower()]
+    assert len(muls) == 20

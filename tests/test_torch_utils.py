@@ -7,11 +7,9 @@ Checkpoints are held both ways: a save by either package loads in the
 other with the same blocks, camera and entities, and the file holds the
 same keys with the same dtypes.  The NaN checks are held on the port
 alone (an op, a kernel's plain version, nothing outside the context) and
-against the JAX layer on one 16x16 frame of the fused path: neither
-raises.  On the general path the port raises where the JAX package does
-not: its dense NEE pdf sweep divides in lanes it masks afterwards, and
-`jax_debug_nans` checks only what a jitted computation returns, while
-the port's dispatch mode checks every op.
+against the JAX layer on 16x16 frames of the fused path and of the
+general path (its dense and its sparse NEE pdf sweep): none raises in
+either package.
 """
 
 import json
@@ -22,16 +20,19 @@ import pytest
 import torch
 
 import wavefront_tpu.core.config as jax_config
+import wavefront_tpu.render.lights as jax_lights
 import wavefront_tpu.utils.persistence as jax_persistence
 import wavefront_tpu.world.game_world as jax_gw
 import wavefront_tpu.world.meshes as jax_meshes
 import wavefront_tpu_torch.core.config as port_config
+import wavefront_tpu_torch.render.lights as port_lights
 import wavefront_tpu_torch.utils.persistence as port_persistence
 import wavefront_tpu_torch.world.game_world as port_gw
 import wavefront_tpu_torch.world.meshes as port_meshes
 from wavefront_tpu.core.camera import SphericalCamera as JaxCamera
 from wavefront_tpu.render.renderer import Renderer as JaxRenderer
 from wavefront_tpu.render.scene import VoxelScene as JaxScene
+from wavefront_tpu.render.scene import _light_arrays as jax_light_arrays
 from wavefront_tpu.utils.validation import validation_layer as jax_validation
 from wavefront_tpu.world.blocks import BlockRegistry as JaxRegistry
 from wavefront_tpu_torch.core.camera import SphericalCamera
@@ -39,6 +40,7 @@ from wavefront_tpu_torch.core.config import RenderingPreferences
 from wavefront_tpu_torch.kernels.texel import texel_fetch
 from wavefront_tpu_torch.render.renderer import Renderer
 from wavefront_tpu_torch.render.scene import VoxelScene
+from wavefront_tpu_torch.render.scene import light_arrays as port_light_arrays
 from wavefront_tpu_torch.utils.profiling import (
     FrameTimer,
     StageTimer,
@@ -268,13 +270,40 @@ def test_nan_checks_frame_outcome_matches_jax(regs):
     assert port == jax == "passes"
 
 
-def test_nan_checks_general_frame_raises_in_the_port(regs):
-    """The general path's dense pdf sweep divides in lanes that it masks
-    afterwards: the port's layer stops at that op (module note)."""
-    settings = port_config.RenderSettings(width=16, height=16, num_bounces=2,
-                                          shade_fused=False)
-    got = outcome(lambda: Renderer(settings, device="cpu").render(
-        frame_scene(regs["port"], VoxelScene, device="cpu"),
-        pose(SphericalCamera), RenderingPreferences(nee_type=1), 3),
-        validation_layer)
-    assert got == "raises: invalid value (nan) encountered in aten.div.Tensor"
+def sparse(arrays, light_arrays, build, extract, reg, grid, **kw):
+    """`arrays` with its light set rebuilt as a sparse one (dense_threshold
+    forced low), as tests/test_torch_render.py builds it."""
+    p0, e1, e2, power = extract(grid, np.zeros(3), reg)[:4]
+    ls = build(p0, e1, e2, power, np.zeros(len(p0), bool), 256,
+               dense_threshold=8)
+    out = arrays._replace(lights=light_arrays(ls, **kw))
+    assert not out.lights.dense
+    return out
+
+
+@pytest.mark.parametrize("lights", ["dense", "sparse"])
+def test_nan_checks_general_frame_outcome_matches_jax(regs, lights):
+    """A 16x16 frame (2 bounces, NEE) on the general path, through the
+    dense and the sparse pdf sweep, under the NaN checks passes in both
+    packages: the sweeps divide only in the lanes that they keep."""
+    kw = dict(width=16, height=16, num_bounces=2, shade_fused=False)
+    port_scene = frame_scene(regs["port"], VoxelScene, device="cpu")
+    jax_scene = frame_scene(regs["jax"], JaxScene)
+    if lights == "sparse":
+        grid = port_scene.grid
+        port_scene = sparse(port_scene.get_arrays(), port_light_arrays,
+                            port_lights.build_light_set,
+                            port_lights.extract_voxel_lights,
+                            regs["port"], grid, device="cpu")
+        jax_scene = sparse(jax_scene.get_arrays(), jax_light_arrays,
+                           jax_lights.build_light_set,
+                           jax_lights.extract_voxel_lights, regs["jax"], grid)
+    port = outcome(lambda: Renderer(
+        port_config.RenderSettings(**kw), device="cpu").render(
+            port_scene, pose(SphericalCamera),
+            RenderingPreferences(nee_type=1), 3), validation_layer)
+    jax = outcome(lambda: JaxRenderer(jax_config.RenderSettings(
+        use_column_trace=False, **kw)).render(
+            jax_scene, pose(JaxCamera),
+            jax_config.RenderingPreferences(nee_type=1), 3), jax_validation)
+    assert port == jax == "passes"

@@ -11,8 +11,9 @@ threaded HTTP server exposes
     /stats     JSON {frame, fps}
 
 The app driver pushes each rendered frame with `viewer.publish(img)`;
-encoding happens lazily per connected client, so an unwatched run pays
-nothing beyond a numpy copy.
+a frame is encoded lazily, once, by the first request that wants it, and
+its bytes are served to every client, so an unwatched run pays nothing
+beyond a numpy copy.
 
 The channel is TWO-WAY (the reference's interactive loop is mouse-orbit +
 WASD + click-to-edit, main.rs:871-883, handle_user_input.rs:57-135,
@@ -23,8 +24,9 @@ same `UserInputState` the synthetic-event tests exercise.
 
 The counterpart of `wavefront_tpu.app.viewer`, with the same page,
 routes and input batch.  Frames are PNG (`render/screenshot.py::
-png_bytes`, zlib) where the JAX viewer sends JPEG through PIL, so the
-port needs no imaging package; a browser shows either.
+png_bytes`, zlib at level 1, the fastest) where the JAX viewer sends
+JPEG through PIL, so the port needs no imaging package; a browser shows
+either.
 
 Run:  python -m wavefront_tpu_torch.app.main --frames 100000 --serve 8787 --interactive
 then open http://localhost:8787/ and fly: middle-drag orbits, wheel zooms,
@@ -125,10 +127,19 @@ class Viewer:
         self._fps = 0.0
         self._last_pub = None
         self._events: list = []          # pending input events (guarded)
+        # (seq, PNG bytes) of the last frame encoded, and the lock that
+        # lets one request encode it while the others wait for its bytes
+        self._png: tuple = (-1, b"")
+        self._encode_lock = threading.Lock()
 
         viewer = self
 
         class Handler(BaseHTTPRequestHandler):
+            # TCP_NODELAY: a frame's last segment goes out at once instead
+            # of waiting, behind the headers' small segment, for the
+            # client's delayed ACK (up to 200 ms a request)
+            disable_nagle_algorithm = True
+
             def log_message(self, *a):  # quiet
                 pass
 
@@ -254,12 +265,16 @@ class Viewer:
             self._lock.notify_all()
 
     def _encode(self):
-        """The latest frame as PNG bytes, or None before the first."""
-        with self._lock:
-            frame = self._frame
-        if frame is None:
-            return None
-        return png_bytes(to_srgb_bytes(frame))
+        """The latest frame as PNG bytes, or None before the first; each
+        frame is encoded once, whatever the number of clients."""
+        with self._encode_lock:
+            with self._lock:
+                frame, seq = self._frame, self._seq
+            if frame is None:
+                return None
+            if self._png[0] != seq:
+                self._png = (seq, png_bytes(to_srgb_bytes(frame), level=1))
+            return self._png[1]
 
     def close(self) -> None:
         self._server.shutdown()

@@ -27,8 +27,8 @@ tensor op through a dispatch mode, but no `ctypes` launch, so each
 wrapper hands its outputs to `check_outputs` after its launch, and runs
 a kernel's plain version (CPU tensors) through `plain`, which the mode
 sees as one op, as it sees the kernel on the card.  With no such context
-open both cost one read of a module flag.  Wrappers whose outputs are
-integers (K4, K5, K6, K7's row gather) have nothing to check.
+open both cost one read of a module flag.  The frame kernels K1-K3 do
+this; the lab probes K4-K7 run under no such context.
 
 Every wrapper launches through a `Launcher`: the C function typed and
 bound once, called on its tensors' device with the raw handle of

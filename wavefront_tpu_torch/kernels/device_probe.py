@@ -55,12 +55,11 @@ def loop_add(x, iters: int):
     if int(iters) < 0:
         raise ValueError(f"loop_add: iters {iters} is negative")
     if x.device.type == "cpu":
-        return _build.plain("loop_add", loop_add_plain, x, iters)
+        return loop_add_plain(x, iters)
     out = torch.empty_like(x)
     _LOOP_ADD(x.get_device(), x.data_ptr(), out.data_ptr(), x.numel(),
               int(iters))
     loop_add.launches += 1
-    _build.check_outputs("loop_add", out)
     return out
 
 
@@ -132,14 +131,13 @@ def smem_copy(x, nbytes: int):
     if int(nbytes) < x.numel() * 4:
         raise ValueError(f"smem_copy: {nbytes} bytes do not hold x")
     if x.device.type == "cpu":
-        return _build.plain("smem_copy", smem_copy_plain, x, nbytes), 0
+        return smem_copy_plain(x, nbytes), 0
     out = torch.empty_like(x)
     err = _SMEM_COPY(x.get_device(), x.data_ptr(), out.data_ptr(), x.numel(),
                      int(nbytes))
     if err:
         return None, err
     smem_copy.launches += 1
-    _build.check_outputs("smem_copy", out)
     return out, 0
 
 

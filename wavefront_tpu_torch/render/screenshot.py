@@ -28,8 +28,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
         ">I", zlib.crc32(body) & 0xFFFFFFFF)
 
 
-def png_bytes(rgb: np.ndarray) -> bytes:
-    """An (H, W, 3) uint8 image as the bytes of a PNG file."""
+def png_bytes(rgb: np.ndarray, level: int = 6) -> bytes:
+    """An (H, W, 3) uint8 image as the bytes of a PNG file, deflated at
+    zlib `level` (1 fastest, 9 smallest)."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"png_bytes: want (H, W, 3) uint8, got "
@@ -41,7 +42,7 @@ def png_bytes(rgb: np.ndarray) -> bytes:
     # method 0, no interlace
     header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
             + _chunk(b"IEND", b""))
 
 

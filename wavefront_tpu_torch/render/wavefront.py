@@ -425,8 +425,11 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
             pid = torch.arange(base, base + prim_tile, device=dev)
             pc = pid.clamp(0, cap - 1)
             hit, t = _prim_tile_hits(lights, point, direction, active, pid)
-            contrib = dense_probs[:, pc] * t * t / (
-                cos_theta[:, None] * lights.area[pc][None, :])
+            # the denominator at 1 where no prim is crossed, so that no
+            # masked lane divides 0 by 0
+            den = cos_theta[:, None] * lights.area[pc][None, :]
+            contrib = dense_probs[:, pc] * t * t / torch.where(
+                hit, den, torch.ones_like(den))
             pdf = pdf + torch.where(hit, contrib,
                                     torch.zeros_like(contrib)).sum(1)
         if with_overflow:
@@ -474,7 +477,9 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
     walk[k, ray] = reverse_walk_prob(
         lights, pt.map(lambda c: c[ray]), nm.map(lambda c: c[ray]),
         slot_leaf[k, ray], torch.ones_like(ray, dtype=torch.bool), max_depth)
-    point_pick = slot_t * slot_t / (cos_theta[None, :] * slot_area)
+    den = cos_theta[None, :] * slot_area
+    point_pick = slot_t * slot_t / torch.where(slot_used, den,
+                                               torch.ones_like(den))
     pdf = torch.zeros(n, dtype=_F32, device=dev)
     pdf[act] = torch.where(slot_used, walk * point_pick,
                            torch.zeros_like(walk)).sum(0)

@@ -92,24 +92,46 @@ class StageTimer:
         }
 
 
+# empty kernel launches at the start of every device trace: each profiler
+# session of tens of thousands of device events whose events were read
+# (`events()`, `key_averages()`) makes torch.profiler drop one more of the
+# first kernel records of every later session in the process (their
+# launch calls stay in the trace); these launches take that loss in place
+# of the traced region's kernels
+WARMUP_LAUNCHES = 64
+WARMUP_SPAN = "device_trace.warmup"
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str = TRACE_DIR):
     """Capture a `torch.profiler` timeline (host ops, and the card's
     kernels when CUDA is available) around a code region; on exit it is
     written to `log_dir/trace.json` as a Chrome trace (chrome://tracing,
-    Perfetto).  Yields `log_dir`."""
-    from torch.profiler import ProfilerActivity, profile
+    Perfetto).  On a card the window opens with `WARMUP_LAUNCHES` empty
+    kernels in a span named `WARMUP_SPAN`.  Yields `log_dir`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=acts)
+    if cuda:
+        # the window opens on an idle card: no kernel of earlier work
+        # straddles its start
+        torch.cuda.synchronize()
     prof.start()
+    if cuda:
+        with record_function(WARMUP_SPAN):
+            pad = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_LAUNCHES):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
     try:
         yield log_dir
     finally:
-        if torch.cuda.is_available():
+        if cuda:
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
