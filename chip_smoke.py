@@ -53,7 +53,16 @@ through their entry points, checking which kernels each launched:
     (`validation`); `device_trace` around a headline frame in five
     sessions, after the script's many others, its K1 and K2 events
     counted (`profiling`); and the native chunk generator
-    against its NumPy version (`worldgen`).
+    against its NumPy version (`worldgen`);
+  * the benchmark ladder (`wavefront_tpu_torch/tools/bench_ladder.py`,
+    the port of tools/bench_ladder.py), configs 1-8 at their own sizes
+    (`ladder`): each config's row with its launches, one frame's launches
+    with the trace audit on, device busy ms and idle share, and the card,
+    on a line of its own (`ladder_row`); config 1's k=8 stack and config
+    5's k=8 accumulating batch (2560x1440, 8 bounces) equal to 8 single
+    frames bit for bit; every K1 and K2 call of a frame of configs 1, 2
+    (K2 at nee_type 0) and 5 (the frame that fills the primary cache and
+    a cached one) held against the plain versions.
 
 Each phase prints one JSON line with the seconds it took, then a line of
 the seconds by phase and in total; the line before the last lists every
@@ -83,7 +92,9 @@ Tolerances:
   histogram and probes: max |diff| 0 against the plain versions (integer
            results; the float32 add chain runs in one fixed order);
   batch:   the batched frames equal the single frames bit for bit, their
-           mean within 2e-6 (tests/test_batch.py), a cached frame within
+           mean equal to the single frames' sum in frame order over k bit
+           for bit (render_frame_batch sums in that order), a cached
+           frame within
            max |diff| 1e-3 and RMS 1e-5 of the uncached frame of its seed;
   edits:   grid and aux grid exactly equal; a frame after edits or a
            recenter equal bit for bit to a fresh scene's (no per-ray
@@ -99,6 +110,7 @@ import os
 import shutil
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -139,9 +151,16 @@ from wavefront_tpu_torch.render.renderer import (
     entity_attrs,
     render_frame,
 )
+from wavefront_tpu_torch.render.accumulate import TemporalAccumulator
 from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.render.wavefront import raygen_soa
-from wavefront_tpu_torch.tools import event_lab, gpu_probe, radix_lab, roofline
+from wavefront_tpu_torch.tools import (
+    bench_ladder,
+    event_lab,
+    gpu_probe,
+    radix_lab,
+    roofline,
+)
 from wavefront_tpu_torch.tools.kernel_times import radix_device, radix_keys
 from wavefront_tpu_torch.tools._timing import FILL_GROUPS, card, time_ms
 from wavefront_tpu_torch.tools._timing import emit as emit_rows
@@ -1248,18 +1267,22 @@ def image_close(got, want, what: str) -> dict:
 
 
 def batch(what: str, scene, settings, basis, prefs, kernels: tuple,
-          k: int = 4, timed: int = 0) -> dict:
+          k: int = 4, timed: int = 0, cache: bool = True) -> dict:
     """The batched-frame path: `render_batch(k)` as a stack and as a mean
     on a `cache_primary` renderer, with every frame counter at 0 just
     before the stack; held bit for bit against k `render` calls of a
     second such renderer, whose first frame fills the primary cache (the
     tracer launches on every bounce) and whose others reuse it (once
-    less).  `timed` cached frames give `cached_frame_ms`."""
-    cached = settings.replace(cache_primary=True)
+    less), the mean against their sum in frame order over k.  `timed`
+    cached frames give `cached_frame_ms`.  `cache` False: the same
+    without the primary cache, on the settings as given."""
+    cached = settings.replace(cache_primary=True) if cache else settings
     nb = settings.num_bounces
     reset, read = zero_launches, read_launches
 
     def want(frames_filling, frames_cached):
+        if not cache:
+            frames_filling, frames_cached = frames_filling + frames_cached, 0
         frames = frames_filling + frames_cached
         return {name: 0 if name not in kernels else
                 (nb * frames - frames_cached if name == "window_trace"
@@ -1298,19 +1321,25 @@ def batch(what: str, scene, settings, basis, prefs, kernels: tuple,
                                accumulate=True, as_numpy=False, with_aux=True)
     sync()
     check(read() == want(0, k), f"{what} mean launches {read()}")
+    total = singles[0]
+    for img in singles[1:]:
+        total = total + img
     mean_err = float((mean - singles.mean(dim=0)).abs().max())
-    check(mean_err <= 2e-6, f"{what}: accumulated mean off by {mean_err}")
+    check(torch.equal(mean, total / float(k)),
+          f"{what}: the accumulated mean differs from the single frames' "
+          f"(max {mean_err} from their mean)")
     trunc += aux["truncated"] + aux["nee_overflow"]
     check(trunc == 0, f"{what}: {trunc} rays truncated or overflowed")
 
-    uncached = Renderer(settings).render(scene, basis, prefs, frame_count=1,
-                                         as_numpy=False)
     out = {"width": settings.width, "height": settings.height, "bounces": nb,
-           "k": k, "batch_equals_singles": True, "mean_max_abs_err": mean_err,
-           "truncated": trunc, "launches": launches,
-           "launches_filling_frame": per_frame[0],
-           "launches_cached_frame": per_frame[1],
-           "cached_vs_uncached": image_close(singles[1], uncached, what)}
+           "k": k, "batch_equals_singles": True, "mean_equals_sum_over_k":
+           True, "mean_max_abs_err": mean_err, "truncated": trunc,
+           "launches": launches, "launches_filling_frame": per_frame[0]}
+    if cache:
+        uncached = Renderer(settings.replace(cache_primary=False)).render(
+            scene, basis, prefs, frame_count=1, as_numpy=False)
+        out["launches_cached_frame"] = per_frame[1]
+        out["cached_vs_uncached"] = image_close(singles[1], uncached, what)
     if timed:
         sync()
         t0 = time.perf_counter()
@@ -1856,7 +1885,11 @@ def app_path(name: str, limit: str, tmp: str, extra=()) -> tuple:
     check(out["native_chunks"] > 0, "app: no chunk came from the native "
           "generator")
     out["profile"] = profile_steps(lambda i: world.step(), out["step_ms"])
-    out["kernel_check"] = app_kernel_check(world)
+    # every call of one frame of the app world's final scene: 1024x1024
+    # rays over 6 bounces, the window grid, the ego cube's entity stream
+    out["kernel_check"] = frame_kernel_check(
+        "app", world.scene, world.settings, world.camera.eye_front_right_up(),
+        world.camera.rendering_preferences(), world.frame_count)
 
     # accumulation while the camera holds, its chunks generated on the
     # frame thread (as `game`), so the first step loads the whole window:
@@ -1885,61 +1918,94 @@ def app_path(name: str, limit: str, tmp: str, extra=()) -> tuple:
     return out, world, args
 
 
-def app_kernel_check(world) -> dict:
+def frame_kernel_check(what: str, scene, settings, basis, prefs,
+                       frame_count: int, renderer=None) -> dict:
     """K1 and K2 (K3 on the general path) against their plain versions on
-    every call of one frame of the app world's final scene, with the
-    inputs the frame loop hands them: 1024x1024 rays over 6 bounces, the
-    window grid with its own `auto_events` budget, the compaction
-    buckets and the ego cube's entity stream.  Each K1 call is held by
-    `trace_check` (the skipped and the unskipped plain march), each K2
-    call by `shade_errors` against `shade_plain`, each K3 call exactly
-    against `texel_plain`."""
-    scene, settings = world.scene, world.settings
-    prefs = world.camera.rendering_preferences()
-    basis = world.camera.eye_front_right_up()
-    arrays, kw, _, primary = Renderer(settings, device=scene.device
-                                      )._frame_args(scene, basis, prefs)
+    every call of one frame, with the inputs the frame loop hands them:
+    the compaction buckets, the scene's own `auto_events` budget, the
+    entity stream.  Each K1 call is held by `trace_check` (the skipped and
+    the unskipped plain march), each K2 call by `shade_errors` against
+    `shade_plain`, each K3 call exactly against `texel_plain`; each K1
+    and K2 call is timed on its inputs (CUDA events, 10 launches after a
+    warm-up) beside its plain version's one call and its bound.
+    `renderer`: the renderer whose primary cache the frame reads and
+    fills (a new one by default); a frame it serves from the cache has no
+    bounce-0 K1 call."""
+    r = renderer or Renderer(settings, device=scene.device)
+    arrays, kw, pkey, primary = r._frame_args(scene, basis, prefs)
     trace, shade, texel = [], [], []
 
+    def once_ms(fn):
+        """(fn(), its ms by CUDA events): one call, already warm."""
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        sync()
+        return out, e0.elapsed_time(e1)
+
     def trace_spy(scene, o, d, events):
-        tr = trace_check(scene, o, d, events, f"app bounce {len(trace)}")
-        del tr["plain"], tr["steps"]
-        trace.append({"rays": int(o.x.shape[0]), "events": events, **tr})
-        return window_trace(scene, o, d, events)
+        n = int(o.x.shape[0])
+        tr = trace_check(scene, o, d, events, f"{what} K1 call {len(trace)}")
+        del tr["plain"]
+        steps = tr.pop("steps")
+        out = window_trace(scene, o, d, events)
+        ms = time_ms(lambda: window_trace(scene, o, d, events), 10)
+        _, plain_ms = once_ms(lambda: trace_plain(scene, o, d, events))
+        bound, by = trace_bound_ms(scene, n, steps["fine"], steps["skips"])
+        trace.append({"rays": n, "events": events, **tr,
+                      "steps_per_live_ray": steps["steps_per_live_ray"],
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by})
+        return out
 
     def shade_spy(*args, **skw):
-        what = f"app shade bounce {len(shade)}"
+        n = int(args[2].x.shape[0])
         got = shade_pass(*args, **skw)
-        want = shade_plain(*args, **skw)
-        sync()
-        s_max, s_rms = shade_errors(got, want, args[8], what)
+        ms = time_ms(lambda: shade_pass(*args, **skw), 10)
+        want, plain_ms = once_ms(lambda: shade_plain(*args, **skw))
+        s_max, s_rms = shade_errors(got, want, args[8],
+                                    f"{what} K2 call {len(shade)}")
         tri = skw.get("tri_attrs")
-        shade.append({"rays": int(args[2].x.shape[0]), "max_abs_err": s_max,
-                      "rms": s_rms, "entity_hits": 0 if tri is None else
-                      int(((tri[11] >> 16) & 1).sum())})
+        n_entity = None if tri is None else int(((tri[11] >> 16) & 1).sum())
+        alive = int(((args[3].x != 0) | (args[3].y != 0)
+                     | (args[3].z != 0)).sum())
+        hits = int(((args[4] & 1) != 0).sum())
+        bound, by = shade_bound_ms(args[0], n, alive, hits,
+                                   skw["nee_type"] != 0, n_entity,
+                                   skw.get("color_bf16", False))
+        shade.append({"rays": n, "nee_type": skw["nee_type"],
+                      "max_abs_err": s_max, "rms": s_rms,
+                      "entity_hits": n_entity or 0, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by})
         return got
 
     def texel_spy(atlas, tex, u, v, channels=None):
         got = texel_fetch(atlas, tex, u, v, channels=channels)
         err = float((got - texel_plain(atlas, tex, u, v, channels=channels)
                      ).abs().max())
-        check(err == 0.0, f"app texel call {len(texel)}: max |diff| {err}")
+        check(err == 0.0, f"{what} K3 call {len(texel)}: max |diff| {err}")
         texel.append({"rays": int(tex.shape[0]), "max_abs_err": err})
         return got
 
-    img, _ = render_frame(arrays, basis.eye, basis.front, basis.right,
-                          basis.up, world.frame_count, primary, **kw,
-                          trace=trace_spy, shade=shade_spy, texel=texel_spy)
+    img, aux = render_frame(arrays, basis.eye, basis.front, basis.right,
+                            basis.up, frame_count, primary, **kw,
+                            trace=trace_spy, shade=shade_spy, texel=texel_spy)
+    r._keep_primary(arrays, pkey, primary, aux)
     nb = settings.num_bounces
-    check(len(trace) == nb and len(shade) + len(texel) == nb,
-          f"app check: {len(trace)} K1, {len(shade)} K2 and {len(texel)} "
-          f"K3 calls for {nb} bounces")
-    check(bool(torch.isfinite(img).all()), "app check: the frame is not "
+    cached = primary is not None
+    check(len(trace) == nb - cached and len(shade) + len(texel) == nb,
+          f"{what} check: {len(trace)} K1, {len(shade)} K2 and "
+          f"{len(texel)} K3 calls for {nb} bounces (cached: {cached})")
+    check(bool(torch.isfinite(img).all()), f"{what} check: the frame is not "
           "finite")
-    return {"frame_count": world.frame_count,
+    return {"frame_count": frame_count, "cached": cached,
             "grid": list(arrays.grid.shape), "trace": trace, "shade": shade,
             "texel": texel, "max_abs_err": {
-                "window_trace": max(t["max_abs_err_t"] for t in trace),
+                "window_trace": max((t["max_abs_err_t"] for t in trace),
+                                    default=None),
                 "shade": max((c["max_abs_err"] for c in shade), default=None),
                 "texel": max((c["max_abs_err"] for c in texel),
                              default=None)}}
@@ -2337,7 +2403,8 @@ def profiling_path(name: str, limit: str, tmp: str, device: str = "cuda",
     kernel events, found by name, are as many as the counters' launches,
     and every launch call after the trace's warm-up has its kernel event
     (the records that torch.profiler drops at a session's start are
-    counted in the warm-up); then `FrameTimer` over 5 frames."""
+    counted in the warm-up), and `device_trace` itself warns of no lost
+    record; then `FrameTimer` over 5 frames."""
     from wavefront_tpu_torch.utils.profiling import FrameTimer, device_trace
 
     scene, settings, basis, prefs = headline_setup(*size, 4, device=device)
@@ -2346,18 +2413,24 @@ def profiling_path(name: str, limit: str, tmp: str, device: str = "cuda",
     runs = []
     for i in range(sessions):
         zero_launches()
-        with device_trace(os.path.join(tmp, "trace")) as log_dir:
-            r.render(scene, basis, prefs, frame_count=2 + i)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with device_trace(os.path.join(tmp, "trace")) as log_dir:
+                r.render(scene, basis, prefs, frame_count=2 + i)
         launches = read_launches()
         path = os.path.join(log_dir, "trace.json")
         check(os.path.exists(path), f"profiling: no trace at {path}")
-        runs.append({"launches": launches, **trace_counts(path)})
+        runs.append({"launches": launches, **trace_counts(path),
+                     "lost_record_warnings": [
+                         str(w.message) for w in caught
+                         if "device_trace" in str(w.message)]})
     if device == "cuda":
         for i, run in enumerate(runs):
             check(run["kernel_events"] == run["launches"]
                   and run["launches"]["window_trace"] == 4
                   and run["calls_without_kernel"] == 0
-                  and run["warmup_spans"] == 1,
+                  and run["warmup_spans"] == 1
+                  and run["lost_record_warnings"] == [],
                   f"profiling: session {i}: {run}")
     timer = FrameTimer(rays_per_frame=settings.n_rays)
     for f in range(5):
@@ -2370,6 +2443,148 @@ def profiling_path(name: str, limit: str, tmp: str, device: str = "cuda",
             "launches": runs[-1]["launches"], "frame_timer": {
                 "frames": 5, "frame_ms": s.frame_ms, "fps": s.fps,
                 "mrays_per_sec": s.mrays_per_sec}}
+
+
+# the ladder's timed frames: the JAX tool's default 5 for configs 1, 2 and
+# 5, which no other phase runs at their own sizes; 3 for the rest
+LADDER_FRAMES = {1: 5, 2: 5, 3: 3, 4: 3, 5: 5, 6: 3, 7: 3, 8: 3}
+# configs whose every K1 and K2 call of a frame is held to the plain
+# versions: 1 and 2, the frame paths that run K2 at nee_type 0, and 5,
+# 3,686,400 rays a bounce over 8 bounces
+LADDER_HELD = (1, 2, 5)
+
+
+def ladder_frames(config: int, scene, cm, settings, basis, prefs,
+                  frame_ms: float) -> dict:
+    """One frame of a ladder config with the trace audit on and the launch
+    counters at 0 just before it: its image finite, nonzero and of the
+    config's shape, no ray truncated or overflowed, K1 and K2 once a
+    bounce and K3 never (with the primary cache a cached frame too, K1
+    once less); then device busy ms and idle share of one frame of the
+    row's loop (`bench_ladder.frame_step`: configs 4's and 7's edits,
+    config 5's accumulation) under torch.profiler over 3, against the
+    row's `frame_ms`."""
+    r = Renderer(settings.replace(trace_audit=True))
+    nb = settings.num_bounces
+    out = {}
+    for key, cached in (("launches_one_frame", False),
+                        ("launches_cached_frame", True)):
+        if cached and not settings.cache_primary:
+            break
+        zero_launches()
+        img, aux = r.render(scene, basis, prefs, frame_count=int(cached),
+                            as_numpy=False, with_aux=True)
+        sync()
+        got = read_launches()
+        want = {"window_trace": nb - cached, "shade": nb, "texel": 0}
+        check(got == want, f"ladder config {config} {key}: {got}, want "
+              f"{want}")
+        audit = {k: aux[k] for k in ("truncated", "nee_overflow")}
+        check(audit == {"truncated": 0, "nee_overflow": 0},
+              f"ladder config {config}: audit {audit}")
+        check(tuple(img.shape) == (settings.height, settings.width, 3)
+              and bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+              f"ladder config {config}: image {tuple(img.shape)}, mean "
+              f"{float(img.mean())}")
+        out[key] = got
+        out["audit"] = audit
+        out["image_mean"] = float(img.mean())
+    r = Renderer(settings)
+    step = bench_ladder.frame_step(
+        config, scene, cm, r, basis, prefs,
+        TemporalAccumulator() if config == 5 else None)
+    step(99)
+    prof = profile_steps(lambda i: step(100 + i), frame_ms)
+    out.update({k: prof[k] for k in (
+        "device_busy_ms", "device_idle_share", "device_events_per_frame",
+        "device_ms_by_op")})
+
+    def each(fn, frames=5):
+        """Host ms of `fn(f)` for each of `frames` frames, each ended by
+        a synchronize."""
+        times = []
+        for f in range(frames):
+            sync()
+            t0 = time.perf_counter()
+            fn(110 + f)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    # the row's loop and the render alone, a frame at a time
+    out["step_ms_synced"] = each(step)
+    out["render_ms_synced"] = each(lambda f: r.render(
+        scene, basis, prefs, frame_count=f, as_numpy=False))
+    return out
+
+
+def ladder_path(name: str, limit: str) -> tuple:
+    """The ported ladder (`wavefront_tpu_torch/tools/bench_ladder.py`),
+    configs 1-8 at their own sizes.  Each config's row through
+    `bench_ladder.row`, the launch counters at 0 just before it (K1 and K2
+    must launch, K3 not; no ray truncated or overflowed), printed on a
+    line of its own with what this script adds: `ladder_frames`, the
+    card; config 1's k=8 stack and config 5's k=8 accumulating batch
+    against 8 single frames bit for bit (`batch`, config 1 without the
+    primary cache, as its row runs); every K1 and K2 call of a frame of
+    configs 1, 2 and 5 held to the plain versions (`frame_kernel_check`;
+    config 5's frame that fills the primary cache and a cached one).
+    Returns (the phase's summary, the rows' launches by kernel)."""
+    registry = BlockRegistry.load(os.path.join(HERE, "assets"))
+    kernels = ("window_trace", "shade")
+    launches = {k: 0 for k in FRAME_KERNELS}
+    rows, errs = {}, {k: [] for k in kernels}
+    for config, frames in LADDER_FRAMES.items():
+        t0 = time.perf_counter()
+        scene, cm, settings, nee, basis = bench_ladder.build(config, registry,
+                                                             "cuda")
+        if basis is None:
+            basis = bench_ladder.default_pose()
+        prefs = RenderingPreferences(nee_type=nee)
+        zero_launches()
+        rec = bench_ladder.row(config, scene, settings, basis, prefs, cm=cm,
+                               frames=frames, batch=8)
+        sync()
+        got = read_launches()
+        check(got["window_trace"] > 0 and got["shade"] > 0
+              and got["texel"] == 0, f"ladder config {config}: row "
+              f"launches {got}")
+        check(rec.get("truncated_rays", 0) == 0
+              and rec.get("nee_overflow_rays", 0) == 0,
+              f"ladder config {config}: row {rec}")
+        for k, v in got.items():
+            launches[k] += v
+        out = {"frames_timed": frames, "row_launches": got,
+               **ladder_frames(config, scene, cm, settings, basis, prefs,
+                               rec["frame_ms"])}
+        if config in (1, 5):
+            out["batch"] = batch(f"ladder config {config}", scene, settings,
+                                 basis, prefs, kernels, k=8,
+                                 cache=settings.cache_primary)
+        if config in LADDER_HELD:
+            r = Renderer(settings)
+            out["kernel_check"] = [frame_kernel_check(
+                f"ladder config {config}", scene, settings, basis, prefs, 1,
+                r)]
+            if settings.cache_primary:
+                out["kernel_check"].append(frame_kernel_check(
+                    f"ladder config {config} cached", scene, settings, basis,
+                    prefs, 2, r))
+            for kc in out["kernel_check"]:
+                for k in kernels:
+                    errs[k].append(kc["max_abs_err"][k])
+        secs = time.perf_counter() - t0
+        print(json.dumps({"phase": "ladder_row", **rec, **out, "card": name,
+                          "power_limit": limit, "seconds": secs}),
+              flush=True)
+        rows[config] = {k: rec[k] for k in (
+            "frame_ms", "mrays_per_sec", "compile_s")} | {
+            k: out[k] for k in ("device_busy_ms", "device_idle_share")} | {
+            "seconds": secs}
+    summary = {"card": name, "power_limit": limit, "rows": rows,
+               "launches": launches, "max_abs_err": {
+                   k: max(v, default=None) for k, v in errs.items()}}
+    return summary, launches
 
 
 def worldgen_path(name: str, limit: str) -> dict:
@@ -2519,6 +2734,9 @@ def main() -> int:
     emit("validation", **paths["validation"])
     emit("profiling", **profiling_path(name, limit, out_dir))
     emit("worldgen", **worldgen_path(name, limit))
+    lad, lad_launches = ladder_path(name, limit)
+    paths["ladder"] = {"launches": lad_launches}
+    emit("ladder", **lad)
     emit("seconds", total=time.perf_counter() - t0, by_phase=seconds)
 
     kernels = []
@@ -2544,9 +2762,11 @@ def main() -> int:
             "library_device_ms": k.get("library_device_ms"),
         })
     # K1-K3 against their plain versions on the app's frame
+    # and on every call of a frame of ladder configs 1, 2 and 5
     for k in kernels:
         k["max_abs_err_app"] = paths["app"]["kernel_check"]["max_abs_err"][
             k["name"]]
+        k["max_abs_err_ladder"] = lad["max_abs_err"].get(k["name"])
     # K2's bf16 color build beside its float32 one (bounce 0)
     kernels[1]["bf16"] = {
         key: b0["shade_bf16"][key] for key in (

@@ -1121,8 +1121,11 @@ def test_device_trace_keeps_the_region_kernels_after_a_large_session(
     events are read (`events()`, as `key_averages()` reads them) makes torch.profiler
     drop one more of the first kernel records of every later session in
     the process; `device_trace` opens with empty launches that take that
-    loss, so each of the region's launches has its kernel event."""
+    loss, so each of the region's launches has its kernel event, and its
+    check of the K1-K3 launches against the trace's records (here 20 K3
+    launches) finds none lost and does not warn."""
     import json
+    import warnings
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1139,11 +1142,20 @@ def test_device_trace_keeps_the_region_kernels_after_a_large_session(
             torch.cuda.synchronize()
         prof.events()
     y = torch.ones(4096, device="cuda")
-    with device_trace(str(tmp_path)):
-        for _ in range(20):
-            y.mul_(1.0)
+    atlas = torch.rand(4, 8, 8, 12, device="cuda")
+    tex = torch.arange(256, device="cuda", dtype=torch.int32) % 4
+    u = torch.rand(256, device="cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with device_trace(str(tmp_path)):
+            for _ in range(20):
+                y.mul_(1.0)
+                texel_fetch(atlas, tex, u, u)
+    assert [str(w.message) for w in caught
+            if "device_trace" in str(w.message)] == []
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
-    muls = [e for e in events if e.get("cat") == "kernel"
-            and "mul" in e["name"].lower()]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    muls = [e for e in kernels if "mul" in e["name"].lower()]
     assert len(muls) == 20
+    assert sum("texel_kernel" in e["name"] for e in kernels) == 20

@@ -14,6 +14,7 @@ either package.
 
 import json
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -38,10 +39,12 @@ from wavefront_tpu.world.blocks import BlockRegistry as JaxRegistry
 from wavefront_tpu_torch.core.camera import SphericalCamera
 from wavefront_tpu_torch.core.config import RenderingPreferences
 from wavefront_tpu_torch.kernels.texel import texel_fetch
+from wavefront_tpu_torch.kernels.window_trace import window_trace
 from wavefront_tpu_torch.render.renderer import Renderer
 from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.render.scene import light_arrays as port_light_arrays
 from wavefront_tpu_torch.utils.profiling import (
+    WARMUP_SPAN,
     FrameTimer,
     StageTimer,
     device_trace,
@@ -185,6 +188,57 @@ def test_device_trace_writes_a_trace(tmp_path):
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::mul") for e in events)
+
+
+@pytest.mark.parametrize("recorded", [2, 3])
+def test_device_trace_warns_on_lost_kernel_records(tmp_path, monkeypatch,
+                                                   recorded):
+    """`device_trace` holds the K1-K3 launches its wrappers counted in the
+    window against the kernel records of the trace it writes, outside the
+    warm-up span.  A fake profiler writes the trace: a K1 record launched
+    inside the warm-up span, then `recorded` of the region's three K1
+    records.  One lost record makes it warn with both counts; a complete
+    trace, nothing."""
+    def launch(corr, ts):
+        return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
+                "dur": 1, "args": {"correlation": corr}}
+
+    def kernel(corr, ts):
+        return {"cat": "kernel", "name": "trace_kernel(Grid, int)",
+                "ts": ts, "dur": 1, "args": {"correlation": corr}}
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def export_chrome_trace(self, path):
+            events = [{"cat": "user_annotation", "name": WARMUP_SPAN,
+                       "ts": 0, "dur": 10}, launch(1, 5), kernel(1, 6)]
+            events += [launch(c, 10 * c) for c in (2, 3, 4)]
+            events += [kernel(c, 10 * c + 5) for c in (2, 3, 4)[:recorded]]
+            with open(path, "w") as f:
+                json.dump({"traceEvents": events}, f)
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(window_trace, "launches", 0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with device_trace(str(tmp_path)):
+            window_trace.launches += 3      # as three launches on a card
+    lost = [w for w in caught if "device_trace" in str(w.message)]
+    if recorded == 3:
+        assert lost == []
+    else:
+        assert len(lost) == 1 and lost[0].category is RuntimeWarning
+        assert "'trace_kernel': {'launched': 3, 'recorded': 2}" in str(
+            lost[0].message)
+    assert os.path.exists(tmp_path / "trace.json")
 
 
 def test_check_image():

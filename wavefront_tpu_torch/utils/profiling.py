@@ -10,13 +10,19 @@ timeline.  The counterpart of `wavefront_tpu.utils.profiling`.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+
+from wavefront_tpu_torch.kernels.shade import shade_pass
+from wavefront_tpu_torch.kernels.texel import texel_fetch
+from wavefront_tpu_torch.kernels.window_trace import window_trace
 
 # the default trace directory, beside the port's build directory
 TRACE_DIR = os.path.join(
@@ -97,9 +103,35 @@ class StageTimer:
 # (`events()`, `key_averages()`) makes torch.profiler drop one more of the
 # first kernel records of every later session in the process (their
 # launch calls stay in the trace); these launches take that loss in place
-# of the traced region's kernels
+# of the traced region's kernels, up to this many earlier sessions
 WARMUP_LAUNCHES = 64
 WARMUP_SPAN = "device_trace.warmup"
+# K1-K3's wrappers, whose `launches` count the kernels they launch, by the
+# name their kernel's records carry in a trace
+FRAME_KERNELS = {"trace_kernel": window_trace, "shade_kernel": shade_pass,
+                 "texel_kernel": texel_fetch}
+
+
+def kernel_records(events: list) -> dict:
+    """K1-K3's kernel records among a Chrome trace's events, by kernel
+    name, leaving out the kernels launched inside the warm-up span (a
+    launch call and its kernel share a correlation id)."""
+    warm = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+            if e.get("name") == WARMUP_SPAN
+            and e.get("cat") in ("cpu_op", "user_annotation")]
+    warm_ids = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and any(lo <= e["ts"] <= hi for lo, hi in warm)}
+    counts = dict.fromkeys(FRAME_KERNELS, 0)
+    for e in events:
+        if e.get("cat") != "kernel" \
+                or e.get("args", {}).get("correlation") in warm_ids:
+            continue
+        for name in FRAME_KERNELS:
+            if name in e.get("name", ""):
+                counts[name] += 1
+    return counts
 
 
 @contextlib.contextmanager
@@ -108,7 +140,13 @@ def device_trace(log_dir: str = TRACE_DIR):
     kernels when CUDA is available) around a code region; on exit it is
     written to `log_dir/trace.json` as a Chrome trace (chrome://tracing,
     Perfetto).  On a card the window opens with `WARMUP_LAUNCHES` empty
-    kernels in a span named `WARMUP_SPAN`.  Yields `log_dir`."""
+    kernels in a span named `WARMUP_SPAN`.  Yields `log_dir`.
+
+    When the region ends without raising, the K1-K3 launches its wrappers
+    counted are held against the kernel records the trace holds outside
+    the warm-up span, and a shortfall (records torch.profiler lost) is
+    reported with `warnings.warn`, both counts by kernel; the trace is
+    written as recorded."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.cuda.is_available()
@@ -116,6 +154,7 @@ def device_trace(log_dir: str = TRACE_DIR):
     if cuda:
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
     prof = profile(activities=acts)
     if cuda:
         # the window opens on an idle card: no kernel of earlier work
@@ -128,10 +167,22 @@ def device_trace(log_dir: str = TRACE_DIR):
             for _ in range(WARMUP_LAUNCHES):
                 pad.add_(1.0)
             torch.cuda.synchronize()
+    before = {k: fn.launches for k, fn in FRAME_KERNELS.items()}
     try:
         yield log_dir
     finally:
         if cuda:
             torch.cuda.synchronize()
         prof.stop()
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        prof.export_chrome_trace(path)
+    launched = {k: fn.launches - before[k] for k, fn in FRAME_KERNELS.items()}
+    if any(launched.values()):
+        with open(path) as f:
+            recorded = kernel_records(json.load(f)["traceEvents"])
+        short = {k: {"launched": launched[k], "recorded": recorded[k]}
+                 for k in FRAME_KERNELS if recorded[k] < launched[k]}
+        if short:
+            warnings.warn(
+                f"device_trace: {path} lacks kernel records of launches "
+                f"counted in its window (torch.profiler lost them): {short}",
+                RuntimeWarning, stacklevel=3)
