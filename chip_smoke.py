@@ -62,7 +62,16 @@ through their entry points, checking which kernels each launched:
     5's k=8 accumulating batch (2560x1440, 8 bounces) equal to 8 single
     frames bit for bit; every K1 and K2 call of a frame of configs 1, 2
     (K2 at nee_type 0) and 5 (the frame that fills the primary cache and
-    a cached one) held against the plain versions.
+    a cached one) held against the plain versions;
+  * the sweep tools (`wavefront_tpu_torch/tools/`: sort_sweep,
+    stage_table, fused_ab, texel_lab, trace_tune, occupancy and
+    fusion_probe, the ports of the JAX package's tools) at full width
+    (`sweeps`): the headline over the `sort_bounces` schedules, with one
+    stage varied (no sort, K1's unskipped march, ...), fused against
+    general, over compaction x trace_skips x trace_presort; K3 against
+    the gather it replaces; K1's lane occupancy on the headline's and the
+    streamed window's rays; the tiles' decay without a re-sort.  Each row
+    on a line of its own (`sweep_row`).
 
 Each phase prints one JSON line with the seconds it took, then a line of
 the seconds by phase and in total; the line before the last lists every
@@ -100,7 +109,12 @@ Tolerances:
            recenter equal bit for bit to a fresh scene's (no per-ray
            result depends on how the scene arrays were built);
   ranges, checkpoints, sort, worldgen: equal bit for bit (no ray reads
-           another ray; the rest is integer or host code).
+           another ray; the rest is integer or host code);
+  sweeps:  every sort schedule's image, and the image without a sort,
+           within max |diff| 1e-5 of the every-bounce sort's (the bound
+           of tests/test_golden.py's schedule test; per-ray results do not
+           depend on ray order), no ray truncated; the unskipped march's
+           image under the image gate above against the skipping one's.
 """
 
 from __future__ import annotations
@@ -157,11 +171,20 @@ from wavefront_tpu_torch.render.wavefront import raygen_soa
 from wavefront_tpu_torch.tools import (
     bench_ladder,
     event_lab,
+    fused_ab,
+    fusion_probe,
     gpu_probe,
+    occupancy,
     radix_lab,
     roofline,
+    sort_sweep,
+    stage_table,
+    texel_lab,
+    trace_tune,
 )
 from wavefront_tpu_torch.tools.kernel_times import radix_device, radix_keys
+from wavefront_tpu_torch.tools._sweep import kernel_device_ms as device_ms
+from wavefront_tpu_torch.tools._sweep import stage_times
 from wavefront_tpu_torch.tools._timing import FILL_GROUPS, card, time_ms
 from wavefront_tpu_torch.tools._timing import emit as emit_rows
 from wavefront_tpu_torch.tools.event_lab import dda_steps
@@ -370,6 +393,9 @@ def trace_check(arrays, o: V3, d: V3, events: int, what: str) -> dict:
     check(trunc == 0, f"tracer {what}: {trunc} rays truncated")
     alive = int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum())
     crossings = dda_steps(arrays, o, d, qa, qt)
+    per_ray = stats.pop("per_ray")
+    check(int(per_ray.sum()) == stats["fine"] + stats["skips"],
+          f"tracer {what}: per-ray steps do not add up to the totals")
     steps = {**stats, "dda_crossings": crossings,
              "steps_per_live_ray": (stats["fine"] + stats["skips"])
              / max(alive, 1),
@@ -684,54 +710,6 @@ def timed_frame(scene, settings, basis, prefs, frame: int) -> dict:
             for k, v in events.items() if v}
 
 
-def stage_times(scene, settings, basis, prefs, frame: int) -> dict:
-    """Device ms of one frame by renderer stage: CUDA events around the
-    stage functions `render.renderer` calls by name (the kernels' wrappers
-    included), swapped in for this one frame.  Host gaps inside a stage
-    count toward it; what the stages do not cover (raygen, the shade's own
-    elementwise work, restore, postprocess) is `other`."""
-    from wavefront_tpu_torch.render import renderer as rr
-
-    names = ("coherence_sort", "window_trace", "shade_pass", "texel_fetch",
-             "triangle_sweep", "traverse_light_bvh", "dense_sample_light",
-             "nee_pdf_sweep")
-    events = {k: [] for k in names}
-    saved = {k: getattr(rr, k) for k in names}
-
-    def timed(fn, name):
-        def call(*a, **kw):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            r = fn(*a, **kw)
-            e1.record()
-            events[name].append((e0, e1))
-            return r
-        return call
-
-    whole = (torch.cuda.Event(enable_timing=True),
-             torch.cuda.Event(enable_timing=True))
-    try:
-        for k in names:
-            setattr(rr, k, timed(saved[k], k))
-        whole[0].record()
-        rr.render_frame(
-            scene.get_arrays(), basis.eye, basis.front, basis.right, basis.up,
-            frame, settings=settings, nee_type=prefs.nee_type,
-            sort_type=prefs.sort_type, trace=rr.window_trace,
-            shade=rr.shade_pass, texel=rr.texel_fetch)
-        whole[1].record()
-        sync()
-    finally:
-        for k in names:
-            setattr(rr, k, saved[k])
-    out = {k: sum(a.elapsed_time(b) for a, b in v)
-           for k, v in events.items() if v}
-    total = whole[0].elapsed_time(whole[1])
-    return {"frame_ms": total, "ms_by_stage": out,
-            "other_ms": total - sum(out.values())}
-
-
 def profile_frames(scene, settings, basis, prefs, frame_ms: float,
                    frames: int = 3) -> dict:
     """Where a frame's device time goes: `frames` frames under
@@ -874,33 +852,6 @@ def exact(got, want, what: str) -> int:
         if got.numel() else 0
     check(err == 0, f"{what}: max |diff| {err} against the plain version")
     return err
-
-
-def device_ms(fn, kernel: str, reps: int):
-    """Device time of the kernel named `kernel` per launch in `fn`, from
-    torch.profiler over `reps` calls: the launch path and the wrapper's
-    host time, which CUDA events around a small kernel include, left out;
-    with `kernel` "" the time of every kernel `fn` launches, per call.  A
-    side measurement for kernels of a few microseconds: None when the
-    profiler kept fewer than half of the launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    spent = [e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    # once the process has run large profiler sessions, torch.profiler
-    # drops the first kernel records of each session (`utils/profiling.py`
-    # WARMUP_LAUNCHES): average over the launches it kept
-    if len(spent) * 2 <= reps:
-        return None
-    return sum(spent) / 1e3 / (len(spent) if kernel else reps)
 
 
 def radix_check(scene, settings, basis) -> dict:
@@ -2587,6 +2538,76 @@ def ladder_path(name: str, limit: str) -> tuple:
     return summary, launches
 
 
+def sweeps_path(name: str, limit: str, device: str = "cuda",
+                width: int = 1920, height: int = 1080) -> dict:
+    """The sweep tools (`wavefront_tpu_torch/tools/`, the ports of
+    tools/sort_sweep.py, stage_table.py, fused_ab.py, texel_lab.py,
+    trace_tune.py, occupancy.py and fusion_probe.py) at full width: the
+    headline at 1920x1080x4, occupancy's streamed workload over the
+    416x96x416 window.  Each tool's rows are printed one JSON line each
+    (`sweep_row`).  Held: every sort schedule's image within
+    `sort_sweep.IMAGE_TOLERANCE` of the every-bounce sort's and no ray
+    truncated; the `nosort` row's image within it of `full`'s and the
+    `dda` row's (K1's unskipped march) under the golden gate of it;
+    every texel_lab row max |diff| 0; no truncated ray in any trace_tune
+    combination or occupancy workload.  The launch counters are read
+    from 0 around the whole phase: K1, K2 and K3 must launch (on the card;
+    `device` "cpu" and a small width rehearse the phase with the plain
+    versions)."""
+    scene, settings, basis, prefs = headline_setup(width, height, 4,
+                                                   device=device)
+    hl = (scene, settings, basis, prefs)
+    seconds, rows, images = {}, {}, {}
+    tools = {
+        "sort_sweep": lambda: sort_sweep.sweep(*hl, frames=3),
+        "stage_table": lambda: stage_table.table(*hl, frames=3,
+                                                 images=images),
+        "fused_ab": lambda: fused_ab.ab(*hl, frames=3),
+        "texel_lab": lambda: texel_lab.lab(dev=device),
+        "trace_tune": lambda: trace_tune.tune(*hl, frames=2),
+        "occupancy": lambda: occupancy.survey(width, height, device,
+                                              headline=(scene, basis)),
+        "fusion_probe": lambda: fusion_probe.probe(*hl),
+    }
+    zero_launches()
+    for tool, run in tools.items():
+        t0 = time.perf_counter()
+        got = run()
+        if device != "cpu":
+            sync()
+        seconds[tool] = time.perf_counter() - t0
+        rows[tool] = emit_rows([{"phase": "sweep_row", "tool": tool, **r}
+                                for r in got], device)
+    launches = read_launches()
+    check(all(v > 0 for v in launches.values()) or device == "cpu",
+          f"sweeps: launches {launches}")
+    for r in rows["sort_sweep"]:
+        check(r["max_abs_diff"] <= sort_sweep.IMAGE_TOLERANCE
+              and r["truncated"] == 0,
+              f"sort_sweep {r['row']}: max |diff| {r['max_abs_diff']}, "
+              f"truncated {r['truncated']}")
+    by_row = {r["row"]: r for r in rows["stage_table"] if "row" in r}
+    check(by_row["nosort"]["max_abs_diff"] <= sort_sweep.IMAGE_TOLERANCE,
+          f"stage_table nosort: max |diff| {by_row['nosort']}")
+    dda = golden_gate(images["dda"].cpu().numpy(),
+                      images["full"].cpu().numpy(), "stage_table dda")
+    for r in rows["texel_lab"]:
+        check(r["max_abs_diff"] == 0.0,
+              f"texel_lab {r['row']} n {r['n']}: max |diff| "
+              f"{r['max_abs_diff']}")
+    for r in rows["trace_tune"] + rows["occupancy"]:
+        check(r.get("truncated", 0) == 0 and "error" not in r,
+              f"sweeps: {r}")
+    return {"card": name, "power_limit": limit, "launches": launches,
+            "seconds_by_tool": seconds, "dda_vs_full": dda,
+            "sort_sweep": {r["row"]: {k: r[k] for k in (
+                "frame_ms", "device_busy_ms", "sort_gather_ms", "trace_ms",
+                "shade_ms", "max_abs_diff")} for r in rows["sort_sweep"]},
+            "stage_table": {k: {"frame_ms": v["frame_ms"],
+                                "device_busy_ms": v["device_busy_ms"]}
+                            for k, v in by_row.items()}}
+
+
 def worldgen_path(name: str, limit: str) -> dict:
     """The headline scene's 5x1x5 chunks (32^3) from the native generator
     (`csrc/worldgen.cpp`, built by the host compiler) and from its NumPy
@@ -2737,6 +2758,9 @@ def main() -> int:
     lad, lad_launches = ladder_path(name, limit)
     paths["ladder"] = {"launches": lad_launches}
     emit("ladder", **lad)
+    sw = sweeps_path(name, limit)
+    paths["sweeps"] = {"launches": sw["launches"]}
+    emit("sweeps", **sw)
     emit("seconds", total=time.perf_counter() - t0, by_phase=seconds)
 
     kernels = []

@@ -521,8 +521,8 @@ def test_bf16_throughput_keeps_its_dtype(config1_cube, fused, monkeypatch):
     sorts, shades = [], []
     sort = port_renderer.coherence_sort
 
-    def sort_spy(scene, o, d, tp, rad, rid, *riders):
-        out = sort(scene, o, d, tp, rad, rid, *riders)
+    def sort_spy(scene, o, d, tp, rad, rid, *riders, **kw):
+        out = sort(scene, o, d, tp, rad, rid, *riders, **kw)
         sorts.append(({c.dtype for c in (*tp, *out[2])},
                       {c.dtype for c in (*rad, *out[3])}))
         return out

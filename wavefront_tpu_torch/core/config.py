@@ -2,11 +2,22 @@
 preferences and world-generation settings.
 
 Field for field the same objects as `wavefront_tpu.core.config`, so a
-settings object reads the same in both packages.  The reference's tracer
-schedule knobs (`trace_tile`, `trace_unroll`, `trace_phases*`,
-`trace_skip_stride`, `trace_windows*`, `trace_presort`, ...) are accepted
-and ignored here: they choose how the TPU kernel walks its tiles and never
-change the image, and the CUDA tracer walks one ray per thread.
+settings object reads the same in both packages.  The renderer honours
+`sort_bounces` (which bounces re-sort), `trace_skips` (the tracer's
+empty-space skips) and `trace_presort` (the bounce sort's key) as the
+reference does (`render/renderer.py`).  These are accepted and ignored:
+  * `trace_tile`, `trace_unroll`, `trace_phases`, `trace_phase_events`,
+    `trace_phases_at`, `trace_windows`, `trace_windows_hot`: the TPU
+    kernel's tile, phase and resident-window schedule; the CUDA tracer
+    walks one ray a thread over the whole grid;
+  * `trace_skip_stride`: alternates the TPU kernel's lean and full event
+    forms, which the CUDA march does not have;
+  * `trace_wskip`: the TPU kernel's skip of whole empty 32^3 windows; the
+    port's aux grid has no whole-window skip;
+  * `use_column_trace`: False picks the reference's XLA DDA, whose
+    counterpart is the tracer's plain version, which the card's path
+    never runs.
+None of them changes an image.
 """
 
 from __future__ import annotations
@@ -70,6 +81,8 @@ class RenderSettings:
     cache_primary: bool = False
     # accepted for settings parity; the port has one tracer
     use_column_trace: "bool | None" = None
+    # the bounce sort's key: the tracer's coherence key (True), or the
+    # reference's non-hoisted key, morton >> 1 for sort_type 1 (False)
     trace_presort: bool = True
     # per-ray event budget of the tracer; 0 = auto_events(gx, gy, gz)
     trace_events: int = 0
@@ -79,6 +92,7 @@ class RenderSettings:
     trace_phases_at: tuple = ()
     trace_windows_hot: int = 0
     trace_tile: int = 1024
+    # False: the tracer marches without its empty-space skips (aux & 3)
     trace_skips: bool = True
     trace_wskip: bool = True
     trace_unroll: int = 1
@@ -91,11 +105,12 @@ class RenderSettings:
     # kernel's caps of 512 nodes / 256 prims; False: the general path
     # (plain stages around the texel kernel)
     shade_fused: "bool | None" = None
+    # None: every bounce re-sorts; a tuple: only the bounces it names
     sort_bounces: "tuple | None" = None
     # general path only: True fetches texels with the texel kernel, False
     # with PyTorch's indexed read of the atlas (same texels)
     shade_texel_kernel: bool = True
-    # not ported yet (raises)
+    # the bf16 color pipeline (render/renderer.py)
     shade_bf16: bool = False
     # stage-isolation timing variants: "freetrace" (a synthetic constant
     # hit replaces the tracer), "notex" (a constant texel replaces the

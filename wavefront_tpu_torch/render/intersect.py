@@ -240,7 +240,8 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int,
 
     stats: when a dict is given, its "fine" and "skips" are set to the
     steps of each kind the rays took (what a measurement of the kernel
-    counts its work by)."""
+    counts its work by), and its "per_ray" to each ray's steps, (N,)
+    int32."""
     t_min, t_max = EPSILON_BLOCK, T_MAX
     grid, grid_origin = scene.grid, scene.grid_origin
     gx, gy, gz = (int(s) for s in grid.shape)
@@ -315,6 +316,7 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int,
     out_vx, out_vy, out_vz = zero.clone(), zero.clone(), zero.clone()
     out_ent = torch.zeros_like(active)
     n_fine = n_skip = torch.zeros((), dtype=torch.int64, device=px.device)
+    ray_steps = torch.zeros_like(vx)
 
     for step in range(max_events):
         if step % 8 == 0 and not bool(active.any()):
@@ -324,6 +326,7 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int,
         if stats is not None:
             n_fine = n_fine + (active & ~do_skip).sum()
             n_skip = n_skip + (active & do_skip).sum()
+            ray_steps += active.to(_I32)
         use_x = (tx <= ty) & (tx <= tz)
         use_y = ~use_x & (ty <= tz)
         use_z = ~use_x & ~use_y
@@ -380,6 +383,7 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int,
     pa = pa | (active.to(_I32) << TRUNCATED_BIT)
     if stats is not None:
         stats["fine"], stats["skips"] = int(n_fine), int(n_skip)
+        stats["per_ray"] = ray_steps
     return pa, pb, t
 
 

@@ -38,8 +38,33 @@ throughput factor (`shading.shade_rays`); geometry, alpha, metallicity,
 the MIS weight and the radiance accumulation stay float32.  The sort,
 the compaction and the pixel restore keep each tensor's dtype.
 
-The reference's TPU tracer schedule settings (trace_tile, trace_phases*,
-trace_windows*, sort_bounces, ...) are accepted and change nothing.
+Three settings of the reference change what a frame does, and the port
+honours them as it does:
+
+  * `sort_bounces`: None sorts on every bounce; a tuple re-sorts on the
+    bounces it names only (when compaction or sort_type 1 sort at all).
+    A bounce that skips its sort traces the rays in the order of the last
+    sort, and its compaction bucket covers the last alive slot, not the
+    alive count (`compaction_bucket`).  The image does not change.
+  * `trace_skips`: False hands the tracer the aux grid with its
+    empty-space distances cleared (`aux_grid & 3`), so it marches every
+    voxel boundary.  The image does not change.
+  * `trace_presort`: True (the default) keys the bounce sort on the
+    tracer's coherence key, the counterpart of the reference's hoisted
+    presort; False keys it as the reference's non-hoisted sort does:
+    `morton_key_3d_soa(o) >> 1` for sort_type 1, else 0, with bit 31 set
+    on dead rays under compaction (`bounce_sort_key`).
+
+The reference's other tracer settings are accepted and change nothing:
+`trace_tile`, `trace_unroll`, `trace_phases`, `trace_phase_events`,
+`trace_phases_at`, `trace_windows` and `trace_windows_hot` schedule the
+TPU kernel's tiles, phases and resident 32^3 windows, and the CUDA tracer
+walks one ray a thread with no tiles or windows; `trace_skip_stride`
+alternates the TPU kernel's lean and full event forms, which the CUDA
+march does not have; `trace_wskip` turns off a skip of whole empty
+windows, and the port's aux grid has no whole-window skip;
+`use_column_trace=False` picks the reference's XLA DDA, whose counterpart
+here is the tracer's plain version, which the card's path never runs.
 """
 
 from __future__ import annotations
@@ -128,15 +153,40 @@ def use_fused(scene: SceneArrays, settings: RenderSettings,
     return True
 
 
-def coherence_sort(scene: SceneArrays, o: V3, d: V3, tp: V3, rad: V3, rid,
-                   *riders: V3):
-    """One stable sort of the whole ray state by the coherence key (dead
-    rays last, bit 31), replacing the reference's multi-operand sort
-    network.  Returns the permuted (o, d, tp, rad, rid, *riders)."""
+def _coherence_key(scene: SceneArrays, o: V3, d: V3):
     gx, gy, gz = scene.grid.shape
     go = scene.grid_origin
-    key = coherence_key(o.x - float(go[0]), o.y - float(go[1]),
-                        o.z - float(go[2]), d.x, d.y, d.z, gx, gy, gz)
+    return coherence_key(o.x - float(go[0]), o.y - float(go[1]),
+                         o.z - float(go[2]), d.x, d.y, d.z, gx, gy, gz)
+
+
+def bounce_sort_key(scene: SceneArrays, settings: RenderSettings,
+                    sort_type: int, o: V3, d: V3):
+    """Key of the bounce sort (int64 holding an unsigned 32-bit value).
+    trace_presort (the default): the tracer's coherence key, dead rays
+    last.  Otherwise the reference's non-hoisted key
+    (wavefront_tpu/render/renderer.py:797-806): the morton key of the
+    origin shifted right by one for sort_type 1, else 0, and bit 31 on
+    dead rays under compaction."""
+    if settings.trace_presort:
+        return _coherence_key(scene, o, d)
+    if sort_type == 1:
+        key = morton.morton_key_3d_soa(o.x, o.y, o.z) >> 1
+    else:
+        key = torch.zeros(o.x.shape, dtype=torch.int64, device=o.x.device)
+    if settings.compaction:
+        key = key | ((~vec3.any_nonzero(d)).to(torch.int64) << 31)
+    return key
+
+
+def coherence_sort(scene: SceneArrays, o: V3, d: V3, tp: V3, rad: V3, rid,
+                   *riders: V3, key=None):
+    """One stable sort of the whole ray state, replacing the reference's
+    multi-operand sort network: by `key` (`bounce_sort_key`), or when it
+    is None by the coherence key (dead rays last, bit 31).  Returns the
+    permuted (o, d, tp, rad, rid, *riders)."""
+    if key is None:
+        key = _coherence_key(scene, o, d)
     perm = torch.sort(key, stable=True).indices
 
     def take(v):
@@ -144,6 +194,23 @@ def coherence_sort(scene: SceneArrays, o: V3, d: V3, tp: V3, rad: V3, rid,
 
     return (take(o), take(d), take(tp), take(rad), rid[perm],
             *(take(v) for v in riders))
+
+
+def compaction_bucket(alive, sorted_now: bool) -> int:
+    """Rays the bounce traces and shades under compaction: the smallest of
+    n, n/2 and n/4 (at least 1) that holds every alive ray.  Right after a
+    sort the alive rays lead, so their count decides; on a bounce that
+    skipped its sort they keep their slots, so the last alive slot decides
+    (n - argmax(alive[::-1]) in the reference, 0 when none is alive).
+    alive: (n,) bool."""
+    n = alive.shape[0]
+    if sorted_now:
+        count = int(alive.sum())
+    else:
+        slot = torch.arange(1, n + 1, dtype=torch.int64, device=alive.device)
+        count = int(torch.where(alive, slot, 0).max())
+    shift = int(count <= n // 2) + int(count <= n // 4)
+    return max(n >> shift, 1)
 
 
 def _freetrace_hit(scene: SceneArrays, origin: V3, direction: V3,
@@ -349,6 +416,11 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     dbg = V3(*(torch.zeros(n, dtype=_F32, device=dev) for _ in range(3))) \
         if debug_view else None
     sort = settings.compaction or sort_type == 1
+    sort_set = None if settings.sort_bounces is None else {
+        int(i) for i in settings.sort_bounces}
+    # the tracer's scene: without its empty-space skips when asked
+    tscene = scene if settings.trace_skips else scene._replace(
+        aux_grid=scene.aux_grid & 3)
     trunc = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = 0
     hits0 = None
@@ -357,18 +429,19 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
         # the cached bounce: every ray alive and in pixel order
         outside = cache_primary and b == 0
         cached = primary if outside else None
-        if sort and not outside:
+        sort_now = sort and not outside and (sort_set is None
+                                             or b in sort_set)
+        if sort_now:
+            key = bounce_sort_key(scene, settings, sort_type, o, d)
             if dbg is None:
-                o, d, tp, rad, rid = coherence_sort(scene, o, d, tp, rad, rid)
+                o, d, tp, rad, rid = coherence_sort(scene, o, d, tp, rad, rid,
+                                                    key=key)
             else:
-                o, d, tp, rad, rid, dbg = coherence_sort(scene, o, d, tp,
-                                                         rad, rid, dbg)
+                o, d, tp, rad, rid, dbg = coherence_sort(
+                    scene, o, d, tp, rad, rid, dbg, key=key)
         m = n
         if settings.compaction and not outside:
-            # smallest bucket (n, n/2, n/4) that holds every alive ray
-            count = int(vec3.any_nonzero(d).sum())
-            shift = int(count <= n // 2) + int(count <= n // 4)
-            m = max(n >> shift, 1)
+            m = compaction_bucket(vec3.any_nonzero(d), sort_now)
 
         def head(v):
             return v.map(lambda c: c[:m].contiguous())
@@ -379,7 +452,7 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
         if cached is None and freetrace:
             vox = _freetrace_hit(scene, bo, bd, vec3.any_nonzero(bd))
         elif cached is None:
-            pa, pb, t = trace(scene, bo, bd, max_events)
+            pa, pb, t = trace(tscene, bo, bd, max_events)
             if settings.trace_audit:
                 trunc = trunc + ((pa >> TRUNCATED_BIT) & 1).sum()
         if fused:

@@ -2,13 +2,15 @@
 timing, and the slope between two iteration counts.
 
 A lab measures the card, so it refuses to run without one
-(`require_card`); nothing here falls back to the CPU.
+(`require_card`); nothing here falls back to the CPU.  The sweep tools
+(`_sweep.py`) also print through `emit`, and run on the CPU when asked.
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
+import time
 
 import torch
 
@@ -36,13 +38,18 @@ def card() -> tuple:
     return name.strip(), limit.strip()
 
 
-def emit(rows) -> list:
+def emit(rows, device="cuda") -> list:
     """Print each row as one JSON line with the card's name and power
-    limit added; returns the rows as printed."""
-    name, limit = card()
+    limit added (a run on the CPU adds "device": "cpu" instead); returns
+    the rows as printed."""
+    if torch.device(device).type == "cuda":
+        name, limit = card()
+        extra = {"card": name, "power_limit": limit}
+    else:
+        extra = {"device": "cpu"}
     out = []
     for row in rows:
-        row = {**row, "card": name, "power_limit": limit}
+        row = {**row, **extra}
         print(json.dumps(row), flush=True)
         out.append(row)
     return out
@@ -53,17 +60,40 @@ def _events():
             torch.cuda.Event(enable_timing=True))
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` back-to-back calls (CUDA
-    events), after one warm-up call."""
+def sync(device="cuda") -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _HostEvent:
+    """A CUDA event's interface on the host clock, for CPU runs."""
+
+    def record(self) -> None:
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end: "_HostEvent") -> float:
+        return (end.t - self.t) * 1e3
+
+
+def event(device="cuda"):
+    """A timing event: a CUDA event on a card, the host clock on the
+    CPU (where every op has finished when it returns)."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.Event(enable_timing=True)
+    return _HostEvent()
+
+
+def time_ms(fn, reps: int, device="cuda") -> float:
+    """Mean time of `fn` over `reps` back-to-back calls after one warm-up
+    call: CUDA events on a card, the host clock on the CPU."""
     fn()
-    torch.cuda.synchronize()
-    e0, e1 = _events()
+    sync(device)
+    e0, e1 = event(device), event(device)
     e0.record()
     for _ in range(reps):
         fn()
     e1.record()
-    torch.cuda.synchronize()
+    sync(device)
     return e0.elapsed_time(e1) / reps
 
 
