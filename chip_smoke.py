@@ -71,7 +71,17 @@ through their entry points, checking which kernels each launched:
     general, over compaction x trace_skips x trace_presort; K3 against
     the gather it replaces; K1's lane occupancy on the headline's and the
     streamed window's rays; the tiles' decay without a re-sort.  Each row
-    on a line of its own (`sweep_row`).
+    on a line of its own (`sweep_row`);
+  * the repository's last tools, ported (`wavefront_tpu_torch/bench.py`
+    and `tools/`: gpu_parity, parity_probe, gen_golden, gen_assets,
+    onehot_ab, prewarm, gpu_sweep) at full width (`tools`): the headline
+    benchmark's Mrays/s (10 frames in batches of 5), the golden and bench
+    parity gates, the six parity probes on the golden scene (arms, tracer
+    fields, the primary cache, card against CPU), the oracle's golden and
+    the asset pack regenerated under build/chip_smoke/ and held to the
+    stored ones, K1 and K5's table-lookup forms at the headline's ray
+    count, the programs of prewarm, and `gpu_sweep --stages gates` as a
+    subprocess.  Each row on a line of its own (`tools_row`).
 
 Each phase prints one JSON line with the seconds it took, then a line of
 the seconds by phase and in total; the line before the last lists every
@@ -115,6 +125,15 @@ Tolerances:
            of tests/test_golden.py's schedule test; per-ray results do not
            depend on ray order), no ray truncated; the unskipped march's
            image under the image gate above against the skipping one's.
+  tools:   the golden and bench gates of tools/tpu_parity.py (a pixel
+           agrees within 1e-3 * max(1, |want|); under 0.5% divergent,
+           relative RMSE under 1e-3), no truncated or overflowing ray;
+           the probes' primary cache 0 divergent pixels, tracer fields
+           off on at most 1e-5 of the rays, card against CPU under the
+           golden gate; the oracle's golden within 1e-6 * max(1, |want|)
+           of the stored one (expected: equal); the asset pack's
+           blocks.json byte for byte and every texture's RGBA equal; K5's
+           forms equal to the indexed read.
 """
 
 from __future__ import annotations
@@ -122,6 +141,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import subprocess
 import sys
 import time
 import warnings
@@ -129,6 +149,7 @@ import warnings
 import numpy as np
 import torch
 
+from wavefront_tpu_torch import bench
 from wavefront_tpu_torch.core.config import RenderingPreferences, RenderSettings
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.headline import (
@@ -173,8 +194,14 @@ from wavefront_tpu_torch.tools import (
     event_lab,
     fused_ab,
     fusion_probe,
+    gen_assets,
+    gen_golden,
+    gpu_parity,
     gpu_probe,
     occupancy,
+    onehot_ab,
+    parity_probe,
+    prewarm,
     radix_lab,
     roofline,
     sort_sweep,
@@ -2608,6 +2635,137 @@ def sweeps_path(name: str, limit: str, device: str = "cuda",
                             for k, v in by_row.items()}}
 
 
+def tools_path(name: str, limit: str, headline_frame_ms: float,
+               device: str = "cuda", width: int = 1920, height: int = 1080,
+               golden_rows=(0, gen_golden.HEIGHT)) -> dict:
+    """The repository's last tools, ported (`wavefront_tpu_torch/bench.py`
+    and `tools/`: gpu_parity, parity_probe, gen_golden, gen_assets,
+    onehot_ab, prewarm, gpu_sweep), at full width: the headline at
+    1920x1080x4.  Each tool's rows are printed one JSON line each
+    (`tools_row`).  Held: the bench's audit frame with no ray truncated
+    or overflowing; the golden gate (`gpu_parity`) and the bench gate
+    (`gpu_parity --bench`: truncated 0, nee_overflow 0, the headline
+    against the 512-step plain march); `parity_probe`'s `cache` with 0
+    divergent pixels, `trace` with hit, face and the voxel of hit lanes
+    off on at most 1e-5 of the rays (0 at 256x256), `split` under the
+    golden gate (`nee` and `scatter` are reported, not held); the oracle's
+    golden (`gen_golden`, into build/chip_smoke/) within 1e-6 relative of
+    the stored one; the asset pack (`gen_assets`, into
+    build/chip_smoke/assets) equal to assets/ (blocks.json byte for byte,
+    every texture's RGBA); every K5 form equal to the indexed read
+    (`onehot_ab`); every program of `prewarm` finite; `gpu_sweep --stages
+    gates` run as a user runs it, every command with exit code 0.  The
+    launch counters of K1-K3 and K5 are read from 0 around the in-process
+    tools: each must launch (on the card; `device` "cpu", a small width
+    and a band of `golden_rows` rehearse the phase with the plain
+    versions)."""
+    dev = torch.device(device)
+    counters = {**FRAME_KERNELS, "loop_probe": loop_probe.loop_probe}
+    for fn in counters.values():
+        fn.launches = 0
+    hl = headline_setup(width, height, 4, device=device)
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    seconds = {}
+
+    def run(tool: str, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        if device != "cpu":
+            sync()
+        seconds[tool] = time.perf_counter() - t0
+        return got
+
+    def show(tool: str, got: list) -> list:
+        emit_rows([{"phase": "tools_row", "tool": tool, **r} for r in got],
+                  device)
+        return got
+
+    rec, aux = run("bench", lambda: bench.measure(*hl, frames=10, k=5))
+    show("bench", [{**rec, **aux}])
+    check(aux["truncated"] == 0 and aux["nee_overflow"] == 0,
+          f"bench: audit {aux}")
+    gates = run("gpu_parity", lambda: [gpu_parity.golden_check(dev),
+                                       gpu_parity.bench_gate(*hl)])
+    for r in show("gpu_parity", gates):
+        check(r["pass"], f"gpu_parity {r['check']}: {r}")
+    probe = {}
+    for cmd in parity_probe.CMDS:
+        probe[cmd] = show(f"parity_probe {cmd}", run(
+            f"parity_probe {cmd}", lambda: parity_probe.COMMANDS[cmd](dev)))
+    for r in probe["cache"]:
+        check(r["divergent"] == 0, f"parity_probe cache: {r}")
+    tr = probe["trace"][0]
+    for f in ("hit", "face", "vx_hitlanes", "vy_hitlanes", "vz_hitlanes"):
+        check(tr[f] <= TRACE_MISMATCH_FRACTION * tr["n"],
+              f"parity_probe trace: {f} differs on {tr[f]} of {tr['n']}")
+    for r in probe["split"]:
+        check(r.get("golden_gate", {"pass": True})["pass"],
+              f"parity_probe split: {r}")
+    gg = run("gen_golden", lambda: gen_golden.generate(
+        os.path.join(out_dir, "gen_golden", "config1_256.npz"), golden_rows,
+        os.cpu_count() or 1))
+    show("gen_golden", [gg])
+    check(gg["within_1e-6"], f"gen_golden: {gg}")
+    root = os.path.join(out_dir, "assets")
+    ga = run("gen_assets", lambda: {"root": os.path.relpath(root, HERE),
+                                    **gen_assets.versions(),
+                                    **gen_assets.compare(
+                                        root, gen_assets.generate(root))})
+    show("gen_assets", [ga])
+    check(ga["pass"], f"gen_assets: {ga}")
+    ab = show("onehot_ab", run("onehot_ab", lambda: onehot_ab.ab(
+        *hl[:3], lanes=width * height)))
+    for r in ab:
+        check(r.get("max_abs_diff_vs_indexed", 0) == 0, f"onehot_ab: {r}")
+    warm = show("prewarm", run("prewarm", lambda: prewarm.warm(*hl, k=5)))
+    check(all(r.get("finite", True) for r in warm), f"prewarm: {warm}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(all(v > 0 for v in launches.values()) or device == "cpu",
+          f"tools: launches {launches}")
+    cmd = [sys.executable, "-m", "wavefront_tpu_torch.tools.gpu_sweep",
+           "--stages", "gates"]
+    if device == "cpu":
+        cmd += ["--device", "cpu", "--width", str(width), "--height",
+                str(height)]
+    sweep = run("gpu_sweep", lambda: subprocess.run(
+        cmd, cwd=HERE, capture_output=True, text=True, timeout=600))
+    stages = [json.loads(line) for line in sweep.stdout.splitlines()
+              if line.startswith('{"stage"')]
+    show("gpu_sweep", stages)
+    check(sweep.returncode == 0 and len(stages) == 2
+          and all(r["exit"] == 0 for r in stages),
+          f"gpu_sweep --stages gates: exit {sweep.returncode}, {stages}, "
+          f"{sweep.stderr[-2000:]}")
+    by_form = {(r["form"], r["table_rows"]): r["ns_per_iter"]
+               for r in ab if r["row"] == "k5"}
+    return {"card": name, "power_limit": limit, "launches": launches,
+            "seconds_by_tool": seconds,
+            "bench": {k: rec[k] for k in ("value", "frame_ms",
+                                          "vs_baseline")},
+            "headline_frame_ms": headline_frame_ms,
+            "gpu_parity": {r["check"]: {k: r[k] for k in (
+                "frac_divergent_pixels", "rmse_rel_agreeing", "max_rel",
+                "pass")} for r in gates},
+            "bench_gate_audit": {k: gates[1][k] for k in (
+                "truncated_rays", "nee_overflow_rays")},
+            "parity_trace": tr,
+            "parity_split": [r["golden_gate"] for r in probe["split"]
+                             if "golden_gate" in r],
+            "nee_mismatch": sum(r["mismatch"] for r in probe["nee"]),
+            "scatter_mismatch": sum(r["mismatch"] for r in probe["scatter"]),
+            "gen_golden": {k: gg[k] for k in ("rows", "procs", "seconds",
+                                              "max_abs_diff",
+                                              "differing_pixels")},
+            "gen_assets": {k: ga[k] for k in ("pil", "zlib", "textures",
+                                              "byte_equal_textures",
+                                              "rgba_equal_textures",
+                                              "blocks_json_byte_equal")},
+            "k1_ms": {r["ray_set"]: r["ms"] for r in ab if r["row"] == "k1"},
+            "k5_ns_per_iter": {f"{f}_{n}": v for (f, n), v in by_form.items()},
+            "prewarm_s": {r["row"]: r["seconds"] for r in warm},
+            "gpu_sweep": [r["exit"] for r in stages]}
+
+
 def worldgen_path(name: str, limit: str) -> dict:
     """The headline scene's 5x1x5 chunks (32^3) from the native generator
     (`csrc/worldgen.cpp`, built by the host compiler) and from its NumPy
@@ -2761,6 +2919,9 @@ def main() -> int:
     sw = sweeps_path(name, limit)
     paths["sweeps"] = {"launches": sw["launches"]}
     emit("sweeps", **sw)
+    tl = tools_path(name, limit, hl["frame_ms"])
+    paths["tools"] = {"launches": tl["launches"]}
+    emit("tools", **tl)
     emit("seconds", total=time.perf_counter() - t0, by_phase=seconds)
 
     kernels = []
@@ -2817,6 +2978,9 @@ def main() -> int:
             "library_device_ms": k.get("library_device_ms"),
             "smem_floor_ms": k.get("smem_floor_ms"),
         })
+    # K5 also runs on the tools' path (onehot_ab)
+    next(k for k in kernels if k["name"] == "loop_probe")[
+        "launches_by_path"]["tools"] = tl["launches"]["loop_probe"]
     # K4's one-read form and its operations a call beside its one digit
     next(k for k in kernels if k["name"] == "radix_hist").update(
         {key: rc[key] for key in ("device_ops_per_call", "device_ms_one_read",

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from wavefront_tpu.core.camera import SphericalCamera as JaxCamera
 from wavefront_tpu.world.blocks import BlockRegistry as JaxRegistry
 from wavefront_tpu_torch.core.config import RenderingPreferences

@@ -1,14 +1,16 @@
 """The port's sweep tools (`wavefront_tpu_torch/tools/`: sort_sweep,
 stage_table, fused_ab, texel_lab, trace_tune, occupancy, fusion_probe)
-on the CPU, against the JAX tools they port (`tools/*.py`).
+on the CPU, against the JAX tools they port (`tools/*.py`); and every
+tool's `main`, the repository tools of tests/test_torch_repo_tools.py
+too.
 
 Each tool's row function runs on the headline scene at 16x16 to 32x32
 (one timed frame) and gives the JAX tool's row names and keys, read from
 the JAX tool's source (its schedules, variants, arms, workloads, stages
 and the keys of its JSON rows); the sort schedules' images agree with the
 every-bounce sort's within 1e-5.  Each `main` prints parseable JSON lines
-with `--device cpu` and refuses `--device cuda` without a card.  No JAX
-frame is rendered: the JAX tools are read, not run.
+with `--device cpu` at a small size and refuses `--device cuda` without
+a card.  No JAX frame is rendered: the JAX tools are read, not run.
 """
 
 import ast
@@ -21,6 +23,7 @@ import re
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from wavefront_tpu_torch.headline import headline_setup
 from wavefront_tpu_torch.tools import (
     fused_ab,
@@ -179,13 +182,28 @@ MAINS = {
     "texel_lab": ["--n", "100", "--iters", "1"],
     "occupancy": ["--only", "primary", "--width", "16", "--height", "16"],
     "fusion_probe": ["--tile", "64", "--width", "16", "--height", "16"],
+    "gpu_parity": ["--bench", "--width", "16", "--height", "16", "--bounces",
+                   "1"],
+    "parity_probe": ["trace", "--width", "16", "--height", "16"],
+    "gen_golden": ["--rows", "140", "141", "--procs", "1", "--out",
+                   "{tmp}/golden.npz"],
+    "gen_assets": ["--root", "{tmp}/assets"],
+    "onehot_ab": ["--width", "16", "--height", "16", "--lanes", "1024"],
+    "gpu_sweep": ["--stages", "bench", "--width", "16", "--height", "16"],
+    "prewarm": ["--width", "16", "--height", "16", "--bounces", "1",
+                "--batch", "1"],
 }
 
 
+def argv(tool: str, tmp_path) -> list:
+    """MAINS[tool] with {tmp} made a fresh directory of the test's."""
+    return [a.replace("{tmp}", str(tmp_path)) for a in MAINS[tool]]
+
+
 @pytest.mark.parametrize("tool", sorted(MAINS))
-def test_main_prints_json_on_the_cpu(tool, capsys):
+def test_main_prints_json_on_the_cpu(tool, capsys, tmp_path):
     mod = importlib.import_module(f"wavefront_tpu_torch.tools.{tool}")
-    printed = mod.main(MAINS[tool] + ["--device", "cpu"])
+    printed = mod.main(argv(tool, tmp_path) + ["--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
     rows = [json.loads(line) for line in lines]
     assert rows == printed and rows
@@ -193,8 +211,8 @@ def test_main_prints_json_on_the_cpu(tool, capsys):
 
 
 @pytest.mark.parametrize("tool", sorted(MAINS))
-def test_main_without_a_card_exits(tool, monkeypatch):
+def test_main_without_a_card_exits(tool, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mod = importlib.import_module(f"wavefront_tpu_torch.tools.{tool}")
     with pytest.raises(SystemExit, match="no CUDA device"):
-        mod.main(MAINS[tool])
+        mod.main(argv(tool, tmp_path))

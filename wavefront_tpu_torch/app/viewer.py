@@ -25,7 +25,7 @@ same `UserInputState` the synthetic-event tests exercise.
 The counterpart of `wavefront_tpu.app.viewer`, with the same page,
 routes and input batch.  Frames are PNG (`render/screenshot.py::
 png_bytes`, zlib at level 1, the fastest) where the JAX viewer sends
-JPEG through PIL, so the port needs no imaging package; a browser shows
+JPEG through PIL, so a frame needs no imaging package; a browser shows
 either.
 
 Run:  python -m wavefront_tpu_torch.app.main --frames 100000 --serve 8787 --interactive

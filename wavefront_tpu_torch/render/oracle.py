@@ -438,14 +438,19 @@ class OracleRenderer:
 
     # ---- frame ----
 
-    def render(self, eye, front, right, up, frame_count=0, nee_type=0):
+    def render_rows(self, eye, front, right, up, y0, y1, frame_count=0,
+                    nee_type=0):
+        """Rows y0 <= y < y1 of the frame at the render resolution,
+        (y1 - y0, W, 3) float64: a pixel's ray and draws depend on its
+        place in the whole frame alone, so a band equals those rows of
+        `render` (before its downscale)."""
         s = self.s
         w, h = s.render_width, s.render_height
         b_total = s.num_bounces
         aspect = w / h
-        img = np.zeros((h, w, 3))
+        img = np.zeros((y1 - y0, w, 3))
 
-        for py in range(h):
+        for py in range(y0, y1):
             for px in range(w):
                 u = 2.0 * px / w - 1.0
                 v = 2.0 * py / h - 1.0
@@ -478,8 +483,13 @@ class OracleRenderer:
                     # wavefront.accumulate_radiance)
                     wgt = bsdf[b] / q if q > 0 else 0.0
                     radiance = emis[b] + refl[b] * radiance * wgt * valid[b]
-                img[py, px] = radiance
+                img[py - y0, px] = radiance
+        return img
 
+    def render(self, eye, front, right, up, frame_count=0, nee_type=0):
+        s = self.s
+        img = self.render_rows(eye, front, right, up, 0, s.render_height,
+                               frame_count, nee_type)
         if s.scale > 1:
             img = img.reshape(s.height, s.scale, s.width, s.scale, 3).mean(axis=(1, 3))
         return img.astype(np.float32)

@@ -3,8 +3,9 @@ game_world.rs:303-339: copy to host, clamp, auto-numbered PNG).
 
 The counterpart of `wavefront_tpu.render.screenshot`.  The PNG is written
 here with zlib and struct (an 8-bit RGB image, one IDAT chunk, filter 0 on
-every row), so the port needs no imaging package; `read_png` reads such
-a file back.
+every row), so a screenshot needs no imaging package (the block
+textures load through PIL, `world/blocks.py`); `read_png` reads such a
+file back.
 """
 
 from __future__ import annotations
