@@ -529,7 +529,8 @@ def texel_check(scene, settings, basis, prefs) -> dict:
     render_frame(scene.get_arrays(), basis.eye, basis.front, basis.right,
                  basis.up, 0, settings=settings.replace(num_bounces=2),
                  nee_type=prefs.nee_type, sort_type=prefs.sort_type,
-                 trace=trace_spy, texel=spy)
+                 trace=trace_spy, texel=spy,
+                 use_entities=bool(scene._entities))
     check(len(seen) == 2 and len(traced) == 2,
           f"a 2-bounce frame fetched {len(seen)} and traced {len(traced)} times")
     atlas, tex, u, v, chans = seen[0]
@@ -641,7 +642,7 @@ def general_check() -> dict:
             scene.get_arrays(), basis.eye, basis.front, basis.right,
             basis.up, 1, settings=settings, nee_type=prefs.nee_type,
             sort_type=prefs.sort_type, trace=trace_plain, shade=shade_plain,
-            texel=texel_plain)
+            texel=texel_plain, use_entities=bool(scene._entities))
         return img.cpu().numpy(), aux
 
     out = {"width": 480, "height": 270, "bounces": 4}
@@ -696,7 +697,8 @@ def frame_check() -> dict:
         want, _ = render_frame(
             scene.get_arrays(), basis.eye, basis.front, basis.right,
             basis.up, 1, settings=s, nee_type=prefs.nee_type,
-            sort_type=prefs.sort_type, trace=trace_plain, shade=shade_plain)
+            sort_type=prefs.sort_type, trace=trace_plain, shade=shade_plain,
+            use_entities=bool(scene._entities))
         gate = golden_gate(got, want.cpu().numpy(),
                            f"{key} frame kernels vs plain")
         if key == "float32":
@@ -731,7 +733,8 @@ def timed_frame(scene, settings, basis, prefs, frame: int) -> dict:
                  sort_type=prefs.sort_type,
                  trace=timed(window_trace, "window_trace"),
                  shade=timed(shade_pass, "shade"),
-                 texel=timed(texel_fetch, "texel"))
+                 texel=timed(texel_fetch, "texel"),
+                 use_entities=bool(scene._entities))
     sync()
     return {k: [{"rays": m, "ms": a.elapsed_time(b)} for a, b, m in v]
             for k, v in events.items() if v}
@@ -788,6 +791,75 @@ def zero_launches() -> None:
 
 def read_launches() -> dict:
     return {k: fn.launches for k, fn in FRAME_KERNELS.items()}
+
+
+def use_entities_path(name: str, limit: str, device: str = "cuda",
+                      width: int = 1920, height: int = 1080) -> dict:
+    """`render_frame(use_entities=...)` at full width on a scene with one
+    live entity (the ego cube): the headline scene on the fused path (K1
+    and K2) and the general scene on the general path (K1 and K3).  With
+    False the frame equals bit for bit the frame of the same scene without
+    the entity and runs no triangle sweep; with True it sweeps and
+    differs.  Each frame's launches (the counters at 0 just before it) and
+    triangle sweeps are reported."""
+    from wavefront_tpu_torch.render import renderer as rr
+
+    sweep, swept = rr.triangle_sweep, []
+
+    def counted(*a, **kw):
+        swept.append(1)
+        return sweep(*a, **kw)
+
+    def frame(scene, settings, basis, prefs, use):
+        zero_launches()
+        swept.clear()
+        img, aux = render_frame(
+            scene.get_arrays(), basis.eye, basis.front, basis.right,
+            basis.up, 1, settings=settings, nee_type=prefs.nee_type,
+            sort_type=prefs.sort_type, use_entities=use)
+        sync()
+        check(aux == {"truncated": 0, "nee_overflow": 0}
+              and bool(torch.isfinite(img).all()),
+              f"use_entities={use}: audit {aux} or a non-finite pixel")
+        return img, {"launches": read_launches(), "sweeps": len(swept)}
+
+    out = {"card": name, "power_limit": limit, "width": width,
+           "height": height, "bounces": 4}
+    total = {k: 0 for k in FRAME_KERNELS}
+    rr.triangle_sweep = counted
+    try:
+        for path, setup, kernel in (("fused", headline_setup, "shade"),
+                                    ("general", general_setup, "texel")):
+            scene, settings, basis, prefs = setup(width, height, 4,
+                                                  device=device)
+            if path == "general":
+                scene.remove_object("ego")
+            free, f0 = frame(scene, settings, basis, prefs, False)
+            add_ego_cube(scene, basis)
+            off, f1 = frame(scene, settings, basis, prefs, False)
+            on, f2 = frame(scene, settings, basis, prefs, True)
+            want = {k: 4 if k in ("window_trace", kernel) else 0
+                    for k in FRAME_KERNELS}
+            check(device == "cpu"
+                  or all(f["launches"] == want for f in (f0, f1, f2)),
+                  f"use_entities {path}: launches {f0}, {f1}, {f2}")
+            check(f1["sweeps"] == 0 and f2["sweeps"] == 4,
+                  f"use_entities {path}: sweeps {f1}, {f2}")
+            check(torch.equal(off, free), f"use_entities {path}: the False "
+                  "frame differs from the entity-free frame")
+            differ = int((on != free).any(dim=-1).sum())
+            check(differ > 0, f"use_entities {path}: the True frame shows "
+                  "no entity")
+            out[path] = {"entity_free": f0, "false": f1, "true": f2,
+                         "false_equals_entity_free": True,
+                         "true_pixels_differing": differ}
+            for f in (f0, f1, f2):
+                for k, v in f["launches"].items():
+                    total[k] += v
+    finally:
+        rr.triangle_sweep = sweep
+    out["launches"] = total
+    return out
 
 
 def full_frame(what: str, scene, settings, basis, prefs, name: str,
@@ -1521,7 +1593,8 @@ def streamed_frame_check(scene, settings, basis, prefs) -> dict:
     want, _ = render_frame(
         scene.get_arrays(), basis.eye, basis.front, basis.right, basis.up,
         1, settings=s, nee_type=prefs.nee_type, sort_type=prefs.sort_type,
-        trace=trace_plain, shade=shade_plain)
+        trace=trace_plain, shade=shade_plain,
+        use_entities=bool(scene._entities))
     return {"width": 480, "height": 270,
             **golden_gate(got, want.cpu().numpy(),
                           "streamed frame kernels vs plain")}
@@ -1991,16 +2064,22 @@ def frame_kernel_check(what: str, scene, settings, basis, prefs,
 
 def viewer_path(name: str, limit: str, img: np.ndarray) -> dict:
     """The app's last frame through the viewer: its sRGB bytes and their
-    PNG encode timed (at zlib level 1, as the viewer encodes, 5 times, and
-    at level 6, 3 times), `publish`, then over loopback a first request
-    (`GET /stats`), three `GET /frame` (a PNG equal to the frame's bytes:
-    the first encodes the frame, the others are served its bytes) and a
-    `POST /input` batch that
-    `drain_events` returns.  A loopback connection the machine refuses is
-    reported, not held (the CPU test holds the round trip)."""
+    JPEG encode at the viewer's quality 85 timed (5 times; the decoded
+    image's 16x16 block means held to the frame's at a PSNR of at least
+    35 dB; their mean |diff| and the pixels' reported), beside the PNG
+    encode that screenshots take (zlib level 1, 5
+    times, and level 6, 3 times), `publish`, then over loopback a first
+    request (`GET /stats`), three `GET /frame` (image/jpeg, equal to
+    `_encode()`'s bytes: the first encodes the frame, the others are
+    served its bytes) and a `POST /input` batch that `drain_events`
+    returns.  A loopback connection the machine refuses is reported, not
+    held (the CPU test holds the round trip)."""
+    import io
     import socket
     import threading
     import urllib.request
+
+    from PIL import Image
 
     from wavefront_tpu_torch.app.viewer import Viewer
     from wavefront_tpu_torch.render.screenshot import (
@@ -2017,17 +2096,53 @@ def viewer_path(name: str, limit: str, img: np.ndarray) -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
         return got, ms
 
+    def jpeg():
+        buf = io.BytesIO()
+        Image.fromarray(rgb, "RGB").save(buf, "JPEG", quality=85)
+        return buf.getvalue()
+
+    def fidelity(a, b, k):
+        """(mean |diff| in levels, PSNR in dB) of the k x k block means."""
+        h, w = (a.shape[0] // k) * k, (a.shape[1] // k) * k
+
+        def means(x):
+            return x[:h, :w].reshape(h // k, k, w // k, k, 3).mean((1, 3))
+
+        d = means(a) - means(b)
+        return float(np.abs(d).mean()), float(10.0 * np.log10(
+            255.0 ** 2 / max(float((d ** 2).mean()), 1e-12)))
+
     rgb, srgb_ms = timed(lambda: to_srgb_bytes(img), 5)
-    data, encode_ms = timed(lambda: png_bytes(rgb, level=1), 5)
+    jpg, encode_ms = timed(jpeg, 5)
+    decoded = np.asarray(Image.open(io.BytesIO(jpg)).convert("RGB"),
+                         np.float64)
+    check(decoded.shape == rgb.shape, f"viewer: the JPEG decodes to "
+          f"{decoded.shape}, the frame is {rgb.shape}")
+    # a 1-sample frame's pixel noise is what JPEG drops (and clips, which
+    # shifts a noisy block's mean by about 2 levels), so the decoded image
+    # is held to the frame by the PSNR of its 16x16 block means (a JPEG
+    # unit with its halved chroma); the mean |diff| and the pixels' own
+    # numbers are reported
+    pixel_diff, pixel_psnr = fidelity(decoded, rgb.astype(np.float64), 1)
+    mean_diff, psnr = fidelity(decoded, rgb.astype(np.float64), 16)
+    check(psnr >= 35.0, f"viewer: the JPEG's 16x16 block means are "
+          f"{mean_diff} levels off on average, PSNR {psnr} dB")
+    data, png_ms = timed(lambda: png_bytes(rgb, level=1), 5)
     data6, encode6_ms = timed(lambda: png_bytes(rgb, level=6), 3)
     check(np.array_equal(read_png(data), rgb)
           and np.array_equal(read_png(data6), rgb),
           "viewer: the PNG does not decode to the frame")
     out = {"card": name, "power_limit": limit, "image": list(img.shape),
-           "srgb_ms": float(np.median(srgb_ms)), "png_bytes": len(data),
-           "encode_ms": float(np.median(encode_ms)),
-           "encode_ms_each": encode_ms, "png_bytes_level6": len(data6),
-           "encode_ms_level6": float(np.median(encode6_ms))}
+           "srgb_ms": float(np.median(srgb_ms)), "quality": 85,
+           "jpeg_bytes": len(jpg), "encode_ms": float(np.median(encode_ms)),
+           "encode_ms_each": encode_ms,
+           "jpeg_block16_mean_abs_diff": mean_diff,
+           "jpeg_block16_psnr_db": psnr,
+           "jpeg_pixel_mean_abs_diff": pixel_diff,
+           "jpeg_pixel_psnr_db": pixel_psnr, "png_bytes": len(data),
+           "png_encode_ms": float(np.median(png_ms)),
+           "png_encode_ms_each": png_ms, "png_bytes_level6": len(data6),
+           "png_encode_ms_level6": float(np.median(encode6_ms))}
     v = Viewer(port=0)
     try:
         t0 = time.perf_counter()
@@ -2050,8 +2165,9 @@ def viewer_path(name: str, limit: str, img: np.ndarray) -> dict:
             body = r.read()
             get_ms.append((time.perf_counter() - t0) * 1e3)
             cpu_ms.append((time.process_time() - c0) * 1e3)
-            check(r.headers["Content-Type"] == "image/png" and body == data,
-                  "viewer: /frame is not the frame's PNG")
+            check(r.headers["Content-Type"] == "image/jpeg"
+                  and body == v._encode() == jpg,
+                  "viewer: /frame is not the frame's JPEG")
         out["get_frame_ms"] = get_ms
         # the process's CPU time over each request, every thread's: the
         # app's chunk threads share the interpreter with the server
@@ -2875,6 +2991,8 @@ def main() -> int:
         "node_bucket": lights.node_min.shape[0], "dense": lights.dense})
     emit("general_profile", **profile_frames(*gen, gf["frame_ms"], frames=2),
          stages=stage_times(*gen, 10))
+    ue = use_entities_path(name, limit)
+    emit("use_entities", **ue)
     rc = radix_check(scene, settings, basis)
     emit("radix_check", **rc)
     pc = probe_check()
@@ -2889,7 +3007,7 @@ def main() -> int:
         "batch_general", *general_setup(480, 270, 4, device="cuda"),
         ("window_trace", "texel")))
     paths = {"headline": hl, "headline_bf16": hb, "general": gf,
-             "batch": bt}
+             "use_entities": ue, "batch": bt}
     paths["edit"] = edit_path(name, limit)
     emit("edit", **paths["edit"])
     streamed = streamed_setup(1920, 1080, 4, device="cuda")

@@ -7,10 +7,12 @@ The driver runs headless and rendering on the CPU (`--device cpu`); with
 tests/test_torch_render.py).  Both worlds are captured as
 tests/test_app.py captures one, and their chunk managers made
 synchronous, so both render the same window on every frame.  The viewer
-serves its page, a PNG frame that the port's reader decodes, its stats
-and the input channel; window events orbit and zoom the camera.
+serves its page, a JPEG frame at `quality` whose bytes equal the JAX
+viewer's for the same float frame, its stats and the input channel;
+screenshots stay PNG; window events orbit and zoom the camera.
 """
 
+import io
 import json
 import os
 import urllib.error
@@ -19,8 +21,10 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import wavefront_tpu.app.main as jax_app
+from wavefront_tpu.app.viewer import Viewer as JaxViewer
 import wavefront_tpu_torch.app.main as port_app
 from wavefront_tpu_torch.app.viewer import Viewer
 from wavefront_tpu_torch.core.config import RenderSettings, WorldSettings
@@ -104,6 +108,12 @@ def test_app_needs_the_card_unless_asked():
         port_app.main(["--frames", "1", "--headless"])
 
 
+def _jpeg(rgb, quality):
+    buf = io.BytesIO()
+    Image.fromarray(rgb, "RGB").save(buf, "JPEG", quality=quality)
+    return buf.getvalue()
+
+
 def test_viewer_encodes_each_frame_once(monkeypatch):
     """Every GET of one published frame is served the same bytes, encoded
     once; the next frame is encoded anew."""
@@ -111,11 +121,11 @@ def test_viewer_encodes_each_frame_once(monkeypatch):
 
     calls = []
 
-    def counted(rgb, level=6):
-        calls.append(level)
-        return png_bytes(rgb, level=level)
+    def counted(img):
+        calls.append(img.shape)
+        return to_srgb_bytes(img)
 
-    monkeypatch.setattr(viewer_mod, "png_bytes", counted)
+    monkeypatch.setattr(viewer_mod, "to_srgb_bytes", counted)
     v = Viewer(port=0)
     try:
         base = f"http://127.0.0.1:{v.port}"
@@ -124,14 +134,33 @@ def test_viewer_encodes_each_frame_once(monkeypatch):
         v.publish(imgs[0])
         got = [urllib.request.urlopen(base + "/frame").read()
                for _ in range(3)]
-        assert got[0] == got[1] == got[2] and calls == [1]
+        assert got[0] == got[1] == got[2] and len(calls) == 1
         v.publish(imgs[1])
-        np.testing.assert_array_equal(
-            read_png(urllib.request.urlopen(base + "/frame").read()),
-            to_srgb_bytes(imgs[1]))
-        assert calls == [1, 1]
+        assert (urllib.request.urlopen(base + "/frame").read()
+                == _jpeg(to_srgb_bytes(imgs[1]), 85))
+        assert len(calls) == 2
     finally:
         v.close()
+
+
+@pytest.mark.parametrize("quality", [85, 50])
+def test_viewer_jpeg_equals_the_jax_viewers(quality):
+    """One float frame through both viewers' `_encode` at `quality`: the
+    same JPEG bytes (one PIL in one process)."""
+    img = np.random.default_rng(quality).random((32, 32, 3),
+                                                dtype=np.float32) * 1.2
+    img[0, :4] = [-0.1, 0.5, 2.0]
+    port, ref = Viewer(port=0, quality=quality), JaxViewer(
+        port=0, quality=quality)
+    try:
+        assert port._encode() is None
+        port.publish(img)
+        ref.publish(img)
+        got = port._encode()
+        assert got[:2] == b"\xff\xd8" and got == ref._encode()
+    finally:
+        port.close()
+        ref.close()
 
 
 @pytest.mark.parametrize("level", [1, 6, 9])
@@ -142,7 +171,7 @@ def test_png_levels_decode_to_the_image(level):
 
 
 def test_viewer_routes_and_input_channel():
-    """GET / and /frame (a PNG of the published frame), /stats, a 404,
+    """GET / and /frame (a JPEG of the published frame), /stats, a 404,
     and POST /input -> drain_events as world.input Event records."""
     v = Viewer(port=0)
     try:
@@ -156,8 +185,11 @@ def test_viewer_routes_and_input_channel():
         page = urllib.request.urlopen(base + "/").read()
         assert b"/input" in page and b"mousedown" in page
         r = urllib.request.urlopen(base + "/frame")
-        assert r.headers["Content-Type"] == "image/png"
-        np.testing.assert_array_equal(read_png(r.read()), to_srgb_bytes(img))
+        assert r.headers["Content-Type"] == "image/jpeg"
+        body = r.read()
+        assert body == v._encode() == _jpeg(to_srgb_bytes(img), 85)
+        decoded = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+        assert decoded.shape == (6, 8, 3)
         stats = json.loads(urllib.request.urlopen(base + "/stats").read())
         assert stats["frame"] == 1
         with pytest.raises(urllib.error.HTTPError) as e:

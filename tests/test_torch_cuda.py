@@ -515,7 +515,7 @@ def test_general_frame_kernels_match_plain(cube_scene):
     arrays = cube_scene.get_arrays()
     reg = cube_scene.registry
     p0, e1, e2, power = lights_mod.extract_voxel_lights(
-        cube_scene.grid, np.zeros(3), reg)
+        cube_scene.grid, np.zeros(3), reg)[:4]
     sparse = lights_mod.build_light_set(
         p0, e1, e2, power, np.zeros(len(p0), bool), 256, dense_threshold=8)
     arrays = arrays._replace(lights=light_arrays(sparse, "cuda"))

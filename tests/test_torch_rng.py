@@ -66,6 +66,20 @@ def test_finalizef_bitexact():
     assert got.min() >= 0.0 and got.max() < 1.0
 
 
+def test_combinef_bitexact():
+    # a float's bit pattern mixed in: random floats, signed zeros, 1.0,
+    # an infinity and a NaN, against seeds and a scalar seed
+    h = _u32(8)
+    f = np.random.default_rng(9).standard_normal(N).astype(np.float32)
+    f[:6] = [0.0, -0.0, 1.0, np.inf, np.nan, 3e38]
+    want = jrng.murmur3_combinef(jnp.asarray(h), jnp.asarray(f))
+    got = rng.combinef(_t(h), torch.as_tensor(f))
+    np.testing.assert_array_equal(_as_u32(got), np.asarray(want))
+    np.testing.assert_array_equal(
+        _as_u32(rng.combinef(7, 0.25)),
+        np.asarray(jrng.murmur3_combinef(jnp.uint32(7), 0.25)))
+
+
 def test_float_construct_bitexact():
     m = _u32(5)
     want = np.asarray(jrng.float_construct(jnp.asarray(m)))

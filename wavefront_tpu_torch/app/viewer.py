@@ -6,8 +6,8 @@ display stack, so the interactive story here is a streamed viewer: a tiny
 threaded HTTP server exposes
 
     /          a page showing the live stream + fps overlay
-    /stream    multipart/x-mixed-replace stream of PNG frames
-    /frame     single PNG snapshot
+    /stream    multipart/x-mixed-replace stream of JPEG frames
+    /frame     single JPEG snapshot
     /stats     JSON {frame, fps}
 
 The app driver pushes each rendered frame with `viewer.publish(img)`;
@@ -23,10 +23,9 @@ and POSTs them to /input as JSON; the frame loop drains them with
 same `UserInputState` the synthetic-event tests exercise.
 
 The counterpart of `wavefront_tpu.app.viewer`, with the same page,
-routes and input batch.  Frames are PNG (`render/screenshot.py::
-png_bytes`, zlib at level 1, the fastest) where the JAX viewer sends
-JPEG through PIL, so a frame needs no imaging package; a browser shows
-either.
+routes, input batch and JPEG frames at `quality` (PIL, imported where a
+frame is encoded; without it the encode raises).  Screenshots stay PNG
+(`render/screenshot.py::png_bytes`).
 
 Run:  python -m wavefront_tpu_torch.app.main --frames 100000 --serve 8787 --interactive
 then open http://localhost:8787/ and fly: middle-drag orbits, wheel zooms,
@@ -36,6 +35,7 @@ Tab toggles the body mode, N/B/O/digits work as in the reference.
 
 from __future__ import annotations
 
+import io
 import json
 import threading
 import time
@@ -43,7 +43,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from wavefront_tpu_torch.render.screenshot import png_bytes, to_srgb_bytes
+from wavefront_tpu_torch.render.screenshot import to_srgb_bytes
 
 _PAGE = b"""<!doctype html>
 <html><head><title>wavefront-tpu live</title><style>
@@ -120,16 +120,18 @@ setInterval(async () => {
 class Viewer:
     """Thread-safe latest-frame store + HTTP server."""
 
-    def __init__(self, port: int = 8787, host: str = "127.0.0.1"):
+    def __init__(self, port: int = 8787, host: str = "127.0.0.1",
+                 quality: int = 85):
         self._lock = threading.Condition()
         self._frame: np.ndarray | None = None
         self._seq = 0
         self._fps = 0.0
         self._last_pub = None
+        self.quality = quality
         self._events: list = []          # pending input events (guarded)
-        # (seq, PNG bytes) of the last frame encoded, and the lock that
+        # (seq, JPEG bytes) of the last frame encoded, and the lock that
         # lets one request encode it while the others wait for its bytes
-        self._png: tuple = (-1, b"")
+        self._jpg: tuple = (-1, b"")
         self._encode_lock = threading.Lock()
 
         viewer = self
@@ -191,15 +193,15 @@ class Viewer:
                         self.end_headers()
                         self.wfile.write(_PAGE)
                     elif self.path == "/frame":
-                        png = viewer._encode()
-                        if png is None:
+                        jpg = viewer._encode()
+                        if jpg is None:
                             self.send_response(503)
                             self.end_headers()
                             return
                         self.send_response(200)
-                        self.send_header("Content-Type", "image/png")
+                        self.send_header("Content-Type", "image/jpeg")
                         self.end_headers()
-                        self.wfile.write(png)
+                        self.wfile.write(jpg)
                     elif self.path == "/stats":
                         self.send_response(200)
                         self.send_header("Content-Type", "application/json")
@@ -221,14 +223,14 @@ class Viewer:
                                     lambda: viewer._seq != seen, timeout=5.0
                                 )
                                 seen = viewer._seq
-                            png = viewer._encode()
-                            if png is None:
+                            jpg = viewer._encode()
+                            if jpg is None:
                                 continue
                             self.wfile.write(
-                                b"--F\r\nContent-Type: image/png\r\n"
-                                + f"Content-Length: {len(png)}\r\n\r\n".encode()
+                                b"--F\r\nContent-Type: image/jpeg\r\n"
+                                + f"Content-Length: {len(jpg)}\r\n\r\n".encode()
                             )
-                            self.wfile.write(png)
+                            self.wfile.write(jpg)
                             self.wfile.write(b"\r\n")
                     else:
                         self.send_response(404)
@@ -265,16 +267,22 @@ class Viewer:
             self._lock.notify_all()
 
     def _encode(self):
-        """The latest frame as PNG bytes, or None before the first; each
-        frame is encoded once, whatever the number of clients."""
+        """The latest frame as JPEG bytes at `quality`, or None before the
+        first; each frame is encoded once, whatever the number of
+        clients."""
+        from PIL import Image
+
         with self._encode_lock:
             with self._lock:
                 frame, seq = self._frame, self._seq
             if frame is None:
                 return None
-            if self._png[0] != seq:
-                self._png = (seq, png_bytes(to_srgb_bytes(frame), level=1))
-            return self._png[1]
+            if self._jpg[0] != seq:
+                buf = io.BytesIO()
+                Image.fromarray(to_srgb_bytes(frame), "RGB").save(
+                    buf, "JPEG", quality=self.quality)
+                self._jpg = (seq, buf.getvalue())
+            return self._jpg[1]
 
     def close(self) -> None:
         self._server.shutdown()

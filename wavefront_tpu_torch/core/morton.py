@@ -1,5 +1,6 @@
-"""Morton (Z-order) codes: the 2-D deinterleave of the ray-layout debug
-view and the 3-D key of the bounce sort without the tracer's presort.
+"""Morton (Z-order) codes: the 2-D interleave and its inverse (the
+ray-layout debug view) and the 3-D key of the bounce sort without the
+tracer's presort.
 
 The reference carries 2-D/3-D bit-interleaving helpers in its trace
 kernel (raytrace.rs:402-457); the renderer's `debug_view` paints each
@@ -13,6 +14,22 @@ int64 tensors.
 from __future__ import annotations
 
 import torch
+
+
+def spread_bits_2(x) -> torch.Tensor:
+    """Spread the low 16 bits of x, inserting one zero between bits."""
+    x = torch.as_tensor(x).to(torch.int64) & 0x0000FFFF
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    x = (x | (x << 1)) & 0x55555555
+    return x
+
+
+def interleave_bits_2(i, j) -> torch.Tensor:
+    """32-bit 2-D morton code from two 16-bit ints (reference
+    raytrace.rs:406-412: j occupies the odd bits)."""
+    return spread_bits_2(i) | (spread_bits_2(j) << 1)
 
 
 def deinterleave_bits_2(z: torch.Tensor):
@@ -57,6 +74,13 @@ def discretize_position(p: torch.Tensor, lo: float = -50.0,
     JAX package rounds them."""
     mapped = ((p.to(torch.float32) - lo) / (hi - lo)).clamp(0.0, 1.0)
     return (mapped * 1023.0).to(torch.int64)
+
+
+def morton_key_3d(p, lo: float = -50.0, hi: float = 50.0) -> torch.Tensor:
+    """30-bit morton key of world positions p (..., 3); the inter-bounce
+    ray sort key the reference intended (raytrace.rs:692)."""
+    ijk = discretize_position(torch.as_tensor(p), lo, hi)
+    return interleave_bits_3(ijk[..., 0], ijk[..., 1], ijk[..., 2])
 
 
 def morton_key_3d_soa(x, y, z, lo: float = -50.0,

@@ -60,3 +60,11 @@ def float_construct(m) -> torch.Tensor:
 def finalizef(h) -> torch.Tensor:
     """finalize + float_construct (reference raytrace.rs:159-161)."""
     return float_construct(finalize(h))
+
+
+def combinef(h, k_float) -> torch.Tensor:
+    """Combine a float32's bit pattern (reference raytrace.rs:155-157)."""
+    if not isinstance(k_float, torch.Tensor):
+        k_float = torch.tensor(k_float)
+    bits = k_float.to(torch.float32).contiguous().view(torch.int32)
+    return combine(h, bits)

@@ -22,6 +22,13 @@ class V3(NamedTuple):
         return V3(a[..., 0].contiguous(), a[..., 1].contiguous(),
                   a[..., 2].contiguous())
 
+    @staticmethod
+    def full_like(ref: "V3", value) -> "V3":
+        """A V3 of `value` with each of ref's components' shape, dtype and
+        device."""
+        return V3(torch.full_like(ref.x, value), torch.full_like(ref.y, value),
+                  torch.full_like(ref.z, value))
+
     def stack(self) -> torch.Tensor:
         """V3 -> (N, 3)."""
         return torch.stack([self.x, self.y, self.z], dim=-1)

@@ -28,6 +28,9 @@ the throughput carry in and out is bfloat16, and reflectivity, emission,
 the sky and the throughput factor are rounded to bfloat16 where the
 reference rounds them (`shading.shade_rays`); the MIS weight is taken in
 float32 and rounded once, and radiance accumulates in float32.
+
+`pack_hits` (from `render/intersect.py`) turns a VoxelHit of the plain
+march into the (pa, pb, t) words that the kernel and `shade_plain` read.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from wavefront_tpu_torch.core.config import EPSILON_BLOCK, EPSILON_NEE, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.kernels import _build
 from wavefront_tpu_torch.kernels.texel import texel_plain
-from wavefront_tpu_torch.render.intersect import unpack_hits
+from wavefront_tpu_torch.render.intersect import pack_hits, unpack_hits  # noqa: F401
 from wavefront_tpu_torch.render.shading import (
     CHANNELS,
     EntityHit,

@@ -22,13 +22,20 @@ file and PERF.md).
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 
 from wavefront_tpu_torch.core.config import EPSILON_BLOCK, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.kernels import _build
-from wavefront_tpu_torch.render.intersect import MAX_GRID, trace_plain
+from wavefront_tpu_torch.render.intersect import (
+    AIR_ID,
+    MAX_GRID,
+    TRUNCATED_BIT,
+    trace_plain,
+    unpack_hits,
+)
 
 W = 32  # coherence-key window edge, in voxels
 
@@ -72,22 +79,50 @@ _LAUNCH = _build.Launcher("window_trace", "wt_trace", "ppppppppiiifffiiffppp",
                          "window_trace")
 
 
-def window_trace(scene, origin: V3, direction: V3, max_events: int):
+def window_trace(scene, origin: V3, direction: V3, max_events: int, *,
+                 grid_origin=None, t_min: float = EPSILON_BLOCK,
+                 t_max: float = T_MAX, air_id: int = AIR_ID,
+                 with_truncated: bool = False, packed_hits: bool = True):
     """First face crossing of every ray; returns packed (pa, pb, t).
 
-    scene: render.scene.SceneArrays (its `grid` and `aux_grid`);
+    scene: render.scene.SceneArrays (its `grid`, `aux_grid` and
+    `grid_origin`, which `grid_origin` overrides when given);
     origin/direction: V3 of (N,) float32 world-space components (a zero
     direction is an inactive ray).  A skip counts as one of the
     `max_events` steps.  CPU tensors take `trace_plain`; CUDA tensors
     launch the kernel or raise.  Grids larger than the hit words hold
-    (MAX_GRID) raise."""
+    (MAX_GRID) raise.
+
+    The JAX package's options: hits count between t_min and t_max; a
+    miss names `air_id` as its owner; with_truncated also returns the
+    (N,) bool mask of rays that ran out of steps; packed_hits=False
+    returns `unpack_hits`' VoxelHit in place of the words (the JAX
+    package's default; every caller here takes the words)."""
     if any(g > m for g, m in zip(scene.grid.shape, MAX_GRID)):
         raise ValueError(f"window_trace: grid {tuple(scene.grid.shape)} "
                          f"exceeds the hit-word limits {MAX_GRID}")
+    if grid_origin is not None:
+        scene = types.SimpleNamespace(
+            grid=scene.grid, aux_grid=scene.aux_grid,
+            grid_origin=[int(g) for g in grid_origin])
+    pa, pb, t = _trace(scene, origin, direction, max_events, t_min, t_max)
+    if air_id != AIR_ID:
+        miss = (pa & 1) == 0
+        pa = torch.where(miss, (pa & ~(255 << 14)) | (int(air_id) << 14), pa)
+    out = (pa, pb, t) if packed_hits else unpack_hits(pa, pb, t)
+    if with_truncated:
+        return out, ((pa >> TRUNCATED_BIT) & 1) != 0
+    return out
+
+
+def _trace(scene, origin: V3, direction: V3, max_events: int,
+           t_min: float, t_max: float):
+    """(pa, pb, t) of the rays: `trace_plain` for CPU tensors, the kernel
+    for CUDA ones."""
     comps = (*origin, *direction)
     if comps[0].device.type == "cpu":
         return _build.plain("window_trace", trace_plain, scene, origin,
-                            direction, max_events)
+                            direction, max_events, t_min=t_min, t_max=t_max)
     dev = comps[0].device
     n = comps[0].shape[0]
     for c in comps:
@@ -109,7 +144,7 @@ def window_trace(scene, origin: V3, direction: V3, max_events: int):
     go = scene.grid_origin
     _LAUNCH(dev.index, *(c.data_ptr() for c in comps), grid.data_ptr(),
             aux.data_ptr(), gx, gy, gz, float(go[0]), float(go[1]),
-            float(go[2]), n, int(max_events), EPSILON_BLOCK, T_MAX,
+            float(go[2]), n, int(max_events), float(t_min), float(t_max),
             pa.data_ptr(), pb.data_ptr(), t.data_ptr())
     window_trace.launches += 1
     _build.check_outputs("window_trace", t)

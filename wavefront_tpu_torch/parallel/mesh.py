@@ -120,6 +120,8 @@ class DistributedRenderer:
         """`fn` (render_frame or render_frame_batch) over every non-empty
         range on its device; returns the ranges' buffers."""
         prefs = prefs or RenderingPreferences()
+        use_entities = (bool(scene._entities)
+                        if isinstance(scene, VoxelScene) else True)
         arrays = scene.get_arrays() if isinstance(scene, VoxelScene) else scene
         parts = []
         for device, (lo, hi) in zip(self.mesh, self.ranges()):
@@ -131,7 +133,7 @@ class DistributedRenderer:
                 settings=self.settings, nee_type=int(prefs.nee_type),
                 sort_type=int(prefs.sort_type),
                 debug_view=int(prefs.debug_view), tables=tables,
-                pixels=(lo, hi), **kw)
+                pixels=(lo, hi), use_entities=use_entities, **kw)
             parts.append(buf)
         return parts
 

@@ -1,6 +1,7 @@
 """Intersection: the voxel hit record, its packed form, the plain PyTorch
-tracer that the CUDA tracer (`kernels/window_trace.py`) is held against,
-and the closest-hit sweep over the dynamic entities' triangles.
+tracer that the CUDA tracer (`kernels/window_trace.py`) is held against
+(and `dda_trace`, the same march with the JAX package's arguments), and
+the closest-hit sweep over the dynamic entities' triangles.
 
 The reference intersects rays with meshed voxel faces through hardware ray
 queries (raytrace.rs:366-400).  Here, as in the JAX package, the
@@ -31,6 +32,7 @@ Hit words (`pack_hits`, the layout of the reference's tracer kernel):
 
 from __future__ import annotations
 
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -215,7 +217,8 @@ def _sign(d):
 
 
 def trace_plain(scene, origin: V3, direction: V3, max_events: int,
-                stats: dict | None = None):
+                stats: dict | None = None, *, t_min: float = EPSILON_BLOCK,
+                t_max: float = T_MAX):
     """Plain PyTorch version of the tracer kernel, with the arguments of
     `kernels.window_trace.window_trace`: every ray's first face crossing,
     at most `max_events` steps per ray.
@@ -223,7 +226,7 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int,
     scene: anything with the SceneArrays fields `grid` ((gx, gy, gz) uint8
     block ids), `aux_grid` (its `make_aux_grid`, uint8) and `grid_origin`
     (3 ints, world coords of grid[0,0,0]).  Rays with a zero direction are
-    inactive.  Hits count between t = EPSILON_BLOCK and T_MAX.  A ray
+    inactive.  Hits count between t = t_min and t_max.  A ray
     still marching after `max_events` steps reports a miss with the
     truncated bit set.
 
@@ -242,7 +245,6 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int,
     steps of each kind the rays took (what a measurement of the kernel
     counts its work by), and its "per_ray" to each ray's steps, (N,)
     int32."""
-    t_min, t_max = EPSILON_BLOCK, T_MAX
     grid, grid_origin = scene.grid, scene.grid_origin
     gx, gy, gz = (int(s) for s in grid.shape)
     aux_flat = scene.aux_grid.reshape(-1).to(_I32)
@@ -385,6 +387,43 @@ def trace_plain(scene, origin: V3, direction: V3, max_events: int,
         stats["fine"], stats["skips"] = int(n_fine), int(n_skip)
         stats["per_ray"] = ray_steps
     return pa, pb, t
+
+
+def dda_trace(grid, grid_origin, transparent, translucent, air_id: int,
+              origin, direction, *, t_min: float = EPSILON_BLOCK,
+              t_max: float = T_MAX, max_steps: int = 256, unroll: int = 8,
+              aux_grid=None) -> VoxelHit:
+    """The JAX package's `dda_trace` signature over `trace_plain`: the
+    closest face hit of each ray of (N, 3) `origin` / `direction` (a zero
+    direction is inactive) as a VoxelHit, on `origin`'s device.
+
+    grid: (gx, gy, gz) block ids; transparent / translucent: (256,) bool
+    block tables; aux_grid: the grid's `make_aux_grid` (the skipping
+    march), or None for the class bits of the tables alone (no skip).  The
+    march takes max_steps rounded up to a multiple of `unroll` steps, as
+    the JAX loop runs `unroll` steps an iteration.  A miss (or a ray that
+    runs out of steps) has owner `air_id`, t 3e38 and zero fields."""
+    origin = torch.as_tensor(origin, dtype=_F32)
+    dev = origin.device
+    direction = torch.as_tensor(direction, dtype=_F32, device=dev)
+    grid = torch.as_tensor(grid, device=dev)
+    if aux_grid is None:
+        cls = (torch.as_tensor(transparent, device=dev).to(torch.uint8)
+               * CLASS_TRANSPARENT
+               + torch.as_tensor(translucent, device=dev).to(torch.uint8)
+               * CLASS_TRANSLUCENT)
+        aux_grid = cls[grid.to(torch.int64)]
+    scene = types.SimpleNamespace(
+        grid=grid, aux_grid=torch.as_tensor(aux_grid, device=dev),
+        grid_origin=[int(g) for g in np.asarray(grid_origin)])
+    unroll = max(1, int(unroll))
+    pa, pb, t = trace_plain(scene, V3.from_array(origin),
+                            V3.from_array(direction),
+                            -(-int(max_steps) // unroll) * unroll,
+                            t_min=t_min, t_max=t_max)
+    vox = unpack_hits(pa, pb, t)
+    return vox._replace(owner=torch.where(
+        vox.hit, vox.owner, torch.full_like(vox.owner, int(air_id))))
 
 
 class TriHit(NamedTuple):

@@ -114,6 +114,7 @@ def _greedy_rects(mask: np.ndarray):
 
 def extract_voxel_lights(
     grid: np.ndarray, grid_origin: np.ndarray, registry: BlockRegistry,
+    merge: bool = True,
 ):
     """Emissive face rectangles of the voxel grid, in world coordinates.
 
@@ -122,19 +123,20 @@ def extract_voxel_lights(
     and its texture luminance is positive (reference scene.rs:563-571).
     Power = luminance * area (reference scene.rs:567-571).
 
-    Coplanar same-block runs of unit faces are greedily merged into large
-    rectangles — radiometrically equivalent for
+    With merge=True (default), coplanar same-block runs of unit faces are
+    greedily merged into large rectangles — radiometrically equivalent for
     uniform-luminance faces (uniform sampling of an h x w rectangle equals
     power-weighted sampling of its h*w unit quads) and it shrinks the light
     BVH by ~an order of magnitude.  The reference cannot do this because its
     light prims must be the BLAS triangles (scene.rs:563-571).
 
-    Returns (p0, e1, e2, power) numpy arrays.
+    Returns (p0, e1, e2, power, owner_voxel, face) numpy arrays; for merged
+    rectangles owner_voxel is the rectangle's corner voxel.
     """
     lum_by_face = registry.luminance.reshape(registry.num_blocks, 6)
     luminous_blocks = np.where(lum_by_face.sum(axis=1) > 0)[0]
 
-    p0s, e1s, e2s, powers = [], [], [], []
+    p0s, e1s, e2s, powers, voxels, faces = [], [], [], [], [], []
     transl = registry.translucent
     origin_f = np.asarray(grid_origin, np.float32)
 
@@ -164,35 +166,61 @@ def extract_voxel_lights(
                 continue
             a1, a2 = [a for a in range(3) if a != ax]
 
-            # greedy rectangles per face-plane slice
-            for s in range(grid.shape[ax]):
-                sl = [slice(None)] * 3
-                sl[ax] = s
-                mask2d = exists[tuple(sl)]  # indexed by (a1, a2)
-                if not mask2d.any():
-                    continue
-                for (r0, c0, h, w) in _greedy_rects(mask2d):
-                    corner = np.zeros(3, np.float32)
-                    corner[ax] = s + (1.0 if sg > 0 else 0.0)
-                    corner[a1] = r0
-                    corner[a2] = c0
-                    e1 = np.zeros(3, np.float32)
-                    e2 = np.zeros(3, np.float32)
-                    e1[a1] = h
-                    e2[a2] = w
-                    p0s.append((corner + origin_f)[None])
-                    e1s.append(e1[None])
-                    e2s.append(e2[None])
-                    powers.append(np.float32([lum * h * w]))
+            if merge:
+                # greedy rectangles per face-plane slice
+                for s in range(grid.shape[ax]):
+                    sl = [slice(None)] * 3
+                    sl[ax] = s
+                    mask2d = exists[tuple(sl)]  # indexed by (a1, a2)
+                    if not mask2d.any():
+                        continue
+                    for (r0, c0, h, w) in _greedy_rects(mask2d):
+                        corner = np.zeros(3, np.float32)
+                        corner[ax] = s + (1.0 if sg > 0 else 0.0)
+                        corner[a1] = r0
+                        corner[a2] = c0
+                        e1 = np.zeros(3, np.float32)
+                        e2 = np.zeros(3, np.float32)
+                        e1[a1] = h
+                        e2[a2] = w
+                        vox = np.zeros(3, np.int32)
+                        vox[ax] = s
+                        vox[a1] = r0
+                        vox[a2] = c0
+                        p0s.append((corner + origin_f)[None])
+                        e1s.append(e1[None])
+                        e2s.append(e2[None])
+                        powers.append(np.float32([lum * h * w]))
+                        voxels.append(vox[None])
+                        faces.append(np.int32([face]))
+            else:
+                vx, vy, vz = np.where(exists)
+                base = np.stack([vx, vy, vz], -1).astype(np.float32) + origin_f
+                corner = base.copy()
+                if sg > 0:
+                    corner[:, ax] += 1.0
+                e1 = np.zeros((len(vx), 3), np.float32)
+                e2 = np.zeros((len(vx), 3), np.float32)
+                e1[:, a1] = 1.0
+                e2[:, a2] = 1.0
+                p0s.append(corner)
+                e1s.append(e1)
+                e2s.append(e2)
+                powers.append(np.full(len(vx), lum, np.float32))
+                voxels.append(np.stack([vx, vy, vz], -1).astype(np.int32))
+                faces.append(np.full(len(vx), face, np.int32))
 
     if not p0s:
         z3 = np.zeros((0, 3), np.float32)
-        return z3, z3, z3, np.zeros(0, np.float32)
+        return (z3, z3, z3, np.zeros(0, np.float32),
+                np.zeros((0, 3), np.int32), np.zeros(0, np.int32))
     return (
         np.concatenate(p0s),
         np.concatenate(e1s),
         np.concatenate(e2s),
         np.concatenate(powers),
+        np.concatenate(voxels),
+        np.concatenate(faces),
     )
 
 
@@ -414,7 +442,7 @@ def build_from_grid(
 
     extra_tris: (verts (T,3,3), power (T,)) triangles in world space.
     """
-    p0, e1, e2, power = extract_voxel_lights(
+    p0, e1, e2, power, _, _ = extract_voxel_lights(
         grid, np.asarray(grid_origin), registry
     )
     is_tri = np.zeros(len(p0), bool)

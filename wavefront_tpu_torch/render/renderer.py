@@ -355,10 +355,17 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
                  sort_type: int, debug_view: int = 0,
                  cache_primary: bool = False, tables=None,
                  trace=window_trace, shade=shade_pass, texel=texel_fetch,
-                 pixels=None):
+                 pixels=None, use_entities: bool = True):
     """Render one frame on the scene's device; returns ((H, W, 3) image
     tensor, aux) with aux = {"truncated", "nee_overflow"} as ints (both 0
     unless settings.trace_audit).
+
+    use_entities: resolve the entity triangles' hits (the triangle sweep
+    and the entity stream into the shade).  False drops them even when
+    the pool has live triangles; True with no live triangle renders the
+    image of False.  The caller decides it from host state (`Renderer`
+    passes `bool(scene._entities)` for a VoxelScene), so no device read
+    picks the path.
 
     pixels: (lo, hi) renders the pixel ids lo <= id < hi of the render
     resolution only (id = y * render_width + x), and returns in place of
@@ -390,7 +397,6 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     fused = use_fused(scene, settings, nee_type)
     if fused and tables is None:
         tables = prep_shade_tables(scene.atlas_packed, scene.lights)
-    use_entities = bool(scene.tri_active.any())
     w, h = settings.render_width, settings.render_height
     lo, hi = (0, w * h) if pixels is None else (int(pixels[0]),
                                                 int(pixels[1]))
@@ -598,10 +604,14 @@ class Renderer:
             self._tables = (
                 arrays.atlas_packed, arrays.lights,
                 prep_shade_tables(arrays.atlas_packed, arrays.lights))
+        # entity-less scenes skip the triangle sweep, decided on the host
+        use_entities = (bool(scene._entities)
+                        if isinstance(scene, VoxelScene) else True)
         mode = (int(prefs.nee_type), int(prefs.sort_type),
-                int(prefs.debug_view))
+                int(prefs.debug_view), use_entities)
         kw = dict(settings=self.settings, nee_type=mode[0], sort_type=mode[1],
-                  debug_view=mode[2], tables=self._tables[2],
+                  debug_view=mode[2], use_entities=use_entities,
+                  tables=self._tables[2],
                   cache_primary=self.settings.cache_primary)
         pkey = primary = None
         if self.settings.cache_primary and self.settings.jitter == 0.0:

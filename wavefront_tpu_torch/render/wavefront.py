@@ -110,6 +110,15 @@ def raygen_soa(eye, front, right, up, width: int, height: int,
     return origin, d, pid
 
 
+def raygen(eye, front, right, up, width: int, height: int,
+           jitter: float = 0.0, seed=None, device="cuda"):
+    """(N, 3)-tensor form of `raygen_soa`: (origin, direction, ray ids)
+    for every pixel."""
+    o, d, ray_id = raygen_soa(eye, front, right, up, width, height,
+                              jitter=jitter, seed=seed, device=device)
+    return o.stack(), d.stack(), ray_id
+
+
 # ---------------------------------------------------------------------------
 # light BVH walks (reference raytrace.rs:186-293, nee_pdf.rs:119-228)
 # ---------------------------------------------------------------------------
@@ -486,6 +495,36 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
     if with_overflow:
         return pdf, int((count > max_hits).sum())
     return pdf
+
+
+# ---------------------------------------------------------------------------
+# radiance accumulation (reference outgoing_radiance.rs:58-93)
+# ---------------------------------------------------------------------------
+
+
+def accumulate_radiance(emissivity, reflectivity, mis_weight, bsdf_pdf,
+                        nee_pdf, valid):
+    """Backward recurrence L_b = E_b + R_b * L_{b+1} * (p/q) * valid_b with
+    the one-sample-MIS reweighting q = nee*w + (1-w)*bsdf
+    (outgoing_radiance.rs:77-87).  The renderer folds the throughput
+    forward instead (`shading.throughput_factor`); this is the per-bounce
+    form the oracle and the golden tests write.
+
+    Inputs (B, N, ...): emissivity and reflectivity (B, N, 3), the rest
+    (B, N); returns the bounce-0 radiance (N, 3)."""
+    radiance = torch.zeros_like(emissivity[0])
+    for b in range(emissivity.shape[0] - 1, -1, -1):
+        q = nee_pdf[b] * mis_weight[b] + (1.0 - mis_weight[b]) * bsdf_pdf[b]
+        # q == 0 happens: finalizef rounds to exactly 1.0 about once in
+        # 2^25 draws, which makes a grazing cosine sample with bsdf_pdf
+        # exactly 0.  The reference's shader computes 0/0 there (a NaN
+        # pixel, outgoing_radiance.rs:84); such a sample adds nothing
+        # beyond its own emission, as in the JAX package and the oracle.
+        w = torch.where(q > 0.0, bsdf_pdf[b] / torch.clamp_min(q, 1e-35),
+                        torch.zeros_like(q))
+        radiance = emissivity[b] + reflectivity[b] * radiance * (
+            w * valid[b].to(w.dtype))[:, None]
+    return radiance
 
 
 # ---------------------------------------------------------------------------

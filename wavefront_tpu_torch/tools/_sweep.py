@@ -136,7 +136,8 @@ def stage_times(scene, settings, basis, prefs, frame: int) -> dict:
             arrays, basis.eye, basis.front, basis.right, basis.up,
             frame, settings=settings, nee_type=prefs.nee_type,
             sort_type=prefs.sort_type, trace=rr.window_trace,
-            shade=rr.shade_pass, texel=rr.texel_fetch)
+            shade=rr.shade_pass, texel=rr.texel_fetch,
+            use_entities=bool(scene._entities))
         whole[1].record()
         sync(dev)
     finally:

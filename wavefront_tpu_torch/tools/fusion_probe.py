@@ -64,7 +64,8 @@ def traced_rays(scene, settings, basis, prefs, sort_bounces) -> list:
     render_frame(arrays, basis.eye, basis.front, basis.right, basis.up, 0,
                  settings=settings.replace(num_bounces=3, compaction=False,
                                            sort_bounces=sort_bounces),
-                 nee_type=prefs.nee_type, sort_type=1, trace=spy)
+                 nee_type=prefs.nee_type, sort_type=1, trace=spy,
+                 use_entities=bool(scene._entities))
     return seen
 
 

@@ -112,7 +112,8 @@ def reference_frame(scene, settings, basis, prefs, frame: int = 0):
     img, _ = render_frame(
         scene.get_arrays(), basis.eye, basis.front, basis.right, basis.up,
         frame, settings=ref, nee_type=prefs.nee_type,
-        sort_type=prefs.sort_type, trace=trace_plain)
+        sort_type=prefs.sort_type, trace=trace_plain,
+        use_entities=bool(scene._entities))
     return img
 
 

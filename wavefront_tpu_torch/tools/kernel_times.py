@@ -265,7 +265,7 @@ def texel_row(reps: int) -> dict:
     render_frame(scene.get_arrays(), basis.eye, basis.front, basis.right,
                  basis.up, 0, settings=settings.replace(num_bounces=1),
                  nee_type=prefs.nee_type, sort_type=prefs.sort_type,
-                 texel=spy)
+                 texel=spy, use_entities=bool(scene._entities))
     atlas, tex, u, v, chans = seen[0]
     return {"kernel": "texel", "rays": int(tex.shape[0]),
             "channels": list(chans),

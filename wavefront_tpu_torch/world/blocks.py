@@ -80,6 +80,10 @@ class BlockRegistry:
             return self.air
         return self.names.index(name)
 
+    def material_offset(self, block_idx: int, face: int) -> int:
+        """Texture slot of (block, face) (reference block.rs:116-119)."""
+        return block_idx * 6 + face
+
     @staticmethod
     def load(assets_path: str) -> "BlockRegistry":
         """Load blocks.json + PNG textures (reference block.rs:70-114)."""
