@@ -215,6 +215,7 @@ from wavefront_tpu_torch.tools._sweep import stage_times
 from wavefront_tpu_torch.tools._timing import FILL_GROUPS, card, time_ms
 from wavefront_tpu_torch.tools._timing import emit as emit_rows
 from wavefront_tpu_torch.tools.event_lab import dda_steps
+from wavefront_tpu_torch.utils.spans import device_events
 from wavefront_tpu_torch.world import meshes
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 from wavefront_tpu_torch.world.game_world import (
@@ -764,8 +765,7 @@ def profile_steps(step, step_ms: float, steps: int = 3) -> dict:
         for i in range(steps):
             step(i)
         sync()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof)
     busy_ms = sum(e.device_time for e in dev) / 1e3 / steps
     check(busy_ms > 0.0, "the profiler saw no device time")
     ours = {"window_trace": "trace_kernel", "shade": "shade_kernel",

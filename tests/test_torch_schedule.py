@@ -100,9 +100,9 @@ def test_schedule_matches_every_bounce_sort(chunk, every_bounce, sched,
         return real_sort(*a, **kw)
 
     def spy_bucket(alive, sorted_now):
-        m = real_bucket(alive, sorted_now)
+        m, count = real_bucket(alive, sorted_now)
         buckets.append((alive.numpy().copy(), sorted_now, m))
-        return m
+        return m, count
 
     monkeypatch.setattr(rr, "coherence_sort", count_sort)
     monkeypatch.setattr(rr, "compaction_bucket", spy_bucket)
@@ -117,7 +117,7 @@ def test_schedule_matches_every_bounce_sort(chunk, every_bounce, sched,
         # bounce 2 traces in bounce 1's order, with holes the bucket
         # must cover: smaller than the frame, larger than the count needs
         alive, _, m = buckets[2]
-        assert rr.compaction_bucket(torch.as_tensor(alive), True) < m \
+        assert rr.compaction_bucket(torch.as_tensor(alive), True)[0] < m \
             < alive.size
 
 
@@ -166,8 +166,10 @@ def masks():
 @pytest.mark.parametrize("k", range(len(masks())))
 def test_bucket_matches_the_jax_formula(k, sorted_now):
     alive = masks()[k]
-    got = rr.compaction_bucket(torch.as_tensor(alive), sorted_now)
+    got, count = rr.compaction_bucket(torch.as_tensor(alive), sorted_now)
     assert got == jax_bucket(alive, sorted_now)
+    # the alive count where the sort made it the bucket's measure
+    assert count == (int(alive.sum()) if sorted_now else None)
 
 
 def test_trace_skips_off_clears_the_aux_distances(chunk, every_bounce):

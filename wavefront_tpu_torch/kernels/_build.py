@@ -50,6 +50,8 @@ import threading
 
 import torch
 
+from wavefront_tpu_torch.utils import spans
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "wavefront_tpu_torch")
@@ -303,11 +305,16 @@ def _tensors(out):
 def check_outputs(what: str, out) -> None:
     """Raise FloatingPointError when a NaN-checking context is open and
     a floating tensor of `out` (a tensor, or tuples of them) holds a
-    NaN; `what` names the kernel."""
+    NaN; `what` names the kernel.  Each tensor's test is a host sync
+    (`sync.nan_check`)."""
     if not _nan_checks:
         return
     for t in _tensors(out):
-        if t.is_floating_point() and bool(torch.isnan(t).any()):
+        if not t.is_floating_point():
+            continue
+        with spans.host_sync("sync.nan_check"):
+            nan = bool(torch.isnan(t).any())
+        if nan:
             raise FloatingPointError(
                 f"invalid value (nan) encountered in {what}")
 

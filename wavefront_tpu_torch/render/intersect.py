@@ -40,6 +40,7 @@ import torch
 
 from wavefront_tpu_torch.core.config import EPSILON_BLOCK, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
+from wavefront_tpu_torch.utils import spans
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -447,9 +448,11 @@ def triangle_sweep(tri_verts, tri_active, origin: V3, direction: V3, *,
                    t_max: float = T_MAX) -> TriHit:
     """Closest-hit Moller-Trumbore of every ray over the fixed triangle
     pool (tri_verts (T, 3, 3), tri_active (T,)).  Replaces the per-entity
-    hardware BLAS of the reference (scene.rs:150-202): O(N*T), T small."""
+    hardware BLAS of the reference (scene.rs:150-202): O(N*T), T small.
+    Gathering the active triangles is a host sync (`sync.tri_pool`)."""
     # only the pool's active triangles are swept
-    pool = torch.nonzero(tri_active)[:, 0]
+    with spans.host_sync("sync.tri_pool"):
+        pool = torch.nonzero(tri_active)[:, 0]
     n = origin.x.shape[0]
     if pool.shape[0] == 0:
         zero = torch.zeros_like(origin.x)

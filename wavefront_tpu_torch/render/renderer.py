@@ -116,6 +116,8 @@ from wavefront_tpu_torch.render.wavefront import (
     raygen_soa,
     traverse_light_bvh,
 )
+from wavefront_tpu_torch.utils import spans
+from wavefront_tpu_torch.utils.spans import span
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -196,21 +198,25 @@ def coherence_sort(scene: SceneArrays, o: V3, d: V3, tp: V3, rad: V3, rid,
             *(take(v) for v in riders))
 
 
-def compaction_bucket(alive, sorted_now: bool) -> int:
+def compaction_bucket(alive, sorted_now: bool):
     """Rays the bounce traces and shades under compaction: the smallest of
     n, n/2 and n/4 (at least 1) that holds every alive ray.  Right after a
     sort the alive rays lead, so their count decides; on a bounce that
     skipped its sort they keep their slots, so the last alive slot decides
     (n - argmax(alive[::-1]) in the reference, 0 when none is alive).
-    alive: (n,) bool."""
+    alive: (n,) bool.  Returns the bucket and the alive rays' count, or
+    None where the bucket came from the last alive slot.  The count is a
+    host sync (`sync.compaction_count`)."""
     n = alive.shape[0]
     if sorted_now:
-        count = int(alive.sum())
+        with spans.host_sync("sync.compaction_count"):
+            count = int(alive.sum())
     else:
         slot = torch.arange(1, n + 1, dtype=torch.int64, device=alive.device)
-        count = int(torch.where(alive, slot, 0).max())
+        with spans.host_sync("sync.compaction_count"):
+            count = int(torch.where(alive, slot, 0).max())
     shift = int(count <= n // 2) + int(count <= n // 4)
-    return max(n >> shift, 1)
+    return max(n >> shift, 1), (count if sorted_now else None)
 
 
 def _freetrace_hit(scene: SceneArrays, origin: V3, direction: V3,
@@ -316,10 +322,12 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
         return traverse_light_bvh(lights, point, normal, seed, active,
                                   settings.max_bvh_depth), None
 
+    # the frame's seed, a Python int, copied to the device: a blocking copy
+    with spans.host_sync("sync.seed"):
+        seed = rng.combine(inv_seed, rid)
     (new_o, new_d, normal, emis, refl, mis, bsdf_pdf,
      dense_probs) = shade_rays(scene.grid_origin, lights, nee_type, bounce,
-                               origin, direction,
-                               rng.combine(inv_seed, rid), vox, entity,
+                               origin, direction, seed, vox, entity,
                                fetch, pick,
                                color_bf16=settings.shade_bf16)
     overflow = 0
@@ -390,136 +398,166 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     (same arguments) render the frame with the plain versions on any
     device, which is how chip_smoke.py holds a whole frame on the card
     against them."""
-    _check_supported(settings, nee_type, sort_type)
-    if primary is not None and not cache_primary:
-        raise ValueError("render_frame: primary hits need cache_primary")
-    dev = scene.grid.device
-    fused = use_fused(scene, settings, nee_type)
-    if fused and tables is None:
-        tables = prep_shade_tables(scene.atlas_packed, scene.lights)
-    w, h = settings.render_width, settings.render_height
-    lo, hi = (0, w * h) if pixels is None else (int(pixels[0]),
-                                                int(pixels[1]))
-    if not 0 <= lo < hi <= w * h:
-        raise ValueError(f"render_frame: pixels {pixels} outside "
-                         f"[0, {w * h})")
-    n = hi - lo
-    b_total = settings.num_bounces
-    gx, gy, gz = scene.grid.shape
-    max_events = settings.trace_events or auto_events(gx, gy, gz)
-    go = scene.grid_origin
-    frame_count = int(frame_count) & 0xFFFFFFFF
-    freetrace = settings.debug_stage == "freetrace"
+    with span("render.frame", frame_count):
+        _check_supported(settings, nee_type, sort_type)
+        if primary is not None and not cache_primary:
+            raise ValueError("render_frame: primary hits need cache_primary")
+        dev = scene.grid.device
+        fused = use_fused(scene, settings, nee_type)
+        if fused and tables is None:
+            tables = prep_shade_tables(scene.atlas_packed, scene.lights)
+        w, h = settings.render_width, settings.render_height
+        lo, hi = (0, w * h) if pixels is None else (int(pixels[0]),
+                                                    int(pixels[1]))
+        if not 0 <= lo < hi <= w * h:
+            raise ValueError(f"render_frame: pixels {pixels} outside "
+                             f"[0, {w * h})")
+        n = hi - lo
+        b_total = settings.num_bounces
+        gx, gy, gz = scene.grid.shape
+        max_events = settings.trace_events or auto_events(gx, gy, gz)
+        go = scene.grid_origin
+        frame_count = int(frame_count) & 0xFFFFFFFF
+        freetrace = settings.debug_stage == "freetrace"
 
-    o, d, rid = raygen_soa(eye, front, right, up, w, h,
-                           jitter=settings.jitter, seed=frame_count,
-                           device=dev, pixels=(lo, hi))
-    # path throughput in the color dtype, radiance in float32
-    tp = V3(*(torch.ones(n, dtype=color_dtype(settings.shade_bf16),
-                         device=dev) for _ in range(3)))
-    rad = V3(*(torch.zeros(n, dtype=_F32, device=dev) for _ in range(3)))
-    # the debug buffer rides the sort only when it is shown
-    dbg = V3(*(torch.zeros(n, dtype=_F32, device=dev) for _ in range(3))) \
-        if debug_view else None
-    sort = settings.compaction or sort_type == 1
-    sort_set = None if settings.sort_bounces is None else {
-        int(i) for i in settings.sort_bounces}
-    # the tracer's scene: without its empty-space skips when asked
-    tscene = scene if settings.trace_skips else scene._replace(
-        aux_grid=scene.aux_grid & 3)
-    trunc = torch.zeros((), dtype=torch.int64, device=dev)
-    overflow = 0
-    hits0 = None
+        with span("render.raygen"):
+            o, d, rid = raygen_soa(eye, front, right, up, w, h,
+                                   jitter=settings.jitter, seed=frame_count,
+                                   device=dev, pixels=(lo, hi))
+            # path throughput in the color dtype, radiance in float32
+            tp = V3(*(torch.ones(n, dtype=color_dtype(settings.shade_bf16),
+                                 device=dev) for _ in range(3)))
+            rad = V3(*(torch.zeros(n, dtype=_F32, device=dev)
+                       for _ in range(3)))
+            # the debug buffer rides the sort only when it is shown
+            dbg = V3(*(torch.zeros(n, dtype=_F32, device=dev)
+                       for _ in range(3))) if debug_view else None
+        sort = settings.compaction or sort_type == 1
+        sort_set = None if settings.sort_bounces is None else {
+            int(i) for i in settings.sort_bounces}
+        # the tracer's scene: without its empty-space skips when asked
+        tscene = scene if settings.trace_skips else scene._replace(
+            aux_grid=scene.aux_grid & 3)
+        trunc = torch.zeros((), dtype=torch.int64, device=dev)
+        overflow = 0
+        hits0 = None
 
-    for b in range(b_total):
-        # the cached bounce: every ray alive and in pixel order
-        outside = cache_primary and b == 0
-        cached = primary if outside else None
-        sort_now = sort and not outside and (sort_set is None
-                                             or b in sort_set)
-        if sort_now:
-            key = bounce_sort_key(scene, settings, sort_type, o, d)
-            if dbg is None:
-                o, d, tp, rad, rid = coherence_sort(scene, o, d, tp, rad, rid,
-                                                    key=key)
-            else:
-                o, d, tp, rad, rid, dbg = coherence_sort(
-                    scene, o, d, tp, rad, rid, dbg, key=key)
-        m = n
-        if settings.compaction and not outside:
-            m = compaction_bucket(vec3.any_nonzero(d), sort_now)
+        for b in range(b_total):
+            with span("render.bounce", b):
+                # the cached bounce: every ray alive and in pixel order
+                outside = cache_primary and b == 0
+                cached = primary if outside else None
+                sort_now = sort and not outside and (sort_set is None
+                                                     or b in sort_set)
+                if sort_now:
+                    with span("render.sort_key"):
+                        key = bounce_sort_key(scene, settings, sort_type, o, d)
+                    with span("render.permute"):
+                        if dbg is None:
+                            o, d, tp, rad, rid = coherence_sort(
+                                scene, o, d, tp, rad, rid, key=key)
+                        else:
+                            o, d, tp, rad, rid, dbg = coherence_sort(
+                                scene, o, d, tp, rad, rid, dbg, key=key)
+                m, alive_n = n, None
+                compact = settings.compaction and not outside
 
-        def head(v):
-            return v.map(lambda c: c[:m].contiguous())
+                def head(v):
+                    return v.map(lambda c: c[:m].contiguous())
 
-        bo, bd, btp, brad = head(o), head(d), head(tp), head(rad)
-        brid = rid[:m].contiguous()
-        inv_seed = (frame_count * b_total + b) & 0xFFFFFFFF
-        if cached is None and freetrace:
-            vox = _freetrace_hit(scene, bo, bd, vec3.any_nonzero(bd))
-        elif cached is None:
-            pa, pb, t = trace(tscene, bo, bd, max_events)
-            if settings.trace_audit:
-                trunc = trunc + ((pa >> TRUNCATED_BIT) & 1).sum()
-        if fused:
-            if cached is not None:
-                pa, pb, t, tri_attrs = cached
-            else:
-                if freetrace:
-                    pa, pb, t = pack_hits(vox)
-                tri_attrs = None
-                if use_entities:
-                    t, tri_attrs = entity_attrs(scene, bo, bd, pa, t)
-            if outside:
-                hits0 = cached or (pa, pb, t, tri_attrs)
-            no, nd, ntp, nrad = shade(
-                tables, go, bo, bd, pa, pb, t, btp, brad, brid, inv_seed, b,
-                scene.lights.num_prims, nee_type=nee_type,
-                tri_attrs=tri_attrs, color_bf16=settings.shade_bf16)
+                with span("render.compact"):
+                    if compact:
+                        m, alive_n = compaction_bucket(vec3.any_nonzero(d),
+                                                       sort_now)
+                    bo, bd, btp, brad = head(o), head(d), head(tp), head(rad)
+                    brid = rid[:m].contiguous()
+                if b == 0:
+                    # the raygen rays (or the primary cache's), all alive
+                    alive_n = m
+                if alive_n is not None:
+                    spans.count_lanes(m, alive_n)
+                inv_seed = (frame_count * b_total + b) & 0xFFFFFFFF
+                with span("render.k1_trace"):
+                    if cached is None and freetrace:
+                        vox = _freetrace_hit(scene, bo, bd,
+                                             vec3.any_nonzero(bd))
+                    elif cached is None:
+                        pa, pb, t = trace(tscene, bo, bd, max_events)
+                if cached is None and not freetrace and settings.trace_audit:
+                    trunc = trunc + ((pa >> TRUNCATED_BIT) & 1).sum()
+                if fused:
+                    if cached is not None:
+                        pa, pb, t, tri_attrs = cached
+                    else:
+                        if freetrace:
+                            pa, pb, t = pack_hits(vox)
+                        tri_attrs = None
+                        if use_entities:
+                            with span("render.entities"):
+                                t, tri_attrs = entity_attrs(scene, bo, bd, pa,
+                                                            t)
+                    if outside:
+                        hits0 = cached or (pa, pb, t, tri_attrs)
+                    with span("render.k2_shade"):
+                        no, nd, ntp, nrad = shade(
+                            tables, go, bo, bd, pa, pb, t, btp, brad, brid,
+                            inv_seed, b, scene.lights.num_prims,
+                            nee_type=nee_type, tri_attrs=tri_attrs,
+                            color_bf16=settings.shade_bf16)
+                else:
+                    with span("render.shade"):
+                        tri = None
+                        if cached is not None:
+                            vox, tri = cached
+                        elif not freetrace:
+                            vox = unpack_hits(pa, pb, t)
+                        no, nd, emis, tpf, ovf, tri = shade_m(
+                            scene, settings, nee_type, b, bo, bd, brid,
+                            inv_seed, vox, use_entities, texel, tri)
+                        if outside:
+                            hits0 = cached or (vox, tri)
+                        overflow += ovf
+                        nrad = brad + btp * emis
+                        ntp = btp * tpf
+                ndbg = None if dbg is None \
+                    else head(dbg) + _bounce_dbg(m, b == 1, dev)
+                if m < n:
+                    def cat(a, full):
+                        return V3(*(torch.cat([x, y[m:]])
+                                    for x, y in zip(a, full)))
+
+                    with span("render.merge"):
+                        no, nd = cat(no, o), cat(nd, d)
+                        ntp, nrad = cat(ntp, tp), cat(nrad, rad)
+                        if dbg is not None:
+                            ndbg = cat(ndbg, dbg)
+                o, d, tp, rad, dbg = no, nd, ntp, nrad, ndbg
+
+        def pixel_order(v: V3):
+            a = v.stack()
+            if not sort:
+                return a
+            out = torch.empty_like(a)
+            slot = rid.to(torch.int64)
+            out[slot - lo if lo else slot] = a
+            return out
+
+        with spans.host_sync("sync.audit"):
+            aux = {"truncated": int(trunc), "nee_overflow": int(overflow)}
+        if pixels is not None:
+            with span("render.restore"):
+                img = pixel_order(rad if dbg is None else dbg)
         else:
-            tri = None
-            if cached is not None:
-                vox, tri = cached
-            elif not freetrace:
-                vox = unpack_hits(pa, pb, t)
-            no, nd, emis, tpf, ovf, tri = shade_m(
-                scene, settings, nee_type, b, bo, bd, brid, inv_seed, vox,
-                use_entities, texel, tri)
-            if outside:
-                hits0 = cached or (vox, tri)
-            overflow += ovf
-            nrad = brad + btp * emis
-            ntp = btp * tpf
-        ndbg = None if dbg is None else head(dbg) + _bounce_dbg(m, b == 1, dev)
-        if m < n:
-            def cat(a, full):
-                return V3(*(torch.cat([x, y[m:]]) for x, y in zip(a, full)))
-
-            no, nd, ntp, nrad = cat(no, o), cat(nd, d), cat(ntp, tp), cat(nrad, rad)
-            if dbg is not None:
-                ndbg = cat(ndbg, dbg)
-        o, d, tp, rad, dbg = no, nd, ntp, nrad, ndbg
-
-    def pixel_order(v: V3):
-        a = v.stack()
-        if not sort:
-            return a
-        out = torch.empty_like(a)
-        slot = rid.to(torch.int64)
-        out[slot - lo if lo else slot] = a
-        return out
-
-    aux = {"truncated": int(trunc), "nee_overflow": int(overflow)}
-    if pixels is not None:
-        img = pixel_order(rad if dbg is None else dbg)
-    else:
-        img = postprocess(pixel_order(rad), settings.width, settings.height,
-                          settings.scale,
-                          debug=None if dbg is None else pixel_order(dbg),
-                          debug_view=debug_view)
-    if cache_primary:
-        aux["primary"] = hits0
-    return img, aux
+            with span("render.restore"):
+                rad_px = pixel_order(rad)
+                dbg_px = None if dbg is None else pixel_order(dbg)
+            with span("render.postprocess"):
+                img = postprocess(rad_px, settings.width, settings.height,
+                                  settings.scale, debug=dbg_px,
+                                  debug_view=debug_view)
+        if cache_primary:
+            aux["primary"] = hits0
+        return img, aux
 
 
 def render_frame_batch(scene: SceneArrays, eye, front, right, up, frame0: int,
@@ -631,13 +669,17 @@ class Renderer:
                prefs: Optional[RenderingPreferences] = None,
                frame_count: int = 0, *, as_numpy: bool = True,
                with_aux: bool = False):
-        arrays, kw, pkey, primary = self._frame_args(scene, camera, prefs)
-        img, aux = render_frame(
-            arrays, camera.eye, camera.front, camera.right, camera.up,
-            frame_count, primary, **kw)
-        self._keep_primary(arrays, pkey, primary, aux)
-        if as_numpy:
-            img = img.cpu().numpy()
+        with span("renderer.render"):
+            with span("renderer.prepare"):
+                arrays, kw, pkey, primary = self._frame_args(scene, camera,
+                                                             prefs)
+            img, aux = render_frame(
+                arrays, camera.eye, camera.front, camera.right, camera.up,
+                frame_count, primary, **kw)
+            self._keep_primary(arrays, pkey, primary, aux)
+            if as_numpy:
+                with spans.host_sync("sync.image_copy"):
+                    img = img.cpu().numpy()
         return (img, aux) if with_aux else img
 
     def render_batch(self, scene, camera: CameraBasis,
@@ -649,11 +691,15 @@ class Renderer:
         mean image when `accumulate`, else (k, H, W, 3).  Equal bit for
         bit to k successive `render` calls of a renderer with the same
         settings."""
-        arrays, kw, pkey, primary = self._frame_args(scene, camera, prefs)
-        img, aux = render_frame_batch(
-            arrays, camera.eye, camera.front, camera.right, camera.up,
-            frame_count, primary, k=k, accumulate=accumulate, **kw)
-        self._keep_primary(arrays, pkey, primary, aux)
-        if as_numpy:
-            img = img.cpu().numpy()
+        with span("renderer.batch", k):
+            with span("renderer.prepare"):
+                arrays, kw, pkey, primary = self._frame_args(scene, camera,
+                                                             prefs)
+            img, aux = render_frame_batch(
+                arrays, camera.eye, camera.front, camera.right, camera.up,
+                frame_count, primary, k=k, accumulate=accumulate, **kw)
+            self._keep_primary(arrays, pkey, primary, aux)
+            if as_numpy:
+                with spans.host_sync("sync.image_copy"):
+                    img = img.cpu().numpy()
         return (img, aux) if with_aux else img

@@ -23,6 +23,7 @@ import torch
 from wavefront_tpu_torch.core import rng, vec3
 from wavefront_tpu_torch.core.config import EPSILON_BLOCK, EPSILON_NEE, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
+from wavefront_tpu_torch.utils import spans
 
 _F32 = torch.float32
 _PI = math.pi
@@ -167,7 +168,9 @@ def traverse_light_bvh(lights: LightArrays, point: V3, normal: V3, seed,
                        active, max_depth: int) -> BvhSample:
     """Stochastic top-down descent, importance-proportional at every split
     (reference raytrace.rs:230-293), over the one-level global BVH; one
-    fresh murmur3 uniform per level.  seed: int64 tensor of u32 values."""
+    fresh murmur3 uniform per level.  seed: int64 tensor of u32 values.
+    Each level's test for a running walk is a host sync
+    (`sync.light_walk`)."""
     n = point.x.shape[0]
     nodes = _nodes(lights)
     # dummy-root check (reference raytrace.rs:235-243)
@@ -181,8 +184,9 @@ def traverse_light_bvh(lights: LightArrays, point: V3, normal: V3, seed,
     running = active & have_lights
     s = rng.as_u32(seed)
     for _ in range(max_depth):
-        if not bool(running.any()):
-            break
+        with spans.host_sync("sync.light_walk"):
+            if not bool(running.any()):
+                break
         stepping = running & (nodes.left[node] >= 0)
         li, ri, imp_l, imp_r = _child_importances(
             nodes, node, point, normal, EPSILON_BLOCK)
@@ -209,15 +213,18 @@ def reverse_walk_prob(lights: LightArrays, point: V3, normal: V3, leaf_node,
                       active, max_depth: int):
     """Probability that the forward descent would have picked `leaf_node`,
     rebuilt bottom-up through the parent pointers (reference
-    nee_pdf.rs:154-228), with the NEE epsilon (nee_pdf.rs:15)."""
+    nee_pdf.rs:154-228), with the NEE epsilon (nee_pdf.rs:15).  Each
+    level's test for a running walk is a host sync
+    (`sync.reverse_walk`)."""
     nodes = _nodes(lights)
     node = torch.where(active, leaf_node.to(torch.int64),
                        torch.zeros_like(leaf_node, dtype=torch.int64))
     prob = torch.ones_like(point.x)
     running = active
     for _ in range(max_depth):
-        if not bool(running.any()):
-            break
+        with spans.host_sync("sync.reverse_walk"):
+            if not bool(running.any()):
+                break
         parent = nodes.parent[node]
         stepping = running & (parent >= 0)
         pi = parent.clamp_min(0)
@@ -419,7 +426,16 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
     `max_hits` crossings, in prim order, go into slots, and one reverse BVH
     walk runs over the used (slot, ray) pairs.  A ray that crosses more under-counts its pdf;
     with_overflow also returns how many rays did (always 0 on the dense
-    path), which the renderer reports as aux["nee_overflow"]."""
+    path), which the renderer reports as aux["nee_overflow"].
+
+    The sparse path's gathers of a data-dependent size (`torch.nonzero`,
+    a boolean mask's rows) and its overflow count are host syncs
+    (`sync.nee_sweep`, `sync.nee_slots`, `sync.nee_overflow`); the dense
+    path has none."""
+    def masked(x, mask):
+        with spans.host_sync("sync.nee_slots"):
+            return x[mask]
+
     active = (mis_weight > 0) & vec3.any_nonzero(direction)
     cos_theta = vec3.dot(normal, direction)
     n = point.x.shape[0]
@@ -447,7 +463,8 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
 
     # sparse path, on the rays that can contribute only: slot collection,
     # then the reverse walk of the used slots
-    act = torch.nonzero(active)[:, 0]
+    with spans.host_sync("sync.nee_sweep"):
+        act = torch.nonzero(active)[:, 0]
     na = act.shape[0]
     pt, nm, dr = (v.map(lambda c: c[act]) for v in (point, normal, direction))
     cos_theta = cos_theta[act]
@@ -466,7 +483,8 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
             hit, t = _prim_tile_hits(lights, cpt, cdr, every[rows], pid)
             # the crossings, by ray and then by prim; the slot of each is
             # the number of crossings before it on its ray
-            ray, col = torch.nonzero(hit, as_tuple=True)
+            with spans.host_sync("sync.nee_sweep"):
+                ray, col = torch.nonzero(hit, as_tuple=True)
             rank = torch.arange(ray.shape[0], device=dev) \
                 - torch.searchsorted(ray, ray)
             tt = t[ray, col]
@@ -475,13 +493,17 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
             # unclamped: a final count above max_hits is the overflow
             count.index_add_(0, ray, torch.ones_like(ray))
             keep = k < max_hits
-            k, ray, pc = k[keep], ray[keep], pid[col[keep]]
+            k, ray, pc = masked(k, keep), masked(ray, keep), \
+                pid[masked(col, keep)]
             slot_leaf[k, ray] = lights.leaf_node[pc]
             slot_area[k, ray] = lights.area[pc]
-            slot_t[k, ray] = tt[keep]
-            slot_used[k, ray] = True
+            slot_t[k, ray] = masked(tt, keep)
+            # a Python scalar stored on the device: a blocking copy
+            with spans.host_sync("sync.nee_slots"):
+                slot_used[k, ray] = True
 
-    k, ray = torch.nonzero(slot_used, as_tuple=True)
+    with spans.host_sync("sync.nee_sweep"):
+        k, ray = torch.nonzero(slot_used, as_tuple=True)
     walk = torch.zeros((max_hits, na), dtype=_F32, device=dev)
     walk[k, ray] = reverse_walk_prob(
         lights, pt.map(lambda c: c[ray]), nm.map(lambda c: c[ray]),
@@ -493,7 +515,8 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
     pdf[act] = torch.where(slot_used, walk * point_pick,
                            torch.zeros_like(walk)).sum(0)
     if with_overflow:
-        return pdf, int((count > max_hits).sum())
+        with spans.host_sync("sync.nee_overflow"):
+            return pdf, int((count > max_hits).sum())
     return pdf
 
 

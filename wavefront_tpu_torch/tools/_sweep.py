@@ -19,6 +19,7 @@ from wavefront_tpu_torch.kernels.shade import shade_pass
 from wavefront_tpu_torch.kernels.texel import texel_fetch
 from wavefront_tpu_torch.kernels.window_trace import window_trace
 from wavefront_tpu_torch.tools._timing import event, require_card, sync
+from wavefront_tpu_torch.utils.spans import device_events
 
 # K1-K3's wrappers by the name their kernel carries in a profile
 KERNELS = {"window_trace": ("trace_kernel", window_trace),
@@ -73,8 +74,7 @@ def profile(step, dev, steps: int = 3) -> dict:
             step(i)
         sync(dev)
     launched = {k: fn.launches - before[k] for k, (_, fn) in KERNELS.items()}
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    evs = device_events(prof)
     records, kernel_ms = {}, {}
     for k, (name, _) in KERNELS.items():
         times = [e.device_time for e in evs if name in e.name]
@@ -167,9 +167,8 @@ def kernel_device_ms(fn, kernel: str, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spent = [e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
+    spent = [e.device_time for e in device_events(prof)
+             if kernel in e.name]
     if len(spent) * 2 <= reps:
         return None
     return sum(spent) / 1e3 / (len(spent) if kernel else reps)

@@ -371,6 +371,7 @@ def radix_device(fn, reps: int) -> tuple:
     from torch.profiler import ProfilerActivity, profile
 
     from wavefront_tpu_torch.kernels import radix_hist as rh
+    from wavefront_tpu_torch.utils.spans import device_events
 
     def launches():
         return rh.digit_histogram.launches + rh.digit_histograms4.launches
@@ -384,8 +385,7 @@ def radix_device(fn, reps: int) -> tuple:
             fn()
         torch.cuda.synchronize()
     per_call = (launches() - before) / reps
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof)
     kern = [e.device_time for e in dev if "hist_kernel" in e.name]
     calls = len(kern) / per_call
     if calls * 2 <= reps:
@@ -449,6 +449,7 @@ def frame_row(frames: int, blocks: int = 1) -> dict:
 
     from wavefront_tpu_torch.headline import headline_setup
     from wavefront_tpu_torch.render.renderer import Renderer
+    from wavefront_tpu_torch.utils.spans import device_events
 
     scene, settings, basis, prefs = headline_setup(1920, 1080, 4,
                                                    device="cuda")
@@ -470,8 +471,7 @@ def frame_row(frames: int, blocks: int = 1) -> dict:
             r.render(scene, basis, prefs, frame_count=100 + f,
                      as_numpy=False)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof)
     busy = sum(e.device_time for e in dev) / 1e3 / frames
     return {"frame": "headline", "frames": frames, "frame_ms": frame_ms,
             "blocks_ms": blocks_ms,

@@ -5,6 +5,10 @@ The reference's only observability is a once-per-second fps print
 section 5).  Here: a frame timer with fps + Mrays/sec counters, optional
 per-stage wall timing, and a `torch.profiler` trace context for a device
 timeline.  The counterpart of `wavefront_tpu.utils.profiling`.
+
+The frame path's spans and counters are in `utils/spans.py` (`span`,
+`host_sync`, re-exported here); `counters()` snapshots them with K1-K3's
+launches.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ import torch
 from wavefront_tpu_torch.kernels.shade import shade_pass
 from wavefront_tpu_torch.kernels.texel import texel_fetch
 from wavefront_tpu_torch.kernels.window_trace import window_trace
+from wavefront_tpu_torch.utils import spans
+from wavefront_tpu_torch.utils.spans import (  # noqa: F401  re-exported
+    SPAN_NAMES, device_events, host_sync, span)
 
 # the default trace directory, beside the port's build directory
 TRACE_DIR = os.path.join(
@@ -78,7 +85,7 @@ class FrameTimer:
 
 class StageTimer:
     """Named wall-clock stage accumulator for host-side phases (worldgen,
-    light-BVH build, upload)."""
+    light-BVH build, upload); each stage is also a `span` of its name."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -87,7 +94,8 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str):
         t0 = time.perf_counter()
-        yield
+        with span(name):
+            yield
         dt = time.perf_counter() - t0
         self.totals[name] = self.totals.get(name, 0.0) + dt
         self.counts[name] = self.counts.get(name, 0) + 1
@@ -110,6 +118,15 @@ WARMUP_SPAN = "device_trace.warmup"
 # name their kernel's records carry in a trace
 FRAME_KERNELS = {"trace_kernel": window_trace, "shade_kernel": shade_pass,
                  "texel_kernel": texel_fetch}
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of the frame path's counters: `host_syncs`,
+    `ray_slots`, `rays_alive`, and `launches.<record name>` of K1-K3."""
+    return {"host_syncs": spans.host_syncs, "ray_slots": spans.ray_slots,
+            "rays_alive": spans.rays_alive,
+            **{"launches." + k: fn.launches
+               for k, fn in FRAME_KERNELS.items()}}
 
 
 def kernel_records(events: list) -> dict:
@@ -140,7 +157,10 @@ def device_trace(log_dir: str = TRACE_DIR):
     kernels when CUDA is available) around a code region; on exit it is
     written to `log_dir/trace.json` as a Chrome trace (chrome://tracing,
     Perfetto).  On a card the window opens with `WARMUP_LAUNCHES` empty
-    kernels in a span named `WARMUP_SPAN`.  Yields `log_dir`.
+    kernels in a span named `WARMUP_SPAN`.  Yields `log_dir`.  The
+    program's spans (`span`, `host_sync`) recorded in the region are in
+    the trace, on the device records' clock; `counters()` taken before
+    and after the region give its syncs, ray slots and launches.
 
     When the region ends without raising, the K1-K3 launches its wrappers
     counted are held against the kernel records the trace holds outside

@@ -1,0 +1,86 @@
+"""The frame path's spans and counters.
+
+The frame path names its stages in spans (`span`): `renderer.*` around
+`Renderer`'s calls, `render.*` around `render_frame`'s stages, and
+`sync.*` around each point where the host waits for the device
+(`host_sync`).  A span is a `record_function` while a torch.profiler
+session records, so it lands in that session's trace beside the device
+records and on their clock; with no session recording it is one shared
+no-op context.  The counters are always on (module-level ints, as K1-K3's
+`launches`): host syncs, and the ray slots each bounce's shade was given
+with the alive rays among them.  `profiling.counters()` snapshots them
+with K1-K3's launches.
+
+This module imports nothing of the port, so the kernels' helpers and the
+renderer import it at the top.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch.profiler import record_function
+
+# every span name of the frame path: a profiler whose events carry no
+# activity type (torch 2.11's) tells a span from a host op by its name
+SPAN_NAMES = (
+    "renderer.render", "renderer.batch", "renderer.prepare",
+    "render.frame", "render.raygen", "render.bounce", "render.sort_key",
+    "render.permute", "render.compact", "render.k1_trace",
+    "render.entities", "render.k2_shade", "render.shade", "render.merge",
+    "render.restore", "render.postprocess",
+    "sync.compaction_count", "sync.audit", "sync.image_copy",
+    "sync.light_walk", "sync.reverse_walk", "sync.nee_sweep",
+    "sync.nee_slots", "sync.nee_overflow", "sync.seed", "sync.tri_pool",
+    "sync.nan_check",
+)
+_NO_SPAN = contextlib.nullcontext()
+# whether a profiler session records on this thread: the profiler's own
+# state (torch 2.11's `torch.profiler.profile.start` leaves the Python
+# flag `torch.autograd.profiler._is_profiler_enabled` unset)
+_recording = torch._C._autograd._profiler_enabled
+
+# the points where the host waits for the device; the ray slots of the
+# bounces whose alive rays the host knows, and those alive rays
+host_syncs = 0
+ray_slots = 0
+rays_alive = 0
+
+
+def span(name: str, args=None):
+    """A span named `name` while a torch.profiler session records (a
+    `record_function`, with `args`, converted by `str`, as its
+    arguments); otherwise one shared no-op context, which allocates
+    nothing."""
+    if _recording():
+        return record_function(name, None if args is None else str(args))
+    return _NO_SPAN
+
+
+def host_sync(name: str):
+    """Counts one host sync of the frame path and returns its span:
+    `name` is the span's whole name, `sync.<what>`."""
+    global host_syncs
+    host_syncs += 1
+    return span(name)
+
+
+def count_lanes(slots: int, alive: int) -> None:
+    """Counts a bounce's `slots` ray slots and the `alive` rays among
+    them."""
+    global ray_slots, rays_alive
+    ray_slots += slots
+    rays_alive += alive
+
+
+def device_events(prof) -> list:
+    """The device records (kernels, copies, fills) among a finished
+    torch.profiler session's events (`prof.events()`).  A span's
+    device-side copy is left out: some profilers (torch 2.11's) give it
+    the device's type, and it covers whole stages, not device work."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events()
+            if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in SPAN_NAMES]
