@@ -5,8 +5,8 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernels from `wavefront_tpu_torch/csrc/`, holds
-each against its plain PyTorch version on the card at the shapes its path
+It builds the CUDA kernels of `wavefront_tpu_torch/csrc/`, holds each
+against its plain PyTorch version on the card at the shapes its path
 gives it, renders the golden config-1 scene against the stored image
 (tests/golden/config1_256.npz), renders reduced frames through the
 kernels and through the plain versions, and then drives the main paths
@@ -36,7 +36,9 @@ through their entry points, checking which kernels each launched:
     placed, a block broken through the mouse ray and a recenter (`game`).
     Each holds its device grid and aux grid equal to `make_aux_grid` of
     its host grid (and a window assembled from scratch) and its last
-    frame equal bit for bit to the frame of a scene built afresh;
+    frame equal bit for bit to the frame of a scene built afresh; on the
+    streamed window's four sorted bounces the bounce sort's key and
+    permute kernels against their plain versions (`ray_sort_check`);
   * the last modules: the app (`app.main.main` at its defaults,
     1024x1024, 6 bounces, `--window-chunks 2`, 20 frames with a
     screenshot every 10, then 8 frames of `--accumulate --hold`, each
@@ -118,6 +120,9 @@ Tolerances:
   edits:   grid and aux grid exactly equal; a frame after edits or a
            recenter equal bit for bit to a fresh scene's (no per-ray
            result depends on how the scene arrays were built);
+  ray sort: the bounce sort's keys, permutations and permuted columns
+           equal bit for bit to the plain versions' and the 64-bit key's
+           (the key repeats the plain version's float32 operations);
   ranges, checkpoints, sort, worldgen: equal bit for bit (no ray reads
            another ray; the rest is integer or host code);
   sweeps:  every sort schedule's image, and the image without a sort,
@@ -168,6 +173,12 @@ from wavefront_tpu_torch.kernels import (
     loop_probe,
 )
 from wavefront_tpu_torch.kernels import radix_hist as rh
+from wavefront_tpu_torch.kernels.ray_sort import (
+    ray_key,
+    ray_key_plain,
+    ray_permute,
+    ray_permute_plain,
+)
 from wavefront_tpu_torch.kernels.shade import (
     prep_shade_tables,
     shade_pass,
@@ -178,7 +189,12 @@ from wavefront_tpu_torch.kernels.texel import (
     texel_index,
     texel_plain,
 )
-from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
+from wavefront_tpu_torch.kernels.window_trace import (
+    auto_events,
+    coherence_key,
+    window_trace,
+)
+from wavefront_tpu_torch.render import renderer as rr
 from wavefront_tpu_torch.render.intersect import make_aux_grid, trace_plain
 from wavefront_tpu_torch.render.renderer import (
     Renderer,
@@ -276,7 +292,8 @@ TEXEL_OPS_PER_RAY = 8
 
 # the wrappers of the kernels a frame may launch, by name
 FRAME_KERNELS = {"window_trace": window_trace, "shade": shade_pass,
-                 "texel": texel_fetch}
+                 "texel": texel_fetch, "ray_key": ray_key,
+                 "ray_permute": ray_permute}
 
 TRACE_MISMATCH_FRACTION = 1e-5
 SHADE_MAX_ABS = 1e-3
@@ -793,6 +810,26 @@ def read_launches() -> dict:
     return {k: fn.launches for k, fn in FRAME_KERNELS.items()}
 
 
+def sort_launches(settings, sort_type: int, frames: int = 1,
+                  cache_primary=None) -> dict:
+    """The bounce sort's key and permute launches of `frames` frames: one
+    of each a sorted bounce of `render_frame`'s schedule (compaction or
+    sort_type 1; the bounces `sort_bounces` names; never bounce 0 under
+    the primary cache, settings.cache_primary unless given), the key only
+    under `trace_presort` (the morton key is built by tensor ops)."""
+    if cache_primary is None:
+        cache_primary = settings.cache_primary
+    sorted_b = 0
+    if settings.compaction or sort_type == 1:
+        only = None if settings.sort_bounces is None else {
+            int(i) for i in settings.sort_bounces}
+        sorted_b = sum(1 for b in range(int(cache_primary),
+                                        settings.num_bounces)
+                       if only is None or b in only)
+    n = sorted_b * frames
+    return {"ray_key": n if settings.trace_presort else 0, "ray_permute": n}
+
+
 def use_entities_path(name: str, limit: str, device: str = "cuda",
                       width: int = 1920, height: int = 1080) -> dict:
     """`render_frame(use_entities=...)` at full width on a scene with one
@@ -802,8 +839,6 @@ def use_entities_path(name: str, limit: str, device: str = "cuda",
     the entity and runs no triangle sweep; with True it sweeps and
     differs.  Each frame's launches (the counters at 0 just before it) and
     triangle sweeps are reported."""
-    from wavefront_tpu_torch.render import renderer as rr
-
     sweep, swept = rr.triangle_sweep, []
 
     def counted(*a, **kw):
@@ -838,8 +873,10 @@ def use_entities_path(name: str, limit: str, device: str = "cuda",
             add_ego_cube(scene, basis)
             off, f1 = frame(scene, settings, basis, prefs, False)
             on, f2 = frame(scene, settings, basis, prefs, True)
-            want = {k: 4 if k in ("window_trace", kernel) else 0
-                    for k in FRAME_KERNELS}
+            want = {**{k: 4 if k in ("window_trace", kernel) else 0
+                       for k in FRAME_KERNELS},
+                    **sort_launches(settings, prefs.sort_type,
+                                    cache_primary=False)}
             check(device == "cpu"
                   or all(f["launches"] == want for f in (f0, f1, f2)),
                   f"use_entities {path}: launches {f0}, {f1}, {f2}")
@@ -866,8 +903,9 @@ def full_frame(what: str, scene, settings, basis, prefs, name: str,
                limit: str, kernels: tuple, frames: int) -> dict:
     """A main path at full size through `Renderer.render`: one frame with
     every launch counter at 0 just before it, which must launch each of
-    `kernels` once per bounce and no other; then `frames` timed frames and
-    one with CUDA events around each launch."""
+    `kernels` once per bounce, the sort's two kernels once a sorted bounce
+    (`sort_launches`), and no other; then `frames` timed frames and one
+    with CUDA events around each launch."""
     r = Renderer(settings)
     zero_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -883,7 +921,8 @@ def full_frame(what: str, scene, settings, basis, prefs, name: str,
     audit = {"truncated": 0, "nee_overflow": 0}
     check(aux == audit, f"{what} audit {aux}")
     nb = settings.num_bounces
-    want = {k: nb if k in kernels else 0 for k in FRAME_KERNELS}
+    want = {**{k: nb if k in kernels else 0 for k in FRAME_KERNELS},
+            **sort_launches(settings, prefs.sort_type)}
     check(launches == want, f"{what} launches {launches}, want {want}")
 
     sync()
@@ -1334,9 +1373,10 @@ def batch(what: str, scene, settings, basis, prefs, kernels: tuple,
         if not cache:
             frames_filling, frames_cached = frames_filling + frames_cached, 0
         frames = frames_filling + frames_cached
-        return {name: 0 if name not in kernels else
-                (nb * frames - frames_cached if name == "window_trace"
-                 else nb * frames) for name in FRAME_KERNELS}
+        return {**{name: 0 if name not in kernels else
+                   (nb * frames - frames_cached if name == "window_trace"
+                    else nb * frames) for name in FRAME_KERNELS},
+                **sort_launches(cached, prefs.sort_type, frames)}
 
     single = Renderer(cached)
     singles, per_frame, trunc = [], [], 0
@@ -1480,7 +1520,8 @@ def edited_frames(what: str, scene, settings, basis, prefs, edit,
         edit_ms.append((t1 - t0) * 1e3)
         frame_ms.append((t2 - t1) * 1e3)
     launches = read_launches()
-    want = {"window_trace": nb * frames, "shade": nb * frames, "texel": 0}
+    want = {"window_trace": nb * frames, "shade": nb * frames, "texel": 0,
+            **sort_launches(settings, prefs.sort_type, frames)}
     check(launches == want, f"{what} launches {launches}, want {want}")
     check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
           f"{what}: image not finite or black")
@@ -1600,6 +1641,79 @@ def streamed_frame_check(scene, settings, basis, prefs) -> dict:
                           "streamed frame kernels vs plain")}
 
 
+def ray_sort_check(scene, settings, basis, prefs) -> dict:
+    """The bounce sort's key and permute kernels (`kernels/ray_sort.py`)
+    on the streamed window's four sorted bounces of a frame, as the
+    renderer hands them their rays: each key equal to its plain version
+    and the permutation equal to the 64-bit key's, each permute equal to
+    the 13 gathers, bit for bit, and max |kernel - plain| over the
+    bounces (`max_abs_err`).  Times of bounces 0 and 1 (CUDA events;
+    device ms from torch.profiler), beside the plain versions, their byte
+    bounds and `torch.sort` on both keys."""
+    seen = []
+    real = rr.coherence_sort
+
+    def spy(arrays, o, d, tp, rad, rid, *riders, key=None):
+        seen.append((arrays, o, d, [*o, *d, *tp, *rad, rid], key))
+        return real(arrays, o, d, tp, rad, rid, *riders, key=key)
+
+    rr.coherence_sort = spy
+    try:
+        Renderer(settings).render(scene, basis, prefs, frame_count=5)
+    finally:
+        rr.coherence_sort = real
+    check(len(seen) == settings.num_bounces,
+          f"a frame sorted {len(seen)} of {settings.num_bounces} bounces")
+    out = {"bounces": [], "max_abs_err": {"ray_key": 0, "ray_permute": 0.0}}
+    err = out["max_abs_err"]
+    for b, (arrays, o, d, cols, key) in enumerate(seen):
+        go, shape = arrays.grid_origin, arrays.grid.shape
+        n = o.x.shape[0]
+        got = ray_key(o, d, go, shape)
+        plain = ray_key_plain(o, d, go, shape)
+        wide = coherence_key(o.x - float(go[0]), o.y - float(go[1]),
+                             o.z - float(go[2]), *d, *shape)
+        check(torch.equal(got, key) and torch.equal(got, plain),
+              f"ray_key bounce {b}: "
+              f"{int((got != plain).sum())} keys differ from plain")
+        perm = torch.sort(got, stable=True).indices
+        check(torch.equal(perm, torch.sort(wide, stable=True).indices),
+              f"ray_key bounce {b}: not the 64-bit key's permutation")
+        err["ray_key"] = max(err["ray_key"], exact(got, plain, "ray_key"))
+        moved = ray_permute(perm, cols)
+        gathered = ray_permute_plain(perm, cols)
+        check(all(torch.equal(m, g) for m, g in zip(moved, gathered)),
+              f"ray_permute bounce {b}: differs from the gathers")
+        err["ray_permute"] = max(err["ray_permute"], *(
+            float((m.float() - g.float()).abs().max())
+            for m, g in zip(moved, gathered)))
+        row = {"bounce": b, "rays": n,
+               "alive": int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum())}
+        if b < 2:
+            cols_bytes = sum(c.element_size() for c in cols)
+            row["key"] = {
+                "ms": time_ms(lambda: ray_key(o, d, go, shape), 20),
+                "device_ms": device_ms(lambda: ray_key(o, d, go, shape),
+                                       "ray_key_kernel", 20),
+                "plain_ms": time_ms(lambda: ray_key_plain(o, d, go, shape),
+                                    5),
+                "bound_ms": max_bound(28 * n, 0)[0], "bound_by": "bytes"}
+            row["permute"] = {
+                "columns": len(cols),
+                "ms": time_ms(lambda: ray_permute(perm, cols), 20),
+                "device_ms": device_ms(lambda: ray_permute(perm, cols),
+                                       "ray_permute_kernel", 20),
+                "plain_ms": time_ms(lambda: ray_permute_plain(perm, cols),
+                                    5),
+                "bound_ms": max_bound((8 + 2 * cols_bytes) * n, 0)[0],
+                "bound_by": "bytes"}
+            row["sort_ms"] = {
+                "int32": time_ms(lambda: torch.sort(got, stable=True), 10),
+                "int64": time_ms(lambda: torch.sort(wide, stable=True), 10)}
+        out["bounces"].append(row)
+    return out
+
+
 def recenter_path(name: str, limit: str) -> dict:
     """Ladder config 8 (`streamed_setup(1024, 1024, 6)`) and its recenter
     row (tools/bench_ladder.py): the centre moves one chunk along +x, the
@@ -1649,7 +1763,8 @@ def recenter_path(name: str, limit: str) -> dict:
     launches = read_launches()
     nb = settings.num_bounces
     frames = len(served) + 1
-    want = {"window_trace": nb * frames, "shade": nb * frames, "texel": 0}
+    want = {"window_trace": nb * frames, "shade": nb * frames, "texel": 0,
+            **sort_launches(settings, prefs.sort_type, frames)}
     check(launches == want, f"recenter launches {launches}, want {want}")
     check(all(a == {"truncated": 0, "nee_overflow": 0} for a in audits),
           f"recenter audits {audits}")
@@ -1779,7 +1894,9 @@ def game_path(name: str, limit: str) -> dict:
         steps_ms.append((time.perf_counter() - t0) * 1e3)
     launches = read_launches()
     nb = settings.num_bounces
-    want = {"window_trace": nb * 10, "shade": nb * 10, "texel": 0}
+    sort_type = world.camera.rendering_preferences().sort_type
+    want = {"window_trace": nb * 10, "shade": nb * 10, "texel": 0,
+            **sort_launches(settings, sort_type, 10)}
     check(launches == want, f"game launches {launches}, want {want}")
     check(len(audits) == 11 and all(
         a == {"truncated": 0, "nee_overflow": 0} for a in audits),
@@ -1887,9 +2004,12 @@ def app_path(name: str, limit: str, tmp: str, extra=()) -> tuple:
     nb = settings.num_bounces
     arrays = world.scene.get_arrays()
     prefs = world.camera.rendering_preferences()
+    sorts = sort_launches(settings, prefs.sort_type)
     kinds = []
     for s in steps:
         per = s["launches"]
+        check({k: per[k] for k in sorts} == sorts,
+              f"app: a step launched {per}, want the sort's {sorts}")
         kind = ("fused" if per["shade"] == nb and per["texel"] == 0 else
                 "general" if per["texel"] == nb and per["shade"] == 0 else
                 f"other {per}")
@@ -2299,7 +2419,9 @@ def distributed_path(name: str, limit: str, device: str = "cuda",
         got = dr.render(scene, basis, prefs, frame_count=3)
         launches = read_launches()
         k = len(mesh)
-        wl = {"window_trace": nb * k, "shade": nb * k, "texel": 0}
+        wl = {"window_trace": nb * k, "shade": nb * k, "texel": 0,
+              **sort_launches(settings, prefs.sort_type, k,
+                              cache_primary=False)}
         check(launches == wl, f"{key}: launches {launches}, want {wl}")
         row = {"ranges": [list(r) for r in dr.ranges()],
                "devices": [str(d) for d in mesh], "launches": launches,
@@ -2478,7 +2600,8 @@ def trace_counts(path: str) -> dict:
     region = [e for e in lost
               if not any(lo <= e["ts"] <= hi for lo, hi in warm)]
     names = {"window_trace": "trace_kernel", "shade": "shade_kernel",
-             "texel": "texel_kernel"}
+             "texel": "texel_kernel", "ray_key": "ray_key_kernel",
+             "ray_permute": "ray_permute_kernel"}
     return {"kernel_events": {k: sum(1 for e in kernels if v in e["name"])
                               for k, v in names.items()},
             "launch_calls": len(calls), "warmup_spans": len(warm),
@@ -2570,7 +2693,8 @@ def ladder_frames(config: int, scene, cm, settings, basis, prefs,
                             as_numpy=False, with_aux=True)
         sync()
         got = read_launches()
-        want = {"window_trace": nb - cached, "shade": nb, "texel": 0}
+        want = {"window_trace": nb - cached, "shade": nb, "texel": 0,
+                **sort_launches(settings, prefs.sort_type)}
         check(got == want, f"ladder config {config} {key}: {got}, want "
               f"{want}")
         audit = {k: aux[k] for k in ("truncated", "nee_overflow")}
@@ -2616,7 +2740,8 @@ def ladder_path(name: str, limit: str) -> tuple:
     """The ported ladder (`wavefront_tpu_torch/tools/bench_ladder.py`),
     configs 1-8 at their own sizes.  Each config's row through
     `bench_ladder.row`, the launch counters at 0 just before it (K1 and K2
-    must launch, K3 not; no ray truncated or overflowed), printed on a
+    must launch, K3 not, the sort's two kernels where the config sorts; no
+    ray truncated or overflowed), printed on a
     line of its own with what this script adds: `ladder_frames`, the
     card; config 1's k=8 stack and config 5's k=8 accumulating batch
     against 8 single frames bit for bit (`batch`, config 1 without the
@@ -2640,9 +2765,11 @@ def ladder_path(name: str, limit: str) -> tuple:
                                frames=frames, batch=8)
         sync()
         got = read_launches()
+        sorts = sort_launches(settings, prefs.sort_type)
         check(got["window_trace"] > 0 and got["shade"] > 0
-              and got["texel"] == 0, f"ladder config {config}: row "
-              f"launches {got}")
+              and got["texel"] == 0
+              and all((got[k] > 0) == (v > 0) for k, v in sorts.items()),
+              f"ladder config {config}: row launches {got}")
         check(rec.get("truncated_rays", 0) == 0
               and rec.get("nee_overflow_rays", 0) == 0,
               f"ladder config {config}: row {rec}")
@@ -2694,7 +2821,8 @@ def sweeps_path(name: str, limit: str, device: str = "cuda",
     `dda` row's (K1's unskipped march) under the golden gate of it;
     every texel_lab row max |diff| 0; no truncated ray in any trace_tune
     combination or occupancy workload.  The launch counters are read
-    from 0 around the whole phase: K1, K2 and K3 must launch (on the card;
+    from 0 around the whole phase: K1-K3 and the sort's two kernels must
+    launch (on the card;
     `device` "cpu" and a small width rehearse the phase with the plain
     versions)."""
     scene, settings, basis, prefs = headline_setup(width, height, 4,
@@ -2771,10 +2899,10 @@ def tools_path(name: str, limit: str, headline_frame_ms: float,
     every texture's RGBA); every K5 form equal to the indexed read
     (`onehot_ab`); every program of `prewarm` finite; `gpu_sweep --stages
     gates` run as a user runs it, every command with exit code 0.  The
-    launch counters of K1-K3 and K5 are read from 0 around the in-process
-    tools: each must launch (on the card; `device` "cpu", a small width
-    and a band of `golden_rows` rehearse the phase with the plain
-    versions)."""
+    launch counters of the frame kernels and K5 are read from 0 around the
+    in-process tools: each must launch (on the card; `device` "cpu", a
+    small width and a band of `golden_rows` rehearse the phase with the
+    plain versions)."""
     dev = torch.device(device)
     counters = {**FRAME_KERNELS, "loop_probe": loop_probe.loop_probe}
     for fn in counters.values():
@@ -3013,6 +3141,8 @@ def main() -> int:
     streamed = streamed_setup(1920, 1080, 4, device="cuda")
     paths["streamed"] = streamed_path(name, limit, *streamed)
     emit("streamed", **paths["streamed"])
+    rs = ray_sort_check(streamed[0], *streamed[2:])
+    emit("ray_sort_check", **rs)
     paths["streamed_edit"] = streamed_edit_path(name, limit, *streamed)
     emit("streamed_edit", **paths["streamed_edit"])
     paths["streamed_1024x6"] = recenter_path(name, limit)
@@ -3096,6 +3226,21 @@ def main() -> int:
             "library_device_ms": k.get("library_device_ms"),
             "smem_floor_ms": k.get("smem_floor_ms"),
         })
+    # the bounce sort's key and permute, which replace no TPU kernel:
+    # times on the streamed window's bounce-1 rays, max |kernel - plain|
+    # over its four sorted bounces
+    b1 = rs["bounces"][1]
+    for kname, k in (("ray_key", b1["key"]), ("ray_permute", b1["permute"])):
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "wavefront_tpu_torch/csrc/ray_sort.cu",
+            "replaces": None, "launches": hl["launches"][kname],
+            "launches_by_path": {p: v["launches"][kname]
+                                 for p, v in paths.items()},
+            "max_abs_err": rs["max_abs_err"][kname],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "device_ms": k["device_ms"]})
     # K5 also runs on the tools' path (onehot_ab)
     next(k for k in kernels if k["name"] == "loop_probe")[
         "launches_by_path"]["tools"] = tl["launches"]["loop_probe"]

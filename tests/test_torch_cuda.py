@@ -16,7 +16,10 @@ bfloat16 values within 1 bfloat16 ulp (stated at its test), the texel
 fetch bit-exact, frames under the golden gate; the histogram and the
 probe kernels compute integers (and sums in one fixed order), so they
 equal their plain versions bit for bit; batched frames equal single
-frames bit for bit.
+frames bit for bit.  The bounce sort's key repeats its plain version's
+float32 operations and the permute copies values, so both equal their
+plain versions bit for bit, and a streamed frame sorted by them equals
+the frame sorted by the 64-bit key and the gathers.
 """
 
 import numpy as np
@@ -37,12 +40,24 @@ from wavefront_tpu_torch.kernels.shade import (
     shade_pass,
     shade_plain,
 )
+from wavefront_tpu_torch.kernels.ray_sort import (
+    ray_key,
+    ray_key_plain,
+    ray_permute,
+    ray_permute_plain,
+)
 from wavefront_tpu_torch.kernels.texel import texel_fetch, texel_plain
-from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
+from wavefront_tpu_torch.kernels.window_trace import (
+    auto_events,
+    coherence_key,
+    window_trace,
+)
 from wavefront_tpu_torch.render import lights as lights_mod
 from wavefront_tpu_torch.render.intersect import make_aux_grid, trace_plain
 from wavefront_tpu_torch.render.renderer import (
     Renderer,
+    bounce_sort_key,
+    coherence_sort,
     entity_attrs,
     render_frame,
 )
@@ -1159,3 +1174,221 @@ def test_device_trace_keeps_the_region_kernels_after_a_large_session(
     muls = [e for e in kernels if "mul" in e["name"].lower()]
     assert len(muls) == 20
     assert sum("texel_kernel" in e["name"] for e in kernels) == 20
+
+
+# ---- the bounce sort's key and permute ----
+
+
+def _key_rays(n, seed=0):
+    """n rays on the card for the key: origins in and around a window
+    of the streamed shape (world space, at STREAMED_ORIGIN), unit
+    directions, a tenth dead (with signed zeros), and a share on the
+    quantisers' edges (window and cell edges, axis-aligned and signed-zero
+    directions, `angq` and `dyq` bin edges)."""
+    rng = np.random.default_rng(seed)
+    g = np.asarray(STREAMED_SHAPE, np.float32)
+    o = (rng.random((n, 3)) * (g + 40) - 20).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    edge = rng.random(n) < 0.25
+    o[edge] = (np.round(o[edge] / 4) * 4).astype(np.float32)
+    o[edge] = np.nextafter(o[edge], rng.choice(
+        [-np.inf, 0, np.inf], o[edge].shape).astype(np.float32))
+    ang = (rng.integers(0, 64, n) / np.float32(10.14)
+           - np.float32(3.1416)).astype(np.float32)
+    on_bin = rng.random(n) < 0.1
+    d[on_bin] = np.stack([np.cos(ang), np.zeros(n, np.float32),
+                          np.sin(ang)], 1)[on_bin]
+    axis = rng.random(n) < 0.05
+    d[axis] = np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)][axis] * \
+        rng.choice([-1.0, 1.0], (n, 1)).astype(np.float32)[axis]
+    dead = rng.random(n) < 0.1
+    d[dead] = rng.choice([0.0, -0.0], (int(dead.sum()), 3)).astype(
+        np.float32)
+    o += np.asarray(STREAMED_ORIGIN, np.float32)
+
+    def v3(a):
+        return V3(*(torch.as_tensor(np.ascontiguousarray(c), device="cuda")
+                    for c in a.T))
+
+    return v3(o), v3(d)
+
+
+STREAMED_SHAPE = (416, 96, 416)
+STREAMED_ORIGIN = (-192, 0, -192)
+SORT_NS = [1, 255, 257, 2073600]
+KEY_FIELDS = {"dead": (26, 1), "window": (17, 511), "dyq": (14, 7),
+              "angq": (8, 63), "cell": (0, 255)}
+
+
+@pytest.mark.parametrize("n", SORT_NS)
+def test_ray_key_kernel_matches_plain(card, n):
+    """The key kernel equals its plain version (PyTorch's ops on the
+    card) on every ray; a mismatch is reported by key field."""
+    o, d = _key_rays(n, seed=n)
+    before = ray_key.launches
+    got = ray_key(o, d, STREAMED_ORIGIN, STREAMED_SHAPE)
+    assert ray_key.launches == before + 1
+    want = ray_key_plain(o, d, STREAMED_ORIGIN, STREAMED_SHAPE)
+    assert got.dtype == want.dtype == torch.int32
+    off = got != want
+    fields = {k: int((((got >> s) & m) != ((want >> s) & m))[off].sum())
+              for k, (s, m) in KEY_FIELDS.items()}
+    assert not bool(off.any()), f"{int(off.sum())} of {n} keys differ: {fields}"
+
+
+def _sort_state(n, bf16, debug, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ctp = torch.bfloat16 if bf16 else torch.float32
+
+    def v3(dtype=torch.float32):
+        return V3(*(torch.randn(n, device="cuda", generator=g).to(dtype)
+                    for _ in range(3)))
+
+    rid = torch.randperm(n, device="cuda", generator=g).to(torch.int32)
+    return [*v3(), *v3(), *v3(ctp), *v3(), rid] + ([*v3()] if debug else [])
+
+
+@pytest.mark.parametrize("debug", [False, True], ids=["13", "16"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", SORT_NS)
+def test_ray_permute_kernel_matches_plain(card, n, bf16, debug):
+    """The permute kernel equals one gather a column, bit for bit, for
+    the frame's 13 columns and with the debug rider's 3, tp in float32
+    or bfloat16, under a sorted key's permutation."""
+    cols = _sort_state(n, bf16, debug, seed=n)
+    o, d = _key_rays(n, seed=n + 1)
+    key = ray_key(o, d, STREAMED_ORIGIN, STREAMED_SHAPE)
+    perm = torch.sort(key, stable=True).indices
+    before = ray_permute.launches
+    got = ray_permute(perm, cols)
+    assert ray_permute.launches == before + 1
+    want = ray_permute_plain(perm, cols)
+    assert len(got) == len(cols) == (16 if debug else 13)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w), f"column {k} ({w.dtype}) differs"
+
+
+def test_ray_sort_wrappers_check_their_inputs(card):
+    o, d = _key_rays(64)
+    perm = torch.arange(64, device="cuda")
+    f = torch.zeros(64, device="cuda")
+    for bad_o in (V3(o.x.double(), o.y, o.z), V3(o.x[::2], o.y[::2],
+                                                 o.z[::2]),
+                  V3(o.x.cpu(), o.y, o.z)):
+        with pytest.raises(ValueError):
+            ray_key(bad_o, d, STREAMED_ORIGIN, STREAMED_SHAPE)
+    for p, cols in ((perm.to(torch.int32), [f]), (perm, [f.double()]),
+                    (perm, [torch.zeros(128, device="cuda")[::2]]),
+                    (perm, [f.cpu()]), (perm.cpu(), [f]),
+                    (perm[::2], [f[::2]]), (perm, [f] * 17)):
+        with pytest.raises(ValueError):
+            ray_permute(p, cols)
+
+
+@pytest.fixture(scope="module")
+def streamed():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from wavefront_tpu_torch.headline import streamed_setup
+
+    scene, _, settings, basis, prefs = streamed_setup(1920, 1080, 4,
+                                                      device="cuda")
+    return scene, settings, basis, prefs
+
+
+def _parent_key(scene, settings, sort_type, o, d):
+    """The 64-bit coherence key the renderer sorted on before the int32
+    key (the morton key without the presort, as now)."""
+    if not settings.trace_presort:
+        return bounce_sort_key(scene, settings, sort_type, o, d)
+    go = scene.grid_origin
+    return coherence_key(o.x - float(go[0]), o.y - float(go[1]),
+                         o.z - float(go[2]), d.x, d.y, d.z, *scene.grid.shape)
+
+
+def _parent_sort(scene, o, d, tp, rad, rid, *riders, key=None):
+    """The bounce sort as one gather a column."""
+    perm = torch.sort(key, stable=True).indices
+
+    def take(v):
+        return v.map(lambda c: c[perm])
+
+    return (take(o), take(d), take(tp), take(rad), rid[perm],
+            *(take(v) for v in riders))
+
+
+def test_ray_sort_on_streamed_bounce_one(streamed):
+    """On the streamed window's bounce-1 rays (raygen, sorted, traced by
+    K1 and shaded by K2 as the renderer does), the int32 key's kernel
+    path gives the 64-bit key's permutation, and the permute moves every
+    column as the gathers do."""
+    scene, settings, basis, prefs = streamed
+    arrays = scene.get_arrays()
+    w, h = settings.render_width, settings.render_height
+    n = w * h
+    o, d, rid = raygen_soa(basis.eye, basis.front, basis.right, basis.up,
+                           w, h, device="cuda")
+    tp = V3(*(torch.ones(n, device="cuda") for _ in range(3)))
+    rad = V3(*(torch.zeros(n, device="cuda") for _ in range(3)))
+    tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
+    o, d, tp, rad, rid = _parent_sort(
+        arrays, o, d, tp, rad, rid,
+        key=_parent_key(arrays, settings, 0, o, d))
+    pa, pb, t = window_trace(arrays, o, d, auto_events(*arrays.grid.shape))
+    o, d, tp, rad = shade_pass(tables, arrays.grid_origin, o, d, pa, pb, t,
+                               tp, rad, rid, 4, 0, arrays.lights.num_prims,
+                               nee_type=prefs.nee_type)
+    alive = int(((d.x != 0) | (d.y != 0) | (d.z != 0)).sum())
+    assert 0 < alive < n
+    key = ray_key(o, d, arrays.grid_origin, arrays.grid.shape)
+    assert torch.equal(key, ray_key_plain(o, d, arrays.grid_origin,
+                                          arrays.grid.shape))
+    perm = torch.sort(key, stable=True).indices
+    wide = _parent_key(arrays, settings, 0, o, d)
+    assert torch.equal(perm, torch.sort(wide, stable=True).indices)
+    got = coherence_sort(arrays, o, d, tp, rad, rid, key=key)
+    ref = _parent_sort(arrays, o, d, tp, rad, rid, key=wide)
+    for g, r in zip(got, ref):
+        for gc, rc in zip(g if isinstance(g, V3) else (g,),
+                          r if isinstance(r, V3) else (r,)):
+            assert torch.equal(gc, rc)
+
+
+def test_streamed_frame_equals_the_gathers_frame(streamed, monkeypatch):
+    """A streamed 1920x1080x4 frame sorts on every bounce with one key
+    and one permute launch a bounce, and equals bit for bit the frame
+    whose sort keys on the 64-bit key and gathers each column."""
+    from wavefront_tpu_torch.render import renderer as rr
+    from wavefront_tpu_torch.utils.profiling import counters
+
+    scene, settings, basis, prefs = streamed
+    renderer = Renderer(settings)
+    before = counters()
+    got = renderer.render(scene, basis, prefs, frame_count=3)
+    after = counters()
+    b = settings.num_bounces
+    assert after["launches.ray_key_kernel"] - before[
+        "launches.ray_key_kernel"] == b
+    assert after["launches.ray_permute_kernel"] - before[
+        "launches.ray_permute_kernel"] == b
+    monkeypatch.setattr(rr, "bounce_sort_key", _parent_key)
+    monkeypatch.setattr(rr, "coherence_sort", _parent_sort)
+    keys, perms = ray_key.launches, ray_permute.launches
+    want = Renderer(settings).render(scene, basis, prefs, frame_count=3)
+    assert (ray_key.launches, ray_permute.launches) == (keys, perms)
+    assert np.array_equal(got, want)
+
+
+def test_cached_batch_sorts_three_bounces_a_frame(streamed):
+    """With the primary cache, bounce 0 skips its sort: a cached frame of
+    4 bounces launches the key and the permute 3 times each."""
+    scene, settings, basis, prefs = streamed
+    renderer = Renderer(settings.replace(cache_primary=True))
+    renderer.render(scene, basis, prefs, frame_count=1)     # fills it
+    keys, perms = ray_key.launches, ray_permute.launches
+    renderer.render_batch(scene, basis, prefs, frame_count=2, k=4,
+                          accumulate=True)
+    assert ray_key.launches - keys == 3 * 4
+    assert ray_permute.launches - perms == 3 * 4

@@ -32,6 +32,7 @@ from wavefront_tpu_torch.core.config import (
 )
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.headline import build_scene, config1_grid, config1_pose
+from wavefront_tpu_torch.kernels.window_trace import coherence_key
 from wavefront_tpu_torch.render import renderer as rr
 from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.world.blocks import BlockRegistry
@@ -247,11 +248,16 @@ def test_sort_key_without_presort(chunk, sort_type, compaction):
                              V3.from_array(torch.as_tensor(p)),
                              V3.from_array(torch.as_tensor(d)))
     np.testing.assert_array_equal(key.numpy(), want.astype(np.int64))
-    # the default keys on the tracer's coherence key (dead rays last)
-    key = rr.bounce_sort_key(scene, FRAME, sort_type,
-                             V3.from_array(torch.as_tensor(p)),
-                             V3.from_array(torch.as_tensor(d)))
-    assert bool(((key >> 31) == torch.as_tensor(dead).long()).all())
+    # the default keys on the tracer's coherence key shifted right by 5,
+    # as int32 (dead rays last, at bit 26)
+    o3, d3 = (V3.from_array(torch.as_tensor(a)) for a in (p, d))
+    key = rr.bounce_sort_key(scene, FRAME, sort_type, o3, d3)
+    go = scene.grid_origin
+    want = coherence_key(o3.x - float(go[0]), o3.y - float(go[1]),
+                         o3.z - float(go[2]), *d3, *scene.grid.shape)
+    assert key.dtype == torch.int32
+    assert torch.equal(key.to(torch.int64) << 5, want)
+    assert bool(((key >> 26) == torch.as_tensor(dead).int()).all())
 
 
 def test_presort_off_matches_every_bounce_sort(chunk, every_bounce):

@@ -81,6 +81,7 @@ from wavefront_tpu_torch.core.config import (
     RenderSettings,
 )
 from wavefront_tpu_torch.core.vec3 import V3
+from wavefront_tpu_torch.kernels.ray_sort import ray_key, ray_permute
 from wavefront_tpu_torch.kernels.shade import (
     MAX_NODES,
     MAX_PRIMS,
@@ -88,11 +89,7 @@ from wavefront_tpu_torch.kernels.shade import (
     shade_pass,
 )
 from wavefront_tpu_torch.kernels.texel import texel_fetch, texel_index
-from wavefront_tpu_torch.kernels.window_trace import (
-    auto_events,
-    coherence_key,
-    window_trace,
-)
+from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
 from wavefront_tpu_torch.render.intersect import (
     TRUNCATED_BIT,
     TriHit,
@@ -155,23 +152,17 @@ def use_fused(scene: SceneArrays, settings: RenderSettings,
     return True
 
 
-def _coherence_key(scene: SceneArrays, o: V3, d: V3):
-    gx, gy, gz = scene.grid.shape
-    go = scene.grid_origin
-    return coherence_key(o.x - float(go[0]), o.y - float(go[1]),
-                         o.z - float(go[2]), d.x, d.y, d.z, gx, gy, gz)
-
-
 def bounce_sort_key(scene: SceneArrays, settings: RenderSettings,
                     sort_type: int, o: V3, d: V3):
-    """Key of the bounce sort (int64 holding an unsigned 32-bit value).
-    trace_presort (the default): the tracer's coherence key, dead rays
-    last.  Otherwise the reference's non-hoisted key
-    (wavefront_tpu/render/renderer.py:797-806): the morton key of the
-    origin shifted right by one for sort_type 1, else 0, and bit 31 on
-    dead rays under compaction."""
+    """Key of the bounce sort.  trace_presort (the default): the tracer's
+    coherence key shifted right by 5, as int32 (`kernels/ray_sort.py::
+    ray_key`: dead rays last, at bit 26).  Otherwise the reference's
+    non-hoisted key (wavefront_tpu/render/renderer.py:797-806), int64
+    holding an unsigned 32-bit value: the morton key of the origin
+    shifted right by one for sort_type 1, else 0, and bit 31 on dead rays
+    under compaction."""
     if settings.trace_presort:
-        return _coherence_key(scene, o, d)
+        return ray_key(o, d, scene.grid_origin, scene.grid.shape)
     if sort_type == 1:
         key = morton.morton_key_3d_soa(o.x, o.y, o.z) >> 1
     else:
@@ -184,18 +175,18 @@ def bounce_sort_key(scene: SceneArrays, settings: RenderSettings,
 def coherence_sort(scene: SceneArrays, o: V3, d: V3, tp: V3, rad: V3, rid,
                    *riders: V3, key=None):
     """One stable sort of the whole ray state, replacing the reference's
-    multi-operand sort network: by `key` (`bounce_sort_key`), or when it
-    is None by the coherence key (dead rays last, bit 31).  Returns the
-    permuted (o, d, tp, rad, rid, *riders)."""
+    multi-operand sort network: by `key` (`bounce_sort_key`, either
+    dtype), or when it is None by the coherence key (dead rays last).
+    One permute (`kernels/ray_sort.py::ray_permute`) moves every
+    component, so at most one rider fits.  Returns the permuted (o, d,
+    tp, rad, rid, *riders)."""
     if key is None:
-        key = _coherence_key(scene, o, d)
+        key = ray_key(o, d, scene.grid_origin, scene.grid.shape)
     perm = torch.sort(key, stable=True).indices
-
-    def take(v):
-        return v.map(lambda c: c[perm])
-
-    return (take(o), take(d), take(tp), take(rad), rid[perm],
-            *(take(v) for v in riders))
+    vecs = (o, d, tp, rad, *riders)
+    cols = ray_permute(perm, [c for v in vecs for c in v] + [rid])
+    out = [V3(*cols[3 * i:3 * i + 3]) for i in range(len(vecs))]
+    return (*out[:4], cols[-1], *out[4:])
 
 
 def compaction_bucket(alive, sorted_now: bool):

@@ -6,8 +6,10 @@ per-ray operands (12 float32 and the pixel id) by a 32-bit coherence key
 (`render/renderer.py::coherence_sort`).  An LSD radix sort would do that
 in four passes of histogram -> spine -> scatter.  The rows:
 
-  sort14                          the incumbent: stable `torch.sort` of the
-                                  key as int64, then 13 gathers
+  sort14                          stable `torch.sort` of the key as int64,
+                                  then 13 gathers (the renderer's sort
+                                  until it keyed on int32 and permuted in
+                                  one kernel, `kernels/ray_sort.py`)
   sort2+gather                    the same with the key as int32 (sign bit
                                   flipped so that signed order is the
                                   unsigned order): what a 32-bit key buys

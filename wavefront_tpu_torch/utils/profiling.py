@@ -7,8 +7,8 @@ per-stage wall timing, and a `torch.profiler` trace context for a device
 timeline.  The counterpart of `wavefront_tpu.utils.profiling`.
 
 The frame path's spans and counters are in `utils/spans.py` (`span`,
-`host_sync`, re-exported here); `counters()` snapshots them with K1-K3's
-launches.
+`host_sync`, re-exported here); `counters()` snapshots them with the
+frame kernels' launches (K1-K3 and the bounce sort's key and permute).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import Dict, Optional
 
 import torch
 
+from wavefront_tpu_torch.kernels.ray_sort import ray_key, ray_permute
 from wavefront_tpu_torch.kernels.shade import shade_pass
 from wavefront_tpu_torch.kernels.texel import texel_fetch
 from wavefront_tpu_torch.kernels.window_trace import window_trace
@@ -114,15 +115,18 @@ class StageTimer:
 # of the traced region's kernels, up to this many earlier sessions
 WARMUP_LAUNCHES = 64
 WARMUP_SPAN = "device_trace.warmup"
-# K1-K3's wrappers, whose `launches` count the kernels they launch, by the
-# name their kernel's records carry in a trace
+# the frame kernels' wrappers (K1-K3, the bounce sort's key and permute),
+# whose `launches` count the kernels they launch, by the name their
+# kernel's records carry in a trace (no name holds another)
 FRAME_KERNELS = {"trace_kernel": window_trace, "shade_kernel": shade_pass,
-                 "texel_kernel": texel_fetch}
+                 "texel_kernel": texel_fetch, "ray_key_kernel": ray_key,
+                 "ray_permute_kernel": ray_permute}
 
 
 def counters() -> Dict[str, int]:
     """A snapshot of the frame path's counters: `host_syncs`,
-    `ray_slots`, `rays_alive`, and `launches.<record name>` of K1-K3."""
+    `ray_slots`, `rays_alive`, and `launches.<record name>` of each of
+    FRAME_KERNELS."""
     return {"host_syncs": spans.host_syncs, "ray_slots": spans.ray_slots,
             "rays_alive": spans.rays_alive,
             **{"launches." + k: fn.launches
@@ -130,7 +134,7 @@ def counters() -> Dict[str, int]:
 
 
 def kernel_records(events: list) -> dict:
-    """K1-K3's kernel records among a Chrome trace's events, by kernel
+    """The frame kernels' records among a Chrome trace's events, by kernel
     name, leaving out the kernels launched inside the warm-up span (a
     launch call and its kernel share a correlation id)."""
     warm = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
@@ -162,11 +166,11 @@ def device_trace(log_dir: str = TRACE_DIR):
     the trace, on the device records' clock; `counters()` taken before
     and after the region give its syncs, ray slots and launches.
 
-    When the region ends without raising, the K1-K3 launches its wrappers
-    counted are held against the kernel records the trace holds outside
-    the warm-up span, and a shortfall (records torch.profiler lost) is
-    reported with `warnings.warn`, both counts by kernel; the trace is
-    written as recorded."""
+    When the region ends without raising, the frame kernels' launches
+    their wrappers counted are held against the kernel records the trace
+    holds outside the warm-up span, and a shortfall (records
+    torch.profiler lost) is reported with `warnings.warn`, both counts by
+    kernel; the trace is written as recorded."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.cuda.is_available()

@@ -6,10 +6,10 @@ The frame path names its stages in spans (`span`): `renderer.*` around
 (`host_sync`).  A span is a `record_function` while a torch.profiler
 session records, so it lands in that session's trace beside the device
 records and on their clock; with no session recording it is one shared
-no-op context.  The counters are always on (module-level ints, as K1-K3's
-`launches`): host syncs, and the ray slots each bounce's shade was given
-with the alive rays among them.  `profiling.counters()` snapshots them
-with K1-K3's launches.
+no-op context.  The counters are always on (module-level ints, as the
+kernels' `launches`): host syncs, and the ray slots each bounce's shade
+was given with the alive rays among them.  `profiling.counters()`
+snapshots them with the frame kernels' launches.
 
 This module imports nothing of the port, so the kernels' helpers and the
 renderer import it at the top.
