@@ -7,7 +7,9 @@ worldgen scene, 1920x1080, 4 bounces, NEE on, compaction and the trace
 audit on), from the port's own modules.  `general_setup` is that frame
 with a sparse light set (a lattice of lamp voxels) and a cube entity, on
 the general (non-fused) shade path.  `streamed_setup` is the game layer's
-streamed window of `tools/bench_ladder.py` (configs 6-8).  `config1_grid`
+streamed window of `tools/bench_ladder.py` (configs 6-8), and
+`lamps_setup` that window lit by a lamp on each chunk column (a sparse
+light set, so every bounce shades on the general path).  `config1_grid`
 and `config1_pose` are the golden-image scene and camera of the
 reference's tests (tests/test_golden.py).
 """
@@ -25,6 +27,7 @@ from wavefront_tpu_torch.core.config import (
     WorldSettings,
 )
 from wavefront_tpu_torch.render.scene import VoxelScene
+from wavefront_tpu_torch.world import chunk as chunk_mod
 from wavefront_tpu_torch.world import meshes
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 from wavefront_tpu_torch.world.worldgen import WorldGenerator
@@ -148,12 +151,13 @@ def general_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
 
 
 def streamed_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
-                   device="cuda"):
+                   device="cuda", load_radius: int = 6):
     """The game layer's streamed window at the reference's scale (ladder
     configs 6-8): (scene, chunk manager, settings, camera basis, prefs).
 
     A ChunkManager at load radius 6 (13x3x13 chunks of 32^3: a
-    416x96x416 window around chunk (0, 0, 0)), its chunks generated
+    416x96x416 window around chunk (0, 0, 0); `load_radius` r gives
+    (2r+1)x3x(2r+1) chunks), its chunks generated
     synchronously and assembled once, the same pose and settings as
     `tools/bench_ladder.py::streamed_setup`, and NEE on.  The TPU schedule
     settings it sets are accepted and change nothing here."""
@@ -162,8 +166,9 @@ def streamed_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
     registry = BlockRegistry.load(ASSETS)
     scene = VoxelScene(registry, np.zeros((1, 1, 1), np.uint8), (0, 0, 0),
                        max_light_prims=1024, device=device)
-    cm = ChunkManager(WorldSettings(load_radius=6, evict_radius=8), registry,
-                      scene, window_chunks=None, synchronous=True)
+    cm = ChunkManager(WorldSettings(load_radius=load_radius,
+                                    evict_radius=load_radius + 2),
+                      registry, scene, window_chunks=None, synchronous=True)
     for key in cm._window_keys((0, 0, 0)):
         cm._request_chunk(key)
     cm._rebuild_window()
@@ -179,6 +184,60 @@ def streamed_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
     cam.pitch = -0.55
     return scene, cm, settings, cam.eye_front_right_up(), \
         RenderingPreferences(nee_type=1)
+
+
+def window_lamps(grid: np.ndarray, registry: BlockRegistry) -> list:
+    """Grid cells of the lamps of a streamed window: one on each chunk
+    column (i, j) of the grid (i, j = 0..12 in the radius-6 window), at
+          x = 32 i + 16 + (5 j + i^2) mod 7 - 3,
+          z = 32 j + 16 + (3 i + j^2) mod 7 - 3,
+    one cell above the column's highest non-air cell: a lamp resting on
+    the ground, as a player places one.  A lamp is kept where that cell
+    lies below the window's top row.  The offsets keep lamps from lining
+    up, so that a ray crosses few light prims."""
+    cs = WorldSettings().chunk_size
+    filled = grid != registry.air
+    top = grid.shape[1] - 1
+    cells = []
+    for i in range(grid.shape[0] // cs):
+        for j in range(grid.shape[2] // cs):
+            x = cs * i + 16 + (5 * j + i * i) % 7 - 3
+            z = cs * j + 16 + (3 * i + j * j) % 7 - 3
+            ys = np.flatnonzero(filled[x, :, z])
+            if ys.size and ys[-1] + 1 < top:
+                cells.append((x, int(ys[-1]) + 1, z))
+    return cells
+
+
+def lamps_setup(width: int = 1920, height: int = 1080, bounces: int = 4,
+                device="cuda", load_radius: int = 6):
+    """The streamed window lit by player-placed lamps: `streamed_setup`'s
+    (scene, chunk manager, settings, camera basis, prefs), with the cells
+    of `window_lamps` set to lamp in the manager's chunks and in the
+    scene, in one grid update.  Their light set is sparse (more than 256
+    prims), so `use_fused` sends every bounce to the general shade."""
+    scene, cm, settings, basis, prefs = streamed_setup(
+        width, height, bounces, device, load_radius)
+    registry = cm.registry
+    lamp = registry.block_idx("lamp")
+    grid = scene.grid.copy()
+    for cell in window_lamps(grid, registry):
+        grid[cell] = lamp
+        # the chunks hold the lamp too, as a placed block is held
+        key, b = chunk_mod.global_to_chunk_coords(
+            np.add(scene.grid_origin, cell), cm.settings.chunk_size)
+        key = tuple(int(c) for c in key)
+        data = cm.chunks[key].copy()
+        data[tuple(b)] = lamp
+        cm.chunks[key] = data
+        cm.edited.add(key)
+    scene.set_grid(grid, scene.grid_origin)
+    lights = scene.get_arrays().lights
+    if lights.dense:
+        raise AssertionError(
+            f"lamps_setup: {lights.num_prims} light prims make a dense "
+            "light set; the window's lamps must yield more than 256")
+    return scene, cm, settings, basis, prefs
 
 
 def config1_grid(registry: BlockRegistry, size: int = 16) -> np.ndarray:

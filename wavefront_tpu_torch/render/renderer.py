@@ -271,10 +271,12 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
             vox: VoxelHit, use_entities: bool, texel=texel_fetch,
             tri: Optional[TriHit] = None):
     """General shade plus NEE pdf of one (possibly compacted) ray block:
-    `shading.shade_rays` around the texel kernel, the light pick by
-    `dense_sample_light` or the BVH descent, then the dense or sparse pdf
-    sweep.  `tri`: the block's entity hits when the caller holds them (the
-    primary cache), else the triangle sweep runs here.
+    `shading.shade_rays` around the texel kernel (span `render.texel`),
+    the light pick by `dense_sample_light` or the BVH descent (span
+    `render.light_pick`), then the dense or sparse pdf sweep (span
+    `render.nee_pdf`, its reverse walk included).  `tri`: the block's
+    entity hits when the caller holds them (the primary cache), else the
+    triangle sweep runs here.
 
     Returns the next ray, the block's emission and its throughput factor
     (`shading.throughput_factor`), both in the color dtype
@@ -300,18 +302,22 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
         if settings.debug_stage == "notex":
             # stage-isolation variant: a constant texel, no atlas read
             return [torch.full_like(u, 0.5) * (u * 0 + 1)] * len(CHANNELS)
-        if settings.shade_texel_kernel:
-            return texel(atlas, tex.to(_I32).contiguous(), u, v,
-                         channels=CHANNELS)
-        # the caller asked for PyTorch's indexed read instead of the kernel
-        tx = atlas[texel_index(atlas, tex, u, v)]
-        return [tx[:, c] for c in CHANNELS]
+        with span("render.texel"):
+            if settings.shade_texel_kernel:
+                return texel(atlas, tex.to(_I32).contiguous(), u, v,
+                             channels=CHANNELS)
+            # the caller asked for PyTorch's indexed read instead of the
+            # kernel
+            tx = atlas[texel_index(atlas, tex, u, v)]
+            return [tx[:, c] for c in CHANNELS]
 
     def pick(point, normal, seed, active):
-        if lights.dense:
-            return dense_sample_light(lights, point, normal, seed, active)
-        return traverse_light_bvh(lights, point, normal, seed, active,
-                                  settings.max_bvh_depth), None
+        with span("render.light_pick"):
+            if lights.dense:
+                return dense_sample_light(lights, point, normal, seed,
+                                          active)
+            return traverse_light_bvh(lights, point, normal, seed, active,
+                                      settings.max_bvh_depth), None
 
     # the frame's seed, a Python int, copied to the device: a blocking copy
     with spans.host_sync("sync.seed"):
@@ -328,10 +334,12 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
         # stage-isolation variant: sampling runs, the sweep is elided
         nee_pdf = mis * 0.0
     else:
-        nee_pdf = nee_pdf_sweep(
-            lights, new_o, normal, new_d, mis, dense_probs,
-            max_depth=settings.max_bvh_depth, max_hits=settings.max_nee_hits,
-            with_overflow=settings.trace_audit)
+        with span("render.nee_pdf"):
+            nee_pdf = nee_pdf_sweep(
+                lights, new_o, normal, new_d, mis, dense_probs,
+                max_depth=settings.max_bvh_depth,
+                max_hits=settings.max_nee_hits,
+                with_overflow=settings.trace_audit)
         if settings.trace_audit:
             nee_pdf, overflow = nee_pdf
     return (new_o, new_d, emis,

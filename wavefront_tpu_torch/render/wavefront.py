@@ -170,7 +170,8 @@ def traverse_light_bvh(lights: LightArrays, point: V3, normal: V3, seed,
     (reference raytrace.rs:230-293), over the one-level global BVH; one
     fresh murmur3 uniform per level.  seed: int64 tensor of u32 values.
     Each level's test for a running walk is a host sync
-    (`sync.light_walk`)."""
+    (`sync.light_walk`); each level stepped counts in
+    `spans.light_walk_levels`."""
     n = point.x.shape[0]
     nodes = _nodes(lights)
     # dummy-root check (reference raytrace.rs:235-243)
@@ -187,6 +188,7 @@ def traverse_light_bvh(lights: LightArrays, point: V3, normal: V3, seed,
         with spans.host_sync("sync.light_walk"):
             if not bool(running.any()):
                 break
+        spans.count_walk_level()
         stepping = running & (nodes.left[node] >= 0)
         li, ri, imp_l, imp_r = _child_importances(
             nodes, node, point, normal, EPSILON_BLOCK)
@@ -430,8 +432,9 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
 
     The sparse path's gathers of a data-dependent size (`torch.nonzero`,
     a boolean mask's rows) and its overflow count are host syncs
-    (`sync.nee_sweep`, `sync.nee_slots`, `sync.nee_overflow`); the dense
-    path has none."""
+    (`sync.nee_sweep`, `sync.nee_slots`, `sync.nee_overflow`), and the
+    crossings it finds count in `spans.nee_crossings`; the dense path has
+    none."""
     def masked(x, mask):
         with spans.host_sync("sync.nee_slots"):
             return x[mask]
@@ -485,6 +488,7 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
             # the number of crossings before it on its ray
             with spans.host_sync("sync.nee_sweep"):
                 ray, col = torch.nonzero(hit, as_tuple=True)
+            spans.count_crossings(ray.shape[0])
             rank = torch.arange(ray.shape[0], device=dev) \
                 - torch.searchsorted(ray, ray)
             tt = t[ray, col]

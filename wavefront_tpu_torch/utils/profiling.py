@@ -125,10 +125,12 @@ FRAME_KERNELS = {"trace_kernel": window_trace, "shade_kernel": shade_pass,
 
 def counters() -> Dict[str, int]:
     """A snapshot of the frame path's counters: `host_syncs`,
-    `ray_slots`, `rays_alive`, and `launches.<record name>` of each of
-    FRAME_KERNELS."""
+    `ray_slots`, `rays_alive`, `nee_crossings`, `light_walk_levels`, and
+    `launches.<record name>` of each of FRAME_KERNELS."""
     return {"host_syncs": spans.host_syncs, "ray_slots": spans.ray_slots,
             "rays_alive": spans.rays_alive,
+            "nee_crossings": spans.nee_crossings,
+            "light_walk_levels": spans.light_walk_levels,
             **{"launches." + k: fn.launches
                for k, fn in FRAME_KERNELS.items()}}
 

@@ -7,8 +7,11 @@ The frame path names its stages in spans (`span`): `renderer.*` around
 session records, so it lands in that session's trace beside the device
 records and on their clock; with no session recording it is one shared
 no-op context.  The counters are always on (module-level ints, as the
-kernels' `launches`): host syncs, and the ray slots each bounce's shade
-was given with the alive rays among them.  `profiling.counters()`
+kernels' `launches`): host syncs, the ray slots each bounce's shade
+was given with the alive rays among them, and on the general shade's
+sparse light path the light-prim crossings the NEE sweep found and the
+levels the light-BVH walk stepped (each summed from sizes and loop
+counts the host already holds).  `profiling.counters()`
 snapshots them with the frame kernels' launches.
 
 This module imports nothing of the port, so the kernels' helpers and the
@@ -29,7 +32,8 @@ SPAN_NAMES = (
     "render.frame", "render.raygen", "render.bounce", "render.sort_key",
     "render.permute", "render.compact", "render.k1_trace",
     "render.entities", "render.k2_shade", "render.shade", "render.merge",
-    "render.restore", "render.postprocess",
+    "render.restore", "render.postprocess", "render.light_pick",
+    "render.nee_pdf", "render.texel",
     "sync.compaction_count", "sync.audit", "sync.image_copy",
     "sync.light_walk", "sync.reverse_walk", "sync.nee_sweep",
     "sync.nee_slots", "sync.nee_overflow", "sync.seed", "sync.tri_pool",
@@ -46,6 +50,9 @@ _recording = torch._C._autograd._profiler_enabled
 host_syncs = 0
 ray_slots = 0
 rays_alive = 0
+# the sparse NEE sweep's light-prim crossings; the light-BVH walk's levels
+nee_crossings = 0
+light_walk_levels = 0
 
 
 def span(name: str, args=None):
@@ -72,6 +79,18 @@ def count_lanes(slots: int, alive: int) -> None:
     global ray_slots, rays_alive
     ray_slots += slots
     rays_alive += alive
+
+
+def count_crossings(n: int) -> None:
+    """Counts `n` light-prim crossings found by the sparse NEE sweep."""
+    global nee_crossings
+    nee_crossings += n
+
+
+def count_walk_level() -> None:
+    """Counts one level stepped by the light-BVH walk."""
+    global light_walk_levels
+    light_walk_levels += 1
 
 
 def device_events(prof) -> list:
