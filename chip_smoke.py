@@ -18,7 +18,8 @@ through their entry points, checking which kernels each launched:
     tracer and the fused shade's bf16 color build;
   * the general frame (`headline.general_setup`: the same frame with a
     sparse light set of lamp voxels and a cube entity, shade_fused=False):
-    the tracer and the texel fetch, and never the fused shade;
+    the tracer, the texel fetch and the sparse NEE sweep, and never the
+    fused shade;
   * the four labs (`wavefront_tpu_torch/tools/`: radix_lab, gpu_probe,
     roofline, event_lab) at full size: the histogram and the three probe
     kernels;
@@ -38,7 +39,10 @@ through their entry points, checking which kernels each launched:
     its host grid (and a window assembled from scratch) and its last
     frame equal bit for bit to the frame of a scene built afresh; on the
     streamed window's four sorted bounces the bounce sort's key and
-    permute kernels against their plain versions (`ray_sort_check`);
+    permute kernels against their plain versions (`ray_sort_check`); on
+    the lamp-lit window's four bounces (`headline.lamps_setup`) the
+    sparse NEE sweep's kernel against its plain version
+    (`nee_sweep_check`);
   * the last modules: the app (`app.main.main` at its defaults,
     1024x1024, 6 bounces, `--window-chunks 2`, 20 frames with a
     screenshot every 10, then 8 frames of `--accumulate --hold`, each
@@ -123,6 +127,10 @@ Tolerances:
   ray sort: the bounce sort's keys, permutations and permuted columns
            equal bit for bit to the plain versions' and the 64-bit key's
            (the key repeats the plain version's float32 operations);
+  NEE sweep: crossings and overflowing rays equal to the plain
+           version's, a ray with one crossing bit for bit, every pdf
+           within 1e-6 relative (the kernel sums a ray's slots in slot
+           order, the plain version by PyTorch's reduction);
   ranges, checkpoints, sort, worldgen: equal bit for bit (no ray reads
            another ray; the rest is integer or host code);
   sweeps:  every sort schedule's image, and the image without a sort,
@@ -155,7 +163,12 @@ import numpy as np
 import torch
 
 from wavefront_tpu_torch import bench
-from wavefront_tpu_torch.core.config import RenderingPreferences, RenderSettings
+from wavefront_tpu_torch.core.config import (
+    EPSILON_NEE,
+    T_MAX,
+    RenderingPreferences,
+    RenderSettings,
+)
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.headline import (
     HEADLINE_RAYS,
@@ -164,6 +177,7 @@ from wavefront_tpu_torch.headline import (
     config1_pose,
     general_setup,
     headline_setup,
+    lamps_setup,
     streamed_setup,
 )
 from wavefront_tpu_torch.kernels import (
@@ -173,6 +187,7 @@ from wavefront_tpu_torch.kernels import (
     loop_probe,
 )
 from wavefront_tpu_torch.kernels import radix_hist as rh
+from wavefront_tpu_torch.kernels.nee_sweep import nee_sweep
 from wavefront_tpu_torch.kernels.ray_sort import (
     ray_key,
     ray_key_plain,
@@ -204,7 +219,11 @@ from wavefront_tpu_torch.render.renderer import (
 )
 from wavefront_tpu_torch.render.accumulate import TemporalAccumulator
 from wavefront_tpu_torch.render.scene import VoxelScene
-from wavefront_tpu_torch.render.wavefront import raygen_soa
+from wavefront_tpu_torch.render.wavefront import (
+    _prim_tile_hits,
+    nee_sweep_plain,
+    raygen_soa,
+)
 from wavefront_tpu_torch.tools import (
     bench_ladder,
     event_lab,
@@ -289,11 +308,23 @@ SHADE_BF16_OPS_PER_RAY = 23 * 2 + 6
 # the texel fetch of one ray: two multiplies and the float side of two
 # saturating conversions and clamps
 TEXEL_OPS_PER_RAY = 8
+# the sparse NEE sweep (csrc/nee_sweep.cu): a ray's activity test, cosine,
+# loads and stores (16); for every prim its plane test: the denominator
+# and its test 7, the numerator 8, the numerator's sign 2; for a plane
+# ahead within T_MAX the divide, its range test 3, the hit point 9, r1 and
+# r2 10, u and v 8, the inside test 8; for each level of a kept crossing's
+# reverse walk two box importances of 66 (12 corner offsets, 28 corner
+# sums, tests and counts, 8 for the diagonal, 9 for the centre, 6 for the
+# distance, 3 for the quotient) and the branch 5
+NEE_OPS_PER_RAY = 16
+NEE_OPS_PER_PLANE = 17
+NEE_OPS_PER_AHEAD = 38
+NEE_OPS_PER_LEVEL = 2 * 66 + 5
 
 # the wrappers of the kernels a frame may launch, by name
 FRAME_KERNELS = {"window_trace": window_trace, "shade": shade_pass,
                  "texel": texel_fetch, "ray_key": ray_key,
-                 "ray_permute": ray_permute}
+                 "ray_permute": ray_permute, "nee_sweep": nee_sweep}
 
 TRACE_MISMATCH_FRACTION = 1e-5
 SHADE_MAX_ABS = 1e-3
@@ -863,8 +894,9 @@ def use_entities_path(name: str, limit: str, device: str = "cuda",
     total = {k: 0 for k in FRAME_KERNELS}
     rr.triangle_sweep = counted
     try:
-        for path, setup, kernel in (("fused", headline_setup, "shade"),
-                                    ("general", general_setup, "texel")):
+        for path, setup, kernels in (
+                ("fused", headline_setup, ("shade",)),
+                ("general", general_setup, ("texel", "nee_sweep"))):
             scene, settings, basis, prefs = setup(width, height, 4,
                                                   device=device)
             if path == "general":
@@ -873,7 +905,7 @@ def use_entities_path(name: str, limit: str, device: str = "cuda",
             add_ego_cube(scene, basis)
             off, f1 = frame(scene, settings, basis, prefs, False)
             on, f2 = frame(scene, settings, basis, prefs, True)
-            want = {**{k: 4 if k in ("window_trace", kernel) else 0
+            want = {**{k: 4 if k == "window_trace" or k in kernels else 0
                        for k in FRAME_KERNELS},
                     **sort_launches(settings, prefs.sort_type,
                                     cache_primary=False)}
@@ -1521,6 +1553,7 @@ def edited_frames(what: str, scene, settings, basis, prefs, edit,
         frame_ms.append((t2 - t1) * 1e3)
     launches = read_launches()
     want = {"window_trace": nb * frames, "shade": nb * frames, "texel": 0,
+            "nee_sweep": 0,
             **sort_launches(settings, prefs.sort_type, frames)}
     check(launches == want, f"{what} launches {launches}, want {want}")
     check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
@@ -1764,6 +1797,7 @@ def recenter_path(name: str, limit: str) -> dict:
     nb = settings.num_bounces
     frames = len(served) + 1
     want = {"window_trace": nb * frames, "shade": nb * frames, "texel": 0,
+            "nee_sweep": 0,
             **sort_launches(settings, prefs.sort_type, frames)}
     check(launches == want, f"recenter launches {launches}, want {want}")
     check(all(a == {"truncated": 0, "nee_overflow": 0} for a in audits),
@@ -1896,7 +1930,7 @@ def game_path(name: str, limit: str) -> dict:
     nb = settings.num_bounces
     sort_type = world.camera.rendering_preferences().sort_type
     want = {"window_trace": nb * 10, "shade": nb * 10, "texel": 0,
-            **sort_launches(settings, sort_type, 10)}
+            "nee_sweep": 0, **sort_launches(settings, sort_type, 10)}
     check(launches == want, f"game launches {launches}, want {want}")
     check(len(audits) == 11 and all(
         a == {"truncated": 0, "nee_overflow": 0} for a in audits),
@@ -2010,9 +2044,12 @@ def app_path(name: str, limit: str, tmp: str, extra=()) -> tuple:
         per = s["launches"]
         check({k: per[k] for k in sorts} == sorts,
               f"app: a step launched {per}, want the sort's {sorts}")
-        kind = ("fused" if per["shade"] == nb and per["texel"] == 0 else
-                "general" if per["texel"] == nb and per["shade"] == 0 else
-                f"other {per}")
+        # the general shade runs the sparse NEE sweep a bounce on a
+        # sparse light set, none on a dense one
+        kind = ("fused" if per["shade"] == nb
+                and per["texel"] == per["nee_sweep"] == 0 else
+                "general" if per["texel"] == nb and per["shade"] == 0
+                and per["nee_sweep"] in (0, nb) else f"other {per}")
         check(per["window_trace"] == nb and not kind.startswith("other"),
               f"app: a step launched {per}, want K1 {nb} and K2 or K3 {nb}")
         kinds.append(kind)
@@ -2420,6 +2457,7 @@ def distributed_path(name: str, limit: str, device: str = "cuda",
         launches = read_launches()
         k = len(mesh)
         wl = {"window_trace": nb * k, "shade": nb * k, "texel": 0,
+              "nee_sweep": 0,
               **sort_launches(settings, prefs.sort_type, k,
                               cache_primary=False)}
         check(launches == wl, f"{key}: launches {launches}, want {wl}")
@@ -2601,7 +2639,8 @@ def trace_counts(path: str) -> dict:
               if not any(lo <= e["ts"] <= hi for lo, hi in warm)]
     names = {"window_trace": "trace_kernel", "shade": "shade_kernel",
              "texel": "texel_kernel", "ray_key": "ray_key_kernel",
-             "ray_permute": "ray_permute_kernel"}
+             "ray_permute": "ray_permute_kernel",
+             "nee_sweep": "nee_sweep_kernel"}
     return {"kernel_events": {k: sum(1 for e in kernels if v in e["name"])
                               for k, v in names.items()},
             "launch_calls": len(calls), "warmup_spans": len(warm),
@@ -2694,7 +2733,7 @@ def ladder_frames(config: int, scene, cm, settings, basis, prefs,
         sync()
         got = read_launches()
         want = {"window_trace": nb - cached, "shade": nb, "texel": 0,
-                **sort_launches(settings, prefs.sort_type)}
+                "nee_sweep": 0, **sort_launches(settings, prefs.sort_type)}
         check(got == want, f"ladder config {config} {key}: {got}, want "
               f"{want}")
         audit = {k: aux[k] for k in ("truncated", "nee_overflow")}
@@ -2767,7 +2806,7 @@ def ladder_path(name: str, limit: str) -> tuple:
         got = read_launches()
         sorts = sort_launches(settings, prefs.sort_type)
         check(got["window_trace"] > 0 and got["shade"] > 0
-              and got["texel"] == 0
+              and got["texel"] == got["nee_sweep"] == 0
               and all((got[k] > 0) == (v > 0) for k, v in sorts.items()),
               f"ladder config {config}: row launches {got}")
         check(rec.get("truncated_rays", 0) == 0
@@ -2822,7 +2861,8 @@ def sweeps_path(name: str, limit: str, device: str = "cuda",
     every texel_lab row max |diff| 0; no truncated ray in any trace_tune
     combination or occupancy workload.  The launch counters are read
     from 0 around the whole phase: K1-K3 and the sort's two kernels must
-    launch (on the card;
+    launch, and the sparse NEE sweep must not (the headline's light set is
+    dense) (on the card;
     `device` "cpu" and a small width rehearse the phase with the plain
     versions)."""
     scene, settings, basis, prefs = headline_setup(width, height, 4,
@@ -2850,8 +2890,8 @@ def sweeps_path(name: str, limit: str, device: str = "cuda",
         rows[tool] = emit_rows([{"phase": "sweep_row", "tool": tool, **r}
                                 for r in got], device)
     launches = read_launches()
-    check(all(v > 0 for v in launches.values()) or device == "cpu",
-          f"sweeps: launches {launches}")
+    check(all((v > 0) == (k != "nee_sweep") for k, v in launches.items())
+          or device == "cpu", f"sweeps: launches {launches}")
     for r in rows["sort_sweep"]:
         check(r["max_abs_diff"] <= sort_sweep.IMAGE_TOLERANCE
               and r["truncated"] == 0,
@@ -2964,8 +3004,9 @@ def tools_path(name: str, limit: str, headline_frame_ms: float,
     warm = show("prewarm", run("prewarm", lambda: prewarm.warm(*hl, k=5)))
     check(all(r.get("finite", True) for r in warm), f"prewarm: {warm}")
     launches = {k: fn.launches for k, fn in counters.items()}
-    check(all(v > 0 for v in launches.values()) or device == "cpu",
-          f"tools: launches {launches}")
+    # every tool renders a dense light set: the sparse sweep never runs
+    check(all((v > 0) == (k != "nee_sweep") for k, v in launches.items())
+          or device == "cpu", f"tools: launches {launches}")
     cmd = [sys.executable, "-m", "wavefront_tpu_torch.tools.gpu_sweep",
            "--stages", "gates"]
     if device == "cpu":
@@ -3041,6 +3082,117 @@ def worldgen_path(name: str, limit: str) -> dict:
             "library": os.path.relpath(lib, HERE), "equal": True}
 
 
+def nee_stats(lights, o: V3, d: V3, mis, max_depth: int):
+    """What the sparse sweep's inputs ask of it, from the plain version's
+    crossing test (`_prim_tile_hits`) in 64-prim tiles: each ray's
+    crossings (0 for a ray with no MIS weight or no direction), the
+    (ray, prim) pairs of live rays with the plane ahead within T_MAX, and
+    the walk levels of every crossing (the depth of its prim's leaf, at
+    most max_depth)."""
+    live = (mis > 0) & ((d.x != 0) | (d.y != 0) | (d.z != 0))
+    parent = lights.node_parent.cpu().numpy()
+    depth = np.zeros(lights.p0.shape[0], np.int64)
+    for j, leaf in enumerate(lights.leaf_node.cpu().numpy()[
+            :lights.num_prims]):
+        k = int(leaf)
+        while depth[j] < max_depth and 0 <= parent[k] != 0xFFFFFFFF:
+            k = int(parent[k])
+            depth[j] += 1
+    dev = o.x.device
+    depth = torch.as_tensor(depth, device=dev)
+    crossings = torch.zeros_like(mis, dtype=torch.int64)
+    ahead = levels = 0
+    chunk = 1 << 19
+    for lo in range(0, mis.shape[0], chunk):
+        rows = slice(lo, lo + chunk)
+        co, cd, cl = o.map(lambda c: c[rows]), d.map(lambda c: c[rows]), \
+            live[rows]
+        for base in range(0, lights.num_prims, 64):
+            pid = torch.arange(base, base + 64, device=dev)
+            hit, t = _prim_tile_hits(lights, co, cd, cl, pid)
+            ok = cl[:, None] & (pid < lights.num_prims)[None, :]
+            ahead += int((ok & (t >= EPSILON_NEE) & (t <= T_MAX)).sum())
+            crossings[rows] += hit.sum(1)
+            levels += int((hit.sum(0) * depth[pid.clamp_max(
+                lights.p0.shape[0] - 1)]).sum())
+    return crossings, int(live.sum()), ahead, levels
+
+
+def nee_sweep_check(scene, settings, basis, prefs) -> dict:
+    """The sparse NEE sweep's kernel (`kernels/nee_sweep.py`) on the
+    lamp-lit window's four bounces of a frame (`lamps_setup`: 1920x1080x4,
+    476 prims), as the renderer hands them their rays: each pdf against
+    its plain version's (`nee_sweep_plain`) on the same inputs within
+    1e-6 relative a ray, and bit for bit on the rays with one crossing;
+    the crossings and overflowing rays equal to the plain version's and
+    to the crossing test's; one launch a call.  Times of bounces 0 and 1
+    (CUDA events; device ms from torch.profiler) beside the plain
+    version's and the operations bound of what the inputs ask
+    (`nee_stats`)."""
+    seen = []
+    real = rr.nee_pdf_sweep
+
+    def spy(lights, point, normal, direction, mis, dense_probs, **kw):
+        seen.append((lights, point, normal, direction, mis))
+        return real(lights, point, normal, direction, mis, dense_probs, **kw)
+
+    rr.nee_pdf_sweep = spy
+    try:
+        Renderer(settings, device=scene.get_arrays().grid.device).render(
+            scene, basis, prefs, frame_count=5)
+    finally:
+        rr.nee_pdf_sweep = real
+    nb = settings.num_bounces
+    check(len(seen) == nb, f"a frame swept {len(seen)} of {nb} bounces")
+    depth, hits = settings.max_bvh_depth, settings.max_nee_hits
+    out = {"num_prims": seen[0][0].num_prims, "max_nee_hits": hits,
+           "bounces": [], "max_rel_err": 0.0}
+    for b, (lights, o, nrm, d, mis) in enumerate(seen):
+        args = (lights, o, nrm, d, mis, depth, hits)
+        counts = torch.zeros(2, dtype=torch.int64, device=mis.device)
+        before = nee_sweep.launches
+        got = nee_sweep(*args, counts)
+        check(nee_sweep.launches == before + 1,
+              f"nee_sweep bounce {b}: {nee_sweep.launches - before} launches")
+        plain_counts = torch.zeros_like(counts)
+        want = nee_sweep_plain(*args, plain_counts)
+        crossings, live, ahead, levels = nee_stats(lights, o, d, mis, depth)
+        sync()
+        got_c, want_c = counts.tolist(), plain_counts.tolist()
+        stats_c = [int(crossings.sum()), int((crossings > hits).sum())]
+        check(got_c == want_c == stats_c,
+              f"nee_sweep bounce {b}: crossings and overflow {got_c}, plain "
+              f"{want_c}, crossing test {stats_c}")
+        check(bool(torch.isfinite(want).all()),
+              f"nee_sweep bounce {b}: the plain pdf is not finite")
+        rel = float(((got - want).abs()
+                     / want.abs().clamp_min(1e-30)).max()) if want.numel() \
+            else 0.0
+        check(rel <= 1e-6, f"nee_sweep bounce {b}: relative error {rel}")
+        one = crossings == 1
+        check(torch.equal(got[one], want[one]),
+              f"nee_sweep bounce {b}: a ray with one crossing differs")
+        out["max_rel_err"] = max(out["max_rel_err"], rel)
+        n = mis.shape[0]
+        row = {"bounce": b, "rays": n, "live": live, "crossings": got_c[0],
+               "overflow": got_c[1], "one_crossing_rays": int(one.sum()),
+               "tests": live * lights.num_prims, "ahead": ahead,
+               "walk_levels": levels}
+        if b < 2:
+            ops = (n * NEE_OPS_PER_RAY + row["tests"] * NEE_OPS_PER_PLANE
+                   + ahead * NEE_OPS_PER_AHEAD + levels * NEE_OPS_PER_LEVEL)
+            c = torch.zeros_like(counts)
+            row.update({
+                "ms": time_ms(lambda: nee_sweep(*args, c), 10),
+                "device_ms": device_ms(lambda: nee_sweep(*args, c),
+                                       "nee_sweep_kernel", 10),
+                "plain_ms": time_ms(lambda: nee_sweep_plain(*args, c), 2),
+                "bound_ms": max_bound(44 * n, ops)[0],
+                "bound_by": max_bound(44 * n, ops)[1]})
+        out["bounces"].append(row)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3112,8 +3264,8 @@ def main() -> int:
         "device_ms_by_op")}, uncached_float32_frame_ms=hl["frame_ms"],
          vs_float32=image_rel(scene, settings, s16, basis, prefs))
     lights = gen[0].get_arrays().lights
-    gf = full_frame("general", *gen, name, limit, ("window_trace", "texel"),
-                    frames=3)
+    gf = full_frame("general", *gen, name, limit,
+                    ("window_trace", "texel", "nee_sweep"), frames=3)
     emit("general", **gf, max_nee_hits=gen[1].max_nee_hits, light_set={
         "num_prims": lights.num_prims, "prim_bucket": lights.p0.shape[0],
         "node_bucket": lights.node_min.shape[0], "dense": lights.dense})
@@ -3133,7 +3285,7 @@ def main() -> int:
          uncached_frame_ms=hl["frame_ms"])
     emit("batch_general", **batch(
         "batch_general", *general_setup(480, 270, 4, device="cuda"),
-        ("window_trace", "texel")))
+        ("window_trace", "texel", "nee_sweep")))
     paths = {"headline": hl, "headline_bf16": hb, "general": gf,
              "use_entities": ue, "batch": bt}
     paths["edit"] = edit_path(name, limit)
@@ -3143,6 +3295,10 @@ def main() -> int:
     emit("streamed", **paths["streamed"])
     rs = ray_sort_check(streamed[0], *streamed[2:])
     emit("ray_sort_check", **rs)
+    lamps = lamps_setup(1920, 1080, 4, device="cuda")
+    ns = nee_sweep_check(lamps[0], *lamps[2:])
+    del lamps
+    emit("nee_sweep_check", **ns)
     paths["streamed_edit"] = streamed_edit_path(name, limit, *streamed)
     emit("streamed_edit", **paths["streamed_edit"])
     paths["streamed_1024x6"] = recenter_path(name, limit)
@@ -3241,6 +3397,19 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "device_ms": k["device_ms"]})
+    # the sparse NEE sweep, which replaces no TPU kernel: times on the
+    # lamp-lit window's bounce-1 rays, the relative error over its four
+    # bounces
+    nb1 = ns["bounces"][1]
+    kernels.append({
+        "name": "nee_sweep", "route": "cuda",
+        "source": "wavefront_tpu_torch/csrc/nee_sweep.cu", "replaces": None,
+        "launches": gf["launches"]["nee_sweep"],
+        "launches_by_path": {p: v["launches"]["nee_sweep"]
+                             for p, v in paths.items()},
+        "max_rel_err": ns["max_rel_err"], "ms": nb1["ms"],
+        "plain_ms": nb1["plain_ms"], "bound_ms": nb1["bound_ms"],
+        "bound_by": nb1["bound_by"], "device_ms": nb1["device_ms"]})
     # K5 also runs on the tools' path (onehot_ab)
     next(k for k in kernels if k["name"] == "loop_probe")[
         "launches_by_path"]["tools"] = tl["launches"]["loop_probe"]

@@ -196,8 +196,7 @@ def test_general_path_names_every_sync():
     assert set(syncs) == {
         "sync.compaction_count", "sync.audit", "sync.image_copy",
         "sync.light_walk", "sync.reverse_walk", "sync.nee_sweep",
-        "sync.nee_slots", "sync.nee_overflow", "sync.seed", "sync.tri_pool",
-        "sync.nan_check"}
+        "sync.nee_slots", "sync.seed", "sync.tri_pool", "sync.nan_check"}
     assert len(syncs) == d["host_syncs"]
     assert "render.shade" in {n for _, _, n in spans}
 

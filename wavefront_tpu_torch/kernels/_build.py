@@ -56,7 +56,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "wavefront_tpu_torch")
 SOURCES = ("window_trace", "shade", "texel", "radix_hist", "device_probe",
-           "extract_probe", "loop_probe", "ray_sort")
+           "extract_probe", "loop_probe", "ray_sort", "nee_sweep")
 HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -13,7 +13,9 @@ A bounce shades on one of two paths, chosen by `use_fused`:
     (`render/shading.py`) around the texel kernel (`kernels/texel.py`),
     with the light
     pick by `dense_sample_light` or, for sparse light sets, the stochastic
-    BVH descent, and the NEE pdf by the dense or the sparse sweep.  It is
+    BVH descent, and the NEE pdf by the dense or the sparse sweep (on the
+    card the sparse one is a kernel, `kernels/nee_sweep.py`, whose
+    crossings and overflowing rays the frame reads with its audit).  It is
     what runs for `shade_fused=False`, the stage-isolation variants
     `debug_stage` "notex" / "nonee_pdf", and every light set that is
     sparse or past the fused kernel's caps (with a warning).
@@ -269,20 +271,20 @@ def entity_attrs(scene: SceneArrays, origin: V3, direction: V3, pa, t):
 def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
             bounce: int, origin: V3, direction: V3, rid, inv_seed: int,
             vox: VoxelHit, use_entities: bool, texel=texel_fetch,
-            tri: Optional[TriHit] = None):
+            tri: Optional[TriHit] = None, counts=None):
     """General shade plus NEE pdf of one (possibly compacted) ray block:
     `shading.shade_rays` around the texel kernel (span `render.texel`),
     the light pick by `dense_sample_light` or the BVH descent (span
     `render.light_pick`), then the dense or sparse pdf sweep (span
     `render.nee_pdf`, its reverse walk included).  `tri`: the block's
     entity hits when the caller holds them (the primary cache), else the
-    triangle sweep runs here.
+    triangle sweep runs here.  counts: the (2,) int64 device tensor the
+    sparse sweep adds its crossings and overflowing rays to (required on
+    a sparse light set with NEE; the caller reads it).
 
     Returns the next ray, the block's emission and its throughput factor
     (`shading.throughput_factor`), both in the color dtype
-    (settings.shade_bf16), the count of rays whose light
-    crossings overflowed the sparse sweep's slots (0 unless
-    settings.trace_audit) and the entity hits used (None without
+    (settings.shade_bf16), and the entity hits used (None without
     entities)."""
     lights = scene.lights
     atlas = scene.atlas_packed
@@ -327,7 +329,6 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
                                origin, direction, seed, vox, entity,
                                fetch, pick,
                                color_bf16=settings.shade_bf16)
-    overflow = 0
     if nee_type == 0:
         nee_pdf = torch.zeros_like(mis)
     elif settings.debug_stage == "nonee_pdf":
@@ -338,13 +339,9 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
             nee_pdf = nee_pdf_sweep(
                 lights, new_o, normal, new_d, mis, dense_probs,
                 max_depth=settings.max_bvh_depth,
-                max_hits=settings.max_nee_hits,
-                with_overflow=settings.trace_audit)
-        if settings.trace_audit:
-            nee_pdf, overflow = nee_pdf
+                max_hits=settings.max_nee_hits, counts=counts)
     return (new_o, new_d, emis,
-            throughput_factor(new_d, refl, mis, bsdf_pdf, nee_pdf), overflow,
-            tri)
+            throughput_factor(new_d, refl, mis, bsdf_pdf, nee_pdf), tri)
 
 
 def _bounce_dbg(m: int, on: bool, device) -> V3:
@@ -438,7 +435,10 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
         tscene = scene if settings.trace_skips else scene._replace(
             aux_grid=scene.aux_grid & 3)
         trunc = torch.zeros((), dtype=torch.int64, device=dev)
-        overflow = 0
+        # the sparse NEE sweep's crossings and overflowing rays, read with
+        # the audit
+        nee_counts = None if fused or nee_type == 0 or scene.lights.dense \
+            else torch.zeros(2, dtype=torch.int64, device=dev)
         hits0 = None
 
         for b in range(b_total):
@@ -510,12 +510,12 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
                             vox, tri = cached
                         elif not freetrace:
                             vox = unpack_hits(pa, pb, t)
-                        no, nd, emis, tpf, ovf, tri = shade_m(
+                        no, nd, emis, tpf, tri = shade_m(
                             scene, settings, nee_type, b, bo, bd, brid,
-                            inv_seed, vox, use_entities, texel, tri)
+                            inv_seed, vox, use_entities, texel, tri,
+                            nee_counts)
                         if outside:
                             hits0 = cached or (vox, tri)
-                        overflow += ovf
                         nrad = brad + btp * emis
                         ntp = btp * tpf
                 ndbg = None if dbg is None \
@@ -542,7 +542,14 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
             return out
 
         with spans.host_sync("sync.audit"):
-            aux = {"truncated": int(trunc), "nee_overflow": int(overflow)}
+            if nee_counts is None:
+                truncated, crossings, overflow = int(trunc), 0, 0
+            else:
+                truncated, crossings, overflow = torch.cat(
+                    [trunc.view(1), nee_counts]).tolist()
+        spans.count_crossings(crossings)
+        aux = {"truncated": truncated,
+               "nee_overflow": overflow if settings.trace_audit else 0}
         if pixels is not None:
             with span("render.restore"):
                 img = pixel_order(rad if dbg is None else dbg)

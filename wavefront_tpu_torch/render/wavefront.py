@@ -3,8 +3,9 @@
 Counterparts of `wavefront_tpu.render.wavefront`: raygen, the light-BVH
 walks of sparse light sets (stochastic descent, reverse walk), the dense
 light-BVH math (node/prim importances, descent probabilities, the light
-pick), the NEE pdf sweep on both paths, the sampling helpers and
-postprocess.  Radiometric semantics follow the reference shaders
+pick), the NEE pdf sweep on both paths (the sparse one a kernel on the
+card, `kernels/nee_sweep.py`), the sampling helpers and postprocess.
+Radiometric semantics follow the reference shaders
 (raygen.rs, raytrace.rs, nee_pdf.rs, postprocess.rs); the dense light path
 replaces the stochastic descent and the reverse walk with the same
 distribution drawn from one uniform (see the JAX package's module notes).
@@ -23,6 +24,7 @@ import torch
 from wavefront_tpu_torch.core import rng, vec3
 from wavefront_tpu_torch.core.config import EPSILON_BLOCK, EPSILON_NEE, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
+from wavefront_tpu_torch.kernels.nee_sweep import nee_sweep
 from wavefront_tpu_torch.utils import spans
 
 _F32 = torch.float32
@@ -368,8 +370,9 @@ def dense_sample_light(lights: LightArrays, point: V3, normal: V3, seed,
 # NEE pdf sweep (reference nee_pdf.rs:281-337)
 # ---------------------------------------------------------------------------
 
-# rays per pass of the sparse sweep: bounds its (rays, prim_tile) float32
-# temporaries to 128 MB each; per-ray results do not depend on it
+# rays per pass of the sparse sweep's plain version: bounds its (rays,
+# prim_tile) float32 temporaries to 128 MB each; per-ray results do not
+# depend on it
 RAY_CHUNK = 1 << 19
 
 
@@ -415,32 +418,28 @@ def _prim_tile_hits(lights: LightArrays, point: V3, direction: V3, active,
 def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
                   direction: V3, mis_weight, dense_probs,
                   max_depth: int = 32, max_hits: int = 8,
-                  prim_tile: int = 64, with_overflow: bool = False):
+                  prim_tile: int = 64, with_overflow: bool = False,
+                  counts=None):
     """Sum over the light prims crossed by the outgoing ray of
-    walk_prob * t^2 / (cos_theta * area) (nee_pdf.rs:264-334), `prim_tile`
-    prims at a time against all rays.
+    walk_prob * t^2 / (cos_theta * area) (nee_pdf.rs:264-334).
 
     Dense path (dense_probs given): walk probabilities are columns of the
-    dense (N, P) matrix and EVERY crossing counts, as in the reference.
+    dense (N, P) matrix and EVERY crossing counts, as in the reference;
+    `prim_tile` prims at a time against all rays.
 
-    Sparse path (dense_probs None): the rays that can contribute (MIS
-    weight above 0, a live direction) are gathered; each one's first
-    `max_hits` crossings, in prim order, go into slots, and one reverse BVH
-    walk runs over the used (slot, ray) pairs.  A ray that crosses more under-counts its pdf;
-    with_overflow also returns how many rays did (always 0 on the dense
-    path), which the renderer reports as aux["nee_overflow"].
-
-    The sparse path's gathers of a data-dependent size (`torch.nonzero`,
-    a boolean mask's rows) and its overflow count are host syncs
-    (`sync.nee_sweep`, `sync.nee_slots`, `sync.nee_overflow`), and the
-    crossings it finds count in `spans.nee_crossings`; the dense path has
-    none."""
-    def masked(x, mask):
-        with spans.host_sync("sync.nee_slots"):
-            return x[mask]
-
-    active = (mis_weight > 0) & vec3.any_nonzero(direction)
-    cos_theta = vec3.dot(normal, direction)
+    Sparse path (dense_probs None): each ray that can contribute (MIS
+    weight above 0, a live direction) sums its first `max_hits` crossings,
+    in prim order, each with its reverse BVH walk.  A ray that crosses
+    more under-counts its pdf.  CUDA tensors launch the kernel
+    (`kernels/nee_sweep.py`), CPU tensors take `nee_sweep_plain`.  Both
+    add the crossings and the rays that crossed more than `max_hits` to
+    `counts`, a (2,) int64 tensor on the rays' device, with no host sync
+    for them: the renderer reads it with its frame's audit, and then the
+    sweep returns the pdf alone.  Without `counts` the sweep reads its own
+    in one host sync (`sync.nee_overflow`), counts the crossings in
+    `spans.nee_crossings`, and with_overflow also returns the overflowing
+    rays (always 0 on the dense path), which the renderer reports as
+    aux["nee_overflow"]."""
     n = point.x.shape[0]
     dev = point.x.device
     cap = lights.p0.shape[0]
@@ -448,6 +447,8 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
     bases = range(0, lights.num_prims, prim_tile)
 
     if dense_probs is not None:
+        active = (mis_weight > 0) & vec3.any_nonzero(direction)
+        cos_theta = vec3.dot(normal, direction)
         pdf = torch.zeros(n, dtype=_F32, device=dev)
         for base in bases:
             pid = torch.arange(base, base + prim_tile, device=dev)
@@ -464,8 +465,51 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
             return pdf, 0
         return pdf
 
-    # sparse path, on the rays that can contribute only: slot collection,
-    # then the reverse walk of the used slots
+    own = counts is None
+    if own:
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    elif with_overflow:
+        raise ValueError("nee_pdf_sweep: with_overflow reads the sweep's "
+                         "own counts; given `counts`, the caller reads them")
+    if dev.type == "cuda":
+        pdf = nee_sweep(lights, *(V3(*(c.contiguous() for c in v))
+                                  for v in (point, normal, direction)),
+                        mis_weight.contiguous(), max_depth, max_hits, counts)
+    else:
+        pdf = nee_sweep_plain(lights, point, normal, direction, mis_weight,
+                              max_depth, max_hits, counts, prim_tile)
+    if not own:
+        return pdf
+    with spans.host_sync("sync.nee_overflow"):
+        crossings, overflow = counts.tolist()
+    spans.count_crossings(crossings)
+    return (pdf, overflow) if with_overflow else pdf
+
+
+def nee_sweep_plain(lights: LightArrays, point: V3, normal: V3,
+                    direction: V3, mis_weight, max_depth: int,
+                    max_hits: int, counts, prim_tile: int = 64):
+    """Plain PyTorch version of the sparse sweep's kernel
+    (`kernels/nee_sweep.py::nee_sweep`, same arguments; per-ray results do
+    not depend on `prim_tile`), on any device: the rays that can
+    contribute are gathered; each one's first
+    `max_hits` crossings, `prim_tile` prims at a time in prim order, go
+    into slots, and one reverse BVH walk runs over the used (slot, ray)
+    pairs.  The crossings and the rays with more than `max_hits` of them
+    are added to `counts`.
+
+    Its gathers of a data-dependent size (`torch.nonzero`, a boolean
+    mask's rows) and its reverse walk's levels are host syncs
+    (`sync.nee_sweep`, `sync.nee_slots`, `sync.reverse_walk`)."""
+    def masked(x, mask):
+        with spans.host_sync("sync.nee_slots"):
+            return x[mask]
+
+    active = (mis_weight > 0) & vec3.any_nonzero(direction)
+    cos_theta = vec3.dot(normal, direction)
+    n = point.x.shape[0]
+    dev = point.x.device
+    prim_tile = min(prim_tile, lights.p0.shape[0])
     with spans.host_sync("sync.nee_sweep"):
         act = torch.nonzero(active)[:, 0]
     na = act.shape[0]
@@ -477,18 +521,19 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
     slot_t = torch.zeros((max_hits, na), dtype=_F32, device=dev)
     slot_used = torch.zeros((max_hits, na), dtype=torch.bool, device=dev)
     count = torch.zeros(na, dtype=torch.int64, device=dev)
+    crossings = 0
     for lo in range(0, na, RAY_CHUNK):
         rows = slice(lo, lo + RAY_CHUNK)
         cpt = pt.map(lambda c: c[rows])
         cdr = dr.map(lambda c: c[rows])
-        for base in bases:
+        for base in range(0, lights.num_prims, prim_tile):
             pid = torch.arange(base, base + prim_tile, device=dev)
             hit, t = _prim_tile_hits(lights, cpt, cdr, every[rows], pid)
             # the crossings, by ray and then by prim; the slot of each is
             # the number of crossings before it on its ray
             with spans.host_sync("sync.nee_sweep"):
                 ray, col = torch.nonzero(hit, as_tuple=True)
-            spans.count_crossings(ray.shape[0])
+            crossings += ray.shape[0]
             rank = torch.arange(ray.shape[0], device=dev) \
                 - torch.searchsorted(ray, ray)
             tt = t[ray, col]
@@ -518,9 +563,8 @@ def nee_pdf_sweep(lights: LightArrays, point: V3, normal: V3,
     pdf = torch.zeros(n, dtype=_F32, device=dev)
     pdf[act] = torch.where(slot_used, walk * point_pick,
                            torch.zeros_like(walk)).sum(0)
-    if with_overflow:
-        with spans.host_sync("sync.nee_overflow"):
-            return pdf, int((count > max_hits).sum())
+    counts[0] += crossings
+    counts[1] += (count > max_hits).sum()
     return pdf
 
 

@@ -8,7 +8,8 @@ timeline.  The counterpart of `wavefront_tpu.utils.profiling`.
 
 The frame path's spans and counters are in `utils/spans.py` (`span`,
 `host_sync`, re-exported here); `counters()` snapshots them with the
-frame kernels' launches (K1-K3 and the bounce sort's key and permute).
+frame kernels' launches (K1-K3, the bounce sort's key and permute and
+the sparse NEE sweep).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
+from wavefront_tpu_torch.kernels.nee_sweep import nee_sweep
 from wavefront_tpu_torch.kernels.ray_sort import ray_key, ray_permute
 from wavefront_tpu_torch.kernels.shade import shade_pass
 from wavefront_tpu_torch.kernels.texel import texel_fetch
@@ -115,12 +117,14 @@ class StageTimer:
 # of the traced region's kernels, up to this many earlier sessions
 WARMUP_LAUNCHES = 64
 WARMUP_SPAN = "device_trace.warmup"
-# the frame kernels' wrappers (K1-K3, the bounce sort's key and permute),
-# whose `launches` count the kernels they launch, by the name their
-# kernel's records carry in a trace (no name holds another)
+# the frame kernels' wrappers (K1-K3, the bounce sort's key and permute,
+# the sparse NEE sweep), whose `launches` count the kernels they launch,
+# by the name their kernel's records carry in a trace (no name holds
+# another)
 FRAME_KERNELS = {"trace_kernel": window_trace, "shade_kernel": shade_pass,
                  "texel_kernel": texel_fetch, "ray_key_kernel": ray_key,
-                 "ray_permute_kernel": ray_permute}
+                 "ray_permute_kernel": ray_permute,
+                 "nee_sweep_kernel": nee_sweep}
 
 
 def counters() -> Dict[str, int]:

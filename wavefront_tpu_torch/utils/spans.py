@@ -9,10 +9,10 @@ records and on their clock; with no session recording it is one shared
 no-op context.  The counters are always on (module-level ints, as the
 kernels' `launches`): host syncs, the ray slots each bounce's shade
 was given with the alive rays among them, and on the general shade's
-sparse light path the light-prim crossings the NEE sweep found and the
-levels the light-BVH walk stepped (each summed from sizes and loop
-counts the host already holds).  `profiling.counters()`
-snapshots them with the frame kernels' launches.
+sparse light path the light-prim crossings the NEE sweep found (counted
+on the device and read with the frame's audit) and the levels the
+light-BVH walk stepped (summed from loop counts the host already holds).
+`profiling.counters()` snapshots them with the frame kernels' launches.
 
 This module imports nothing of the port, so the kernels' helpers and the
 renderer import it at the top.
