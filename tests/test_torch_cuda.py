@@ -2,16 +2,16 @@
 
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 `nvcc`; they carry the `cuda` marker and skip where there is no card.
-Run them on the GPU machine with:
+Run them on the GPU machine with every other card test:
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+    python -m pytest tests/test_torch_card_paths.py tests/test_torch_cuda.py tests/test_torch_nee_sweep.py -q -m cuda --noconftest
 
 (`--noconftest` because tests/conftest.py imports JAX, which the GPU
-machine need not have; this file imports none of it.)  The tolerances are
-those of chip_smoke.py: the tracer's words may differ on at most 1e-5 of
-the rays (coplanar ties), every shade output within max |diff| 1e-3 and
-RMS 1e-5 (with and without the entity stream; K2's float32 light pick
-and pdf bit for bit at every prim bucket), K2's bf16 color build's
+machine need not have; this file imports none of it.)  The tolerances
+are those of tests/_card.py: the tracer's words may differ on at most
+1e-5 of the rays (coplanar ties), every shade output within max |diff|
+1e-3 and RMS 1e-5 (with and without the entity stream; K2's float32
+light pick and pdf bit for bit at every prim bucket), K2's bf16 color build's
 bfloat16 values within 1 bfloat16 ulp (stated at its test), the texel
 fetch bit-exact, frames under the golden gate; the histogram and the
 probe kernels compute integers (and sums in one fixed order), so they
@@ -65,6 +65,8 @@ from wavefront_tpu_torch.render.scene import VoxelScene, light_arrays
 from wavefront_tpu_torch.render.wavefront import raygen_soa
 from wavefront_tpu_torch.world import meshes
 from wavefront_tpu_torch.world.blocks import BlockRegistry
+
+from _card import bf16_ulp, golden_gate
 
 pytestmark = pytest.mark.cuda
 
@@ -274,12 +276,6 @@ def test_shade_kernel_pick_and_pdf_bit_equal(light_set):
                 assert torch.equal(gc, wc)
 
 
-def _bf16_ulp(x):
-    """The spacing of bfloat16 values at |x| (8 significant bits)."""
-    _, e = torch.frexp(x.abs().double())
-    return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
-
-
 @pytest.mark.parametrize("tri", [False, True], ids=["voxels", "entity"])
 @pytest.mark.parametrize("p_prims", sorted(LAMPS_FOR_P))
 def test_shade_kernel_bf16_matches_plain(p_prims, tri):
@@ -327,11 +323,11 @@ def test_shade_kernel_bf16_matches_plain(p_prims, tri):
             assert gc.dtype == wc.dtype == torch.bfloat16
             assert bool(torch.isfinite(gc).all())
             assert bool(((gc.double() - wc.double()).abs()
-                         <= _bf16_ulp(wc.float())).all())
+                         <= bf16_ulp(wc.float())).all())
         for gc, wc, r in zip(got[3], want[3], rad):
             assert gc.dtype == torch.float32
             assert bool(((gc.double() - wc.double()).abs()
-                         <= _bf16_ulp(wc - r) + 1.2e-7 * wc.abs().clamp_min(1)
+                         <= bf16_ulp(wc - r) + 1.2e-7 * wc.abs().clamp_min(1)
                          ).all())
     with pytest.raises(ValueError):
         shade_pass(*args, nee_type=1, tri_attrs=tri_attrs)
@@ -550,11 +546,7 @@ def test_general_frame_kernels_match_plain(cube_scene):
         arrays, basis.eye, basis.front, basis.right, basis.up, 2,
         settings=settings.replace(shade_fused=False), nee_type=1,
         sort_type=0, trace=trace_plain, shade=shade_plain, texel=texel_plain)
-    want = want.cpu().numpy()
-    diff = np.abs(got - want).max(axis=-1)
-    agree = diff < 1e-3
-    assert 1.0 - agree.mean() < 0.005
-    assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3
+    golden_gate(got, want)
 
 
 def test_frame_kernels_match_plain(scene):
@@ -572,11 +564,7 @@ def test_frame_kernels_match_plain(scene):
         scene.get_arrays(), basis.eye, basis.front, basis.right, basis.up, 2,
         settings=settings, nee_type=1, sort_type=0, trace=trace_plain,
         shade=shade_plain)
-    want = want.cpu().numpy()
-    diff = np.abs(got - want).max(axis=-1)
-    agree = diff < 1e-3
-    assert 1.0 - agree.mean() < 0.005
-    assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3
+    golden_gate(got, want)
 
 
 def test_wrappers_check_their_inputs(scene):
@@ -935,11 +923,7 @@ def test_bf16_frames_on_the_card(cube_scene, fused):
         cube_scene.get_arrays(), basis.eye, basis.front, basis.right,
         basis.up, 2, settings=settings, nee_type=1, sort_type=1,
         trace=trace_plain, shade=shade_plain, texel=texel_plain)
-    want = want.cpu().numpy()
-    diff = np.abs(got - want).max(axis=-1)
-    agree = diff < 1e-3
-    assert 1.0 - agree.mean() < 0.005
-    assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3
+    golden_gate(got, want)
     single = Renderer(settings)
     singles = torch.stack([single.render(cube_scene, basis, prefs,
                                          frame_count=f, as_numpy=False)
@@ -1050,11 +1034,7 @@ def test_edited_frame_kernels_match_plain(edited):
         edited.get_arrays(), basis.eye, basis.front, basis.right, basis.up,
         2, settings=settings, nee_type=1, sort_type=0, trace=trace_plain,
         shade=shade_plain)
-    want = want.cpu().numpy()
-    diff = np.abs(got - want).max(axis=-1)
-    agree = diff < 1e-3
-    assert 1.0 - agree.mean() < 0.005
-    assert np.sqrt(np.mean((got[agree] - want[agree]) ** 2)) < 1e-3
+    golden_gate(got, want)
 
 
 # ---- pixel ranges and the NaN checks ----

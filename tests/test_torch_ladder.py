@@ -9,7 +9,8 @@ accumulating row); that row's k-frame mean equals the sum of k single
 frames over k; `main` prints a config-1 row on the CPU and raises for
 `--device cuda` without a card.  No JAX frame is rendered, and the
 streamed window of configs 6-8 is not built here (its settings are held
-by tests/test_torch_game.py and chip_smoke.py drives it on the card).
+by tests/test_torch_game.py and tests/test_torch_card_paths.py drives
+it on the card).
 """
 
 import ast

@@ -7,8 +7,11 @@ On the CPU: `nee_pdf_sweep` takes the plain version for CPU tensors and
 never the kernel; the kernel's wrapper refuses CPU tensors and malformed
 inputs; given a `counts` tensor the sweep adds its crossings and
 overflowing rays there and reads nothing itself; a frame counts the
-crossings and reports the overflow from its audit read.  The plain
-version itself is held to the JAX package in tests/test_torch_lights.py.
+crossings and reports the overflow from its audit read; the operations
+`tools/kernel_times.py` bounds the kernel by equal a float64 count over
+every (ray, prim) pair.  The
+plain version itself is held to the JAX package in
+tests/test_torch_lights.py.
 
 On the card (marker `cuda`; this file imports no JAX, so it runs there
 with `--noconftest`): the kernel against the plain version on the same
@@ -16,21 +19,24 @@ CUDA tensors, on seeded sparse light sets built as the port builds them
 (rooms of isolated lamp voxels; 100 lamps, 600 prims, more than one
 shared-memory tile of 256; seeded quads and triangles; a stack of quads
 that overflows the slots), at `max_hits` 1, 2, 8 and 16 (more than the 8
-crossings a thread holds before it walks them), with rays that have
-no MIS weight, no direction, or lie in a prim's plane, and rays aimed at
-prims' edges and corners.  The kernel repeats the plain version's float32
+crossings a thread holds before it walks them), and on 524,288 rays,
+more than the card keeps resident, so that the persistent grid's blocks
+stride past their first group of rays; with rays that have no MIS
+weight, no direction, or lie in a prim's plane, and rays aimed at prims'
+edges and corners.  The kernel repeats the plain version's float32
 operations, so the crossings are the same: the crossings and overflow
 counts are equal, a ray with one crossing has the same pdf bit for bit,
-and a ray with more is within 1e-6 relative (its slots summed in slot
-order, the plain version's by PyTorch's reduction: at most 7 roundings of
-terms of one sign).  One launch a call; a frame's sweeps take no host
-sync.
+and a ray with more is within 1e-6 relative (tests/_card.py: its slots
+summed in slot order, the plain version's by PyTorch's reduction: at
+most 7 roundings of terms of one sign).  One launch a call; a frame's
+sweeps take no host sync.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from wavefront_tpu_torch.core.config import EPSILON_NEE, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
 from wavefront_tpu_torch.headline import general_setup
 from wavefront_tpu_torch.kernels.nee_sweep import nee_sweep
@@ -38,11 +44,16 @@ from wavefront_tpu_torch.render import lights as lights_mod
 from wavefront_tpu_torch.render import renderer as rr
 from wavefront_tpu_torch.render import wavefront as wf
 from wavefront_tpu_torch.render.scene import light_arrays
+from wavefront_tpu_torch.tools import kernel_times
 from wavefront_tpu_torch.utils import spans
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 
+from _card import NEE_REL as REL
+
 N = 1 << 15
-REL = 1e-6
+# rays of the cases past the kernel's resident grid: more than the 2048
+# threads an SM holds at once, on every SM of a 132-SM card
+N_GRID = 1 << 19
 
 
 @pytest.fixture(scope="module")
@@ -255,6 +266,80 @@ def test_frame_reads_the_counts_with_its_audit(audit):
     assert aux == {"truncated": 0, "nee_overflow": overflow if audit else 0}
 
 
+def interior_rays(ls, n: int, seed: int):
+    """(point, direction, mis) as CPU tensors: rays from seeded points,
+    half aimed at seeded points inside seeded quads (0.1-0.9 along each
+    edge), half in seeded directions; one in ten with no MIS weight, one
+    in twenty with no direction.  No ray grazes a prim's edge or lies in
+    its plane, so a float64 count of the crossing test agrees with the
+    sweep's float32 one."""
+    g = np.random.default_rng(seed)
+    p, e1, e2 = (np.asarray(getattr(ls, f))[:ls.num_prims]
+                 for f in ("p0", "e1", "e2"))
+    assert not np.asarray(ls.is_tri)[:ls.num_prims].any()
+    point = g.uniform(p.min(0) - 4, p.max(0) + 4, (n, 3))
+    prim = g.integers(0, ls.num_prims, n)
+    u, v = g.uniform(0.1, 0.9, (2, n, 1))
+    d = p[prim] + u * e1[prim] + v * e2[prim] - point
+    free = g.random(n) < 0.5
+    d[free] = g.normal(0, 1, (free.sum(), 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[g.random(n) < 0.05] = 0.0
+    mis = np.where(g.random(n) < 0.9, 0.3, 0.0)
+    return (_v3(point.astype(np.float32), "cpu"),
+            _v3(d.astype(np.float32), "cpu"),
+            torch.as_tensor(mis.astype(np.float32)))
+
+
+def pairs_f64(la, o, d, live):
+    """Every (ray, prim) pair's crossing test in float64, apart from the
+    sweep's formula: the plane's t from the normal e1 x e2, the hit
+    point's (u, v) from cross products, (h x e2).n / n.n and
+    (e1 x h).n / n.n.  Returns (crossings a ray, the pairs of live rays
+    with the plane ahead within T_MAX, each pair's hit)."""
+    k = la.num_prims
+    p0, e1, e2 = (getattr(la, f)[:k].double() for f in ("p0", "e1", "e2"))
+    nv = torch.cross(e1, e2, dim=1)
+    pt = torch.stack([o.x, o.y, o.z], 1).double()
+    dr = torch.stack([d.x, d.y, d.z], 1).double()
+    denom = dr @ nv.T
+    t = ((p0 * nv).sum(1)[None, :] - pt @ nv.T) / denom
+    h = pt[:, None, :] + dr[:, None, :] * t[..., None] - p0[None]
+    nn = (nv * nv).sum(1)
+    u = (torch.cross(h, e2[None].expand_as(h), dim=2) * nv).sum(2) / nn
+    v = (torch.cross(e1[None].expand_as(h), h, dim=2) * nv).sum(2) / nn
+    ahead = live[:, None] & (denom.abs() > 1e-12) & (t >= EPSILON_NEE) \
+        & (t <= T_MAX)
+    hit = ahead & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+    return hit.sum(1), int(ahead.sum()), hit
+
+
+def test_kernel_times_counts_what_the_sweep_is_asked(registry):
+    """`tools/kernel_times.py::nee_stats`, which S3's operations bound is
+    counted from, on 48x48 rays at a lamp room equals a float64 count
+    over every (ray, prim) pair (`pairs_f64`, not the sweep's crossing
+    test): each ray's crossings, the live rays, the planes ahead within
+    T_MAX, and the walk levels, each crossing's walk climbed from its
+    prim's leaf."""
+    ls = light_set("room_7", registry)
+    la = light_arrays(ls, "cpu")
+    o, d, mis = interior_rays(ls, 48 * 48, 6)
+    depth = 32
+    live = (mis > 0) & vec_nonzero(d)
+    crossed, ahead, hit = pairs_f64(la, o, d, live)
+    parent = la.node_parent.tolist()
+    levels = 0
+    for j in range(la.num_prims):
+        k, walk = int(la.leaf_node[j]), 0
+        while walk < depth and 0 <= parent[k] != 0xFFFFFFFF:
+            k, walk = parent[k], walk + 1
+        levels += walk * int(hit[:, j].sum())
+    got = kernel_times.nee_stats(la, o, d, mis, depth)
+    assert torch.equal(got[0], crossed)
+    assert got[1:] == (int(live.sum()), ahead, levels)
+    assert int(crossed.sum()) > 100 and levels > int(crossed.sum())
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -267,6 +352,32 @@ def card():
     return torch.device("cuda")
 
 
+def hold(ls, n: int, seed: int, max_hits: int, dev):
+    """The kernel on `n` seeded rays (`rays`) at light set `ls` against
+    the plain version: one launch; the crossings and overflowing rays
+    equal to the plain version's and to the crossing test's; a ray with
+    one crossing or none bit for bit, one with more within REL.  Returns
+    the counts."""
+    la, o, n_, d, mis = tensors(ls, n, seed, dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    before = nee_sweep.launches
+    got = nee_sweep(la, o, n_, d, mis, 32, max_hits, counts)
+    assert nee_sweep.launches == before + 1
+    want_counts = torch.zeros_like(counts)
+    want = wf.nee_sweep_plain(la, o, n_, d, mis, 32, max_hits, want_counts)
+    c = crossings(la, o, d, mis)
+    torch.cuda.synchronize()
+    assert counts.tolist() == want_counts.tolist() == [
+        int(c.sum()), int((c > max_hits).sum())]
+    assert bool(torch.isfinite(want).all())
+    one = c == 1
+    assert int((c > 0).sum()) > n // 10 and int((c > 1).sum()) > 100
+    assert torch.equal(got[one], want[one])
+    assert torch.equal(got[c == 0], want[c == 0])
+    assert bool(((got - want).abs() <= REL * want.abs()).all())
+    return counts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_hits", [1, 2, 8, 16])
 @pytest.mark.parametrize("name", ["room_7", "room_11", "lamps_600",
@@ -275,25 +386,19 @@ def test_kernel_matches_plain(card, registry, name, max_hits):
     ls = light_set(name, registry)
     if name == "lamps_600":
         assert ls.num_prims == 600
-    la, o, n, d, mis = tensors(ls, N, 10 + max_hits, card)
-    counts = torch.zeros(2, dtype=torch.int64, device=card)
-    before = nee_sweep.launches
-    got = nee_sweep(la, o, n, d, mis, 32, max_hits, counts)
-    assert nee_sweep.launches == before + 1
-    want_counts = torch.zeros_like(counts)
-    want = wf.nee_sweep_plain(la, o, n, d, mis, 32, max_hits, want_counts)
-    c = crossings(la, o, d, mis)
-    torch.cuda.synchronize()
-    assert counts.tolist() == want_counts.tolist() == [
-        int(c.sum()), int((c > max_hits).sum())]
-    assert bool(torch.isfinite(want).all())
-    one = c == 1
-    assert int((c > 0).sum()) > N // 10 and int((c > 1).sum()) > 100
-    assert torch.equal(got[one], want[one])
-    assert torch.equal(got[c == 0], want[c == 0])
-    assert bool(((got - want).abs() <= REL * want.abs()).all())
+    counts = hold(ls, N, 10 + max_hits, max_hits, card)
     if name == "stack" and max_hits < 12:
         assert counts[1] > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lamps_600", "quads_tris"])
+def test_kernel_matches_plain_past_its_resident_grid(card, registry, name):
+    """N_GRID rays, more than the card holds resident at once: the
+    persistent grid's blocks stride past their first group of rays."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert N_GRID > sms * 2048
+    hold(light_set(name, registry), N_GRID, 40, 8, card)
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 
 `wavefront_tpu_torch.kernels.shade.shade_pass` takes its plain version
 (`shade_plain`, the function the CUDA kernel is held to on the card by
-chip_smoke.py) for CPU tensors.  Here it runs against the JAX
+the `cuda` tests) for CPU tensors.  Here it runs against the JAX
 `kernels/shade.py::shade_pass` in interpret mode, as the JAX package's
 own tests run it, on 2048 rays of the golden config-1 scene: the same
 origins, directions, throughput, radiance and pixel ids, and the packed

@@ -3,7 +3,7 @@ every kernel wrapper of the port shares.
 
 `wavefront_tpu_torch.kernels.texel.texel_fetch` takes its plain version
 (`texel_plain`, the function the CUDA kernel is held to on the card by
-chip_smoke.py) for CPU tensors.  Here it runs against the JAX
+the `cuda` tests) for CPU tensors.  Here it runs against the JAX
 `kernels/texel.py::texel_fetch` in interpret mode, as tests/test_texel.py
 runs it, and against the numpy gather, on that file's five input classes
 and on channel lists of one, all twelve, out of order and with a repeat.
@@ -11,13 +11,15 @@ A fetch copies float32 values, so every comparison is bit-exact.
 
 The launch path (`kernels/_build.py::Launcher`) and the options of
 `tools/kernel_times.py` are checked here without a card: each wrapper's
-C signature against its source, and the tool's arguments.
+C signature against its source, the tool's arguments, and its byte
+counts against the benchmark's.
 """
 
 import glob
 import importlib
 import os
 import re
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,13 +27,17 @@ import pytest
 import torch
 
 from wavefront_tpu.kernels.texel import texel_fetch as jax_texel_fetch
+from wavefront_tpu_torch.headline import config1_grid
 from wavefront_tpu_torch.kernels import _build
+from wavefront_tpu_torch.kernels.shade import prep_shade_tables
 from wavefront_tpu_torch.kernels.texel import (
     texel_fetch,
     texel_index,
     texel_plain,
 )
+from wavefront_tpu_torch.render.scene import VoxelScene
 from wavefront_tpu_torch.tools import kernel_times
+from wavefront_tpu_torch.world.blocks import BlockRegistry
 
 CHANS = (0, 1, 2, 3, 4, 5, 6, 8)
 OTHER_CHANNELS = {"one_channel": (9,), "all_twelve": tuple(range(12)),
@@ -238,6 +244,58 @@ def test_kernel_times_takes_the_probe_kernels():
                                "extract_win", "--root", "build/parent"])
     assert args.kernels == ["loop_probe", "extract_cur", "extract_win"]
     assert args.root == "build/parent"
+
+
+@pytest.mark.parametrize("kernel", ["ray_key", "ray_permute", "nee_sweep"])
+def test_kernel_times_takes_the_sort_and_sweep_kernels(kernel):
+    args = kernel_times.parse(["--kernels", kernel, "--root",
+                               "build/parent"])
+    assert args.kernels == [kernel] and kernel in kernel_times.KERNELS
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_kernel_times_bytes_are_the_benchmarks(bf16):
+    """The bytes `kernel_times` bounds K2 and K3 by equal the benchmark's
+    (`harness/peaks.py::k2_bytes`, `metrics/k3_texel_roofline.py::k3_bytes`)
+    for the same launches: the golden scene's tables, with and without
+    the entity stream's flag words, at 8 and 12 channels; and the memory
+    rate it divides them by is the benchmark's."""
+    from benchmark.harness import peaks
+    from wavefront_tpu_torch.tools import _timing
+
+    assert _timing.HBM_BYTES_PER_S == kernel_times.rates().HBM_BYTES_PER_S \
+        == peaks.HBM_BYTES_PER_S
+    k3 = importlib.import_module("benchmark.metrics.k3_texel_roofline")
+    reg = BlockRegistry.load("assets")
+    arrays = VoxelScene(reg, config1_grid(reg), (0, 0, 0),
+                        max_light_prims=256, device="cpu").get_arrays()
+    tables = prep_shade_tables(arrays.atlas_packed, arrays.lights)
+    # as the benchmark's K2 wrapper counts them
+    table_bytes = sum(t.numel() * t.element_size() for t in (
+        tables.atlas, tables.nodes, tables.prims))
+    atlas = arrays.atlas_packed
+    for n in (1, 4099, 2_073_600):
+        assert kernel_times.shade_bytes(tables, n, bf16=bf16) \
+            == peaks.k2_bytes(n, table_bytes, bf16=bf16)
+        assert kernel_times.shade_bytes(tables, n, 0, bf16) \
+            == peaks.k2_bytes(n, table_bytes, bf16=bf16, stream=True)
+        for nch in (8, 12):
+            assert kernel_times.texel_bytes(atlas, n, nch) == k3.k3_bytes(
+                n, nch, atlas.numel() * atlas.element_size())
+
+
+def test_kernel_times_bounds_by_its_own_rates(monkeypatch):
+    """The bounds divide by the rates of the `_timing.py` beside the tool,
+    not of the tree `--root` imports (whose `_timing` may predate them):
+    3.35e9 bytes take 1 ms, 132 * 128 * 1.98e9 operations 1000 ms."""
+    import types
+
+    monkeypatch.setitem(sys.modules, "wavefront_tpu_torch.tools._timing",
+                        types.ModuleType("_timing"))
+    ms, by = kernel_times.max_bound(3_350_000_000, 0)
+    assert ms == pytest.approx(1.0, rel=1e-12) and by == "bytes"
+    ms, by = kernel_times.max_bound(0, 132 * 128 * 1_980_000_000)
+    assert ms == pytest.approx(1000.0, rel=1e-12) and by == "operations"
 
 
 def test_kernel_times_takes_the_histogram():

@@ -2,7 +2,8 @@
 
 `wavefront_tpu_torch.kernels.window_trace.window_trace` takes its plain
 version (`render.intersect.trace_plain`) for CPU tensors; that plain
-version is what the CUDA tracer is held to on the card (chip_smoke.py).
+version is what the CUDA tracer is held to on the card (the `cuda`
+tests).
 Here it runs against `wavefront_tpu.render.intersect.dda_trace`
 (max_steps=512) on the fixture grids of tests/test_window_trace.py: the
 skipping march (the scene's aux grid) against `dda_trace(aux_grid=...)`,

@@ -296,7 +296,7 @@ def test_device_events_leave_out_the_spans_copies():
 
 
 PORT = Path(__file__).resolve().parents[1] / "wavefront_tpu_torch"
-READERS = [PORT.parent / "chip_smoke.py", *sorted(PORT.rglob("*.py"))]
+READERS = sorted(PORT.rglob("*.py"))
 # the calls that pass a span name on rather than name one
 FORWARDS = {("utils/spans.py", "host_sync"), ("utils/profiling.py", "stage")}
 
@@ -345,9 +345,9 @@ def test_every_span_name_is_registered():
 
 
 def test_readers_of_device_events_leave_out_spans():
-    """Every reader of a profiler's events in the port and `chip_smoke.py`
-    takes its device events through `device_events`: none filters
-    `prof.events()` by device type itself."""
+    """Every reader of a profiler's events in the port takes its device
+    events through `device_events`: none filters `prof.events()` by device
+    type itself."""
     for path in READERS:
         if path.name == "spans.py":
             continue

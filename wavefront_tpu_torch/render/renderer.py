@@ -392,7 +392,7 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
     texel: the per-bounce kernels' wrappers;
     `intersect.trace_plain`, `shade.shade_plain` and `texel.texel_plain`
     (same arguments) render the frame with the plain versions on any
-    device, which is how chip_smoke.py holds a whole frame on the card
+    device, which is how the card tests hold a whole frame on the card
     against them."""
     with span("render.frame", frame_count):
         _check_supported(settings, nee_type, sort_type)

@@ -1,5 +1,5 @@
-"""What the labs share: the card's name and power limit, CUDA-event
-timing, and the slope between two iteration counts.
+"""What the labs share: the card's name, power limit and peak rates,
+CUDA-event timing, and the slope between two iteration counts.
 
 A lab measures the card, so it refuses to run without one
 (`require_card`); nothing here falls back to the CPU.  The sweep tools
@@ -18,6 +18,20 @@ import torch
 # groups of lanes that fill an H100 in the probe kernels: two blocks of 512
 # threads for each of its 132 SMs
 FILL_GROUPS = 264
+
+# H100 SXM: the device memory rate of NVIDIA's data sheet, and the rate at
+# which the card issues operations that are not fused: one per lane and
+# clock, 132 SMs x 128 lanes x 1.98 GHz (event_lab's `issue` rows measure
+# 3.3e13 a second).  The data sheet's 67 TFLOP/s of float32 counts a fused
+# multiply-add as two operations; every kernel here is built with
+# -fmad=false, so none of the operations the bounds count is fused, and
+# that rate would make each bound 2x optimistic.  Integer operations issue
+# at the same rate.
+HBM_BYTES_PER_S = 3.35e12
+UNFUSED_OPS_PER_S = 132 * 128 * 1.98e9
+# the card's shared memory serves one 128-byte row of its 32 banks a clock
+# on each SM; a load of fewer than 4 bytes still takes a bank's slot
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 
 
 def require_card() -> None:

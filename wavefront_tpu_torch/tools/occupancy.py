@@ -8,8 +8,8 @@ SM slot as long as its longest warp.  Per workload:
 
   steps           per ray, fine voxel crossings plus empty-space skips,
                   from the tracer's plain march (`trace_plain` stats, as
-                  chip_smoke.py's trace_check counts them): their mean
-                  over live rays, p95 and max;
+                  `kernel_times.py` counts them for K1's bound): their
+                  mean over live rays, p95 and max;
   warp_occupancy  sum(steps) / (32 * max steps), summed over every group
                   of 32 consecutive slots: the share of a warp's lane-steps
                   that march (1: every lane busy until the warp ends);
