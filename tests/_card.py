@@ -17,6 +17,8 @@ to, stated once:
              (its slots summed in slot order, the plain version's by
              PyTorch's reduction); a ray along its surface (cos_theta 0)
              that crosses a lamp, whose pdf is infinite or NaN, the same;
+  light walk success and prim equal on every ray, probability and
+             importance bit for bit (NaN where the plain walk's is NaN);
   images     the golden gate: under 0.5% of the pixels diverge (max-channel
              |diff| over 1e-3) and the RMSE over the rest is under 1e-3; a
              sort schedule's image within max |diff| 1e-5 of the
@@ -24,7 +26,7 @@ to, stated once:
   batches, edits, recentres, checkpoints, sorts: equal bit for bit (no
              per-ray result depends on how the scene arrays were built).
 
-    from _card import bf16_ulp, golden_gate
+    from _card import bf16_ulp, golden_gate, same_bits
 """
 
 import numpy as np
@@ -48,3 +50,10 @@ def bf16_ulp(x):
     """The spacing of bfloat16 values at |x| (8 significant bits)."""
     _, e = torch.frexp(x.abs().double())
     return torch.ldexp(torch.ones_like(x, dtype=torch.float64), e - 8)
+
+
+def same_bits(got, want) -> bool:
+    """Equal dtypes and values on every element, NaN where the other is
+    NaN (the light walk's tolerance)."""
+    return got.dtype == want.dtype and bool(
+        ((got == want) | ((got != got) & (want != want))).all())

@@ -5,10 +5,10 @@ edited, recentred, played, saved and loaded worlds against a fresh build.
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 `nvcc`; they carry the `cuda` marker, skip where there is no card and
 import no JAX.  The card suite is every such test of the port, in the
-three files that hold them (the port's other test files import JAX,
+four files that hold them (the port's other test files import JAX,
 which the card's machine need not have):
 
-    python -m pytest tests/test_torch_card_paths.py tests/test_torch_cuda.py tests/test_torch_nee_sweep.py -q -m cuda --noconftest
+    python -m pytest tests/test_torch_card_paths.py tests/test_torch_cuda.py tests/test_torch_nee_sweep.py tests/test_torch_light_walk.py -q -m cuda --noconftest
 
 The tolerances, the same in every card test, are stated in tests/_card.py.
 """
@@ -37,6 +37,7 @@ from wavefront_tpu_torch.headline import (
 )
 from wavefront_tpu_torch.kernels import _build
 from wavefront_tpu_torch.kernels import radix_hist as rh
+from wavefront_tpu_torch.kernels.light_walk import light_walk
 from wavefront_tpu_torch.kernels.nee_sweep import nee_sweep
 from wavefront_tpu_torch.kernels.shade import shade_pass, shade_plain
 from wavefront_tpu_torch.kernels.texel import texel_fetch, texel_plain
@@ -60,7 +61,7 @@ from wavefront_tpu_torch.world.game_world import (
 )
 from wavefront_tpu_torch.world.input import Event
 
-from _card import NEE_REL, bf16_ulp, golden_gate
+from _card import NEE_REL, bf16_ulp, golden_gate, same_bits
 
 pytestmark = pytest.mark.cuda
 
@@ -163,17 +164,33 @@ def hold_sweep(lights, point, normal, direction, mis, max_depth, max_hits):
     return mis.shape[0], int((c > 0).sum())
 
 
+def hold_walk(lights, point, normal, seed, active, max_depth):
+    """S4 on these rays, held to `light_walk_plain`: success and prim
+    equal on every ray, probability and importance bit for bit (NaN where
+    the plain walk's is NaN); one launch."""
+    before = light_walk.launches
+    got = wf.traverse_light_bvh(lights, point, normal, seed, active,
+                                max_depth)
+    assert light_walk.launches == before + 1
+    want = wf.light_walk_plain(lights, point, normal, seed, active,
+                               max_depth)
+    for field, g, w in zip(wf.BvhSample._fields, got, want):
+        assert same_bits(g, w), field
+    return got
+
+
 def hold_calls(renderer, scene, basis, prefs, frame, bf16=False,
                sweeps=None) -> dict:
     """One frame of `renderer` (its primary cache read and filled) with
-    every K1, K2, K3 and S3 call held to its plain version on the inputs
-    the frame loop hands it: the compaction buckets, the scene's event
-    budget, the entity stream, the light set; with `bf16` K2's bf16 build
-    too, on the same rays with tp in bfloat16.  Returns the calls by
+    every K1, K2, K3, S3 and S4 call held to its plain version on the
+    inputs the frame loop hands it: the compaction buckets, the scene's
+    event budget, the entity stream, the light set; with `bf16` K2's bf16
+    build too, on the same rays with tp in bfloat16.  Returns the calls by
     kernel; `sweeps`, where given, gets `hold_sweep`'s (rays, crossing
     rays) of each S3 call."""
     arrays, kw, pkey, primary = renderer._frame_args(scene, basis, prefs)
-    calls = {"trace": 0, "shade": 0, "texel": 0, "nee_sweep": 0}
+    calls = {"trace": 0, "shade": 0, "texel": 0, "nee_sweep": 0,
+             "light_walk": 0}
     sweeps = [] if sweeps is None else sweeps
 
     def trace(a, o, d, events):
@@ -205,13 +222,19 @@ def hold_calls(renderer, scene, basis, prefs, frame, bf16=False,
         return real(lights, point, normal, direction, mis, dense_probs,
                     **skw)
 
-    rr.nee_pdf_sweep = sweep
+    real_walk = rr.traverse_light_bvh
+
+    def walk(*args):
+        calls["light_walk"] += 1
+        return hold_walk(*args)
+
+    rr.nee_pdf_sweep, rr.traverse_light_bvh = sweep, walk
     try:
         img, aux = render_frame(arrays, basis.eye, basis.front, basis.right,
                                 basis.up, frame, primary, **kw, trace=trace,
                                 shade=shade, texel=texel)
     finally:
-        rr.nee_pdf_sweep = real
+        rr.nee_pdf_sweep, rr.traverse_light_bvh = real, real_walk
     renderer._keep_primary(arrays, pkey, primary, aux)
     assert bool(torch.isfinite(img).all())
     assert {k: aux[k] for k in CLEAN} == CLEAN
@@ -226,7 +249,7 @@ def hold_calls(renderer, scene, basis, prefs, frame, bf16=False,
 def test_frame_calls_match_plain(headline, general, path):
     """Every K1 and K2 call of the headline frame and the streamed
     window's frame (1920x1080, 4 bounces; K2 also in its bf16 build), and
-    every K1, K3 and S3 call of the general frame and the lamp-lit
+    every K1, K3, S3 and S4 call of the general frame and the lamp-lit
     window's (`lamps_setup`, the `lamps.orbit` cell's frame), on the
     inputs the frame loop hands them: S3's bounce 0 holds more rays than
     the card keeps resident at once, so its persistent grid strides past
@@ -245,7 +268,8 @@ def test_frame_calls_match_plain(headline, general, path):
     nb = settings.num_bounces
     assert calls == {"trace": nb, "shade": nb * fused,
                      "texel": nb * (not fused),
-                     "nee_sweep": nb * (not fused)}
+                     "nee_sweep": nb * (not fused),
+                     "light_walk": nb * (not fused)}
     if fused:
         return
     # a card holds at most 2048 threads an SM at once
@@ -284,7 +308,8 @@ def test_ladder_frames_match_plain(registry, config):
     for frame in (1, 2)[:1 + settings.cache_primary]:
         cached = frame == 2
         assert hold_calls(r, scene, basis, prefs, frame) == {
-            "trace": nb - cached, "shade": nb, "texel": 0, "nee_sweep": 0}
+            "trace": nb - cached, "shade": nb, "texel": 0, "nee_sweep": 0,
+            "light_walk": 0}
     if config == 2:
         return
     single = Renderer(settings, device=DEV)
@@ -362,7 +387,8 @@ def rule(settings, prefs, fused, sparse=False, frames=1, cached=0) -> dict:
     """The frame kernels' launches over `frames` frames, `cached` of them
     served from the primary cache, by record name: a K1 a traced bounce;
     on the fused path a K2 a bounce; on the general path a K3 a bounce
-    and, on a sparse light set with NEE, an S3; an S2 a sorted bounce
+    and, on a sparse light set with NEE, an S3 and an S4; an S2 a sorted
+    bounce
     (every bounce of a frame that sorts, `sort_bounces`' where given,
     never bounce 0 under the primary cache), with an S1 under
     `trace_presort`."""
@@ -374,11 +400,12 @@ def rule(settings, prefs, fused, sparse=False, frames=1, cached=0) -> dict:
         sorted_b = frames * sum(1 for b in range(int(settings.cache_primary),
                                                  nb)
                                 if only is None or b in only)
+    sparse_nee = bounces if not fused and sparse and prefs.nee_type else 0
     return {"trace_kernel": bounces - cached,
             "shade_kernel": bounces if fused else 0,
             "texel_kernel": 0 if fused else bounces,
-            "nee_sweep_kernel": bounces if not fused and sparse
-            and prefs.nee_type else 0,
+            "nee_sweep_kernel": sparse_nee,
+            "light_walk_kernel": sparse_nee,
             "ray_key_kernel": sorted_b if settings.trace_presort else 0,
             "ray_permute_kernel": sorted_b}
 

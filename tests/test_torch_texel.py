@@ -246,7 +246,8 @@ def test_kernel_times_takes_the_probe_kernels():
     assert args.root == "build/parent"
 
 
-@pytest.mark.parametrize("kernel", ["ray_key", "ray_permute", "nee_sweep"])
+@pytest.mark.parametrize("kernel", ["ray_key", "ray_permute", "nee_sweep",
+                                    "light_walk"])
 def test_kernel_times_takes_the_sort_and_sweep_kernels(kernel):
     args = kernel_times.parse(["--kernels", kernel, "--root",
                                "build/parent"])

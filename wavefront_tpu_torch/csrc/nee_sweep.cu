@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "light_bvh.cuh"
+
 namespace {
 
 constexpr int BLOCK = 256;
@@ -67,7 +69,6 @@ constexpr float T_MAX = (float)1000.0;   // core/config.py T_MAX
 constexpr float PARALLEL = (float)1e-12;
 constexpr float SINGULAR = (float)1e-20;
 constexpr float TINY = (float)1e-30;
-constexpr long long SENTINEL = 0xFFFFFFFFll;
 
 struct Rays {
     const float *px, *py, *pz, *nx, *ny, *nz, *dx, *dy, *dz, *mis;
@@ -86,49 +87,6 @@ struct Nodes {
     const float *mn, *mx, *power;            // (M, 3), (M, 3), (M,)
 };
 
-__device__ __forceinline__ int node_index(const long long* a, int k) {
-    const long long v = __ldg(a + k);
-    return (v == SENTINEL || v < 0) ? -1 : (int)v;
-}
-
-// torch.maximum: a NaN on either side gives NaN
-__device__ __forceinline__ float max_nan(float a, float b) {
-    return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
-}
-
-// nodeImportance (reference raytrace.rs:193-220) of node k from point p
-// with normal n, the NEE epsilon (wavefront.py::aabb_importance, guard off)
-__device__ __forceinline__ float node_importance(
-    const Nodes& nd, int k, float px, float py, float pz, float nx,
-    float ny, float nz)
-{
-    const float mnx = __ldg(nd.mn + 3 * k), mny = __ldg(nd.mn + 3 * k + 1),
-                mnz = __ldg(nd.mn + 3 * k + 2);
-    const float mxx = __ldg(nd.mx + 3 * k), mxy = __ldg(nd.mx + 3 * k + 1),
-                mxz = __ldg(nd.mx + 3 * k + 2);
-    const float power = __ldg(nd.power + k);
-    const float d0x = (mnx - px) * nx, d1x = (mxx - px) * nx;
-    const float d0y = (mny - py) * ny, d1y = (mxy - py) * ny;
-    const float d0z = (mnz - pz) * nz, d1z = (mxz - pz) * nz;
-    float visible = 0.0f;
-#pragma unroll
-    for (int ix = 0; ix < 2; ++ix) {
-#pragma unroll
-        for (int iy = 0; iy < 2; ++iy) {
-            const float sxy = (ix ? d1x : d0x) + (iy ? d1y : d0y);
-            visible += (sxy + d0z >= EPS_NEE) ? 1.0f : 0.0f;
-            visible += (sxy + d1z >= EPS_NEE) ? 1.0f : 0.0f;
-        }
-    }
-    const float ex = mxx - mnx, ey = mxy - mny, ez = mxz - mnz;
-    const float diag_sq = (ex * ex + ey * ey) + ez * ez;
-    const float cx = 0.5f * (mnx + mxx) - px;
-    const float cy = 0.5f * (mny + mxy) - py;
-    const float cz = 0.5f * (mnz + mxz) - pz;
-    const float dist_sq = max_nan(diag_sq, (cx * cx + cy * cy) + cz * cz);
-    return power / dist_sq * (visible * 0.125f);
-}
-
 // reverse_walk_prob of one leaf: the descent's probability of reaching
 // it, rebuilt bottom-up through the parent pointers (nee_pdf.rs:154-228)
 __device__ __forceinline__ float reverse_walk(
@@ -142,8 +100,10 @@ __device__ __forceinline__ float reverse_walk(
         if (parent < 0) break;
         const int li = max(node_index(nd.left, parent), 0);
         const int ri = max(node_index(nd.right, parent), 0);
-        const float il = node_importance(nd, li, px, py, pz, nx, ny, nz);
-        const float ir = node_importance(nd, ri, px, py, pz, nx, ny, nz);
+        const float il = box_importance(nd.mn, nd.mx, nd.power, li, px, py,
+                                        pz, nx, ny, nz, EPS_NEE);
+        const float ir = box_importance(nd.mn, nd.mx, nd.power, ri, px, py,
+                                        pz, nx, ny, nz, EPS_NEE);
         const float total = il + ir;
         // total > 0 is false for a NaN, which gives the branch 0, as the
         // plain version's select does
@@ -337,26 +297,12 @@ extern "C" int ns_sweep(
     const Rays r{px, py, pz, nx, ny, nz, dx, dy, dz, mis};
     const Prims pr{p0, e1, e2, nv, area, is_tri, leaf, num_prims};
     const Nodes nd{left, right, parent, mn, mx, power};
-    // as many blocks as are resident at once, each looping over rays; the
-    // count is read once for each device that launches (the caller makes
-    // it current: _build.Launcher)
-    constexpr int MAX_DEVICES = 64;
-    static int resident[MAX_DEVICES] = {};
-    cudaError_t e;
-    int dev = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (resident[dev] == 0) {
-        int sms = 0, per_sm = 0;
-        if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                        dev)) != cudaSuccess)
-            return (int)e;
-        if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &per_sm, nee_sweep_kernel, BLOCK, 0)) != cudaSuccess)
-            return (int)e;
-        resident[dev] = max(sms * per_sm, 1);
-    }
-    const int blocks = min((n + BLOCK - 1) / BLOCK, resident[dev]);
+    // as many blocks as are resident at once, each looping over rays
+    int resident = 0;
+    const cudaError_t e =
+        resident_blocks<nee_sweep_kernel, BLOCK>(&resident);
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = min((n + BLOCK - 1) / BLOCK, resident);
     nee_sweep_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
         r, pr, nd, max_depth, max_hits, pdf,
         reinterpret_cast<unsigned long long*>(counts), n);

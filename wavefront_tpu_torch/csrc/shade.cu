@@ -61,6 +61,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// m3_combine, m3_finalizef
+#include "light_bvh.cuh"
+
 namespace {
 
 constexpr float EPS_BLOCK = 1e-3f;
@@ -132,21 +135,6 @@ __device__ __forceinline__ void store_tp(float* p, int i, float x) {
     if constexpr (BF16)
         reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
     else p[i] = x;
-}
-
-__device__ __forceinline__ uint32_t m3_combine(uint32_t h, uint32_t k) {
-    h ^= k * 0x1B873593u;
-    h = (h << 13) | (h >> 19);
-    return h * 5u + 0xE6546B64u;
-}
-
-__device__ __forceinline__ float m3_finalizef(uint32_t h) {
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
-    h ^= h >> 13;
-    h *= 0xC2B2AE35u;
-    h ^= h >> 16;
-    return __uint_as_float((h & 0x007FFFFFu) | 0x3F800000u) - 1.0f;
 }
 
 // nodeImportance (reference raytrace.rs:193-220); b = min xyz, max xyz

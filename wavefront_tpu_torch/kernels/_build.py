@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exports plain C functions (no PyTorch headers) and
 is compiled by `nvcc` into its own shared library under
 `build/wavefront_tpu_torch/` at the repository root, named by a hash of
-its source and flags, and loaded with `ctypes`.  `build_all()` starts one
+its source, the `csrc/` headers it includes (`#include "light_bvh.cuh"`)
+and its flags, and loaded with `ctypes`.  `build_all()` starts one
 `nvcc` per source at once and waits for all of them.
 
 Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false` — contracting a*b+c
@@ -56,7 +57,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "wavefront_tpu_torch")
 SOURCES = ("window_trace", "shade", "texel", "radix_hist", "device_probe",
-           "extract_probe", "loop_probe", "ray_sort", "nee_sweep")
+           "extract_probe", "loop_probe", "ray_sort", "nee_sweep",
+           "light_walk")
 HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -88,6 +90,9 @@ def nvcc_path() -> str:
 def _lib_path(name: str, ext: str = ".cu", flags=NVCC_FLAGS) -> str:
     with open(os.path.join(CSRC, name + ext), "rb") as f:
         src = f.read()
+    for header in re.findall(rb'^#include "([^"]+)"', src, re.M):
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            src += f.read()
     h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{h}.so")
 

@@ -13,9 +13,10 @@ A bounce shades on one of two paths, chosen by `use_fused`:
     (`render/shading.py`) around the texel kernel (`kernels/texel.py`),
     with the light
     pick by `dense_sample_light` or, for sparse light sets, the stochastic
-    BVH descent, and the NEE pdf by the dense or the sparse sweep (on the
-    card the sparse one is a kernel, `kernels/nee_sweep.py`, whose
-    crossings and overflowing rays the frame reads with its audit).  It is
+    BVH descent (on the card a kernel, `kernels/light_walk.py`), and the
+    NEE pdf by the dense or the sparse sweep (on the card the sparse one
+    is a kernel, `kernels/nee_sweep.py`, whose crossings and overflowing
+    rays the frame reads with its audit).  It is
     what runs for `shade_fused=False`, the stage-isolation variants
     `debug_stage` "notex" / "nonee_pdf", and every light set that is
     sparse or past the fused kernel's caps (with a warning).

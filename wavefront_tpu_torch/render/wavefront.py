@@ -1,10 +1,11 @@
 """Wavefront stages as plain functions on SoA ray tensors.
 
 Counterparts of `wavefront_tpu.render.wavefront`: raygen, the light-BVH
-walks of sparse light sets (stochastic descent, reverse walk), the dense
-light-BVH math (node/prim importances, descent probabilities, the light
-pick), the NEE pdf sweep on both paths (the sparse one a kernel on the
-card, `kernels/nee_sweep.py`), the sampling helpers and postprocess.
+walks of sparse light sets (stochastic descent, a kernel on the card,
+`kernels/light_walk.py`; reverse walk), the dense light-BVH math
+(node/prim importances, descent probabilities, the light pick), the NEE
+pdf sweep on both paths (the sparse one a kernel on the card,
+`kernels/nee_sweep.py`), the sampling helpers and postprocess.
 Radiometric semantics follow the reference shaders
 (raygen.rs, raytrace.rs, nee_pdf.rs, postprocess.rs); the dense light path
 replaces the stochastic descent and the reverse walk with the same
@@ -24,6 +25,7 @@ import torch
 from wavefront_tpu_torch.core import rng, vec3
 from wavefront_tpu_torch.core.config import EPSILON_BLOCK, EPSILON_NEE, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
+from wavefront_tpu_torch.kernels.light_walk import light_walk
 from wavefront_tpu_torch.kernels.nee_sweep import nee_sweep
 from wavefront_tpu_torch.utils import spans
 
@@ -170,10 +172,26 @@ def traverse_light_bvh(lights: LightArrays, point: V3, normal: V3, seed,
                        active, max_depth: int) -> BvhSample:
     """Stochastic top-down descent, importance-proportional at every split
     (reference raytrace.rs:230-293), over the one-level global BVH; one
-    fresh murmur3 uniform per level.  seed: int64 tensor of u32 values.
-    Each level's test for a running walk is a host sync
-    (`sync.light_walk`); each level stepped counts in
-    `spans.light_walk_levels`."""
+    fresh murmur3 uniform per level, at most `max_depth` levels.  seed:
+    int64 tensor of u32 values.  CUDA tensors launch the kernel
+    (`kernels/light_walk.py`, one launch and no host sync), CPU tensors
+    take `light_walk_plain`."""
+    if point.x.device.type == "cuda":
+        return BvhSample(*light_walk(
+            lights, *(V3(*(c.contiguous() for c in v))
+                      for v in (point, normal)),
+            seed.contiguous(), active.contiguous(), max_depth))
+    return light_walk_plain(lights, point, normal, seed, active, max_depth)
+
+
+def light_walk_plain(lights: LightArrays, point: V3, normal: V3, seed,
+                     active, max_depth: int) -> BvhSample:
+    """Plain PyTorch version of the walk's kernel
+    (`kernels/light_walk.py::light_walk`, same arguments), on any device:
+    every ray steps one level at a time.  Each level's test for a running
+    walk is a host sync (`sync.light_walk`); each level stepped counts in
+    `spans.light_walk_levels`.  The card's frame path launches the kernel,
+    so both are counted on the CPU only."""
     n = point.x.shape[0]
     nodes = _nodes(lights)
     # dummy-root check (reference raytrace.rs:235-243)

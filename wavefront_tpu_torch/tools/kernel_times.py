@@ -78,6 +78,12 @@ DIR is, so both trees of a comparison get one bound):
                 (`nee_stats`: a plane test a live ray and prim, the rest
                 of the test for a plane ahead, a walk level of a kept
                 crossing).
+  light_walk    the forward light walk (S4) on the lamp-lit window's
+                bounce-0 rays: 33 bytes in and 17 out a ray and the node
+                table once, or the operations of the levels its rays step
+                (`walk_levels`: two box importances, the branch and the
+                draw a level); beside it the plain walk's time
+                (`plain_ms`, `light_walk_plain` on the same rays).
 
 `--frames F` adds one line for the headline frame: `frame_ms` over F
 frames (host clock, ending in a synchronize) and, over F more frames
@@ -110,7 +116,7 @@ import time
 
 KERNELS = ("trace", "shade", "shade_bf16", "texel", "loop_probe",
            "extract_cur", "extract_win", "row_gather", "radix", "ray_key",
-           "ray_permute", "nee_sweep")
+           "ray_permute", "nee_sweep", "light_walk")
 GATHER_ROWS = 4096
 GATHER_CALLS = 1000
 
@@ -157,6 +163,14 @@ NEE_OPS_PER_RAY = 16
 NEE_OPS_PER_PLANE = 17
 NEE_OPS_PER_AHEAD = 38
 NEE_OPS_PER_LEVEL = 2 * 66 + 5
+# The forward light walk (csrc/light_walk.cu): a ray's loads, activity
+# tests, outputs and its prim's read (19); for each level it steps two box
+# importances of 66 (S3's, above: csrc/light_bvh.cuh), the branch
+# probability 5, the draw 12 (the finalizer 8, the float 3, its test 1)
+# and the step 10 (the selects of node, probability and importance, the
+# children, the seed's next round and the loop test).
+WALK_OPS_PER_RAY = 19
+WALK_OPS_PER_LEVEL = 2 * 66 + 5 + 12 + 10
 # Integer operations of the histogram and the probes, set against the
 # float32 rate (the card's published table has no int32 rate; its int32
 # rate is lower, so the bound stays a lower bound).  A key's digit (shift,
@@ -233,6 +247,8 @@ def main(argv=None) -> int:
         emit(sort_rows(kernels, args.reps))
     if "nee_sweep" in kernels:
         emit(nee_rows(args.reps))
+    if "light_walk" in kernels:
+        emit([walk_row(args.reps)])
     if args.frames:
         emit([frame_row(args.frames, args.blocks)])
     if args.sass:
@@ -355,6 +371,27 @@ def nee_stats(lights, o, d, mis, max_depth: int) -> tuple:
             levels += int((hit.sum(0) * depth[pid.clamp_max(
                 lights.p0.shape[0] - 1)]).sum())
     return crossings, int(live.sum()), ahead, levels
+
+
+def walk_levels(lights, success, prim, active, max_depth: int) -> int:
+    """The levels the forward walk's rays stepped, from its result: a ray
+    that reached its leaf stepped the leaf's depth, an active one that did
+    not ran out of levels (max_depth); none on a set whose root is a leaf
+    or that has no lights."""
+    import numpy as np
+
+    left = lights.node_left.cpu().numpy()
+    if not 0 <= left[0] != 0xFFFFFFFF:
+        return 0
+    parent = lights.node_parent.cpu().numpy()
+    leaves = lights.leaf_node.cpu().numpy()[:lights.num_prims]
+    depth = np.zeros(len(leaves), np.int64)
+    for j, leaf in enumerate(leaves):
+        k = int(leaf)
+        while 0 <= parent[k] != 0xFFFFFFFF:
+            k, depth[j] = int(parent[k]), depth[j] + 1
+    return int(depth[prim[success].cpu().numpy()].sum()) \
+        + max_depth * int((active & ~success).sum())
 
 
 def smem_floor_ms(lane_iters: int, sass: dict, per_pass: int) -> float:
@@ -803,6 +840,41 @@ def nee_rows(reps: int):
             reps, max_bound(44 * n, ops), bounce=b, rays=n, live=live,
             light_prims=int(lights.num_prims), tests=tests, ahead=ahead,
             crossings=int(crossings.sum()), walk_levels=levels)
+
+
+def walk_row(reps: int) -> dict:
+    from wavefront_tpu_torch.headline import lamps_setup
+    from wavefront_tpu_torch.kernels.light_walk import light_walk
+    from wavefront_tpu_torch.render import renderer as rr
+    from wavefront_tpu_torch.render.wavefront import light_walk_plain
+    from wavefront_tpu_torch.tools._timing import time_ms
+
+    scene, _, settings, basis, prefs = lamps_setup(1920, 1080, 4,
+                                                   device="cuda")
+    seen = []
+    _spied(rr, "traverse_light_bvh",
+           lambda *a: seen.append(a),
+           lambda: rr.Renderer(settings, device="cuda").render(
+               scene, basis, prefs, frame_count=5))
+    lights, point, normal, seed, active, depth = seen[0]
+    n = int(active.shape[0])
+    success, prim = light_walk(lights, point, normal, seed, active,
+                               depth)[:2]
+    levels = walk_levels(lights, success, prim, active, depth)
+    m = lights.node_min.shape[0]
+    # each node's bounds, power and children read once
+    nbytes = 50 * n + m * 44
+    ops = n * WALK_OPS_PER_RAY + levels * WALK_OPS_PER_LEVEL
+    row = kernel_row(
+        "light_walk", "light_walk_kernel",
+        lambda: light_walk(lights, point, normal, seed, active, depth),
+        reps, max_bound(nbytes, ops), bounce=0, rays=n,
+        active=int(active.sum()), node_rows=int(m),
+        light_prims=int(lights.num_prims), walk_levels=levels)
+    row["plain_ms"] = time_ms(
+        lambda: light_walk_plain(lights, point, normal, seed, active, depth),
+        3)
+    return row
 
 
 def frame_row(frames: int, blocks: int = 1) -> dict:

@@ -25,6 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
+from wavefront_tpu_torch.kernels.light_walk import light_walk
 from wavefront_tpu_torch.kernels.nee_sweep import nee_sweep
 from wavefront_tpu_torch.kernels.ray_sort import ray_key, ray_permute
 from wavefront_tpu_torch.kernels.shade import shade_pass
@@ -118,13 +119,14 @@ class StageTimer:
 WARMUP_LAUNCHES = 64
 WARMUP_SPAN = "device_trace.warmup"
 # the frame kernels' wrappers (K1-K3, the bounce sort's key and permute,
-# the sparse NEE sweep), whose `launches` count the kernels they launch,
-# by the name their kernel's records carry in a trace (no name holds
-# another)
+# the sparse NEE sweep, the sparse light walk), whose `launches` count the
+# kernels they launch, by the name their kernel's records carry in a
+# trace (no name holds another)
 FRAME_KERNELS = {"trace_kernel": window_trace, "shade_kernel": shade_pass,
                  "texel_kernel": texel_fetch, "ray_key_kernel": ray_key,
                  "ray_permute_kernel": ray_permute,
-                 "nee_sweep_kernel": nee_sweep}
+                 "nee_sweep_kernel": nee_sweep,
+                 "light_walk_kernel": light_walk}
 
 
 def counters() -> Dict[str, int]:

@@ -11,7 +11,8 @@ kernels' `launches`): host syncs, the ray slots each bounce's shade
 was given with the alive rays among them, and on the general shade's
 sparse light path the light-prim crossings the NEE sweep found (counted
 on the device and read with the frame's audit) and the levels the
-light-BVH walk stepped (summed from loop counts the host already holds).
+light-BVH walk's plain version stepped (summed from loop counts the host
+already holds; the card's walk is one kernel launch and counts none).
 `profiling.counters()` snapshots them with the frame kernels' launches.
 
 This module imports nothing of the port, so the kernels' helpers and the
@@ -51,6 +52,7 @@ host_syncs = 0
 ray_slots = 0
 rays_alive = 0
 # the sparse NEE sweep's light-prim crossings; the light-BVH walk's levels
+# (its plain version's: the kernel on the card steps them unseen)
 nee_crossings = 0
 light_walk_levels = 0
 
@@ -88,7 +90,9 @@ def count_crossings(n: int) -> None:
 
 
 def count_walk_level() -> None:
-    """Counts one level stepped by the light-BVH walk."""
+    """Counts one level stepped by the light-BVH walk's plain version
+    (`render/wavefront.py::light_walk_plain`, the CPU's walk; the card's
+    kernel counts no levels)."""
     global light_walk_levels
     light_walk_levels += 1
 
