@@ -19,6 +19,10 @@ to, stated once:
              that crosses a lamp, whose pdf is infinite or NaN, the same;
   light walk success and prim equal on every ray, probability and
              importance bit for bit (NaN where the plain walk's is NaN);
+  triangle sweep  hit, t and slot bit for bit on every ray, barycentrics
+             on every hit ray; its stream form's merged t and flag word on
+             every ray and its other 11 words on every ray an entity wins
+             (the words K2 reads);
   images     the golden gate: under 0.5% of the pixels diverge (max-channel
              |diff| over 1e-3) and the RMSE over the rest is under 1e-3; a
              sort schedule's image within max |diff| 1e-5 of the

@@ -5,10 +5,10 @@ edited, recentred, played, saved and loaded worlds against a fresh build.
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 `nvcc`; they carry the `cuda` marker, skip where there is no card and
 import no JAX.  The card suite is every such test of the port, in the
-four files that hold them (the port's other test files import JAX,
+five files that hold them (the port's other test files import JAX,
 which the card's machine need not have):
 
-    python -m pytest tests/test_torch_card_paths.py tests/test_torch_cuda.py tests/test_torch_nee_sweep.py tests/test_torch_light_walk.py -q -m cuda --noconftest
+    python -m pytest tests/test_torch_card_paths.py tests/test_torch_cuda.py tests/test_torch_nee_sweep.py tests/test_torch_light_walk.py tests/test_torch_tri_sweep.py -q -m cuda --noconftest
 
 The tolerances, the same in every card test, are stated in tests/_card.py.
 """
@@ -383,11 +383,13 @@ def launched(fn):
     return out, {k: v - before[k] for k, v in launches().items()}
 
 
-def rule(settings, prefs, fused, sparse=False, frames=1, cached=0) -> dict:
+def rule(settings, prefs, fused, sparse=False, frames=1, cached=0,
+         entities=False) -> dict:
     """The frame kernels' launches over `frames` frames, `cached` of them
     served from the primary cache, by record name: a K1 a traced bounce;
     on the fused path a K2 a bounce; on the general path a K3 a bounce
-    and, on a sparse light set with NEE, an S3 and an S4; an S2 a sorted
+    and, on a sparse light set with NEE, an S3 and an S4; with entities
+    an S5 a traced bounce; an S2 a sorted
     bounce
     (every bounce of a frame that sorts, `sort_bounces`' where given,
     never bounce 0 under the primary cache), with an S1 under
@@ -406,6 +408,7 @@ def rule(settings, prefs, fused, sparse=False, frames=1, cached=0) -> dict:
             "texel_kernel": 0 if fused else bounces,
             "nee_sweep_kernel": sparse_nee,
             "light_walk_kernel": sparse_nee,
+            "tri_sweep_kernel": bounces - cached if entities else 0,
             "ray_key_kernel": sorted_b if settings.trace_presort else 0,
             "ray_permute_kernel": sorted_b}
 
@@ -420,42 +423,48 @@ def test_launches_follow_the_rule(headline, general, path):
         else headline
     fused = path.startswith("headline")
     sparse = not scene.get_arrays().lights.dense
+    ent = bool(scene._entities)
     if path == "headline_bf16":
         settings = settings.replace(shade_bf16=True)
     if not path.endswith("batch"):
         (_, aux), got = launched(lambda: Renderer(settings, device=DEV).render(
             scene, basis, prefs, frame_count=0, with_aux=True))
         assert aux == CLEAN
-        assert got == rule(settings, prefs, fused, sparse)
+        assert got == rule(settings, prefs, fused, sparse, entities=ent)
         return
     settings = settings.replace(cache_primary=True)
     r = Renderer(settings, device=DEV)
     _, got = launched(lambda: r.render(scene, basis, prefs, frame_count=0))
-    assert got == rule(settings, prefs, fused, sparse)
+    assert got == rule(settings, prefs, fused, sparse, entities=ent)
     _, got = launched(lambda: r.render_batch(scene, basis, prefs,
                                              frame_count=1, k=4))
-    assert got == rule(settings, prefs, fused, sparse, frames=4, cached=4)
+    assert got == rule(settings, prefs, fused, sparse, frames=4, cached=4,
+                       entities=ent)
     fresh = Renderer(settings, device=DEV)
     _, got = launched(lambda: fresh.render_batch(scene, basis, prefs,
                                                  frame_count=1, k=4))
-    assert got == rule(settings, prefs, fused, sparse, frames=4, cached=3)
+    assert got == rule(settings, prefs, fused, sparse, frames=4, cached=3,
+                       entities=ent)
 
 
 @pytest.mark.parametrize("path", ["fused", "general"])
 def test_use_entities_on_the_card(card, path, monkeypatch):
     """`render_frame(use_entities=...)` on a scene with the ego cube, on
     each shade path: False renders the entity-free frame bit for bit and
-    sweeps no triangle, True sweeps once a bounce and shows the cube;
-    every frame launches what `rule` says."""
+    sweeps no triangle, True sweeps once a bounce (an S5 launch) and shows
+    the cube; every frame launches what `rule` says."""
     setup = headline_setup if path == "fused" else general_setup
     scene, settings, basis, prefs = setup(*SMALL, 4, device=DEV)
     if path == "general":
         scene.remove_object("ego")
-    sweep, swept = rr.triangle_sweep, []
-    monkeypatch.setattr(rr, "triangle_sweep",
-                        lambda *a, **kw: swept.append(1) or sweep(*a, **kw))
-    want = rule(settings, prefs, path == "fused",
-                not scene.get_arrays().lights.dense)
+    # the general path sweeps by triangle_sweep, the fused path by the
+    # sweep's stream form
+    swept = []
+    for name in ("triangle_sweep", "entity_stream"):
+        fn = getattr(rr, name)
+        monkeypatch.setattr(rr, name, lambda *a, fn=fn, **kw:
+                            swept.append(1) or fn(*a, **kw))
+    sparse = not scene.get_arrays().lights.dense
 
     def frame(use):
         swept.clear()
@@ -463,7 +472,9 @@ def test_use_entities_on_the_card(card, path, monkeypatch):
             scene.get_arrays(), basis.eye, basis.front, basis.right,
             basis.up, 1, settings=settings, nee_type=prefs.nee_type,
             sort_type=prefs.sort_type, use_entities=use))
-        assert aux == CLEAN and got == want
+        assert aux == CLEAN
+        assert got == rule(settings, prefs, path == "fused", sparse,
+                           entities=use)
         return img, len(swept)
 
     free, _ = frame(False)
@@ -591,15 +602,9 @@ def played(registry):
         physics=EntityPhysicsData(
             rigid_body_type="dynamic", half_extents=(hi - lo) / 2,
             linvel=np.zeros(3), angvel=np.zeros(3), controlled=True)))
-    audits, render = [], world.renderer.render
-
-    def audited(*a, **kw):
-        img, aux = render(*a, **kw, with_aux=True)
-        audits.append(aux)
-        return img
-
-    world.renderer.render = audited
+    audits = []
     world.step()
+    audits.append(world.last_aux)
     origin = tuple(world.scene.grid_origin)
     stone = registry.block_idx("stone")
     placed, target = (5, 20, 5), None
@@ -636,10 +641,11 @@ def played(registry):
             if i == 7:
                 move_ego((40.5, 6.0, 0.5))
             world.step()
+            audits.append(world.last_aux)
 
     _, got = launched(steps)
     assert got == rule(settings, world.camera.rendering_preferences(), True,
-                       frames=10)
+                       frames=10, entities=True)
     assert audits == [CLEAN] * 11
     for q in (world.chunk_querier, world.scene):
         assert q.get_block(np.array(placed)) == stone

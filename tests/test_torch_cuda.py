@@ -4,7 +4,7 @@ A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 `nvcc`; they carry the `cuda` marker and skip where there is no card.
 Run them on the GPU machine with every other card test:
 
-    python -m pytest tests/test_torch_card_paths.py tests/test_torch_cuda.py tests/test_torch_nee_sweep.py tests/test_torch_light_walk.py -q -m cuda --noconftest
+    python -m pytest tests/test_torch_card_paths.py tests/test_torch_cuda.py tests/test_torch_nee_sweep.py tests/test_torch_light_walk.py tests/test_torch_tri_sweep.py -q -m cuda --noconftest
 
 (`--noconftest` because tests/conftest.py imports JAX, which the GPU
 machine need not have; this file imports none of it.)  The tolerances

@@ -79,6 +79,9 @@ def build_world(args) -> GameWorld:
             trace_phases=2,
             trace_phase_events=16,
             trace_phases_at=(1, 2, 3, 4),
+            # a caller that reads each step's audit (GameWorld.last_aux)
+            # asks for it; the app's flags do not
+            trace_audit=getattr(args, "trace_audit", False),
         ),
         world_settings=WorldSettings(),
         camera=camera,

@@ -58,7 +58,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "wavefront_tpu_torch")
 SOURCES = ("window_trace", "shade", "texel", "radix_hist", "device_probe",
            "extract_probe", "loop_probe", "ray_sort", "nee_sweep",
-           "light_walk")
+           "light_walk", "tri_sweep")
 HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -40,6 +40,7 @@ import torch
 
 from wavefront_tpu_torch.core.config import EPSILON_BLOCK, T_MAX
 from wavefront_tpu_torch.core.vec3 import V3
+from wavefront_tpu_torch.kernels.tri_sweep import tri_sweep
 from wavefront_tpu_torch.utils import spans
 
 _F32 = torch.float32
@@ -444,16 +445,38 @@ TRI_RAY_CHUNK = 1 << 18
 
 
 def triangle_sweep(tri_verts, tri_active, origin: V3, direction: V3, *,
-                   t_min: float = EPSILON_BLOCK,
-                   t_max: float = T_MAX) -> TriHit:
+                   t_min: float = EPSILON_BLOCK, t_max: float = T_MAX,
+                   counts=None) -> TriHit:
     """Closest-hit Moller-Trumbore of every ray over the fixed triangle
     pool (tri_verts (T, 3, 3), tri_active (T,)).  Replaces the per-entity
     hardware BLAS of the reference (scene.rs:150-202): O(N*T), T small.
-    Gathering the active triangles is a host sync (`sync.tri_pool`)."""
+    counts: an int64 tensor whose first element the number of active
+    triangles swept is added to, or None.  CUDA tensors launch the kernel
+    (`kernels/tri_sweep.py`, one launch and no host sync), CPU tensors
+    take `triangle_sweep_plain`."""
+    if origin.x.device.type == "cuda":
+        return TriHit(*tri_sweep(
+            tri_verts.contiguous(), tri_active.contiguous(),
+            *(V3(*(c.contiguous() for c in v)) for v in (origin, direction)),
+            t_min, t_max, counts))
+    return triangle_sweep_plain(tri_verts, tri_active, origin, direction,
+                                t_min=t_min, t_max=t_max, counts=counts)
+
+
+def triangle_sweep_plain(tri_verts, tri_active, origin: V3, direction: V3,
+                         *, t_min: float = EPSILON_BLOCK,
+                         t_max: float = T_MAX, counts=None) -> TriHit:
+    """Plain PyTorch version of the sweep's kernel
+    (`kernels/tri_sweep.py::tri_sweep`, `triangle_sweep`'s arguments), on
+    any device.  Gathering the active triangles is a host sync
+    (`sync.tri_pool`); the card's frame path launches the kernel, so the
+    sync is the CPU's only."""
     # only the pool's active triangles are swept
     with spans.host_sync("sync.tri_pool"):
         pool = torch.nonzero(tri_active)[:, 0]
     n = origin.x.shape[0]
+    if counts is not None and n:
+        counts[0] += pool.shape[0]
     if pool.shape[0] == 0:
         zero = torch.zeros_like(origin.x)
         return TriHit(hit=torch.zeros(n, dtype=torch.bool, device=zero.device),

@@ -8,7 +8,9 @@ A bounce shades on one of two paths, chosen by `use_fused`:
   * fused: the shade kernel (`kernels/shade.py`) does the whole shade, the
     dense light pick, the dense NEE pdf sweep and the throughput/radiance
     fold in one pass; entity hits are merged into its inputs by
-    `entity_attrs`.  It needs a dense light set within the kernel's caps.
+    `entity_attrs`, from the triangle sweep (on the card a kernel,
+    `kernels/tri_sweep.py`).  It needs a dense light set within the
+    kernel's caps.
   * general (`shade_m`): the same shade as plain tensor stages
     (`render/shading.py`) around the texel kernel (`kernels/texel.py`),
     with the light
@@ -80,6 +82,8 @@ import torch
 from wavefront_tpu_torch.core import morton, rng, vec3
 from wavefront_tpu_torch.core.camera import CameraBasis
 from wavefront_tpu_torch.core.config import (
+    EPSILON_BLOCK,
+    T_MAX,
     RenderingPreferences,
     RenderSettings,
 )
@@ -92,6 +96,7 @@ from wavefront_tpu_torch.kernels.shade import (
     shade_pass,
 )
 from wavefront_tpu_torch.kernels.texel import texel_fetch, texel_index
+from wavefront_tpu_torch.kernels.tri_sweep import entity_stream
 from wavefront_tpu_torch.kernels.window_trace import auto_events, window_trace
 from wavefront_tpu_torch.render.intersect import (
     TRUNCATED_BIT,
@@ -255,11 +260,32 @@ def _entity_frame(scene: SceneArrays, tri: TriHit):
     return normal, tangent, bitangent, u, v, scene.tri_tex[tri.tri]
 
 
-def entity_attrs(scene: SceneArrays, origin: V3, direction: V3, pa, t):
+def entity_attrs(scene: SceneArrays, origin: V3, direction: V3, pa, t,
+                 counts=None):
     """Closest-hit merge of the entity triangles into the tracer's hits,
     for the fused shade: returns (merged t, tri_attrs), the 12-tensor
-    stream of `kernels.shade.shade_pass`."""
-    tri = triangle_sweep(scene.tri_verts, scene.tri_active, origin, direction)
+    stream of `kernels.shade.shade_pass`.  counts: `triangle_sweep`'s.
+    CUDA tensors launch the triangle sweep's kernel in its stream form
+    (`kernels/tri_sweep.py::entity_stream`: one launch, whose 11 float
+    words are 0 where no entity wins, the lanes K2 does not read them),
+    CPU tensors take `entity_attrs_plain`."""
+    if origin.x.device.type == "cuda":
+        return entity_stream(
+            scene.tri_verts.contiguous(), scene.tri_active.contiguous(),
+            scene.tri_uv.contiguous(), scene.tri_tex.contiguous(),
+            scene.atlas_packed.shape[0],
+            *(V3(*(c.contiguous() for c in v)) for v in (origin, direction)),
+            pa.contiguous(), t.contiguous(), EPSILON_BLOCK, T_MAX, counts)
+    return entity_attrs_plain(scene, origin, direction, pa, t, counts)
+
+
+def entity_attrs_plain(scene: SceneArrays, origin: V3, direction: V3, pa,
+                       t, counts=None):
+    """Plain PyTorch version of `entity_attrs` (same arguments), on any
+    device: the triangle sweep, then the merge and the stream as tensor
+    ops."""
+    tri = triangle_sweep(scene.tri_verts, scene.tri_active, origin, direction,
+                         counts=counts)
     use_tri = tri.hit & vec3.any_nonzero(direction) & (
         ((pa & 1) == 0) | (tri.t < t))
     normal, tangent, bitangent, u, v, tex = _entity_frame(scene, tri)
@@ -272,7 +298,7 @@ def entity_attrs(scene: SceneArrays, origin: V3, direction: V3, pa, t):
 def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
             bounce: int, origin: V3, direction: V3, rid, inv_seed: int,
             vox: VoxelHit, use_entities: bool, texel=texel_fetch,
-            tri: Optional[TriHit] = None, counts=None):
+            tri: Optional[TriHit] = None, counts=None, tri_counts=None):
     """General shade plus NEE pdf of one (possibly compacted) ray block:
     `shading.shade_rays` around the texel kernel (span `render.texel`),
     the light pick by `dense_sample_light` or the BVH descent (span
@@ -281,7 +307,8 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
     entity hits when the caller holds them (the primary cache), else the
     triangle sweep runs here.  counts: the (2,) int64 device tensor the
     sparse sweep adds its crossings and overflowing rays to (required on
-    a sparse light set with NEE; the caller reads it).
+    a sparse light set with NEE; the caller reads it); tri_counts: the
+    triangle sweep's (`triangle_sweep`'s counts).
 
     Returns the next ray, the block's emission and its throughput factor
     (`shading.throughput_factor`), both in the color dtype
@@ -295,7 +322,7 @@ def shade_m(scene: SceneArrays, settings: RenderSettings, nee_type: int,
     else:
         if tri is None:
             tri = triangle_sweep(scene.tri_verts, scene.tri_active, origin,
-                                 direction)
+                                 direction, counts=tri_counts)
         use_tri = tri.hit & (~vox.hit | (tri.t < vox.t))
         entity = EntityHit(use_tri, *_entity_frame(scene, tri))
         vox = vox._replace(hit=vox.hit | tri.hit,
@@ -436,10 +463,13 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
         tscene = scene if settings.trace_skips else scene._replace(
             aux_grid=scene.aux_grid & 3)
         trunc = torch.zeros((), dtype=torch.int64, device=dev)
-        # the sparse NEE sweep's crossings and overflowing rays, read with
-        # the audit
-        nee_counts = None if fused or nee_type == 0 or scene.lights.dense \
-            else torch.zeros(2, dtype=torch.int64, device=dev)
+        # the sparse NEE sweep's crossings and overflowing rays and the
+        # active entity triangles swept, read with the audit
+        sparse_nee = not (fused or nee_type == 0 or scene.lights.dense)
+        counts = torch.zeros(3, dtype=torch.int64, device=dev) \
+            if sparse_nee or use_entities else None
+        nee_counts = counts[:2] if sparse_nee else None
+        tri_counts = counts[2:] if use_entities else None
         hits0 = None
 
         for b in range(b_total):
@@ -495,7 +525,7 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
                         if use_entities:
                             with span("render.entities"):
                                 t, tri_attrs = entity_attrs(scene, bo, bd, pa,
-                                                            t)
+                                                            t, tri_counts)
                     if outside:
                         hits0 = cached or (pa, pb, t, tri_attrs)
                     with span("render.k2_shade"):
@@ -514,7 +544,7 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
                         no, nd, emis, tpf, tri = shade_m(
                             scene, settings, nee_type, b, bo, bd, brid,
                             inv_seed, vox, use_entities, texel, tri,
-                            nee_counts)
+                            nee_counts, tri_counts)
                         if outside:
                             hits0 = cached or (vox, tri)
                         nrad = brad + btp * emis
@@ -543,12 +573,13 @@ def render_frame(scene: SceneArrays, eye, front, right, up, frame_count: int,
             return out
 
         with spans.host_sync("sync.audit"):
-            if nee_counts is None:
-                truncated, crossings, overflow = int(trunc), 0, 0
+            if counts is None:
+                truncated, crossings, overflow, swept = int(trunc), 0, 0, 0
             else:
-                truncated, crossings, overflow = torch.cat(
-                    [trunc.view(1), nee_counts]).tolist()
+                truncated, crossings, overflow, swept = torch.cat(
+                    [trunc.view(1), counts]).tolist()
         spans.count_crossings(crossings)
+        spans.count_entity_tris(swept)
         aux = {"truncated": truncated,
                "nee_overflow": overflow if settings.trace_audit else 0}
         if pixels is not None:

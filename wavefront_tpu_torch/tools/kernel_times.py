@@ -84,6 +84,16 @@ DIR is, so both trees of a comparison get one bound):
                 (`walk_levels`: two box importances, the branch and the
                 draw a level); beside it the plain walk's time
                 (`plain_ms`, `light_walk_plain` on the same rays).
+  tri_sweep     the entity triangle sweep (S5) on the game world's
+                (`app/main.py::build_world`: the radius-6 window and the
+                ego cube) bounce-0 rays as the renderer sorts them, a row
+                a form: the sweep (24 bytes in and 21 out a ray, the pool
+                once) and the fused shade's stream form (32 in and 52 out,
+                the pool with its uv and textures), or the operations of
+                a ray's tests against the active triangles
+                (`tri_sweep_bound_ms`); beside each its plain version's
+                time (`plain_ms`: `triangle_sweep_plain`,
+                `entity_attrs_plain`, on the same rays).
 
 `--frames F` adds one line for the headline frame: `frame_ms` over F
 frames (host clock, ending in a synchronize) and, over F more frames
@@ -116,7 +126,7 @@ import time
 
 KERNELS = ("trace", "shade", "shade_bf16", "texel", "loop_probe",
            "extract_cur", "extract_win", "row_gather", "radix", "ray_key",
-           "ray_permute", "nee_sweep", "light_walk")
+           "ray_permute", "nee_sweep", "light_walk", "tri_sweep")
 GATHER_ROWS = 4096
 GATHER_CALLS = 1000
 
@@ -171,6 +181,20 @@ NEE_OPS_PER_LEVEL = 2 * 66 + 5
 # children, the seed's next round and the loop test).
 WALK_OPS_PER_RAY = 19
 WALK_OPS_PER_LEVEL = 2 * 66 + 5 + 12 + 10
+# S5 (the entity triangle sweep), by form (False: the sweep, True: the
+# fused shade's stream form): per ray origin and direction in, hit, t,
+# the int64 slot and two barycentrics out (the stream form: pa and t in
+# too, the merged t and K2's 12 stream words out); the pool's vertices
+# and active flag once (and its uv and textures); the plain sweep's
+# elementwise operations, per ray and active triangle the two crosses,
+# det and its test, 1 / det, u, v, t, the range and direction tests, the
+# select and the arg-min, per ray the direction test, the winner's
+# gathers and its slot (the stream form: the merge, the texture's clamp
+# and flag and the merged t in place of the slot's)
+TRI_BYTES_PER_RAY = {False: 24 + 21, True: 32 + 52}
+TRI_BYTES_PER_SLOT = {False: 37, True: 65}
+TRI_OPS_PER_TEST = 64
+TRI_OPS_PER_RAY = {False: 11, True: 18}
 # Integer operations of the histogram and the probes, set against the
 # float32 rate (the card's published table has no int32 rate; its int32
 # rate is lower, so the bound stays a lower bound).  A key's digit (shift,
@@ -249,6 +273,8 @@ def main(argv=None) -> int:
         emit(nee_rows(args.reps))
     if "light_walk" in kernels:
         emit([walk_row(args.reps)])
+    if "tri_sweep" in kernels:
+        emit(tri_sweep_rows(args.reps))
     if args.frames:
         emit([frame_row(args.frames, args.blocks)])
     if args.sass:
@@ -319,6 +345,24 @@ def shade_bound_ms(tables, n: int, n_alive: int, n_hit: int, nee: bool,
                                    + SHADE_OPS_PER_PDF_PRIM)
                         + SHADE_OPS_PER_PICKED)
     return max_bound(shade_bytes(tables, n, n_entity, bf16), ops)
+
+
+def tri_sweep_bytes(n: int, slots: int, stream: bool = False) -> int:
+    """Bytes one S5 launch over `n` rays and a pool of `slots` moves."""
+    return n * TRI_BYTES_PER_RAY[stream] + slots * TRI_BYTES_PER_SLOT[stream]
+
+
+def tri_sweep_ops(n: int, active: int, stream: bool = False) -> int:
+    """Operations one S5 launch over `n` rays and `active` triangles
+    computes."""
+    return n * (TRI_OPS_PER_RAY[stream] + active * TRI_OPS_PER_TEST)
+
+
+def tri_sweep_bound_ms(n: int, slots: int, active: int,
+                       stream: bool = False) -> tuple:
+    """S5: its bytes, or its ray-triangle tests' operations."""
+    return max_bound(tri_sweep_bytes(n, slots, stream),
+                     tri_sweep_ops(n, active, stream))
 
 
 def texel_bytes(atlas, n: int, nch: int) -> int:
@@ -875,6 +919,47 @@ def walk_row(reps: int) -> dict:
         lambda: light_walk_plain(lights, point, normal, seed, active, depth),
         3)
     return row
+
+
+def tri_sweep_rows(reps: int):
+    import argparse
+
+    from wavefront_tpu_torch.app.main import build_world
+    from wavefront_tpu_torch.kernels.tri_sweep import tri_sweep
+    from wavefront_tpu_torch.render import renderer as rr
+    from wavefront_tpu_torch.render.intersect import triangle_sweep_plain
+    from wavefront_tpu_torch.tools._timing import time_ms
+
+    world = build_world(argparse.Namespace(
+        width=1920, height=1080, bounces=4, max_steps=192, nee_type=1,
+        sort_type=0, window_chunks=None, assets=None, headless=False,
+        device="cuda", accumulate=False, drop_cubes=0))
+    cm = world.managers[0]
+    cm.synchronous, cm._async_rebuild_opt = True, False
+    world.step()
+    seen = []
+    _spied(rr, "entity_stream", lambda *a: seen.append(a), world.step)
+    args = seen[0]
+    verts, active, o, d = args[0], args[1], args[5], args[6]
+    pa, t, t_min, t_max = args[7:11]
+    arrays = world.scene.get_arrays()
+    n, slots, live = int(o.x.shape[0]), int(active.shape[0]), \
+        int(active.sum())
+    common = {"bounce": 0, "rays": n, "slots": slots, "active": live}
+    row = kernel_row(
+        "tri_sweep", "tri_sweep_kernel",
+        lambda: tri_sweep(verts, active, o, d, t_min, t_max), reps,
+        tri_sweep_bound_ms(n, slots, live), form="sweep", **common)
+    row["plain_ms"] = time_ms(
+        lambda: triangle_sweep_plain(verts, active, o, d), 3)
+    yield row
+    row = kernel_row(
+        "tri_sweep", "tri_sweep_kernel", lambda: rr.entity_stream(*args),
+        reps, tri_sweep_bound_ms(n, slots, live, True), form="stream",
+        **common)
+    row["plain_ms"] = time_ms(
+        lambda: rr.entity_attrs_plain(arrays, o, d, pa, t), 3)
+    yield row
 
 
 def frame_row(frames: int, blocks: int = 1) -> dict:

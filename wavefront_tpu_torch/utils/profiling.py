@@ -8,8 +8,8 @@ timeline.  The counterpart of `wavefront_tpu.utils.profiling`.
 
 The frame path's spans and counters are in `utils/spans.py` (`span`,
 `host_sync`, re-exported here); `counters()` snapshots them with the
-frame kernels' launches (K1-K3, the bounce sort's key and permute and
-the sparse NEE sweep).
+frame kernels' launches (K1-K3, the bounce sort's key and permute, the
+sparse NEE sweep, the light walk and the entity triangle sweep).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from wavefront_tpu_torch.kernels.nee_sweep import nee_sweep
 from wavefront_tpu_torch.kernels.ray_sort import ray_key, ray_permute
 from wavefront_tpu_torch.kernels.shade import shade_pass
 from wavefront_tpu_torch.kernels.texel import texel_fetch
+from wavefront_tpu_torch.kernels.tri_sweep import tri_sweep
 from wavefront_tpu_torch.kernels.window_trace import window_trace
 from wavefront_tpu_torch.utils import spans
 from wavefront_tpu_torch.utils.spans import (  # noqa: F401  re-exported
@@ -119,24 +120,27 @@ class StageTimer:
 WARMUP_LAUNCHES = 64
 WARMUP_SPAN = "device_trace.warmup"
 # the frame kernels' wrappers (K1-K3, the bounce sort's key and permute,
-# the sparse NEE sweep, the sparse light walk), whose `launches` count the
-# kernels they launch, by the name their kernel's records carry in a
-# trace (no name holds another)
+# the sparse NEE sweep, the sparse light walk, the entity triangle sweep),
+# whose `launches` count the kernels they launch, by the name their
+# kernel's records carry in a trace (no name holds another)
 FRAME_KERNELS = {"trace_kernel": window_trace, "shade_kernel": shade_pass,
                  "texel_kernel": texel_fetch, "ray_key_kernel": ray_key,
                  "ray_permute_kernel": ray_permute,
                  "nee_sweep_kernel": nee_sweep,
-                 "light_walk_kernel": light_walk}
+                 "light_walk_kernel": light_walk,
+                 "tri_sweep_kernel": tri_sweep}
 
 
 def counters() -> Dict[str, int]:
     """A snapshot of the frame path's counters: `host_syncs`,
-    `ray_slots`, `rays_alive`, `nee_crossings`, `light_walk_levels`, and
+    `ray_slots`, `rays_alive`, `nee_crossings`, `light_walk_levels`,
+    `entity_tris`, the chunk manager's `spans.WORLD_COUNTERS`, and
     `launches.<record name>` of each of FRAME_KERNELS."""
     return {"host_syncs": spans.host_syncs, "ray_slots": spans.ray_slots,
             "rays_alive": spans.rays_alive,
             "nee_crossings": spans.nee_crossings,
             "light_walk_levels": spans.light_walk_levels,
+            "entity_tris": spans.entity_tris, **spans.world_counts,
             **{"launches." + k: fn.launches
                for k, fn in FRAME_KERNELS.items()}}
 

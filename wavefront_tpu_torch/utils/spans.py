@@ -3,16 +3,20 @@
 The frame path names its stages in spans (`span`): `renderer.*` around
 `Renderer`'s calls, `render.*` around `render_frame`'s stages, and
 `sync.*` around each point where the host waits for the device
-(`host_sync`).  A span is a `record_function` while a torch.profiler
-session records, so it lands in that session's trace beside the device
-records and on their clock; with no session recording it is one shared
+(`host_sync`); the game's step names its managers in `world.*` spans.
+A span is a `record_function` while a torch.profiler session records,
+so it lands in that session's trace beside the device records and on
+their clock; with no session recording it is one shared
 no-op context.  The counters are always on (module-level ints, as the
 kernels' `launches`): host syncs, the ray slots each bounce's shade
 was given with the alive rays among them, and on the general shade's
 sparse light path the light-prim crossings the NEE sweep found (counted
 on the device and read with the frame's audit) and the levels the
 light-BVH walk's plain version stepped (summed from loop counts the host
-already holds; the card's walk is one kernel launch and counts none).
+already holds; the card's walk is one kernel launch and counts none);
+the active entity triangles each triangle sweep tested (counted on the
+device and read with the frame's audit); and what the game's chunk
+manager did (`count_world`).
 `profiling.counters()` snapshots them with the frame kernels' launches.
 
 This module imports nothing of the port, so the kernels' helpers and the
@@ -39,6 +43,8 @@ SPAN_NAMES = (
     "sync.light_walk", "sync.reverse_walk", "sync.nee_sweep",
     "sync.nee_slots", "sync.nee_overflow", "sync.seed", "sync.tri_pool",
     "sync.nan_check",
+    "world.managers", "world.chunk", "world.physics", "world.ego",
+    "world.scene", "world.entity_table",
 )
 _NO_SPAN = contextlib.nullcontext()
 # whether a profiler session records on this thread: the profiler's own
@@ -55,6 +61,14 @@ rays_alive = 0
 # (its plain version's: the kernel on the card steps them unseen)
 nee_crossings = 0
 light_walk_levels = 0
+# the active entity triangles of each triangle sweep, summed
+entity_tris = 0
+# the chunk manager's work: chunks asked of the generator, chunks whose
+# data arrived, chunks evicted, window rebuilds applied to the scene, and
+# block edits applied
+WORLD_COUNTERS = ("chunks_requested", "chunks_adopted", "chunks_evicted",
+                  "window_rebuilds", "block_edits")
+world_counts = dict.fromkeys(WORLD_COUNTERS, 0)
 
 
 def span(name: str, args=None):
@@ -95,6 +109,19 @@ def count_walk_level() -> None:
     kernel counts no levels)."""
     global light_walk_levels
     light_walk_levels += 1
+
+
+def count_entity_tris(n: int) -> None:
+    """Counts `n` active entity triangles swept (over a frame's
+    sweeps)."""
+    global entity_tris
+    entity_tris += n
+
+
+def count_world(name: str, n: int = 1) -> None:
+    """Counts `n` of the chunk manager's events `name` (one of
+    WORLD_COUNTERS)."""
+    world_counts[name] += n
 
 
 def device_events(prof) -> list:

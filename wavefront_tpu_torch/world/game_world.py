@@ -4,7 +4,10 @@ Reference: src/game_system/game_world.rs and manager.rs.  All world mutation
 flows through `WorldChange` events produced by managers; each step runs the
 manager pipeline in order [chunk, physics, ego, scene] (game_world.rs:197-202),
 applies changes to the entity table, renders, handles the screenshot request,
-and hands last step's changes to next step's managers.
+and hands last step's changes to next step's managers.  The step names its
+manager loop `world.managers`, each manager in it `world.chunk`,
+`world.physics`, `world.ego` and `world.scene`, and the entity table's
+update `world.entity_table` (`utils/spans.py`).
 
 The counterpart of `wavefront_tpu.world.game_world`.  The world, its chunks,
 physics and input stay numpy on the host; the scene and the renderer live
@@ -22,6 +25,7 @@ from wavefront_tpu_torch.core.camera import Camera, SphericalCamera
 from wavefront_tpu_torch.core.config import RenderSettings, WorldSettings
 from wavefront_tpu_torch.render.renderer import Renderer
 from wavefront_tpu_torch.render.scene import VoxelScene
+from wavefront_tpu_torch.utils.spans import span
 from wavefront_tpu_torch.world.blocks import BlockRegistry
 
 
@@ -216,6 +220,9 @@ class GameWorld:
         self.renderer = renderer or (
             None if headless else Renderer(self.settings, device=device))
         self.last_image: Optional[np.ndarray] = None
+        # the last frame's audit ("truncated", "nee_overflow"), kept when
+        # a Renderer's settings ask for it (trace_audit)
+        self.last_aux: Optional[dict] = None
 
         chunk_manager = ChunkManager(
             self.world_settings, registry, self.scene, window_chunks=window_chunks
@@ -281,6 +288,18 @@ class GameWorld:
 
     # ---- the frame step (reference game_world.rs:257-347) ----
 
+    def _update(self, manager: Manager, extent) -> list:
+        """One manager's update on this step's data."""
+        return manager.update(UpdateData(
+            entities=self.entities,
+            window_events=self.events_since_last_step,
+            world_changes=self.changes_since_last_step,
+            ego_entity_id=self.ego_entity_id,
+            extent=extent,
+            reserve_entity_id=self._reserve_entity_id,
+            dt=self.dt,
+        ))
+
     def step(self) -> None:
         extent = (self.settings.width, self.settings.height)
         # route mouse events to the interactive camera (the reference's
@@ -303,29 +322,36 @@ class GameWorld:
                 elif e.kind == "wheel":
                     cam.on_scroll(e.dy)
         new_changes = []
-        for manager in self.managers:
-            data = UpdateData(
-                entities=self.entities,
-                window_events=self.events_since_last_step,
-                world_changes=self.changes_since_last_step,
-                ego_entity_id=self.ego_entity_id,
-                extent=extent,
-                reserve_entity_id=self._reserve_entity_id,
-                dt=self.dt,
-            )
-            new_changes.extend(manager.update(data))
+        chunk, physics, ego, scene = self.managers
+        with span("world.managers"):
+            with span("world.chunk"):
+                new_changes.extend(self._update(chunk, extent))
+            with span("world.physics"):
+                new_changes.extend(self._update(physics, extent))
+            with span("world.ego"):
+                new_changes.extend(self._update(ego, extent))
+            with span("world.scene"):
+                new_changes.extend(self._update(scene, extent))
 
         self.events_since_last_step = []
-        self.update_entity_table(new_changes)
+        with span("world.entity_table"):
+            self.update_entity_table(new_changes)
         self.changes_since_last_step = new_changes
 
         basis = self.camera.eye_front_right_up()
         prefs = self.camera.rendering_preferences()
 
         if not self.headless and self.renderer is not None:
-            self.last_image = self.renderer.render(
-                self.scene, basis, prefs, frame_count=self.frame_count
-            )
+            if isinstance(self.renderer, Renderer) \
+                    and self.renderer.settings.trace_audit:
+                self.last_image, self.last_aux = self.renderer.render(
+                    self.scene, basis, prefs, frame_count=self.frame_count,
+                    with_aux=True,
+                )
+            else:
+                self.last_image = self.renderer.render(
+                    self.scene, basis, prefs, frame_count=self.frame_count
+                )
             if prefs.should_screenshot:
                 self._save_screenshot(self.last_image)
                 self.camera.set_rendering_preferences(
